@@ -1,0 +1,14 @@
+"""Retrieval-engine registry — the eval subsystem's façade over
+``repro_torch.retrieval.engines``, where the implementation lives (port of
+``repro/eval/engines.py``)."""
+from repro_torch.retrieval.engines import (ExactEngine, RetrievalEngine,
+                                           TfIdfEngine, TfIdfIndex,
+                                           available_retrieval_engines,
+                                           get_retrieval_engine,
+                                           register_retrieval_engine)
+
+__all__ = [
+    "RetrievalEngine", "available_retrieval_engines",
+    "get_retrieval_engine", "register_retrieval_engine",
+    "ExactEngine", "TfIdfEngine", "TfIdfIndex",
+]
