@@ -6,16 +6,18 @@
 From the root of a checkout, with one card. In order:
 
 1. Device: the card's name and power limit; no card is a failure.
-2. Build: both CUDA kernels from src/repro_torch/csrc, one nvcc each, in
-   parallel; prints each build's ``-Xptxas -v`` report.
-3. Kernel vs plain: each kernel's wrapper against its plain PyTorch version
-   on the card, at the main path's shapes and at odd ones.
+2. Build: every CUDA source under src/repro_torch/csrc, one nvcc each,
+   started together; prints each build's ``-Xptxas -v`` report.
+3. Kernel vs plain: each kernel's wrapper (lp_round, the f32 top-k, the
+   int8 top-k) against its plain PyTorch version on the card, at the main
+   path's shapes and at odd ones.
 4. Times: each kernel, its plain version and (top-k) one library call with
    CUDA events after a warm-up, beside the least time the card could take.
 5. Sampling: ``repro_torch.launch.sample`` at 65536 queries with the LP
    kernel engine (about 2.1M qrel rows and 3.1M entities).
 6. Evaluation: ``repro_torch.launch.evaluate --grid smoke --backend cuda``
-   at 32768 queries (about 5e5 entities x 2048 f32 of index).
+   at 32768 queries (about 5e5 entities x 2048 f32 of index), with its
+   default backend recall curve, whose int8 rows run the int8 kernel.
 7. Small-input check: the same two entry points on the card and on the
    CPU's plain path must give equal outputs.
 
@@ -33,6 +35,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -42,6 +45,7 @@ OUT = os.path.join(ROOT, "build", "chip_smoke")
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
+H100_INT8_OPS = 1979e12         # int8, tensor cores, dense
 SAMPLE_QUERIES = 65536
 EVAL_QUERIES = 32768
 
@@ -70,10 +74,22 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_ops: float, peak_ops: float = H100_F32_FLOPS):
+    """The least time (ms) the card could take, and what sets it."""
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_flops / H100_F32_FLOPS * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def lp_bytes(nbr) -> int:
+    """Bytes one lp_round must move on this input: every neighbour id, the
+    32-byte sectors of weights that valid slots touch (the kernel loads no
+    weight of a padding slot), and the labels in and out."""
+    import torch
+    n, k = nbr.shape
+    flat = torch.nonzero((nbr >= 0).flatten()).flatten()
+    sectors = torch.unique_consecutive(flat * 4 // 32).numel()
+    return n * k * 4 + sectors * 32 + 2 * n * 4
 
 
 # --------------------------------------------------------------------------
@@ -126,6 +142,42 @@ def check_lp(labels, nbr, wgt) -> None:
         bad = int((got != want).sum())
         fail(f"lp_round kernel != plain ell_round on {bad} of "
              f"{labels.shape[0]} nodes (N={nbr.shape[0]}, K={nbr.shape[1]})")
+
+
+def int8_inputs(q: int, n: int, d: int, *, seed: int, negative: bool,
+                device):
+    """Random int8 codes in [-127, 127], half the corpus rows duplicating
+    the other half (exact ties)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qc = torch.randint(-127, 128, (q, d), generator=g, dtype=torch.int8)
+    cc = torch.randint(-127, 128, (n, d), generator=g, dtype=torch.int8)
+    if negative:                    # every score negative
+        qc, cc = qc.abs(), -cc.abs()
+    cc[n // 2:] = cc[:n - n // 2].clone()
+    return qc.to(device), cc.to(device)
+
+
+def check_topk_int8(qc, cc, k: int) -> None:
+    """Kernel vs plain int8 top-k: both rank exact integer dots as f32, so
+    scores and ids must be equal, ties included."""
+    import torch
+    from repro_torch.kernels.topk_scoring.ops import topk_scores_int8
+    from repro_torch.kernels.topk_scoring.ref import topk_scores_int8_ref
+    s, i = topk_scores_int8(qc, cc, k=k)
+    torch.cuda.synchronize()
+    n = cc.shape[0]
+    k_eff = min(k, n)
+    s_ref, i_ref = topk_scores_int8_ref(qc, cc, k=k_eff)
+    shape = f"Q={qc.shape[0]} N={n} D={cc.shape[1]} k={k}"
+    if s.shape != (qc.shape[0], k) or i.shape != (qc.shape[0], k):
+        fail(f"int8 topk shape {tuple(s.shape)} for {shape}")
+    if not (torch.equal(s[:, :k_eff], s_ref)
+            and torch.equal(i[:, :k_eff], i_ref)):
+        fail(f"int8 topk kernel != plain for {shape}")
+    if not (bool((i[:, k_eff:] == -1).all())
+            and bool(torch.isneginf(s[:, k_eff:]).all())):
+        fail(f"int8 topk misses are not -inf/-1 for {shape}")
 
 
 def check_topk(qs, cs, k: int) -> float:
@@ -191,7 +243,6 @@ def span_breakdown(path: str, wall: float) -> str:
 def reset_counts(kernels) -> None:
     for kern in kernels:
         kern.launches = 0
-        kern.fallbacks = 0
 
 
 def run_sample(argv):
@@ -221,13 +272,16 @@ def main() -> None:
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build
     from repro_torch.kernels.label_prop.ops import LP_ROUND, lp_round_cuda
-    from repro_torch.kernels.topk_scoring.ops import (TOPK_MERGE,
+    from repro_torch.kernels.topk_scoring.ops import (TOPK_INT8_PARTIAL,
+                                                      TOPK_MERGE,
                                                       TOPK_PARTIAL,
-                                                      topk_scores)
-    from repro_torch.kernels.topk_scoring.ref import topk_scores_ref
+                                                      topk_scores,
+                                                      topk_scores_int8)
+    from repro_torch.kernels.topk_scoring.ref import (topk_scores_int8_ref,
+                                                      topk_scores_ref)
     from repro_torch.core.label_prop import ell_round
     from repro_torch.obs import trace
-    kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_MERGE)
+    kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, TOPK_MERGE)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -245,7 +299,8 @@ def main() -> None:
     # 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
     sources = sorted({kern.source for kern in kernels})
-    build.build_all(sources)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.load, sources))
     log(f"[2/7] built {', '.join(sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for src in sources:
@@ -268,6 +323,7 @@ def main() -> None:
     for q, n, d, k, neg in [(1, 1, 4, 1, False), (7, 513, 16, 5, True),
                             (33, 1000, 37, 8, False), (3, 5, 8, 9, True),
                             (1, 129, 2048, 3, True), (5, 40, 8, 60, False),
+                            (3, 33, 16, 32, False), (9, 1000, 24, 100, True),
                             (128, 4096, 128, 32, False)]:
         qs, cs = topk_inputs(q, n, d, seed=q * n + d, negative=neg,
                              device=dev)
@@ -276,8 +332,20 @@ def main() -> None:
                          device=dev)
     for k in (3, 10):
         topk_err = max(topk_err, check_topk(tq, tc, k))
-    log(f"    topk_scores: within the summation bound at 9 shapes incl. "
+    log(f"    topk_scores: within the summation bound at 11 shapes incl. "
         f"Q=128 N=524288 D=2048 k=3,10; max |err| {topk_err:.3e}")
+    for q, n, d, k, neg in [(1, 1, 4, 1, False), (7, 513, 16, 5, True),
+                            (33, 1000, 37, 8, False), (3, 5, 20, 9, True),
+                            (5, 40, 8, 60, False), (9, 1000, 64, 100, True),
+                            (128, 4096, 128, 40, False)]:
+        check_topk_int8(*int8_inputs(q, n, d, seed=q * n + d, negative=neg,
+                                     device=dev), k)
+    iq, ic = int8_inputs(128, 524_288, 2048, seed=13, negative=False,
+                         device=dev)
+    for k in (10, 20, 40, 80):
+        check_topk_int8(iq, ic, k)
+    log("    topk_scores_int8: scores and ids equal at 11 shapes incl. "
+        "Q=128 N=524288 D=2048 k=10,20,40,80")
 
     # 4. times -------------------------------------------------------------
     log("[4/7] times (CUDA events, after warm-up)")
@@ -285,7 +353,7 @@ def main() -> None:
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
     lp_plain_ms = cuda_ms(lambda: ell_round(labels, nbr, wgt), 3)
-    lp_bound, lp_by = bound(n_lp * k_lp * 8 + n_lp * 8, 2 * deg_sq)
+    lp_bound, lp_by = bound(lp_bytes(nbr), 2 * deg_sq)
     qn, d = tq.shape
     n_c = tc.shape[0]
     k_t = 3
@@ -295,12 +363,23 @@ def main() -> None:
                                            stable=True), 3)
     tk_bound, tk_by = bound((qn + n_c) * d * 4 + qn * k_t * 8,
                             2.0 * qn * n_c * d)
+    k_i = 40
+    i8_ms = cuda_ms(lambda: topk_scores_int8(iq, ic, k=k_i), 10)
+    i8_plain_ms = cuda_ms(lambda: topk_scores_int8_ref(iq, ic, k=k_i), 3)
+    i8_lib_ms = cuda_ms(lambda: torch.sort(
+        torch._int_mm(iq, ic.T).to(torch.float32), dim=1, descending=True,
+        stable=True), 3)
+    i8_bound, i8_by = bound((qn + n_c) * d + qn * k_i * 8,
+                            2.0 * qn * n_c * d, H100_INT8_OPS)
     log(f"    lp_round N={n_lp} K={k_lp}: kernel {lp_ms:.4f} ms, plain "
         f"{lp_plain_ms:.4f} ms, bound {lp_bound:.4f} ms ({lp_by})")
     log(f"    topk_scores Q={qn} N={n_c} D={d} k={k_t}: kernel {tk_ms:.4f} "
         f"ms, plain {tk_plain_ms:.4f} ms, matmul+stable sort "
         f"{tk_lib_ms:.4f} ms, bound {tk_bound:.4f} ms ({tk_by})")
-    del lp_main, labels, nbr, wgt, tq, tc
+    log(f"    topk_scores_int8 Q={qn} N={n_c} D={d} k={k_i}: kernel "
+        f"{i8_ms:.4f} ms, plain {i8_plain_ms:.4f} ms, _int_mm+stable sort "
+        f"{i8_lib_ms:.4f} ms, bound {i8_bound:.4f} ms ({i8_by})")
+    del lp_main, labels, nbr, wgt, tq, tc, iq, ic
     torch.cuda.empty_cache()
 
     # 5. sampling main path ------------------------------------------------
@@ -337,18 +416,24 @@ def main() -> None:
         "--queries", str(EVAL_QUERIES), "--json",
         os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     eval_launches = {kern.name: kern.launches for kern in kernels}
-    eval_fallbacks = TOPK_PARTIAL.fallbacks
     cells = out["grid"]["cells"]
     log(f"[6/7] evaluation: {wall:.2f} s wall, {len(cells)} cells; "
-        f"launches {eval_launches}, top-k plain fallbacks {eval_fallbacks}")
+        f"launches {eval_launches}")
     trace.disable()
     log(f"    time: {span_breakdown(eval_trace, wall)}")
     log(f"    fidelity: {json.dumps(out['fidelity']['mean_abs_delta'])}")
     log(f"    winners: {json.dumps(out['fidelity']['winners'])}")
     log(f"    backend curve: {json.dumps(out['backend_curve'])}")
-    for kname in ("topk_partial", "topk_merge", "lp_round"):
+    for kname in ("topk_partial", "topk_int8_partial", "topk_merge",
+                  "lp_round"):
         if eval_launches[kname] == 0:
             fail(f"the evaluation run launched no {kname} kernel")
+    curve = [(r["backend"], r["rerank_factor"]) for r in out["backend_curve"]]
+    if curve != [("cuda", None), ("int8", 1), ("int8", 2), ("int8", 4),
+                 ("int8", 8), ("torch", None)]:
+        fail(f"backend curve rows {curve}")
+    if not all(0.0 <= r["recall_at_k"] <= 1.0 for r in out["backend_curve"]):
+        fail("backend curve recall outside [0, 1]")
     if not all(np.isfinite(c["value"]) for c in cells) or len(cells) != 12:
         fail("evaluation cells are not 12 finite values")
 
@@ -401,6 +486,13 @@ def main() -> None:
                       + eval_launches["topk_partial"]),
          "max_abs_err": topk_err, "ms": tk_ms, "plain_ms": tk_plain_ms,
          "bound_ms": tk_bound, "bound_by": tk_by, "library_ms": tk_lib_ms},
+        {"name": "topk_scores_int8", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:49",
+         "launches": (sample_launches["topk_int8_partial"]
+                      + eval_launches["topk_int8_partial"]),
+         "max_abs_err": 0, "ms": i8_ms, "plain_ms": i8_plain_ms,
+         "bound_ms": i8_bound, "bound_by": i8_by, "library_ms": i8_lib_ms},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))

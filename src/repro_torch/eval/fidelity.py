@@ -140,14 +140,18 @@ def build_fidelity_report(cells: Dict[Tuple[str, str, int, str], float],
 
 
 def backend_recall_curve(corpus_vecs, queries, *, k: int = 10,
+                         rerank_factors: Sequence[int] = (1, 2, 4, 8),
                          timing_iters: int = 3, device="cuda") -> List[dict]:
     """Recall@k + us/query-batch of every registered scoring backend that
-    runs on ``device``, against the exact ``torch`` oracle. A CUDA timing
-    synchronizes the device around the calls, or it would time the enqueue.
+    runs on ``device`` vs the exact ``torch`` oracle, the ``int8`` backend
+    swept over ``rerank_factor`` (its recall-vs-speed knob). Corpus
+    preparation (quantization) is excluded from the timing: it is a
+    build-time cost. A CUDA timing synchronizes the device around the
+    calls, or it would time the enqueue.
 
-    Returns one row dict per backend: ``{"backend", "rerank_factor",
-    "recall_at_k", "us_per_call"}`` (``rerank_factor`` is None: the int8
-    backend that sweeps it is not ported yet)."""
+    Returns one row dict per point: ``{"backend", "rerank_factor",
+    "recall_at_k", "us_per_call"}`` (rerank_factor is None for the float
+    backends)."""
     from repro_torch.retrieval.backends import available_backends, get_backend
 
     dev = resolve_device(device)
@@ -160,11 +164,7 @@ def backend_recall_curve(corpus_vecs, queries, *, k: int = 10,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    rows = []
-    for name in available_backends():
-        backend = get_backend(name)
-        if backend.needs_cuda and dev.type != "cuda":
-            continue
+    def _point(backend, label, rf):
         prepared = backend.prepare_corpus(corpus_vecs)
         ids = backend.topk(queries, prepared, k=k)[1].cpu()
         hits = [len(set(a.tolist()) & set(b.tolist())) / max(k, 1)
@@ -175,9 +175,21 @@ def backend_recall_curve(corpus_vecs, queries, *, k: int = 10,
             backend.topk(queries, prepared, k=k)
         _sync()
         us = (time.time() - t0) / timing_iters * 1e6
-        rows.append({"backend": name, "rerank_factor": None,
-                     "recall_at_k": float(np.mean(hits)),
-                     "us_per_call": float(us)})
+        return {"backend": label, "rerank_factor": rf,
+                "recall_at_k": float(np.mean(hits)),
+                "us_per_call": float(us)}
+
+    rows = []
+    for name in available_backends():
+        backend = get_backend(name)
+        if backend.needs_cuda and dev.type != "cuda":
+            continue
+        if name == "int8":
+            for rf in rerank_factors:
+                rows.append(_point(
+                    dataclasses.replace(backend, rerank_factor=rf), name, rf))
+        else:
+            rows.append(_point(backend, name, None))
     return rows
 
 

@@ -4,9 +4,9 @@ Each source under ``src/repro_torch/csrc/`` has a plain C interface and is
 compiled at first use by ``nvcc`` into a shared library under
 ``build/kernels/`` at the repository root (git-ignored), then loaded with
 ``ctypes``. Libraries are named by a hash of their source, so an edited
-source is rebuilt and a stale library is never loaded. :func:`build_all`
-starts one ``nvcc`` per source together, which is what ``chip_smoke.py``
-uses to build everything inside its time limit.
+source is rebuilt and a stale library is never loaded. Each source has its
+own lock, so callers on several threads build several sources at once
+(``chip_smoke.py`` does, to stay inside its time limit).
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc`` at all.
@@ -21,14 +21,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOCK = threading.Lock()
+_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -49,45 +49,28 @@ def _paths(source: str):
     return src, lib, lib.with_suffix(".log")
 
 
-def _start(source: str):
-    """Start ``nvcc`` for a missing library: (process, tmp, lib, log), or
-    None when the library is already built."""
+def _build(source: str) -> None:
+    """Compile ``source`` into its library unless it is already built."""
     src, lib, log = _paths(source)
     if lib.exists():
-        return None
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     with open(log, "w") as f:
-        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
-    return proc, tmp, lib, log
-
-
-def _finish(started) -> None:
-    if started is None:
-        return
-    proc, tmp, lib, log = started
-    rc = proc.wait()
+        rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT).returncode
     if rc != 0:
         raise RuntimeError(f"nvcc failed ({rc}) building {lib.name}:\n"
                            f"{log.read_text()}")
     os.replace(tmp, lib)
 
 
-def build_all(sources: Sequence[str]) -> None:
-    """Compile every missing library, one ``nvcc`` per source, in parallel."""
-    with _LOCK:
-        started = [_start(s) for s in sources]
-        for st in started:
-            _finish(st)
-
-
 def load(source: str) -> ctypes.CDLL:
     """The loaded library for ``source`` (built first if missing)."""
-    with _LOCK:
+    with _LOCKS.setdefault(source, threading.Lock()):
         lib = _LIBS.get(source)
         if lib is None:
-            _finish(_start(source))
+            _build(source)
             lib = _LIBS[source] = ctypes.CDLL(str(_paths(source)[1]))
         return lib
 
@@ -103,15 +86,12 @@ class Kernel:
     """One C entry point of a CUDA source, with its launch count.
 
     ``launches`` is a plain integer bumped once per launch, so a run can
-    show that its main path went through the kernel; ``fallbacks`` counts
-    CUDA dispatches its wrapper sent to the plain version instead (beyond
-    a documented cap of the kernel)."""
+    show that its main path went through the kernel."""
 
     name: str
     source: str
     argtypes: tuple
     launches: int = 0
-    fallbacks: int = 0
     _fn: object = dataclasses.field(default=None, repr=False)
 
     def __call__(self, *args) -> None:

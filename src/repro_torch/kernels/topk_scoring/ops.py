@@ -1,14 +1,14 @@
-"""Dispatch wrapper for the top-k scoring kernel (port of
+"""Dispatch wrappers for the top-k scoring kernels (port of
 ``repro/kernels/topk_scoring/ops.py``).
 
 Shape contract, as in the reference: any Q/N/k is accepted; k is clamped to
-the corpus size; misses come back as score -inf / id -1; above the kernel's
-cap of k = 32 the call goes to the plain version, as the reference's
-``ops.py`` does, and is counted in ``TOPK_PARTIAL.fallbacks``. Rows past the
-corpus end are masked inside the kernel, so nothing is padded or copied.
+the corpus size; misses come back as score -inf / id -1. The kernels take
+any k (csrc/topk_scores.cu keeps lists longer than 32 in device memory), so
+there is no cap and no plain fallback on the card. Rows past the corpus end
+are masked inside the kernel, so nothing is padded or copied.
 
-On CPU tensors ``topk_scores`` runs the plain version (ref.py); on CUDA
-tensors it launches the kernel pair of csrc/topk_scores.cu or raises.
+On CPU tensors each wrapper runs its plain version (ref.py); on CUDA tensors
+it launches the kernel pair of csrc/topk_scores.cu or raises.
 """
 from __future__ import annotations
 
@@ -20,19 +20,20 @@ from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.topk_scoring import ref
 from repro_torch.kernels.topk_scoring.ref import pad_topk
 
-MAX_KERNEL_K = 32
 _BQ, _BN = 32, 128           # tile geometry of csrc/topk_scores.cu
 _TARGET_BLOCKS = 4 * 132     # a few blocks per H100 SM
 
-TOPK_PARTIAL = Kernel("topk_partial", "topk_scores.cu",
-                      (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7)
+_PARTIAL_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
+TOPK_PARTIAL = Kernel("topk_partial", "topk_scores.cu", _PARTIAL_ARGS)
+TOPK_INT8_PARTIAL = Kernel("topk_int8_partial", "topk_scores.cu",
+                           _PARTIAL_ARGS)
 TOPK_MERGE = Kernel("topk_merge", "topk_scores.cu",
                     (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3)
 
 
-def _check(t: torch.Tensor, name: str, device) -> None:
-    if t.dtype != torch.float32 or t.dim() != 2:
-        raise ValueError(f"topk_scores: {name} must be 2-d float32, got "
+def _check(t: torch.Tensor, name: str, dtype, device) -> None:
+    if t.dtype != dtype or t.dim() != 2:
+        raise ValueError(f"topk_scores: {name} must be 2-d {dtype}, got "
                          f"{t.dim()}-d {t.dtype}")
     if t.device != device:
         raise ValueError(f"topk_scores: {name} is on {t.device}, expected "
@@ -41,54 +42,90 @@ def _check(t: torch.Tensor, name: str, device) -> None:
         raise ValueError(f"topk_scores: {name} must be contiguous")
 
 
-def topk_scores_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int):
-    """Launch the kernel pair: queries f32[Q, D], corpus f32[N, D], 1 <= k
-    <= min(32, N) -> (scores f32[Q, k], ids i32[Q, k])."""
+def _launch(partial: Kernel, queries: torch.Tensor, corpus: torch.Tensor,
+            k: int, dtype, vec_width: int):
+    """Check the inputs, then launch ``partial`` and the merge kernel:
+    queries [Q, D], corpus [N, D] of ``dtype``, 1 <= k <= N ->
+    (scores f32[Q, k], ids i32[Q, k])."""
     dev = queries.device
     if dev.type != "cuda":
-        raise ValueError(f"topk_scores_cuda needs CUDA tensors, got {dev}")
-    _check(queries, "queries", dev)
-    _check(corpus, "corpus", dev)
+        raise ValueError(f"{partial.name} needs CUDA tensors, got {dev}")
+    _check(queries, "queries", dtype, dev)
+    _check(corpus, "corpus", dtype, dev)
     nq, d = queries.shape
     n = corpus.shape[0]
     if corpus.shape[1] != d:
         raise ValueError(f"topk_scores: widths differ, {d} vs "
                          f"{corpus.shape[1]}")
-    if not 1 <= k <= min(MAX_KERNEL_K, n):
-        raise ValueError(f"topk_scores: k={k} outside [1, min(32, N={n})]")
-    if max(nq, n, d) >= 2 ** 31:
-        raise ValueError("topk_scores: a dimension exceeds int32")
+    if not 1 <= k <= n:
+        raise ValueError(f"topk_scores: k={k} outside [1, N={n}]")
     n_tiles = -(-n // _BN)
     q_tiles = -(-nq // _BQ)
     n_splits = max(1, min(n_tiles, -(-_TARGET_BLOCKS // max(q_tiles, 1))))
     per_split = -(-n_tiles // n_splits)
     n_splits = -(-n_tiles // per_split)
     width = n_splits * k
+    if max(nq, n, d, width) >= 2 ** 31:
+        raise ValueError("topk_scores: a dimension exceeds int32")
+    if dtype == torch.int8 and d * 127 * 127 >= 2 ** 31:
+        raise ValueError(f"topk_scores: D={d} overflows the int32 int8 dot")
     part_s = torch.empty((nq, width), dtype=torch.float32, device=dev)
     part_i = torch.empty((nq, width), dtype=torch.int32, device=dev)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    vec = int(d % 4 == 0 and queries.data_ptr() % 16 == 0
+    vec = int(d % vec_width == 0 and queries.data_ptr() % 16 == 0
               and corpus.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
-        TOPK_PARTIAL(queries.data_ptr(), corpus.data_ptr(), part_s.data_ptr(),
-                     part_i.data_ptr(), nq, n, d, k, per_split, n_splits, vec)
+        partial(queries.data_ptr(), corpus.data_ptr(), part_s.data_ptr(),
+                part_i.data_ptr(), nq, n, d, k, per_split, n_splits, vec)
         TOPK_MERGE(part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
                    out_i.data_ptr(), nq, width, k)
     return out_s, out_i
 
 
+def topk_scores_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int):
+    """Launch the f32 kernel pair: queries f32[Q, D], corpus f32[N, D],
+    1 <= k <= N -> (scores f32[Q, k], ids i32[Q, k])."""
+    return _launch(TOPK_PARTIAL, queries, corpus, k, torch.float32, 4)
+
+
+def topk_scores_int8_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor,
+                          k: int):
+    """Launch the int8 kernel pair: codes int8[Q, D] x int8[N, D], 1 <= k
+    <= N -> (int dot as f32 [Q, k], ids i32[Q, k])."""
+    return _launch(TOPK_INT8_PARTIAL, q_codes, c_codes, k, torch.int8, 16)
+
+
+def _empty(nq: int, k: int, device):
+    """All misses: the result of a search with no query or no candidate."""
+    return pad_topk(torch.empty((nq, 0), dtype=torch.float32, device=device),
+                    torch.empty((nq, 0), dtype=torch.int32, device=device), k)
+
+
 def topk_scores(queries: torch.Tensor, corpus: torch.Tensor, *, k: int):
     """Top-k inner-product search: (Q, D) x (N, D) -> (Q, k) scores/ids."""
-    n = corpus.shape[0]
-    k_eff = min(k, n)
+    k_eff = min(k, corpus.shape[0])
     if queries.device.type == "cpu":
         return pad_topk(*ref.topk_scores_ref(queries, corpus, k=k_eff), k)
-    if k_eff > MAX_KERNEL_K:
-        TOPK_PARTIAL.fallbacks += 1
-        return pad_topk(*ref.topk_scores_ref(queries, corpus, k=k_eff), k)
     if k_eff == 0 or queries.shape[0] == 0:
-        return pad_topk(*ref.topk_scores_ref(queries, corpus[:0], k=0), k)
+        return _empty(queries.shape[0], k, queries.device)
     s, i = topk_scores_cuda(queries.to(torch.float32).contiguous(),
                             corpus.to(torch.float32).contiguous(), k_eff)
+    return pad_topk(s, i, k)
+
+
+def topk_scores_int8(q_codes: torch.Tensor, c_codes: torch.Tensor, *,
+                     k: int):
+    """Quantized top-k scan: int8 codes (Q, D) x (N, D) -> (Q, k) int-dot
+    scores (as f32) and ids. Ranking is scale-invariant, so callers rank on
+    the raw dot and rerank the winners in float
+    (retrieval/backends.py ``Int8Backend``)."""
+    k_eff = min(k, c_codes.shape[0])
+    if q_codes.device.type == "cpu":
+        return pad_topk(*ref.topk_scores_int8_ref(q_codes, c_codes, k=k_eff),
+                        k)
+    if k_eff == 0 or q_codes.shape[0] == 0:
+        return _empty(q_codes.shape[0], k, q_codes.device)
+    s, i = topk_scores_int8_cuda(q_codes.contiguous(), c_codes.contiguous(),
+                                 k_eff)
     return pad_topk(s, i, k)

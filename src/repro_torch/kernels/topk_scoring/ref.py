@@ -1,4 +1,4 @@
-"""Plain PyTorch versions for the top-k scoring kernel (port of
+"""Plain PyTorch versions for the top-k scoring kernels (port of
 ``repro/kernels/topk_scoring/ref.py``)."""
 from __future__ import annotations
 
@@ -16,27 +16,21 @@ def pad_topk(s: torch.Tensor, i: torch.Tensor, k: int):
             torch.cat([i, i.new_full(pad, -1)], 1))
 
 
-def topk_scores_ref(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
-                    block: int = 4096):
-    """Inner-product top-k of (Q, D) queries over an (N, D) corpus, scored
-    block by block with a running merge so the (Q, N) score matrix never
-    materialises. Returns (scores f32[Q, k], ids i32[Q, k]); a k beyond N
-    leaves -inf / -1 in the tail.
-
-    Ties go to the lowest id, as ``lax.top_k`` gives them in the reference:
-    the merge is a stable descending sort over [running best, block], both
-    already in id order. ``torch.topk`` promises no order among ties.
-    On a CUDA tensor the product runs in full f32 (TF32 off, set here).
-    """
+def _blocked_topk(score, queries: torch.Tensor, corpus: torch.Tensor, *,
+                  k: int, block: int):
+    """Top-k of ``score(queries, corpus_block)`` (f32 [Q, block]) over the
+    corpus, block by block with a running merge so the (Q, N) score matrix
+    never materialises. Ties go to the lowest id, as ``lax.top_k`` gives
+    them in the reference: the merge is a stable descending sort over
+    [running best, block], both already in id order (``torch.topk``
+    promises no order among ties)."""
     qn, n = queries.shape[0], corpus.shape[0]
     dev = queries.device
-    if queries.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
     best_s = torch.full((qn, k), -torch.inf, dtype=torch.float32, device=dev)
     best_i = torch.full((qn, k), -1, dtype=torch.int32, device=dev)
     for b0 in range(0, n, block):
         blk = corpus[b0:b0 + block]
-        s = (queries @ blk.T).to(torch.float32)
+        s = score(queries, blk)
         ids = torch.arange(b0, b0 + blk.shape[0], dtype=torch.int32,
                            device=dev).expand(qn, -1)
         cat_s = torch.cat([best_s, s], 1)
@@ -46,3 +40,24 @@ def topk_scores_ref(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
         best_s = torch.gather(cat_s, 1, pos)
         best_i = torch.gather(cat_i, 1, pos)
     return best_s, best_i
+
+
+def topk_scores_ref(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
+                    block: int = 4096):
+    """Inner-product top-k of (Q, D) queries over an (N, D) corpus ->
+    (scores f32[Q, k], ids i32[Q, k]); a k beyond N leaves -inf / -1 in the
+    tail. On a CUDA tensor the product follows
+    ``torch.backends.cuda.matmul.allow_tf32`` (False unless the caller sets
+    it), so it runs in full f32 by default."""
+    return _blocked_topk(lambda q, c: (q @ c.T).to(torch.float32), queries,
+                         corpus, k=k, block=block)
+
+
+def topk_scores_int8_ref(q_codes: torch.Tensor, c_codes: torch.Tensor, *,
+                         k: int, block: int = 4096):
+    """int8-code oracle: the exact integer dot (|dot| <= 127^2 * D, exact
+    in f64), ranked as f32 like the kernel's partials and the reference's
+    ``topk_scores_int8_ref``."""
+    return _blocked_topk(
+        lambda q, c: (q.to(torch.float64) @ c.to(torch.float64).T)
+        .to(torch.float32), q_codes, c_codes, k=k, block=block)

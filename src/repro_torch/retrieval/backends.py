@@ -13,9 +13,19 @@ A backend implements all three behind one protocol. Registered:
   * ``cuda``  — the hand-written CUDA top-k kernel (kernels/topk_scoring,
                 csrc/topk_scores.cu). It runs only on a CUDA device
                 (``needs_cuda``); the parity tests map it to ``pallas``.
+  * ``int8``  — quantized dense scan + float rerank tail, as the
+                reference's: the corpus is quantized once at index build
+                (``prepare_corpus`` -> :class:`QuantizedCorpus`), queries
+                per call; the int8 top-k kernel (its plain version on a CPU
+                tensor) scans for the top ``rerank_factor*k`` candidates on
+                the raw integer dot, and :func:`rerank_candidates` rescores
+                them in f32. It runs on either device.
+
+``prepare_corpus`` is the build-time hook: engines pass their corpus-side
+matrix through it (identity for torch/cuda, quantization for int8).
 
 ``hamming_topk`` and ``gathered_topk`` serve lsh and ivfflat, which are not
-ported yet (ROADMAP queue 1 items 8-9): both backends raise for them.
+ported yet (ROADMAP queue 1 items 8-9): every backend raises for them.
 
 Tie policy, as in the reference: results are score-descending and equal
 scores break toward the lower candidate id. Misses — k larger than the
@@ -24,12 +34,12 @@ corpus — come back as score -inf / id -1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Protocol, runtime_checkable
+from typing import Dict, NamedTuple, Protocol, runtime_checkable
 
 import torch
 
 from repro_torch.kernels.topk_scoring import ops as topk_ops
-from repro_torch.kernels.topk_scoring.ref import topk_scores_ref
+from repro_torch.kernels.topk_scoring.ref import pad_topk, topk_scores_ref
 
 NOT_PORTED_ANN = ("{} serves the {} engine, which is not ported to PyTorch "
                   "yet (ROADMAP.md queue 1 items 8-9)")
@@ -81,6 +91,47 @@ def available_backends() -> tuple:
     return tuple(sorted(_REGISTRY))
 
 
+class QuantizedCorpus(NamedTuple):
+    """Int8-quantized corpus built once per index (``prepare_corpus``):
+    codes for the kernel scan, the global scale, and the original float
+    vectors kept for the exact rerank tail."""
+
+    codes: torch.Tensor   # (N, D) int8
+    scale: torch.Tensor   # () f32 global max-abs scale
+    vecs: torch.Tensor    # (N, D) f32 originals (rerank + float backends)
+
+
+def quantize_int8(x: torch.Tensor):
+    """Symmetric per-tensor int8 quantization (port of
+    ``repro/distributed/compression.py::quantize_int8``): codes in
+    [-127, 127] and the f32 scale max|x| / 127 + 1e-30."""
+    scale = x.abs().max() / 127.0 + 1e-30
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _float_corpus(corpus) -> torch.Tensor:
+    """Float view of a prepared corpus, so the float backends can search an
+    index an int8-backed engine built."""
+    return corpus.vecs if isinstance(corpus, QuantizedCorpus) else corpus
+
+
+def rerank_candidates(vecs: torch.Tensor, queries: torch.Tensor,
+                      cand: torch.Tensor, *, k: int):
+    """Exact inner-product rerank of per-query candidate ids (-1 = miss):
+    (Q, R) -> top-k (scores, ids), ties to the earlier candidate as
+    ``lax.top_k`` gives them."""
+    cvecs = vecs[cand.clamp(min=0).long()]                   # (Q, R, D)
+    s = torch.einsum("qd,qrd->qr", queries, cvecs)
+    s = torch.where(cand >= 0, s, -torch.inf)
+    pos = torch.sort(s, dim=1, descending=True,
+                     stable=True).indices[:, :min(k, cand.shape[1])]
+    top_s = torch.gather(s, 1, pos)
+    top_i = torch.gather(cand, 1, pos)
+    top_i = torch.where(torch.isfinite(top_s), top_i, -1)
+    return pad_topk(top_s, top_i, k)
+
+
 class _NoAnnPrimitives:
     """``hamming_topk`` / ``gathered_topk`` until lsh and ivfflat land."""
 
@@ -107,14 +158,15 @@ class TorchBackend(_NoAnnPrimitives):
         return vecs
 
     def topk(self, queries, corpus, *, k: int):
-        return topk_scores_ref(queries, corpus, k=k, block=self.block)
+        return topk_scores_ref(queries, _float_corpus(corpus), k=k,
+                               block=self.block)
 
 
 @register_backend
 @dataclasses.dataclass(frozen=True)
 class CudaBackend(_NoAnnPrimitives):
     """The CUDA top-k kernel; the dispatch wrapper in
-    kernels/topk_scoring/ops.py owns k-clamping and the k > 32 fallback."""
+    kernels/topk_scoring/ops.py owns k-clamping and padding."""
 
     name: str = "cuda"
     needs_cuda = True
@@ -123,4 +175,35 @@ class CudaBackend(_NoAnnPrimitives):
         return vecs
 
     def topk(self, queries, corpus, *, k: int):
-        return topk_ops.topk_scores(queries, corpus, k=k)
+        return topk_ops.topk_scores(queries, _float_corpus(corpus), k=k)
+
+
+@register_backend
+@dataclasses.dataclass(frozen=True)
+class Int8Backend(_NoAnnPrimitives):
+    """Quantized dense scan + float rerank tail.
+
+    The int8 kernel scans the quantized corpus for the top
+    ``rerank_factor*k`` candidates on the raw integer dot (scale-invariant
+    ranking: both scales are global positive constants), then
+    :func:`rerank_candidates` rescores those candidates with the original
+    f32 vectors: exact-at-k whenever the true top-k survives into the int8
+    candidate pool (``eval/fidelity.backend_recall_curve`` measures the
+    trade)."""
+
+    rerank_factor: int = 4
+    name: str = "int8"
+    needs_cuda = False
+
+    def prepare_corpus(self, vecs):
+        codes, scale = quantize_int8(vecs)
+        return QuantizedCorpus(codes, scale, vecs)
+
+    def topk(self, queries, corpus, *, k: int):
+        qc = (corpus if isinstance(corpus, QuantizedCorpus)
+              else self.prepare_corpus(corpus))
+        n = qc.codes.shape[0]
+        pool = min(max(self.rerank_factor * k, k), n)
+        q_codes, _ = quantize_int8(queries.to(torch.float32))
+        _, cand = topk_ops.topk_scores_int8(q_codes, qc.codes, k=pool)
+        return rerank_candidates(qc.vecs, queries, cand, k=k)

@@ -16,7 +16,10 @@ from repro_torch import device as devmod
 from repro_torch.core import SamplerSession, SamplerSpec
 from repro_torch.data.synthetic import generate_corpus
 from repro_torch.kernels.label_prop.ops import label_prop_round, lp_round_cuda
-from repro_torch.kernels.topk_scoring.ops import topk_scores, topk_scores_cuda
+from repro_torch.kernels.topk_scoring.ops import (topk_scores,
+                                                  topk_scores_cuda,
+                                                  topk_scores_int8,
+                                                  topk_scores_int8_cuda)
 from repro_torch.retrieval.search_core import SearchConfig, SearchSession
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -140,3 +143,13 @@ def test_kernel_wrappers_take_the_plain_path_only_on_cpu_tensors():
                           [2, 0, 1, -1, -1]]
     with pytest.raises(ValueError, match="CUDA"):
         topk_scores_cuda(q, q, 2)
+
+
+def test_int8_wrapper_takes_the_plain_path_only_on_cpu_tensors():
+    codes = torch.tensor([[1, 0], [0, 2], [3, 3]], dtype=torch.int8)
+    s, i = topk_scores_int8(codes, codes, k=4)
+    assert i.tolist() == [[2, 0, 1, -1], [2, 1, 0, -1], [2, 1, 0, -1]]
+    assert s[:, :3].tolist() == [[3.0, 1.0, 0.0], [6.0, 4.0, 0.0],
+                                 [18.0, 6.0, 3.0]]
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_scores_int8_cuda(codes, codes, 2)

@@ -13,8 +13,12 @@ import torch
 
 from repro_torch.core.label_prop import ell_round
 from repro_torch.kernels.label_prop.ops import lp_round_cuda
-from repro_torch.kernels.topk_scoring.ops import topk_scores
-from repro_torch.kernels.topk_scoring.ref import topk_scores_ref
+from repro_torch.kernels.topk_scoring.ops import (TOPK_INT8_PARTIAL,
+                                                  TOPK_MERGE, TOPK_PARTIAL,
+                                                  topk_scores,
+                                                  topk_scores_int8)
+from repro_torch.kernels.topk_scoring.ref import (topk_scores_int8_ref,
+                                                  topk_scores_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -55,7 +59,8 @@ def test_lp_round_kernel_matches_plain(cuda, n, k, quarter):
 
 @pytest.mark.parametrize("q,n,d,k", [
     (1, 1, 4, 1), (7, 513, 16, 5), (33, 1000, 37, 8), (128, 4096, 128, 32),
-    (5, 40, 8, 60), (3, 5, 8, 9), (64, 129, 2048, 3)])
+    (5, 40, 8, 60), (3, 5, 8, 9), (64, 129, 2048, 3), (3, 33, 16, 32),
+    (9, 1000, 24, 100), (40, 300, 8, 300)])
 @pytest.mark.parametrize("negative", [False, True])
 def test_topk_kernel_matches_plain(cuda, q, n, d, k, negative):
     g = torch.Generator().manual_seed(q * n + d)
@@ -89,6 +94,45 @@ def test_topk_kernel_ties_go_to_lowest_id(cuda):
     s, i = topk_scores(qs, cs, k=10)
     torch.cuda.synchronize()
     assert torch.equal(i[0].cpu(), torch.arange(0, 30, 3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("q,n,d,k", [
+    (1, 1, 4, 1), (7, 513, 16, 5), (33, 1000, 37, 8), (128, 4096, 128, 40),
+    (5, 40, 8, 60), (3, 5, 20, 9), (64, 129, 2048, 10), (9, 1000, 64, 100)])
+@pytest.mark.parametrize("negative", [False, True])
+def test_topk_int8_kernel_matches_plain(cuda, q, n, d, k, negative):
+    """Exact integer dots ranked as f32 on both sides: scores and ids are
+    equal, ties included (duplicate rows make many)."""
+    g = torch.Generator().manual_seed(q * n + d)
+    qc = torch.randint(-127, 128, (q, d), generator=g, dtype=torch.int8)
+    cc = torch.randint(-127, 128, (n, d), generator=g, dtype=torch.int8)
+    if negative:            # every score negative: padding must never win
+        qc, cc = qc.abs(), -cc.abs()
+    cc[n // 2:] = cc[:n - n // 2].clone()
+    qc, cc = qc.to(cuda), cc.to(cuda)
+    s, i = topk_scores_int8(qc, cc, k=k)
+    torch.cuda.synchronize()
+    s_ref, i_ref = topk_scores_int8_ref(qc, cc, k=min(k, n))
+    k_eff = min(k, n)
+    assert s.shape == (q, k) and i.shape == (q, k)
+    assert torch.equal(s[:, :k_eff], s_ref)
+    assert torch.equal(i[:, :k_eff], i_ref)
+    assert bool((i[:, k_eff:] == -1).all())
+    assert bool(torch.isneginf(s[:, k_eff:]).all())
+
+
+@pytest.mark.parametrize("k", [1, 32, 33, 200])
+def test_topk_kernels_launch_at_any_k(cuda, k):
+    """No cap: every k reaches the kernels on the card."""
+    qs = torch.randn(4, 16, device=cuda)
+    cs = torch.randn(500, 16, device=cuda)
+    before = (TOPK_PARTIAL.launches, TOPK_INT8_PARTIAL.launches,
+              TOPK_MERGE.launches)
+    topk_scores(qs, cs, k=k)
+    topk_scores_int8(qs.to(torch.int8), cs.to(torch.int8), k=k)
+    after = (TOPK_PARTIAL.launches, TOPK_INT8_PARTIAL.launches,
+             TOPK_MERGE.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 2]
 
 
 def test_sort_engine_on_the_card_matches_the_cpu(cuda):

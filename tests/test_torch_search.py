@@ -5,7 +5,10 @@ top-k against the reference's ``jnp`` backend and its ``pallas`` kernel
 
 Tolerances: scores rtol 1e-5 (BLAS and XLA sum the inner products in other
 orders). Ids are held equal, except where two neighbouring scores of the
-reference lie within that tolerance (a near-tie), which a test states."""
+reference lie within that tolerance (a near-tie), which a test states.
+The int8 scan ranks exact integer dots, so its ids and scores are held
+equal with no tolerance; the float rerank after it is held like the rest."""
+import dataclasses
 import json
 
 import jax.numpy as jnp
@@ -13,23 +16,28 @@ import numpy as np
 import pytest
 import torch
 
+from repro.distributed.compression import quantize_int8 as jquantize
 from repro.kernels.topk_scoring.ops import topk_scores as jtopk_pallas
+from repro.kernels.topk_scoring.ops import topk_scores_int8 as jtopk_int8
 from repro.launch import evaluate as jevaluate
 from repro.retrieval import search_core as jsc
 from repro.retrieval.backends import get_backend as jget_backend
+from repro.retrieval.backends import rerank_candidates as jrerank
 from repro_torch import interop
 from repro_torch.eval import backend_recall_curve, kendall_tau
-from repro_torch.kernels.topk_scoring.ops import topk_scores
+from repro_torch.kernels.topk_scoring.ops import (topk_scores,
+                                                  topk_scores_int8)
 from repro_torch.kernels.topk_scoring.ref import pad_topk, topk_scores_ref
 from repro_torch.launch import evaluate as tevaluate
 from repro_torch.retrieval import search_core as tsc
-from repro_torch.retrieval.backends import available_backends, get_backend
+from repro_torch.retrieval.backends import (available_backends, get_backend,
+                                            quantize_int8, rerank_candidates)
 from repro_torch.retrieval.tfidf import tfidf_vectors
 from repro_torch.data.synthetic import generate_corpus
 
 RTOL = 1e-5
 # the port's backends and the reference backends they are held against
-BACKEND_PAIRS = [("torch", "jnp"), ("cuda", "pallas")]
+BACKEND_PAIRS = [("torch", "jnp"), ("cuda", "pallas"), ("int8", "int8")]
 
 
 def _assert_topk_close(ts, ti, js, ji):
@@ -144,8 +152,78 @@ def test_ann_primitives_raise_naming_the_roadmap():
 def test_backend_recall_curve_on_cpu(embedded):
     ev, qv = embedded
     rows = backend_recall_curve(ev, qv[:16], k=10, device="cpu")
-    assert [r["backend"] for r in rows] == ["torch"]
-    assert rows[0]["recall_at_k"] == 1.0
+    assert [(r["backend"], r["rerank_factor"]) for r in rows] == [
+        ("int8", 1), ("int8", 2), ("int8", 4), ("int8", 8), ("torch", None)]
+    assert rows[-1]["recall_at_k"] == 1.0
+    recall = [r["recall_at_k"] for r in rows[:4]]
+    assert recall == sorted(recall) and 0.0 < recall[0] <= 1.0
+
+
+@pytest.mark.parametrize("shape", [(40, 16), (7, 37), (300, 2048)])
+def test_quantize_int8_matches_reference(shape):
+    x = np.random.default_rng(shape[1]).standard_normal(shape).astype(
+        np.float32)
+    tc, ts = quantize_int8(torch.from_numpy(x))
+    jc, js = jquantize(jnp.asarray(x))
+    assert np.array_equal(tc.numpy(), np.asarray(jc))
+    assert tc.dtype == torch.int8 and float(ts) == float(js)
+
+
+@pytest.mark.parametrize("q,n,d,k", [(7, 300, 37, 10), (5, 40, 16, 60),
+                                     (16, 513, 32, 40), (3, 200, 20, 80),
+                                     (1, 1, 4, 1)])
+def test_int8_topk_plain_matches_reference(q, n, d, k):
+    """The int8 wrapper's plain version against the reference's int8 kernel
+    (interpret mode; k = 80 is past its cap of 64 and takes its oracle):
+    exact integer dots, so scores and ids are equal."""
+    rng = np.random.default_rng(q * n + d)
+    qc = rng.integers(-127, 128, (q, d)).astype(np.int8)
+    cc = rng.integers(-127, 128, (n, d)).astype(np.int8)
+    cc[n // 2:] = cc[:n - n // 2]         # duplicate rows: exact ties
+    ts, ti = topk_scores_int8(torch.from_numpy(qc), torch.from_numpy(cc), k=k)
+    js, ji = jtopk_int8(jnp.asarray(qc), jnp.asarray(cc), k=k)
+    assert np.array_equal(ti.numpy(), np.asarray(ji))
+    assert np.array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_rerank_candidates_matches_reference():
+    rng = np.random.default_rng(5)
+    vecs = rng.standard_normal((50, 12)).astype(np.float32)
+    qs = rng.standard_normal((4, 12)).astype(np.float32)
+    cand = rng.integers(0, 50, (4, 9)).astype(np.int32)
+    cand[:, 6:] = -1                       # misses in the pool
+    for k in (3, 6, 12):
+        ts, ti = rerank_candidates(torch.from_numpy(vecs),
+                                   torch.from_numpy(qs),
+                                   torch.from_numpy(cand), k=k)
+        js, ji = jrerank(jnp.asarray(vecs), jnp.asarray(qs),
+                         jnp.asarray(cand), k=k)
+        _assert_topk_close(ts, ti, js, ji)
+
+
+@pytest.mark.parametrize("rf", [1, 2, 4, 8])
+def test_int8_backend_matches_reference(embedded, rf):
+    ev, qv = embedded
+    tb = dataclasses.replace(get_backend("int8"), rerank_factor=rf)
+    jb = dataclasses.replace(jget_backend("int8"), rerank_factor=rf)
+    ts, ti = tb.topk(interop.vectors(qv),
+                     tb.prepare_corpus(interop.vectors(ev)), k=10)
+    js, ji = jb.topk(jnp.asarray(qv), jb.prepare_corpus(jnp.asarray(ev)),
+                     k=10)
+    _assert_topk_close(ts, ti, js, ji)
+
+
+@pytest.mark.parametrize("engine", ["exact", "tfidf"])
+@pytest.mark.parametrize("k", [3, 10])
+def test_search_session_int8_matches_reference(embedded, engine, k):
+    ev, qv = embedded
+    cfg = dict(engine=engine, backend="int8", query_chunk=40)
+    t = tsc.SearchSession(interop.vectors(ev), tsc.SearchConfig(**cfg),
+                          device="cpu")
+    j = jsc.SearchSession(jnp.asarray(ev), jsc.SearchConfig(**cfg))
+    ts, ti = t.search_scored(interop.vectors(qv), k=k)
+    js, ji = j.search_scored(jnp.asarray(qv), k=k)
+    _assert_topk_close(ts, ti, js, ji)
 
 
 def test_kendall_tau_copy():
@@ -172,3 +250,24 @@ def test_evaluate_smoke_grid_matches_reference(tmp_path):
         assert stats["n_entities"] == other["n_entities"]
         assert stats["n_queries"] == other["n_queries"]
         np.testing.assert_allclose(stats["rho_q"], other["rho_q"], rtol=1e-6)
+
+
+def test_evaluate_smoke_grid_with_curve_matches_reference(tmp_path):
+    """Both CLIs with their default backend recall curve: the int8 rows
+    (rerank factors 1, 2, 4, 8) give the same recall, and the plain
+    backend's recall equals the reference oracle's."""
+    args = ["--grid", "smoke", "--queries", "128", "--vocab", "256",
+            "--qrels-per-query", "8", "--topics", "12", "--quiet"]
+    jevaluate.main(args + ["--json", str(tmp_path / "jax.json")])
+    tevaluate.main(args + ["--device", "cpu",
+                           "--json", str(tmp_path / "torch.json")])
+    a = json.load(open(tmp_path / "jax.json"))
+    b = json.load(open(tmp_path / "torch.json"))
+    assert a["grid"]["cells"] == b["grid"]["cells"]
+    pick = lambda rows, name: [(r["rerank_factor"], r["recall_at_k"])
+                               for r in rows if r["backend"] == name]
+    assert pick(a["backend_curve"], "int8") == pick(b["backend_curve"],
+                                                    "int8")
+    assert len(pick(b["backend_curve"], "int8")) == 4
+    assert pick(a["backend_curve"], "jnp") == pick(b["backend_curve"],
+                                                   "torch")
