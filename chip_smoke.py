@@ -9,17 +9,25 @@ From the root of a checkout, with one card. In order:
 2. Build: every CUDA source under src/repro_torch/csrc, one nvcc each,
    started together; prints each build's ``-Xptxas -v`` report.
 3. Kernel vs plain: each kernel's wrapper (lp_round, the f32 top-k, the
-   int8 top-k) against its plain PyTorch version on the card, at the main
-   path's shapes and at odd ones.
-4. Times: each kernel, its plain version and (top-k) one library call with
-   CUDA events after a warm-up, beside the least time the card could take.
+   int8 top-k, the gathered top-k, the Hamming top-k) against its plain
+   PyTorch version on the card, at the main path's shapes and at odd ones.
+   The gathered kernel's main shape is the ivfflat probe of the evaluation
+   path's full corpus (its tf-idf embedding, 5.2e5 x 2048, indexed as the
+   ivfflat engine does: 64 lists, nprobe 8) for 512 queries.
+4. Times: each kernel, its plain version and, where one PyTorch call
+   computes the same function, that call, with CUDA events after a
+   warm-up, beside the least time the card could take.
 5. Sampling: ``repro_torch.launch.sample`` at 65536 queries with the LP
    kernel engine (about 2.1M qrel rows and 3.1M entities).
-6. Evaluation: ``repro_torch.launch.evaluate --grid smoke --backend cuda``
-   at 32768 queries (about 5e5 entities x 2048 f32 of index), with its
-   default backend recall curve, whose int8 rows run the int8 kernel.
+6. Evaluation: ``repro_torch.launch.evaluate --grid default --backend
+   cuda`` at 32768 queries (about 5e5 entities x 2048 f32 of corpus): the
+   paper's grid, 3 samplers x 4 engines (exact, ivfflat, lsh, tfidf) x 2
+   ks x 4 metrics = 96 cells, with its default backend recall curve, whose
+   int8 rows run the int8 kernel.
 7. Small-input check: the same two entry points on the card and on the
-   CPU's plain path must give equal outputs.
+   CPU's plain path must give equal outputs; for the default grid, the
+   ivfflat centroids and the lsh projection first agree within a stated
+   rtol (cuBLAS and the CPU sum in other orders).
 
 Launch counts are set to 0 just before each main-path run (5, 6) and read
 just after; a kernel the run did not launch is a failure. No phase catches
@@ -48,6 +56,8 @@ H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 H100_INT8_OPS = 1979e12         # int8, tensor cores, dense
 SAMPLE_QUERIES = 65536
 EVAL_QUERIES = 32768
+PROBE_QUERIES = 512             # the grid's per-sample query cap
+INDEX_RTOL = 1e-5               # centroids / projection, card vs CPU
 
 
 def log(msg: str) -> None:
@@ -220,6 +230,115 @@ def check_topk(qs, cs, k: int) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def gathered_inputs(q: int, c: int, d: int, r: int, *, seed: int,
+                    device):
+    """Candidates drawn from an (r, d) table with repeats (exact ties
+    between positions), a fifth of the slots invalid and query 0 with no
+    valid slot. Ids are the rows, so a returned id names its vector."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    table = torch.randn(r, d, generator=g)
+    qs = torch.randn(q, d, generator=g)
+    rows = torch.randint(0, r, (q, c), generator=g, dtype=torch.int32)
+    ids = rows.clone()
+    ids[torch.rand(q, c, generator=g) < 0.2] = -1
+    ids[0] = -1
+    return (qs.to(device), table.to(device), rows.to(device),
+            ids.to(device))
+
+
+def check_gathered(qs, table, rows, ids, k: int, id_vecs) -> float:
+    """Kernel vs plain gathered top-k. Scores must agree within the f32
+    summation bound D * 2**-24 * |q| * max|c| (Cauchy-Schwarz over the
+    table's rows; the two sum in different orders); misses must fall in
+    the same places; ids must be equal except where the kernel picked a
+    different id whose exact score lies within twice that bound of the
+    plain one (a near-tie). ``id_vecs[id]`` is an id's vector."""
+    import torch
+    from repro_torch.kernels.topk_scoring.ops import gathered_topk
+    from repro_torch.kernels.topk_scoring.ref import gathered_topk_ref
+    s, i = gathered_topk(qs, table, rows, ids, k=k)
+    torch.cuda.synchronize()
+    qn, d = qs.shape
+    c = ids.shape[1]
+    k_eff = min(k, c)
+    s_ref, i_ref = gathered_topk_ref(qs, table, rows, ids, k=k_eff)
+    shape = f"Q={qn} C={c} D={d} k={k}"
+    if s.shape != (qn, k) or i.shape != (qn, k):
+        fail(f"gathered shape {tuple(s.shape)} for {shape}")
+    if k > k_eff and not (bool((i[:, k_eff:] == -1).all())
+                          and bool(torch.isneginf(s[:, k_eff:]).all())):
+        fail(f"gathered misses past C are not -inf/-1 for {shape}")
+    s, i = s[:, :k_eff], i[:, :k_eff]
+    miss = torch.isneginf(s_ref)
+    if not (torch.equal(torch.isneginf(s), miss)
+            and bool((i[miss] == -1).all())):
+        fail(f"gathered misses differ from the plain version for {shape}")
+    row_norm = float(table.double().norm(dim=1).max())
+    tol = d * 2.0 ** -24 * qs.double().norm(dim=1, keepdim=True) * row_norm
+    tol = tol.expand(-1, k_eff)
+    err = torch.where(miss, 0.0, s.double() - s_ref.double()).abs()
+    if bool((err > tol).any()):
+        fail(f"gathered scores differ beyond the summation bound for "
+             f"{shape}: max err {float(err.max()):.3e}")
+    diff = i != i_ref
+    if bool(diff.any()):
+        exact = lambda ids_: torch.einsum(
+            "qd,qkd->qk", qs.double(), id_vecs[ids_.long().clamp(min=0)]
+            .double())
+        gap = (exact(i) - exact(i_ref)).abs()
+        if bool((gap[diff] > 2 * tol[diff]).any()):
+            fail(f"gathered ids differ away from a near-tie for {shape}")
+        log(f"    {int(diff.sum())} id(s) differ at near-ties ({shape})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def hamming_inputs(q: int, n: int, w: int, *, seed: int, device):
+    """Random packed codes, half the corpus rows duplicating the other half
+    (exact ties besides those of small integer distances)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qc = torch.randint(-2 ** 31, 2 ** 31 - 1, (q, w), generator=g,
+                       dtype=torch.int32)
+    cc = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, w), generator=g,
+                       dtype=torch.int32)
+    cc[n // 2:] = cc[:n - n // 2].clone()
+    return qc.to(device), cc.to(device)
+
+
+def check_hamming(qc, cc, k: int) -> None:
+    """Kernel vs plain Hamming top-k: exact integer distances on both
+    sides, so scores and ids must be equal, ties included."""
+    import torch
+    from repro_torch.kernels.lsh_hamming.ops import hamming_topk
+    from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
+    s, i = hamming_topk(qc, cc, k=k)
+    torch.cuda.synchronize()
+    n = cc.shape[0]
+    k_eff = min(k, n)
+    s_ref, i_ref = hamming_topk_ref(qc, cc, k=k_eff)
+    shape = f"Q={qc.shape[0]} N={n} W={cc.shape[1]} k={k}"
+    if s.shape != (qc.shape[0], k) or i.shape != (qc.shape[0], k):
+        fail(f"hamming shape {tuple(s.shape)} for {shape}")
+    if not (torch.equal(s[:, :k_eff], s_ref)
+            and torch.equal(i[:, :k_eff], i_ref)):
+        fail(f"hamming kernel != plain for {shape}")
+    if not (bool((i[:, k_eff:] == -1).all())
+            and bool(torch.isneginf(s[:, k_eff:]).all())):
+        fail(f"hamming misses are not -inf/-1 for {shape}")
+
+
+def eval_corpus(num_queries: int, vocab: int):
+    """The evaluation CLI's corpus at its default widths, and its tf-idf
+    embedding (entities, queries) as numpy."""
+    from repro_torch.data.synthetic import generate_corpus
+    from repro_torch.eval import tfidf_embedder
+    corpus = generate_corpus(num_queries=num_queries, qrels_per_query=16,
+                             num_topics=48, aux_fraction=1.0,
+                             vocab_size=vocab, query_len=24, seed=0)
+    return corpus, tfidf_embedder(corpus)
+
+
 # --------------------------------------------------------------------------
 # main-path runs
 # --------------------------------------------------------------------------
@@ -272,16 +391,27 @@ def main() -> None:
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build
     from repro_torch.kernels.label_prop.ops import LP_ROUND, lp_round_cuda
-    from repro_torch.kernels.topk_scoring.ops import (TOPK_INT8_PARTIAL,
+    from repro_torch.kernels.lsh_hamming.ops import (HAMMING_PARTIAL,
+                                                     hamming_topk)
+    from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
+    from repro_torch.kernels.topk_scoring.ops import (GATHERED_PARTIAL,
+                                                      TOPK_INT8_PARTIAL,
                                                       TOPK_MERGE,
                                                       TOPK_PARTIAL,
+                                                      gathered_topk,
                                                       topk_scores,
                                                       topk_scores_int8)
-    from repro_torch.kernels.topk_scoring.ref import (topk_scores_int8_ref,
+    from repro_torch.kernels.topk_scoring.ref import (gathered_topk_ref,
+                                                      topk_scores_int8_ref,
                                                       topk_scores_ref)
+    from repro_torch.core import prng
     from repro_torch.core.label_prop import ell_round
     from repro_torch.obs import trace
-    kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, TOPK_MERGE)
+    from repro_torch.retrieval.engines import IVFFlatEngine, LSHEngine
+    from repro_torch.retrieval.ivfflat import probe_candidates
+    from repro_torch.retrieval.lsh import encode
+    kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_PARTIAL,
+               HAMMING_PARTIAL, TOPK_MERGE)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -346,6 +476,53 @@ def main() -> None:
         check_topk_int8(iq, ic, k)
     log("    topk_scores_int8: scores and ids equal at 11 shapes incl. "
         "Q=128 N=524288 D=2048 k=10,20,40,80")
+    gath_err = 0.0
+    for q, c, d, r, k in [(1, 1, 4, 1, 1), (3, 5, 8, 4, 9),
+                          (7, 300, 37, 50, 5), (16, 1000, 64, 200, 32),
+                          (5, 2000, 16, 100, 64), (4, 700, 128, 90, 100),
+                          (2, 40, 2048, 40, 3), (33, 5000, 24, 3000, 10)]:
+        gq, gt, gr, gi = gathered_inputs(q, c, d, r, seed=q * c + d,
+                                         device=dev)
+        gath_err = max(gath_err, check_gathered(gq, gt, gr, gi, k, gt))
+    t0 = time.perf_counter()
+    corpus, (ev_np, qv_np) = eval_corpus(EVAL_QUERIES, 2048)
+    ev = torch.from_numpy(ev_np).to(dev)
+    pq = torch.from_numpy(qv_np[:PROBE_QUERIES]).to(dev)
+    del corpus, qv_np
+    ivf_engine, lsh_engine = IVFFlatEngine(), LSHEngine()
+    ivf = ivf_engine.build(prng.prng_key(0), ev)
+    torch.cuda.synchronize()
+    log(f"    ivfflat index of the {tuple(ev.shape)} corpus built in "
+        f"{time.perf_counter() - t0:.1f} s (corpus and embedding "
+        f"included): {tuple(ivf.vecs.shape)}")
+    again = ivf_engine.build(prng.prng_key(0), ev)
+    if not (torch.equal(again.centroids, ivf.centroids)
+            and torch.equal(again.ids, ivf.ids)):
+        fail("ivfflat: two builds of the same index differ on the card")
+    del again
+    p_rows, p_ids = probe_candidates(ivf, pq, nprobe=ivf_engine.nprobe)
+    p_table = ivf.vecs.reshape(-1, ivf.vecs.shape[2])
+    for k in (3, 10):
+        gath_err = max(gath_err, check_gathered(pq, p_table, p_rows, p_ids,
+                                                k, ev))
+    log(f"    gathered_topk: within the summation bound at 10 shapes incl. "
+        f"the ivfflat probe Q={PROBE_QUERIES} C={p_ids.shape[1]} "
+        f"D={ev.shape[1]} k=3,10; max |err| {gath_err:.3e}")
+    for q, n, w, k in [(1, 1, 4, 1), (3, 5, 4, 9), (7, 513, 4, 5),
+                       (33, 1000, 4, 32), (40, 4096, 4, 64),
+                       (9, 1000, 3, 100), (5, 300, 1, 300),
+                       (64, 20000, 4, 10), (2, 129, 8, 33)]:
+        check_hamming(*hamming_inputs(q, n, w, seed=q * n + w, device=dev),
+                      k)
+    hq, hc = hamming_inputs(PROBE_QUERIES, 524_288, 4, seed=17, device=dev)
+    for k in (3, 10, 64):
+        check_hamming(hq, hc, k)
+    lsh = lsh_engine.build(prng.prng_key(0), ev)
+    lq = encode(lsh.proj, pq)
+    check_hamming(lq, lsh.codes, lsh_engine.rerank)
+    log(f"    hamming_topk: scores and ids equal at 13 shapes incl. "
+        f"Q={PROBE_QUERIES} N=524288 W=4 k=3,10,64 and the lsh codes of "
+        f"the corpus, N={lsh.codes.shape[0]} k={lsh_engine.rerank}")
 
     # 4. times -------------------------------------------------------------
     log("[4/7] times (CUDA events, after warm-up)")
@@ -379,7 +556,49 @@ def main() -> None:
     log(f"    topk_scores_int8 Q={qn} N={n_c} D={d} k={k_i}: kernel "
         f"{i8_ms:.4f} ms, plain {i8_plain_ms:.4f} ms, _int_mm+stable sort "
         f"{i8_lib_ms:.4f} ms, bound {i8_bound:.4f} ms ({i8_by})")
-    del lp_main, labels, nbr, wgt, tq, tc, iq, ic
+    # gathered, at the ivfflat probe of the main path (k = 10): the bound
+    # counts the valid slots only, each distinct probed list read once
+    k_g = 10
+    g_ms = cuda_ms(lambda: gathered_topk(pq, p_table, p_rows, p_ids, k=k_g),
+                   5)
+    g_plain_ms = cuda_ms(lambda: gathered_topk_ref(pq, p_table, p_rows,
+                                                   p_ids, k=k_g), 1, 1)
+    lib_chunk = 2          # queries per bmm: 2 x C x D f32 = 2.1 GB
+
+    def gathered_library():
+        for q0 in range(0, pq.shape[0], lib_chunk):
+            cand = p_table[p_rows[q0:q0 + lib_chunk].long()]
+            sc = torch.bmm(cand, pq[q0:q0 + lib_chunk, :, None])[..., 0]
+            sc = torch.where(p_ids[q0:q0 + lib_chunk] >= 0, sc, -torch.inf)
+            torch.sort(sc, dim=1, descending=True, stable=True)
+
+    g_lib_ms = cuda_ms(gathered_library, 1, 1)
+    valid = p_ids >= 0
+    c_valid = int(valid.sum())
+    probed_rows = int(torch.unique(p_rows[valid]).numel())
+    g_bound, g_by = bound(
+        probed_rows * d * 4 + pq.numel() * 4 + c_valid * 8
+        + pq.shape[0] * k_g * 8, 2.0 * c_valid * d)
+    log(f"    gathered_topk Q={pq.shape[0]} C={p_ids.shape[1]} "
+        f"(valid {c_valid}, distinct probed rows {probed_rows}) D={d} "
+        f"k={k_g}: kernel {g_ms:.4f} ms, plain {g_plain_ms:.4f} ms, "
+        f"gather+bmm+stable sort by {lib_chunk} queries {g_lib_ms:.4f} ms, "
+        f"bound {g_bound:.4f} ms ({g_by})")
+    # Hamming at the lsh rerank pool of the main path (k = 64); three
+    # integer operations (xor, popc, add) a word, counted at the f32 rate
+    # of the CUDA cores; no single PyTorch call computes a popcount
+    k_h = lsh_engine.rerank
+    hn, hw = hc.shape
+    h_ms = cuda_ms(lambda: hamming_topk(hq, hc, k=k_h), 10)
+    h_plain_ms = cuda_ms(lambda: hamming_topk_ref(hq, hc, k=k_h), 2)
+    h_bound, h_by = bound((hq.shape[0] + hn) * hw * 4
+                          + hq.shape[0] * k_h * 8,
+                          3.0 * hq.shape[0] * hn * hw)
+    log(f"    hamming_topk Q={hq.shape[0]} N={hn} W={hw} k={k_h}: kernel "
+        f"{h_ms:.4f} ms, plain {h_plain_ms:.4f} ms, no library call, "
+        f"bound {h_bound:.4f} ms ({h_by})")
+    del lp_main, labels, nbr, wgt, tq, tc, iq, ic, ev, pq, ivf, p_rows
+    del p_ids, p_table, lsh, lq, hq, hc
     torch.cuda.empty_cache()
 
     # 5. sampling main path ------------------------------------------------
@@ -412,7 +631,7 @@ def main() -> None:
     # 6. evaluation main path ----------------------------------------------
     reset_counts(kernels)
     out, wall = run_evaluate([
-        "--grid", "smoke", "--backend", "cuda", "--device", "cuda",
+        "--grid", "default", "--backend", "cuda", "--device", "cuda",
         "--queries", str(EVAL_QUERIES), "--json",
         os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     eval_launches = {kern.name: kern.launches for kern in kernels}
@@ -424,8 +643,8 @@ def main() -> None:
     log(f"    fidelity: {json.dumps(out['fidelity']['mean_abs_delta'])}")
     log(f"    winners: {json.dumps(out['fidelity']['winners'])}")
     log(f"    backend curve: {json.dumps(out['backend_curve'])}")
-    for kname in ("topk_partial", "topk_int8_partial", "topk_merge",
-                  "lp_round"):
+    for kname in ("gathered_partial", "hamming_partial", "topk_partial",
+                  "topk_int8_partial", "topk_merge", "lp_round"):
         if eval_launches[kname] == 0:
             fail(f"the evaluation run launched no {kname} kernel")
     curve = [(r["backend"], r["rerank_factor"]) for r in out["backend_curve"]]
@@ -434,8 +653,10 @@ def main() -> None:
         fail(f"backend curve rows {curve}")
     if not all(0.0 <= r["recall_at_k"] <= 1.0 for r in out["backend_curve"]):
         fail("backend curve recall outside [0, 1]")
-    if not all(np.isfinite(c["value"]) for c in cells) or len(cells) != 12:
-        fail("evaluation cells are not 12 finite values")
+    if not all(np.isfinite(c["value"]) for c in cells) or len(cells) != 96:
+        fail("evaluation cells are not 96 finite values")
+    if {c["engine"] for c in cells} != {"exact", "ivfflat", "lsh", "tfidf"}:
+        fail("the evaluation grid does not cover the four engines")
 
     # 7. small inputs: card vs the CPU's plain path --------------------------
     with tempfile.TemporaryDirectory(dir=OUT) as tmp:
@@ -454,22 +675,55 @@ def main() -> None:
     # is the kernel's), so the two sides compute the same function
     from repro_torch.core import SamplerSpec
     from repro_torch.data.synthetic import generate_corpus
-    from repro_torch.eval import build_fidelity_report, run_grid
+    from repro_torch.eval import (build_fidelity_report, run_grid,
+                                  tfidf_embedder)
     from repro_torch.launch.evaluate import GRIDS
-    smoke = GRIDS["smoke"]
     corpus = generate_corpus(num_queries=512, qrels_per_query=16,
                              num_topics=48, aux_fraction=1.0, vocab_size=256,
                              query_len=24, seed=0)
-    grids = {}
-    for where, engine in (("cuda", "cuda"), ("cpu", "ell")):
-        res = run_grid(corpus, smoke, device=where,
-                       sampler=SamplerSpec(engine=engine))
-        grids[where] = (res.cells, build_fidelity_report(
-            res.cells, smoke).to_json())
-    if grids["cuda"][0] != grids["cpu"][0]:
-        fail("small evaluation: grid cells differ between cuda and cpu")
-    if grids["cuda"][1] != grids["cpu"][1]:
-        fail("small evaluation: fidelity report differs between cuda and cpu")
+    # the default grid's ANN indexes start from cuBLAS vs CPU products and
+    # libdevice vs CPU log1p: first their centroids and projection, then
+    # the cells
+    ev_small = torch.from_numpy(tfidf_embedder(corpus)[0])
+    built = {}
+    for where in ("cuda", "cpu"):
+        vecs = ev_small.to(where)
+        built[where] = (IVFFlatEngine().build(prng.prng_key(0), vecs),
+                        LSHEngine().build(prng.prng_key(0), vecs))
+    (ivf_g, lsh_g), (ivf_c, lsh_c) = built["cuda"], built["cpu"]
+    for what, a, b in (("ivfflat centroids", ivf_g.centroids,
+                        ivf_c.centroids),
+                       ("lsh projection", lsh_g.proj, lsh_c.proj)):
+        if not torch.allclose(a.cpu(), b, rtol=INDEX_RTOL, atol=0.0):
+            fail(f"small index: {what} differ beyond rtol {INDEX_RTOL} "
+                 f"between cuda and cpu (max |diff| "
+                 f"{float((a.cpu() - b).abs().max()):.3e})")
+    same_lists = torch.equal(ivf_g.ids.cpu(), ivf_c.ids)
+    same_codes = torch.equal(lsh_g.codes.cpu(), lsh_c.codes)
+    log(f"    small index ({tuple(ev_small.shape)}): centroids and "
+        f"projection within rtol {INDEX_RTOL}; ivfflat lists "
+        f"{'equal' if same_lists else 'DIFFER'}, lsh codes "
+        f"{'equal' if same_codes else 'DIFFER'} on cuda and cpu")
+    for grid in ("smoke", "default"):
+        spec = GRIDS[grid]
+        grids = {}
+        for where, engine in (("cuda", "cuda"), ("cpu", "ell")):
+            res = run_grid(corpus, spec, device=where,
+                           sampler=SamplerSpec(engine=engine))
+            grids[where] = (res.cells, build_fidelity_report(
+                res.cells, spec).to_json())
+        if grids["cuda"][0] != grids["cpu"][0]:
+            for cell, v in sorted(grids["cuda"][0].items()):
+                if grids["cpu"][0][cell] != v:
+                    log(f"    {grid} cell {cell}: cuda {v!r} cpu "
+                        f"{grids['cpu'][0][cell]!r}")
+            fail(f"small evaluation: {grid} grid cells differ between cuda "
+                 f"and cpu")
+        if grids["cuda"][1] != grids["cpu"][1]:
+            fail(f"small evaluation: {grid} fidelity report differs between "
+                 f"cuda and cpu")
+        log(f"    {grid} grid: {len(grids['cuda'][0])} cells and the "
+            f"fidelity report equal on cuda and cpu")
     log("[7/7] small inputs: sample.npz and grid cells equal on cuda and cpu")
 
     table = {"kernels": [
@@ -493,6 +747,20 @@ def main() -> None:
                       + eval_launches["topk_int8_partial"]),
          "max_abs_err": 0, "ms": i8_ms, "plain_ms": i8_plain_ms,
          "bound_ms": i8_bound, "bound_by": i8_by, "library_ms": i8_lib_ms},
+        {"name": "gathered_topk", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:84",
+         "launches": (sample_launches["gathered_partial"]
+                      + eval_launches["gathered_partial"]),
+         "max_abs_err": gath_err, "ms": g_ms, "plain_ms": g_plain_ms,
+         "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib_ms},
+        {"name": "hamming_topk", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "replaces": "src/repro/kernels/lsh_hamming/lsh_hamming.py:27",
+         "launches": (sample_launches["hamming_partial"]
+                      + eval_launches["hamming_partial"]),
+         "max_abs_err": 0, "ms": h_ms, "plain_ms": h_plain_ms,
+         "bound_ms": h_bound, "bound_by": h_by, "library_ms": None},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))

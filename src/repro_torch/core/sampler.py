@@ -26,12 +26,33 @@ class ClusterSample(NamedTuple):
     keep_prob: torch.Tensor        # f32[num_nodes] p_L actually used
 
 
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of a 1-d f32 tensor in the order XLA:CPU sums ``jnp.sum`` (as
+    installed: jax 0.9). XLA rewrites a long reduction into windows of 32:
+    the vector is padded with zeros to a multiple of 32, half the padding
+    in front (the odd one at the back), each window is summed left to
+    right, and the window sums are reduced the same way until at most 32
+    remain, which are summed left to right. Each step here is an f32 add,
+    so the result is the reference's bit for bit on either device."""
+    while x.numel() > 32:
+        pad = -x.numel() % 32
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        win = x.reshape(-1, 32)
+        acc = torch.zeros(win.shape[0], dtype=x.dtype, device=x.device)
+        for j in range(32):
+            acc = acc + win[:, j]
+        x = acc
+    acc = torch.zeros((), dtype=x.dtype, device=x.device)
+    for j in range(x.numel()):
+        acc = acc + x[j]
+    return acc
+
+
 def _calibrate_scale(sizes: torch.Tensor, n_total: torch.Tensor,
                      target, iters: int = 40) -> torch.Tensor:
     """Bisection for c with sum_L min(1, c*|L|/N) * |L| == target, in f32
-    as the reference runs it. The f32 sum's reduction order differs from
-    XLA's, so c may differ in its last bits; a mask difference that follows
-    is a fault to diagnose, not a tolerance."""
+    as the reference runs it, its sum in the reference's order
+    (:func:`xla_sum`), so c is the reference's bit for bit."""
     sizes_f = sizes.to(torch.float32)
     target = torch.as_tensor(target, dtype=torch.float32,
                              device=sizes.device)
@@ -40,7 +61,7 @@ def _calibrate_scale(sizes: torch.Tensor, n_total: torch.Tensor,
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
         p = torch.clamp(mid * sizes_f / n_total, max=1.0)
-        too_small = (p * sizes_f).sum() < target
+        too_small = xla_sum(p * sizes_f) < target
         lo = torch.where(too_small, mid, lo)
         hi = torch.where(too_small, hi, mid)
     return 0.5 * (lo + hi)

@@ -1,10 +1,16 @@
-// Fused inner-product scoring + top-k over a dense corpus, any k, for f32
-// vectors and for int8 codes.
+// Fused scoring + top-k, any k: inner products over a dense corpus (f32
+// vectors and int8 codes), inner products over per-query candidate rows
+// gathered from a table (the ivfflat probe), and Hamming distances over
+// packed sign codes (the lsh scan).
 //
 // Replaces the TPU kernels of src/repro/kernels/topk_scoring/topk_scoring.py:
-// _topk_kernel (f32) and _topk_int8_kernel (int8 x int8 -> int32 dot, ranked
-// as f32, rows at or past n masked in the kernel), and the cross-block
-// lax.top_k merge that follows each (topk_scoring.py:187, :217).
+// _topk_kernel (f32), _topk_int8_kernel (int8 x int8 -> int32 dot, ranked
+// as f32, rows at or past n masked in the kernel) and _gathered_kernel (each
+// query scores its own candidate set; an id of -1 scores -inf; ties to the
+// earliest candidate position), that of
+// src/repro/kernels/lsh_hamming/lsh_hamming.py: _hamming_kernel (XOR +
+// popcount over W words, top k of -distance, rows past n masked), and the
+// cross-block lax.top_k merge that follows each.
 //
 // What bounds them on an H100. f32: operations. Scoring Q queries against N
 // rows of width D is 2*Q*N*D flops over (Q + N)*D*4 bytes; at the main
@@ -14,7 +20,13 @@
 // dot with __dp4a on the CUDA cores, whose rate is far lower, so in practice
 // the dp4a issue rate sets its time. The (Q, N) score matrix never leaves
 // registers: like the TPU kernels, only per-split top-k partials reach device
-// memory.
+// memory. Gathered: the least the card must move is each distinct probed
+// list once, and its 2*Q*C*D flops then bound it at the f32 rate; this
+// kernel reads each query's candidate rows anew (no reuse across queries
+// beyond what L2 happens to hold), so the bytes of Q*C_valid rows set its
+// time. Hamming: 3 integer operations (xor, popc, add) per word per
+// (query, row) pair over 16 bytes a row; at W = 4 selection, not scoring,
+// is most of the work.
 //
 // Design (simple first; wgmma/TMA/pipelining are later work):
 //  * topk_partial_{reg,mem}<T>: grid (candidate split, query tile). A block of
@@ -38,8 +50,22 @@
 //    candidates that beat the current k-th entry, and each is inserted in
 //    turn. Rows at or past n are masked here (no sentinel column, which
 //    would break aligned loads).
+//  * hamming_partial<kMem>: the same grid, tiles and lists; lane l of warp w
+//    holds rows n0 + 32j + l (j < 4) and the distances to the warp's 4
+//    queries in registers, words read as 16-byte vectors when W % 4 == 0.
+//    Distances are small integers, so ties are the rule: the (score, id)
+//    order of the lists is what returns exactly the plain version's ids.
+//  * gathered_partial<kMem>: grid (query, group of 8 splits); each warp owns
+//    one (query, split of the candidate positions). For every 32 positions
+//    each lane loads one (row, id); the warp then computes the dot of each
+//    valid candidate in turn (lanes stride D in 16-byte vectors, a shuffle
+//    tree sums them), lane t keeping candidate t's score, and offers the 32
+//    (score, position) pairs to its list. Invalid slots cost one load of
+//    their id. Lists key on the position, so the merge's (score desc, key
+//    asc) order is the reference's earliest-position rule; the wrapper maps
+//    positions to ids.
 //  * topk_merge_kernel: one warp per query merges the n_splits*k partials
-//    with the same insertion, so ties still go to the lowest id.
+//    with the same insertion, so ties still go to the lowest id (position).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -55,6 +81,7 @@ constexpr int kCStride = kBN + 4;   // transposed candidate tile
 constexpr int kRegK = 32;      // largest k whose list fits in warp lanes
 constexpr int kSmemK = 96;     // largest k whose lists fit in shared memory
 constexpr int kMergeWarps = 8;
+constexpr int kWarps = kThreads / 32;
 
 // (s, id) beats (t, tid): higher score, or equal score and lower id.
 __device__ __forceinline__ bool beats(float s, int id, float t, int tid) {
@@ -221,6 +248,14 @@ __device__ __forceinline__ int4 load4(const signed char* src, int e, int d,
     w[t] = static_cast<int>(word);
   }
   return make_int4(w[0], w[1], w[2], w[3]);
+}
+
+// packed sign codes: 4 words of row `src` from word e, zero past w.
+__device__ __forceinline__ int4 load4(const int* src, int e, int w,
+                                      int vec) {
+  if (vec && e + 3 < w) return *reinterpret_cast<const int4*>(src + e);
+  return make_int4(e < w ? src[e] : 0, e + 1 < w ? src[e + 1] : 0,
+                   e + 2 < w ? src[e + 2] : 0, e + 3 < w ? src[e + 3] : 0);
 }
 
 __device__ __forceinline__ float madd(float a, float b, float acc) {
@@ -394,6 +429,171 @@ topk_partial_mem(const In* __restrict__ q, const In* __restrict__ c,
                               tiles_per_split, n_splits, vec, smem_lists);
 }
 
+// q [nq, w] and c [n, w] packed codes. Writes each split's top-k list of
+// -distance for each query into part_s/part_i [nq, n_splits * k].
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads)
+hamming_partial_kernel(const int* __restrict__ q, const int* __restrict__ c,
+                       float* part_s, int* part_i, int nq, int n, int w,
+                       int k, int tiles_per_split, int n_splits, int vec,
+                       int smem_lists) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int split = blockIdx.x;
+  const int q0 = blockIdx.y * kBQ;
+  const int n_tiles = (n + kBN - 1) / kBN;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+
+  float ls[4];
+  int li[4];
+  MemList ml[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ls[i] = -CUDART_INF_F;
+    li[i] = -1;
+    if (kMem && q0 + warp * 4 + i < nq) {  // uniform in the warp
+      const long long o =
+          static_cast<long long>(q0 + warp * 4 + i) * n_splits * k +
+          split * k;
+      mem_place(ml[i], smem_lists, warp * 4 + i, part_s + o, part_i + o, k,
+                lane);
+    }
+  }
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int n0 = tile * kBN;
+    int dist[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dist[i][j] = 0;
+    for (int x = 0; x < w; x += 4) {
+      int4 cv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gn = n0 + 32 * j + lane;
+        cv[j] = gn < n ? load4(c + static_cast<long long>(gn) * w, x, w, vec)
+                       : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int gq = q0 + warp * 4 + i;
+        const int4 qv = gq < nq ? load4(q + static_cast<long long>(gq) * w,
+                                        x, w, vec)
+                                : make_int4(0, 0, 0, 0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dist[i][j] += __popc(qv.x ^ cv[j].x) + __popc(qv.y ^ cv[j].y) +
+                        __popc(qv.z ^ cv[j].z) + __popc(qv.w ^ cv[j].w);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (kMem && q0 + warp * 4 + i >= nq) continue;  // uniform in the warp
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int id = n0 + 32 * j + lane;
+        const float s =
+            id < n ? -static_cast<float>(dist[i][j]) : -CUDART_INF_F;
+        if (kMem)
+          mem_offer(ml[i], s, id, k, lane);
+        else
+          reg_offer(ls[i], li[i], s, id, k, lane);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gq = q0 + warp * 4 + i;
+    const long long o =
+        static_cast<long long>(gq) * n_splits * k + split * k;
+    if (gq >= nq) continue;  // uniform in the warp
+    if (!kMem && lane < k) {
+      part_s[o + lane] = ls[i];
+      part_i[o + lane] = li[i];
+    } else if (kMem && smem_lists) {
+      mem_store(ml[i], part_s + o, part_i + o, k, lane);
+    }
+  }
+}
+
+// q [nq, d]; candidate p of query qi is table[rows[qi, p]], valid when
+// ids[qi, p] >= 0. Writes each split's top-k list of (score, position) into
+// part_s/part_i [nq, n_splits * k].
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads)
+gathered_partial_kernel(const float* __restrict__ q,
+                        const float* __restrict__ table,
+                        const int* __restrict__ rows,
+                        const int* __restrict__ ids, float* part_s,
+                        int* part_i, int nq, int c, int d, int k,
+                        int per_split, int n_splits, int vec,
+                        int smem_lists) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int qi = blockIdx.x;
+  const int split = blockIdx.y * kWarps + warp;
+  if (qi >= nq || split >= n_splits) return;  // uniform in the warp
+  const int p_begin = split * per_split;
+  const int p_end = min(p_begin + per_split, c);
+  const float* qrow = q + static_cast<long long>(qi) * d;
+  const long long crow = static_cast<long long>(qi) * c;
+  const long long o = (static_cast<long long>(qi) * n_splits + split) * k;
+
+  float ls = -CUDART_INF_F;
+  int li = -1;
+  MemList ml;
+  if (kMem) mem_place(ml, smem_lists, warp, part_s + o, part_i + o, k, lane);
+
+  for (int p0 = p_begin; p0 < p_end; p0 += 32) {
+    const int p = p0 + lane;
+    int my_row = 0;
+    int my_id = -1;
+    if (p < p_end) {
+      my_row = rows[crow + p];
+      my_id = ids[crow + p];
+    }
+    float my_s = -CUDART_INF_F;
+    unsigned live = __ballot_sync(kFull, my_id >= 0);
+    while (live) {
+      const int t = __ffs(live) - 1;
+      live &= live - 1;
+      const float* v =
+          table + static_cast<long long>(__shfl_sync(kFull, my_row, t)) * d;
+      float acc = 0.f;
+      if (vec) {
+#pragma unroll 4
+        for (int e = 4 * lane; e < d; e += 128) {
+          const float4 a = *reinterpret_cast<const float4*>(qrow + e);
+          const float4 b = *reinterpret_cast<const float4*>(v + e);
+          acc = fmaf(a.x, b.x, acc);
+          acc = fmaf(a.y, b.y, acc);
+          acc = fmaf(a.z, b.z, acc);
+          acc = fmaf(a.w, b.w, acc);
+        }
+      } else {
+        for (int e = lane; e < d; e += 32) acc = fmaf(qrow[e], v[e], acc);
+      }
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        acc += __shfl_xor_sync(kFull, acc, off);
+      if (lane == t) my_s = acc;
+    }
+    if (kMem)
+      mem_offer(ml, my_s, p, k, lane);
+    else
+      reg_offer(ls, li, my_s, p, k, lane);
+  }
+  if (!kMem && lane < k) {
+    part_s[o + lane] = ls;
+    part_i[o + lane] = li;
+  } else if (kMem && smem_lists) {
+    mem_store(ml, part_s + o, part_i + o, k, lane);
+  }
+}
+
 template <bool kMem>
 __global__ void topk_merge_kernel(const float* __restrict__ part_s,
                                   const int* __restrict__ part_i,
@@ -455,6 +655,29 @@ int launch_partial(const void* q, const void* c, void* part_s, void* part_i,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_hamming(const void* q, const void* c, void* part_s, void* part_i,
+                   int nq, int n, int w, int k, int tiles_per_split,
+                   int n_splits, int vec, void* stream) {
+  if (nq > 0 && n_splits > 0 && k > 0) {
+    const dim3 grid(n_splits, (nq + kBQ - 1) / kBQ);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* qp = static_cast<const int*>(q);
+    const int* cp = static_cast<const int*>(c);
+    float* ps = static_cast<float*>(part_s);
+    int* pi = static_cast<int*>(part_i);
+    const int smem = k <= kSmemK;
+    const size_t bytes = smem ? size_t(kBQ) * k * 8 : 0;
+    if (k <= kRegK)
+      hamming_partial_kernel<false><<<grid, kThreads, 0, st>>>(
+          qp, cp, ps, pi, nq, n, w, k, tiles_per_split, n_splits, vec, 0);
+    else
+      hamming_partial_kernel<true><<<grid, kThreads, bytes, st>>>(
+          qp, cp, ps, pi, nq, n, w, k, tiles_per_split, n_splits, vec,
+          smem);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // queries/corpus f32 [nq, d] / [n, d]; vec = 1 when both are 16-byte
@@ -495,6 +718,47 @@ extern "C" int topk_merge(const void* part_s, const void* part_i, void* out_s,
     else
       topk_merge_kernel<true><<<grid, kMergeWarps * 32, bytes, st>>>(
           ps, pi, os, oi, nq, width, k, smem);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// packed sign codes int32 [nq, w] / [n, w]; vec = 1 when both are 16-byte
+// aligned and w % 4 == 0. The same argument layout as topk_partial, so the
+// wrapper and topk_merge are shared.
+extern "C" int hamming_partial(const void* q, const void* c, void* part_s,
+                               void* part_i, int nq, int n, int w, int k,
+                               int tiles_per_split, int n_splits, int vec,
+                               void* stream) {
+  return launch_hamming(q, c, part_s, part_i, nq, n, w, k, tiles_per_split,
+                        n_splits, vec, stream);
+}
+
+// queries f32 [nq, d], table f32 [r, d], rows/ids int32 [nq, c]; positions
+// [p * per_split, (p + 1) * per_split) of each query form split p; vec = 1
+// when queries and table are 16-byte aligned and d % 4 == 0.
+extern "C" int gathered_partial(const void* q, const void* table,
+                                const void* rows, const void* ids,
+                                void* part_s, void* part_i, int nq, int c,
+                                int d, int k, int per_split, int n_splits,
+                                int vec, void* stream) {
+  if (nq > 0 && n_splits > 0 && k > 0) {
+    const dim3 grid(nq, (n_splits + kWarps - 1) / kWarps);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* qp = static_cast<const float*>(q);
+    const float* tp = static_cast<const float*>(table);
+    const int* rp = static_cast<const int*>(rows);
+    const int* ip = static_cast<const int*>(ids);
+    float* ps = static_cast<float*>(part_s);
+    int* pi = static_cast<int*>(part_i);
+    const int smem = k <= kSmemK;
+    const size_t bytes = smem ? size_t(kWarps) * k * 8 : 0;
+    if (k <= kRegK)
+      gathered_partial_kernel<false><<<grid, kThreads, 0, st>>>(
+          qp, tp, rp, ip, ps, pi, nq, c, d, k, per_split, n_splits, vec, 0);
+    else
+      gathered_partial_kernel<true><<<grid, kThreads, bytes, st>>>(
+          qp, tp, rp, ip, ps, pi, nq, c, d, k, per_split, n_splits, vec,
+          smem);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 """Experiment-grid evaluation subsystem on PyTorch (port of ``repro.eval``).
 
-* ``engines``  — the retrieval-engine registry façade (exact / tfidf).
+* ``engines``  — the retrieval-engine registry façade (exact / ivfflat /
+  lsh / tfidf).
 * ``plans``    — declarative (sampler × engine × k × metric) grids expanded
   into a stage trie; shared prefixes execute exactly once.
 * ``runner``   — stage implementations walking each grid cell through the

@@ -28,7 +28,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import associated_queries, query_density
+from repro_torch.core import associated_queries, prng, query_density
 from repro_torch.core.samplers import available_samplers, get_sampler
 from repro_torch.core.sampling_core import SamplerSession, SamplerSpec
 from repro_torch.data.synthetic import SyntheticCorpus
@@ -157,8 +157,9 @@ def run_grid(corpus: SyntheticCorpus, spec: GridSpec, *,
         cfg = dataclasses.replace(search, engine=run.engine,
                                   query_chunk=query_chunk)
         kept = torch.as_tensor(ctx["kept_ids"]).to(dev)
-        session = SearchSession(ctx["ev"][kept], cfg, ids_map=ctx["kept_ids"],
-                                device=dev)
+        session = SearchSession(ctx["ev"][kept], cfg,
+                                key=prng.prng_key(spec.seed),
+                                ids_map=ctx["kept_ids"], device=dev)
         return {**ctx, "session": session}
 
     def stage_search(ctx: dict, run: RunSpec) -> dict:

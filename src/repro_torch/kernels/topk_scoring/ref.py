@@ -16,8 +16,8 @@ def pad_topk(s: torch.Tensor, i: torch.Tensor, k: int):
             torch.cat([i, i.new_full(pad, -1)], 1))
 
 
-def _blocked_topk(score, queries: torch.Tensor, corpus: torch.Tensor, *,
-                  k: int, block: int):
+def blocked_topk(score, queries: torch.Tensor, corpus: torch.Tensor, *,
+                 k: int, block: int):
     """Top-k of ``score(queries, corpus_block)`` (f32 [Q, block]) over the
     corpus, block by block with a running merge so the (Q, N) score matrix
     never materialises. Ties go to the lowest id, as ``lax.top_k`` gives
@@ -49,7 +49,7 @@ def topk_scores_ref(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
     tail. On a CUDA tensor the product follows
     ``torch.backends.cuda.matmul.allow_tf32`` (False unless the caller sets
     it), so it runs in full f32 by default."""
-    return _blocked_topk(lambda q, c: (q @ c.T).to(torch.float32), queries,
+    return blocked_topk(lambda q, c: (q @ c.T).to(torch.float32), queries,
                          corpus, k=k, block=block)
 
 
@@ -58,6 +58,43 @@ def topk_scores_int8_ref(q_codes: torch.Tensor, c_codes: torch.Tensor, *,
     """int8-code oracle: the exact integer dot (|dot| <= 127^2 * D, exact
     in f64), ranked as f32 like the kernel's partials and the reference's
     ``topk_scores_int8_ref``."""
-    return _blocked_topk(
+    return blocked_topk(
         lambda q, c: (q.to(torch.float64) @ c.to(torch.float64).T)
         .to(torch.float32), q_codes, c_codes, k=k, block=block)
+
+
+def gathered_topk_ref(queries: torch.Tensor, table: torch.Tensor,
+                      cand_rows: torch.Tensor, cand_ids: torch.Tensor, *,
+                      k: int, chunk_bytes: int = 1 << 30):
+    """Per-query candidate sets: candidate c of query q is the row
+    ``table[cand_rows[q, c]]`` (queries f32[Q, D], table f32[R, D],
+    cand_rows/cand_ids i32[Q, C], id -1 marking an invalid slot) -> top-k
+    (scores f32[Q, k], ids i32[Q, k]) for k <= C. Invalid slots score -inf
+    and come back as id -1; ties go to the earlier candidate position, as
+    ``lax.top_k`` gives them in the reference. The reference's dense form,
+    cand_vecs (Q, C, D), is ``table = cand_vecs.reshape(Q * C, D)`` with
+    ``cand_rows[q, c] = q * C + c``.
+
+    Queries go in chunks whose gathered (q, C, D) block stays under
+    ``chunk_bytes``, so the ivfflat probe's candidate vectors never exist
+    for all queries at once."""
+    qn, c = cand_ids.shape
+    per_query = max(1, c * table.shape[1] * table.element_size())
+    step = max(1, chunk_bytes // per_query)
+    out_s, out_i = [], []
+    for q0 in range(0, qn, step):
+        rows = cand_rows[q0:q0 + step].clamp(min=0).long()
+        ids = cand_ids[q0:q0 + step]
+        s = torch.einsum("qd,qcd->qc", queries[q0:q0 + step],
+                         table[rows]).to(torch.float32)
+        s = torch.where(ids >= 0, s, -torch.inf)
+        pos = torch.sort(s, dim=1, descending=True, stable=True).indices[:, :k]
+        top_s = torch.gather(s, 1, pos)
+        top_i = torch.gather(ids, 1, pos).to(torch.int32)
+        out_s.append(top_s)
+        out_i.append(torch.where(torch.isfinite(top_s), top_i, -1))
+    if not out_s:
+        dev = queries.device
+        return (torch.empty((0, k), dtype=torch.float32, device=dev),
+                torch.empty((0, k), dtype=torch.int32, device=dev))
+    return torch.cat(out_s), torch.cat(out_i)

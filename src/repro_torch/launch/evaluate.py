@@ -3,13 +3,15 @@
 engine × k × metric) grid over the synthetic corpus through the
 trie-shared plan executor and prints the sample-fidelity report.
 
+  PYTHONPATH=src python -m repro_torch.launch.evaluate --grid default
   PYTHONPATH=src python -m repro_torch.launch.evaluate --grid smoke
   PYTHONPATH=src python -m repro_torch.launch.evaluate --grid smoke \
       --device cpu --json results/eval.json
 
-The grid's engines are those ported so far (exact, tfidf); ivfflat and lsh
-join with ROADMAP queue 1 items 8-9, ``--sharded``/``--streamed``/``--mesh``
-with item 12 and ``--no-tuned-kernels`` with the tuner (item 10).
+The default grid is the reference's ``GridSpec()``: 3 samplers x 4 engines
+(exact, ivfflat, lsh, tfidf) x 2 ks x 4 metrics = 96 cells, the paper's own
+comparison. ``--sharded``/``--streamed``/``--mesh`` wait for ROADMAP queue
+1 item 12 and ``--no-tuned-kernels`` for the tuner (item 10).
 """
 from __future__ import annotations
 
@@ -34,9 +36,8 @@ from repro_torch.launch.logs import (add_logging_args, add_obs_args,
 log = logging.getLogger("repro_torch.launch.evaluate")
 
 GRIDS = {
-    # 3 samplers x 2 engines x 2 ks x 4 metrics = 48 cells (the reference's
-    # default grid over the engines ported so far)
-    "default": GridSpec(engines=("exact", "tfidf")),
+    # 3 samplers x 4 engines x 2 ks x 4 metrics = 96 cells
+    "default": GridSpec(),
     # minimal end-to-end check: 3 samplers x 2 engines x 1 k x 2 metrics
     "smoke": GridSpec(engines=("exact", "tfidf"), ks=(3,),
                       metrics=("precision", "mrr"), max_queries=128),

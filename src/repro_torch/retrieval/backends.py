@@ -10,26 +10,34 @@ A backend implements all three behind one protocol. Registered:
   * ``torch`` — plain PyTorch: blocked streaming top-k (the (Q, N) score
                 matrix is never materialised); the plain version of the
                 kernel. The parity tests map it to the reference's ``jnp``.
-  * ``cuda``  — the hand-written CUDA top-k kernel (kernels/topk_scoring,
-                csrc/topk_scores.cu). It runs only on a CUDA device
-                (``needs_cuda``); the parity tests map it to ``pallas``.
+  * ``cuda``  — the hand-written CUDA kernels (kernels/topk_scoring and
+                kernels/lsh_hamming, csrc/topk_scores.cu). It runs only on
+                a CUDA device (``needs_cuda``); the parity tests map it to
+                ``pallas``.
   * ``int8``  — quantized dense scan + float rerank tail, as the
                 reference's: the corpus is quantized once at index build
                 (``prepare_corpus`` -> :class:`QuantizedCorpus`), queries
                 per call; the int8 top-k kernel (its plain version on a CPU
                 tensor) scans for the top ``rerank_factor*k`` candidates on
                 the raw integer dot, and :func:`rerank_candidates` rescores
-                them in f32. It runs on either device.
+                them in f32. It runs on either device. Hamming and
+                gathered scoring go to the kernels' wrappers, which run the
+                kernel on a CUDA tensor and the plain version on a CPU one,
+                as the reference's delegate to its pallas kernels.
 
 ``prepare_corpus`` is the build-time hook: engines pass their corpus-side
 matrix through it (identity for torch/cuda, quantization for int8).
 
-``hamming_topk`` and ``gathered_topk`` serve lsh and ivfflat, which are not
-ported yet (ROADMAP queue 1 items 8-9): every backend raises for them.
+``gathered_topk`` keeps the reference's dense signature, candidate vectors
+(Q, C, D); ``gathered_rows_topk`` is the form the ivfflat probe calls,
+candidate c of query q being row ``cand_rows[q, c]`` of a table (the
+index's inverted lists), so the (Q, C, D) block is never built. The dense
+form maps onto it.
 
 Tie policy, as in the reference: results are score-descending and equal
-scores break toward the lower candidate id. Misses — k larger than the
-corpus — come back as score -inf / id -1.
+scores break toward the lower candidate id (``topk``, ``hamming_topk``) or
+the earlier candidate position (``gathered_topk``). Misses — k larger than
+the candidate count, or invalid slots — come back as score -inf / id -1.
 """
 from __future__ import annotations
 
@@ -38,11 +46,11 @@ from typing import Dict, NamedTuple, Protocol, runtime_checkable
 
 import torch
 
+from repro_torch.kernels.lsh_hamming import ops as lsh_ops
+from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
 from repro_torch.kernels.topk_scoring import ops as topk_ops
-from repro_torch.kernels.topk_scoring.ref import pad_topk, topk_scores_ref
-
-NOT_PORTED_ANN = ("{} serves the {} engine, which is not ported to PyTorch "
-                  "yet (ROADMAP.md queue 1 items 8-9)")
+from repro_torch.kernels.topk_scoring.ref import (gathered_topk_ref,
+                                                  pad_topk, topk_scores_ref)
 
 
 @runtime_checkable
@@ -62,9 +70,17 @@ class ScoringBackend(Protocol):
         ...
 
     def hamming_topk(self, q_codes, c_codes, *, k: int):
+        """Packed codes (Q, W) x (N, W) -> (-distance f32[Q, k], ids)."""
         ...
 
     def gathered_topk(self, queries, cand_vecs, cand_ids, *, k: int):
+        """(Q, D) x (Q, C, D) with ids (Q, C), -1 = invalid slot."""
+        ...
+
+    def gathered_rows_topk(self, queries, table, cand_rows, cand_ids, *,
+                           k: int):
+        """(Q, D) x rows ``cand_rows`` (Q, C) of ``table`` (R, D), ids
+        (Q, C), -1 = invalid slot."""
         ...
 
 
@@ -132,21 +148,39 @@ def rerank_candidates(vecs: torch.Tensor, queries: torch.Tensor,
     return pad_topk(top_s, top_i, k)
 
 
-class _NoAnnPrimitives:
-    """``hamming_topk`` / ``gathered_topk`` until lsh and ivfflat land."""
+def _dense_candidates(cand_vecs: torch.Tensor):
+    """The reference's dense candidate block (Q, C, D) as a table and rows:
+    (cand_vecs.reshape(Q*C, D), rows i32[Q, C] with rows[q, c] = q*C + c)."""
+    qn, c, d = cand_vecs.shape
+    if qn * c >= 2 ** 31:
+        raise ValueError(f"gathered_topk: Q*C = {qn * c} candidate rows "
+                         f"exceed int32")
+    rows = torch.arange(qn * c, dtype=torch.int32,
+                        device=cand_vecs.device).reshape(qn, c)
+    return cand_vecs.reshape(qn * c, d), rows
+
+
+class _AnnPrimitives:
+    """``hamming_topk`` / ``gathered_rows_topk`` through the kernels'
+    dispatch wrappers (the kernel on a CUDA tensor, its plain version on a
+    CPU one), and ``gathered_topk`` mapped onto the row form."""
 
     def hamming_topk(self, q_codes, c_codes, *, k: int):
-        raise NotImplementedError(NOT_PORTED_ANN.format("hamming_topk",
-                                                        "lsh"))
+        return lsh_ops.hamming_topk(q_codes, c_codes, k=k)
+
+    def gathered_rows_topk(self, queries, table, cand_rows, cand_ids, *,
+                           k: int):
+        return topk_ops.gathered_topk(queries, table, cand_rows, cand_ids,
+                                      k=k)
 
     def gathered_topk(self, queries, cand_vecs, cand_ids, *, k: int):
-        raise NotImplementedError(NOT_PORTED_ANN.format("gathered_topk",
-                                                        "ivfflat"))
+        table, rows = _dense_candidates(cand_vecs)
+        return self.gathered_rows_topk(queries, table, rows, cand_ids, k=k)
 
 
 @register_backend
 @dataclasses.dataclass(frozen=True)
-class TorchBackend(_NoAnnPrimitives):
+class TorchBackend(_AnnPrimitives):
     """Plain PyTorch backend (the oracle the cuda backend is tested
     against)."""
 
@@ -161,12 +195,23 @@ class TorchBackend(_NoAnnPrimitives):
         return topk_scores_ref(queries, _float_corpus(corpus), k=k,
                                block=self.block)
 
+    def hamming_topk(self, q_codes, c_codes, *, k: int):
+        k_eff = min(k, c_codes.shape[0])
+        return pad_topk(*hamming_topk_ref(q_codes, c_codes, k=k_eff,
+                                          block=self.block), k)
+
+    def gathered_rows_topk(self, queries, table, cand_rows, cand_ids, *,
+                           k: int):
+        k_eff = min(k, cand_ids.shape[1])
+        return pad_topk(*gathered_topk_ref(queries, table, cand_rows,
+                                           cand_ids, k=k_eff), k)
+
 
 @register_backend
 @dataclasses.dataclass(frozen=True)
-class CudaBackend(_NoAnnPrimitives):
-    """The CUDA top-k kernel; the dispatch wrapper in
-    kernels/topk_scoring/ops.py owns k-clamping and padding."""
+class CudaBackend(_AnnPrimitives):
+    """The CUDA kernels; the dispatch wrappers in kernels/*/ops.py own
+    k-clamping and padding."""
 
     name: str = "cuda"
     needs_cuda = True
@@ -180,7 +225,7 @@ class CudaBackend(_NoAnnPrimitives):
 
 @register_backend
 @dataclasses.dataclass(frozen=True)
-class Int8Backend(_NoAnnPrimitives):
+class Int8Backend(_AnnPrimitives):
     """Quantized dense scan + float rerank tail.
 
     The int8 kernel scans the quantized corpus for the top
@@ -189,7 +234,11 @@ class Int8Backend(_NoAnnPrimitives):
     :func:`rerank_candidates` rescores those candidates with the original
     f32 vectors: exact-at-k whenever the true top-k survives into the int8
     candidate pool (``eval/fidelity.backend_recall_curve`` measures the
-    trade)."""
+    trade).
+
+    Hamming and gathered scoring go to the kernels' wrappers by the
+    tensors' device: codes are already 1-bit, and the ivfflat probe has
+    already shrunk the candidate set, so quantizing buys nothing there."""
 
     rerank_factor: int = 4
     name: str = "int8"

@@ -9,10 +9,11 @@ Each vector index is a registered object behind one protocol:
   * ``search_scored(index, queries, k)`` — (scores f32[Q, k], ids).
 
 Registered engines: ``exact`` (blocked brute-force inner product, the
-oracle) and ``tfidf`` (IDF-reweighted exact search). ``ivfflat`` and
-``lsh`` are not ported yet (ROADMAP queue 1 items 8-9) and stay
-unregistered. Every engine carries a ``backend`` field naming a scoring
-backend (retrieval/backends.py), which the search core sets uniformly.
+oracle), ``ivfflat`` (k-means inverted lists, pgvector's index), ``lsh``
+(sign-random-projection Hamming search with exact rerank) and ``tfidf``
+(IDF-reweighted exact search). Every engine carries a ``backend`` field
+naming a scoring backend (retrieval/backends.py), which the search core
+sets uniformly.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import torch
 
 from repro_torch.retrieval.backends import get_backend
 from repro_torch.retrieval.exact import exact_topk
+from repro_torch.retrieval.ivfflat import build_ivfflat, search_ivfflat
+from repro_torch.retrieval.lsh import build_lsh, search_lsh
 
 
 @runtime_checkable
@@ -84,6 +87,56 @@ class ExactEngine:
 
     def search_scored(self, index, queries, *, k: int):
         return exact_topk(queries, index, k=k, block=self.block,
+                          backend=self.backend)
+
+
+@register_retrieval_engine
+@dataclasses.dataclass(frozen=True)
+class IVFFlatEngine:
+    """k-means inverted lists (pgvector ``ivfflat``). ``n_lists`` shrinks to
+    N//8 on small sampled corpora so every list keeps enough members."""
+
+    n_lists: int = 64
+    nprobe: int = 8
+    cap_factor: float = 2.0
+    backend: Optional[str] = None
+    name: str = "ivfflat"
+
+    def build(self, key, vecs):
+        n_lists = min(self.n_lists, max(1, vecs.shape[0] // 8))
+        return build_ivfflat(key, vecs, n_lists=n_lists,
+                             cap_factor=self.cap_factor)
+
+    def search(self, index, queries, *, k: int):
+        return self.search_scored(index, queries, k=k)[1]
+
+    def search_scored(self, index, queries, *, k: int):
+        nprobe = min(self.nprobe, index.centroids.shape[0])
+        return search_ivfflat(index, queries, k=k, nprobe=nprobe,
+                              backend=self.backend)
+
+
+@register_retrieval_engine
+@dataclasses.dataclass(frozen=True)
+class LSHEngine:
+    """Sign-random-projection Hamming search with exact rerank of the top
+    ``rerank`` Hamming candidates (clamped to [k, N])."""
+
+    n_bits: int = 128
+    rerank: int = 64
+    backend: Optional[str] = None
+    name: str = "lsh"
+
+    def build(self, key, vecs):
+        return build_lsh(key, vecs, n_bits=self.n_bits)
+
+    def search(self, index, queries, *, k: int):
+        return self.search_scored(index, queries, k=k)[1]
+
+    def search_scored(self, index, queries, *, k: int):
+        n = index.codes.shape[0]
+        rerank = min(max(self.rerank, k), n) if self.rerank > 0 else 0
+        return search_lsh(index, queries, k=k, rerank=rerank,
                           backend=self.backend)
 
 

@@ -68,11 +68,9 @@ def test_masks_bit_equal(sessions, strategy, target, seed):
             assert np.array_equal(interop.to_numpy(getattr(td.sample, name)),
                                   np.asarray(getattr(jd.sample, name)))
         # keep_prob carries the calibrated scale c, bisected on an f32 sum
-        # whose reduction order differs from XLA's: c may differ in its
-        # last bits (the masks above are still held bit-equal)
-        np.testing.assert_allclose(interop.to_numpy(td.sample.keep_prob),
-                                   np.asarray(jd.sample.keep_prob),
-                                   rtol=1e-5)
+        # taken in XLA's order (core/sampler.xla_sum): bit-equal
+        assert np.array_equal(interop.to_numpy(td.sample.keep_prob),
+                              np.asarray(jd.sample.keep_prob))
 
 
 def test_baselines_without_a_target_raise(corpus):

@@ -30,8 +30,8 @@ from repro_torch.kernels.topk_scoring.ops import (topk_scores,
 from repro_torch.kernels.topk_scoring.ref import pad_topk, topk_scores_ref
 from repro_torch.launch import evaluate as tevaluate
 from repro_torch.retrieval import search_core as tsc
-from repro_torch.retrieval.backends import (available_backends, get_backend,
-                                            quantize_int8, rerank_candidates)
+from repro_torch.retrieval.backends import (get_backend, quantize_int8,
+                                            rerank_candidates)
 from repro_torch.retrieval.tfidf import tfidf_vectors
 from repro_torch.data.synthetic import generate_corpus
 
@@ -136,17 +136,8 @@ def test_search_session_clamps_k_and_pads():
     with pytest.raises(ValueError, match="ids_map"):
         tsc.SearchSession(vecs, ids_map=np.array([1]), device="cpu")
     with pytest.raises(ValueError, match="registered engines"):
-        tsc.SearchSession(vecs, tsc.SearchConfig(engine="ivfflat"),
+        tsc.SearchSession(vecs, tsc.SearchConfig(engine="hnsw"),
                           device="cpu")
-
-
-def test_ann_primitives_raise_naming_the_roadmap():
-    for name in available_backends():
-        b = get_backend(name)
-        with pytest.raises(NotImplementedError, match="items 8-9"):
-            b.hamming_topk(None, None, k=1)
-        with pytest.raises(NotImplementedError, match="items 8-9"):
-            b.gathered_topk(None, None, None, k=1)
 
 
 def test_backend_recall_curve_on_cpu(embedded):
