@@ -9,11 +9,17 @@ From the root of a checkout, with one card. In order:
 2. Build: every CUDA source under src/repro_torch/csrc, one nvcc each,
    started together; prints each build's ``-Xptxas -v`` report.
 3. Kernel vs plain: each kernel's wrapper (lp_round, the f32 top-k, the
-   int8 top-k, the gathered top-k, the Hamming top-k) against its plain
-   PyTorch version on the card, at the main path's shapes and at odd ones.
-   The gathered kernel's main shape is the ivfflat probe of the evaluation
-   path's full corpus (its tf-idf embedding, 5.2e5 x 2048, indexed as the
-   ivfflat engine does: 64 lists, nprobe 8) for 512 queries.
+   int8 top-k, the gathered top-k, the Hamming top-k, flash attention)
+   against its plain PyTorch version on the card, at the main path's
+   shapes and at odd ones. The gathered kernel's main shape is the ivfflat
+   probe of the evaluation path's full corpus (its tf-idf embedding, 5.2e5
+   x 2048, indexed as the ivfflat engine does: 64 lists, nprobe 8) for 512
+   queries, and Table I's probe: 128-wide unit-norm vectors of the same
+   corpus and of a 4e4-row sample, indexed the same way, 256 queries (the
+   search's chunk) at k = 3; flash attention's are the encoder's passage and query batches
+   (256 x 64 and 256 x 24 tokens, 4 heads of 32), the reference's test
+   grid, bf16, and the LM configs' head layout (S 2048, 32 heads over 4
+   kv heads of 128, causal and causal + window, bf16).
 4. Times: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events after a
    warm-up, beside the least time the card could take.
@@ -24,15 +30,30 @@ From the root of a checkout, with one card. In order:
    paper's grid, 3 samplers x 4 engines (exact, ivfflat, lsh, tfidf) x 2
    ks x 4 metrics = 96 cells, with its default backend recall curve, whose
    int8 rows run the int8 kernel.
-7. Small-input check: the same two entry points on the card and on the
-   CPU's plain path must give equal outputs; for the default grid, the
-   ivfflat centroids and the lsh projection first agree within a stated
-   rtol (cuBLAS and the CPU sum in other orders).
+7. Table I: ``repro_torch.retrieval.experiment.run_table1_experiment``
+   on the evaluation phase's corpus (32768 queries, vocab 2048, passages
+   of 64 tokens, queries of 24): the default encoder (d_model 128, 4
+   layers, 4 heads) trained 300 steps at batch 64, the whole corpus and
+   its queries embedded through the flash-attention kernel, a WindTunnel
+   draw through the LP kernel and an ivfflat search of each sample through
+   the gathered kernel; p@3 and rho_q of the full, uniform and WindTunnel
+   rows. Then ``torch.profiler`` over 20 training steps and 20 embedding
+   batches: the device's idle share in each, and the flash kernel's
+   device time a launch at the main path's passage shape (a profiler
+   window of its own, after the Table I run).
+8. Small-input check: the sampling and evaluation entry points on the
+   card and on the CPU's plain path must give equal outputs; for the
+   default grid, the ivfflat centroids and the lsh projection first agree
+   within a stated rtol (cuBLAS and the CPU sum in other orders). The
+   encoder: 5 training steps give losses within a stated rtol, the CPU's
+   parameters embed within a stated tolerance on both, and
+   ``evaluate_sample`` on the CPU's embeddings gives equal results.
 
-Launch counts are set to 0 just before each main-path run (5, 6) and read
-just after; a kernel the run did not launch is a failure. No phase catches
-its own failure: any error exits nonzero. The last three lines of stdout
-are the kernel table (JSON), the nvidia-smi line and the result (JSON).
+Launch counts are set to 0 just before each main-path run (5, 6, 7) and
+read just after; a kernel the run did not launch is a failure. No phase
+catches its own failure: any error exits nonzero. The last three lines of
+stdout are the kernel table (JSON), the nvidia-smi line and the result
+(JSON).
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -54,10 +75,19 @@ OUT = os.path.join(ROOT, "build", "chip_smoke")
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 H100_INT8_OPS = 1979e12         # int8, tensor cores, dense
+H100_BF16_FLOPS = 989e12        # bf16, tensor cores, dense
 SAMPLE_QUERIES = 65536
 EVAL_QUERIES = 32768
 PROBE_QUERIES = 512             # the grid's per-sample query cap
 INDEX_RTOL = 1e-5               # centroids / projection, card vs CPU
+ATTN_F32_TOL = (1e-5, 2e-5)     # rtol, atol: the reference's kernel tolerance
+ATTN_BF16_TOL = 2e-2            # the reference's bf16 tolerance
+ENCODER_BATCH = 256             # embed_corpus's batch of passages
+ENCODER_LAYERS = 4              # EncoderConfig's default depth
+ENCODER_DIM = 128               # EncoderConfig's default d_model
+SAMPLE_ROWS = 40_000            # about a Table I sample's entities
+EMBED_TOL = (1e-4, 2e-5)        # rtol, atol: unit-norm embeddings, card vs CPU
+LOSS_RTOL = 1e-4                # 5 training steps, card vs CPU
 
 
 def log(msg: str) -> None:
@@ -328,7 +358,44 @@ def check_hamming(qc, cc, k: int) -> None:
         fail(f"hamming misses are not -inf/-1 for {shape}")
 
 
-def eval_corpus(num_queries: int, vocab: int):
+def attn_inputs(b: int, sq: int, skv: int, h: int, hkv: int, d: int, *,
+                dtype, seed: int, device):
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(b, sq, h, d, generator=g)
+    k = torch.randn(b, skv, hkv, d, generator=g)
+    v = torch.randn(b, skv, hkv, d, generator=g)
+    return tuple(t.to(device=device, dtype=dtype) for t in (q, k, v))
+
+
+def check_flash(q, k, v, causal: bool, window) -> float:
+    """Kernel vs plain attention. f32: within rtol 1e-5, atol 2e-5 (the
+    reference's own kernel tolerance; softmax sums and products in other
+    orders). bf16: within 2e-2, the reference's (the plain version rounds
+    scores and probabilities to bf16, the kernel keeps f32)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    b, sq, h, d = q.shape
+    shape = (f"B={b} Sq={sq} Skv={k.shape[1]} H={h} Hkv={k.shape[2]} "
+             f"D={d} {str(q.dtype)[6:]} causal={causal} window={window}")
+    if out.shape != want.shape or out.dtype != want.dtype:
+        fail(f"flash attention output {tuple(out.shape)} {out.dtype} for "
+             f"{shape}")
+    rtol, atol = ((ATTN_BF16_TOL, ATTN_BF16_TOL)
+                  if q.dtype == torch.bfloat16 else ATTN_F32_TOL)
+    err = (out.float() - want.float()).abs()
+    if bool((err > atol + rtol * want.float().abs()).any()) or \
+            not bool(torch.isfinite(out).all()):
+        fail(f"flash attention kernel != plain beyond rtol {rtol} atol "
+             f"{atol} for {shape}: max err {float(err.max()):.3e}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def eval_corpus(num_queries: int, vocab: int, *, embed: bool = True):
     """The evaluation CLI's corpus at its default widths, and its tf-idf
     embedding (entities, queries) as numpy."""
     from repro_torch.data.synthetic import generate_corpus
@@ -336,7 +403,7 @@ def eval_corpus(num_queries: int, vocab: int):
     corpus = generate_corpus(num_queries=num_queries, qrels_per_query=16,
                              num_topics=48, aux_fraction=1.0,
                              vocab_size=vocab, query_len=24, seed=0)
-    return corpus, tfidf_embedder(corpus)
+    return (corpus, tfidf_embedder(corpus)) if embed else corpus
 
 
 # --------------------------------------------------------------------------
@@ -357,6 +424,53 @@ def span_breakdown(path: str, wall: float) -> str:
         totals.items(), key=lambda kv: -kv[1])]
     parts.append(f"outside spans {wall - sum(totals.values()):.3f} s")
     return ", ".join(parts)
+
+
+def device_profile(fn):
+    """Run ``fn()`` once under ``torch.profiler`` (CPU and CUDA activity)
+    and return (wall s, device-busy s, {kernel name: (launches, device
+    s)}). Device-busy is the union of the kernels' intervals on the card;
+    with no device event recorded it is None (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, per_kernel = [], {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        spans.append((start, end))
+        n, us = per_kernel.get(evt.name, (0, 0.0))
+        per_kernel[evt.name] = (n + 1, us + (end - start))
+    busy, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    per_kernel = {k: (n, us * 1e-6) for k, (n, us) in per_kernel.items()}
+    return wall, (busy * 1e-6 if spans else None), per_kernel
+
+
+def log_profile(what: str, prof) -> None:
+    wall, busy, per_kernel = prof
+    if busy is None:
+        log(f"    profile of {what}: {wall:.3f} s wall; the profiler saw no "
+            f"device activity, so the idle share is not measured")
+        return
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"    profile of {what}: {wall:.3f} s wall, device busy "
+        f"{busy:.3f} s, idle share {1 - busy / wall:.3f}; top kernels: "
+        + "; ".join(f"{k[:60]} x{n} {sec * 1e3:.3f} ms"
+                    for k, (n, sec) in top))
 
 
 def reset_counts(kernels) -> None:
@@ -390,6 +504,9 @@ def main() -> None:
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import (FLASH_ATTENTION,
+                                                         flash_attention)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.label_prop.ops import LP_ROUND, lp_round_cuda
     from repro_torch.kernels.lsh_hamming.ops import (HAMMING_PARTIAL,
                                                      hamming_topk)
@@ -411,7 +528,7 @@ def main() -> None:
     from repro_torch.retrieval.ivfflat import probe_candidates
     from repro_torch.retrieval.lsh import encode
     kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_PARTIAL,
-               HAMMING_PARTIAL, TOPK_MERGE)
+               HAMMING_PARTIAL, TOPK_MERGE, FLASH_ATTENTION)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -423,7 +540,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/7] device: {name}; nvidia-smi: {smi}; "
+    log(f"[1/8] device: {name}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build -------------------------------------------------------------
@@ -431,7 +548,7 @@ def main() -> None:
     sources = sorted({kern.source for kern in kernels})
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.load, sources))
-    log(f"[2/7] built {', '.join(sources)} in "
+    log(f"[2/8] built {', '.join(sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for src in sources:
         for line in build.ptxas_report(src).splitlines():
@@ -439,7 +556,7 @@ def main() -> None:
                 log(f"    {src}: {line.strip()}")
 
     # 3. kernel vs plain ---------------------------------------------------
-    log("[3/7] kernel vs plain")
+    log("[3/8] kernel vs plain")
     for n, k, quarter in [(1, 1, True), (37, 5, True), (513, 33, True),
                           (300, 70, False), (4096, 0, True),
                           (100_003, 32, True), (100_003, 32, False)]:
@@ -505,9 +622,29 @@ def main() -> None:
     for k in (3, 10):
         gath_err = max(gath_err, check_gathered(pq, p_table, p_rows, p_ids,
                                                 k, ev))
-    log(f"    gathered_topk: within the summation bound at 10 shapes incl. "
+    # the Table I probe: the encoder's unit-norm 128-wide embeddings of
+    # the same corpus (here a random projection of its tf-idf vectors, which
+    # keeps their topic clusters), indexed as IVFFlatEngine does, searched
+    # a query chunk (256) at a time at k = 3; on the full corpus and on an
+    # index of a sample's size
+    g = torch.Generator(device="cpu").manual_seed(19)
+    proj = torch.randn(ev.shape[1], ENCODER_DIM, generator=g).to(dev)
+    e128 = torch.nn.functional.normalize(ev @ proj, dim=1)
+    q128 = torch.nn.functional.normalize(pq[:ENCODER_BATCH] @ proj, dim=1)
+    kept = torch.randperm(e128.shape[0], generator=g)[:SAMPLE_ROWS]
+    t1_probes = []
+    for tab in (e128, e128[kept.sort().values.to(dev)]):
+        idx = ivf_engine.build(prng.prng_key(0), tab)
+        rows_, ids_ = probe_candidates(idx, q128, nprobe=ivf_engine.nprobe)
+        gath_err = max(gath_err, check_gathered(
+            q128, idx.vecs.reshape(-1, ENCODER_DIM), rows_, ids_, 3, tab))
+        t1_probes.append(f"N={tab.shape[0]} C={ids_.shape[1]}")
+    del proj, e128, q128, kept, idx, rows_, ids_
+    log(f"    gathered_topk: within the summation bound at 12 shapes incl. "
         f"the ivfflat probe Q={PROBE_QUERIES} C={p_ids.shape[1]} "
-        f"D={ev.shape[1]} k=3,10; max |err| {gath_err:.3e}")
+        f"D={ev.shape[1]} k=3,10 and Table I's Q={ENCODER_BATCH} "
+        f"D={ENCODER_DIM} k=3 at {', '.join(t1_probes)}; max |err| "
+        f"{gath_err:.3e}")
     for q, n, w, k in [(1, 1, 4, 1), (3, 5, 4, 9), (7, 513, 4, 5),
                        (33, 1000, 4, 32), (40, 4096, 4, 64),
                        (9, 1000, 3, 100), (5, 300, 1, 300),
@@ -524,8 +661,40 @@ def main() -> None:
         f"Q={PROBE_QUERIES} N=524288 W=4 k=3,10,64 and the lsh codes of "
         f"the corpus, N={lsh.codes.shape[0]} k={lsh_engine.rerank}")
 
+    f32, bf16 = torch.float32, torch.bfloat16
+    attn_err = 0.0
+    attn_bf16_err = 0.0
+    modes = [(True, None), (True, 40), (False, None)]
+    attn_cases = (
+        [((256, 64, 64, 4, 4, 32), f32, False, None),     # passages
+         ((256, 24, 24, 4, 4, 32), f32, False, None)]     # queries
+        + [(shp, f32, c, w) for shp in [(2, 64, 64, 4, 2, 32),
+                                        (1, 128, 128, 8, 8, 64),
+                                        (2, 96, 96, 4, 1, 32),
+                                        (1, 200, 200, 4, 2, 16)]
+           for c, w in modes]                             # reference grid
+        + [((3, 1, 1, 2, 1, 16), f32, True, None),        # S = 1
+           ((2, 37, 100, 4, 2, 128), f32, False, 30),     # ragged
+           ((2, 40, 40, 4, 2, 32), f32, True, 0),         # no allowed key
+           ((2, 64, 64, 4, 2, 32), bf16, True, None),
+           ((256, 64, 64, 4, 4, 32), bf16, False, None),
+           ((1, 2048, 2048, 32, 4, 128), bf16, True, None),   # yi-9b heads
+           ((1, 2048, 2048, 32, 4, 128), bf16, True, 512)])
+    with torch.no_grad():
+        for i, (shp, dt, causal, window) in enumerate(attn_cases):
+            err = check_flash(*attn_inputs(*shp, dtype=dt, seed=100 + i,
+                                           device=dev), causal, window)
+            if dt == f32:
+                attn_err = max(attn_err, err)
+            else:
+                attn_bf16_err = max(attn_bf16_err, err)
+    log(f"    flash_attention: within the stated tolerance at "
+        f"{len(attn_cases)} shapes incl. the encoder's B=256 S=64,24 H=4 "
+        f"D=32 and S=2048 H=32/4 D=128 bf16; max |err| f32 {attn_err:.3e}, "
+        f"bf16 {attn_bf16_err:.3e}")
+
     # 4. times -------------------------------------------------------------
-    log("[4/7] times (CUDA events, after warm-up)")
+    log("[4/8] times (CUDA events, after warm-up)")
     labels, nbr, wgt, deg_sq = lp_main
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
@@ -597,6 +766,43 @@ def main() -> None:
     log(f"    hamming_topk Q={hq.shape[0]} N={hn} W={hw} k={k_h}: kernel "
         f"{h_ms:.4f} ms, plain {h_plain_ms:.4f} ms, no library call, "
         f"bound {h_bound:.4f} ms ({h_by})")
+    # flash attention at the encoder's passage batch (the main path's
+    # shape): bytes of q, k, v and o once each; 4 * B * H * Sq * Skv * D
+    # operations (two products), every pair allowed (bidirectional)
+    aq, ak, av = attn_inputs(ENCODER_BATCH, 64, 64, 4, 4, 32, dtype=f32,
+                             seed=7, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        a_ms = cuda_ms(lambda: flash_attention(aq, ak, av, causal=False),
+                       50, 5)
+        a_plain_ms = cuda_ms(lambda: flash_attention_ref(aq, ak, av,
+                                                         causal=False), 20)
+        a_lib_ms = cuda_ms(lambda: sdpa(aq.transpose(1, 2),
+                                        ak.transpose(1, 2),
+                                        av.transpose(1, 2)), 50, 5)
+    ab, asq, ah, ad = aq.shape
+    a_bound, a_by = bound(4 * aq.numel() * 4, 4.0 * ab * ah * asq * asq * ad)
+    log(f"    flash_attention B={ab} S={asq} H={ah} D={ad} f32 "
+        f"bidirectional: kernel {a_ms:.4f} ms, plain {a_plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {a_lib_ms:.4f} ms, bound "
+        f"{a_bound:.4f} ms ({a_by})")
+    yq, yk, yv = attn_inputs(1, 2048, 2048, 32, 4, 128, dtype=bf16, seed=8,
+                             device=dev)
+    with torch.no_grad():
+        l_ms = cuda_ms(lambda: flash_attention(yq, yk, yv, causal=True), 10)
+        l_plain_ms = cuda_ms(lambda: flash_attention_ref(yq, yk, yv,
+                                                         causal=True), 3)
+        l_lib_ms = cuda_ms(lambda: sdpa(
+            yq.transpose(1, 2), yk.transpose(1, 2), yv.transpose(1, 2),
+            is_causal=True, enable_gqa=True), 10)
+    pairs = 2048 * 2049 // 2
+    l_bound, l_by = bound(2 * (2 * yq.numel() + 2 * yk.numel()),
+                          4.0 * 32 * pairs * 128, H100_BF16_FLOPS)
+    log(f"    flash_attention S=2048 H=32/4 D=128 bf16 causal (not on the "
+        f"main path): kernel {l_ms:.4f} ms, plain {l_plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {l_lib_ms:.4f} ms, bound "
+        f"{l_bound:.4f} ms ({l_by})")
+    del aq, ak, av, yq, yk, yv
     del lp_main, labels, nbr, wgt, tq, tc, iq, ic, ev, pq, ivf, p_rows
     del p_ids, p_table, lsh, lq, hq, hc
     torch.cuda.empty_cache()
@@ -615,7 +821,7 @@ def main() -> None:
         "--device", "cuda", "--out", os.path.join(OUT, "sample"),
         "--trace", sample_trace])
     sample_launches = {kern.name: kern.launches for kern in kernels}
-    log(f"[5/7] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
+    log(f"[5/8] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
         f"{stats['communities']} communities, changes/round "
         f"{stats['changes_per_round']}, {stats['entities']} entities "
         f"sampled; launches {sample_launches}")
@@ -636,7 +842,7 @@ def main() -> None:
         os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     eval_launches = {kern.name: kern.launches for kern in kernels}
     cells = out["grid"]["cells"]
-    log(f"[6/7] evaluation: {wall:.2f} s wall, {len(cells)} cells; "
+    log(f"[6/8] evaluation: {wall:.2f} s wall, {len(cells)} cells; "
         f"launches {eval_launches}")
     trace.disable()
     log(f"    time: {span_breakdown(eval_trace, wall)}")
@@ -658,7 +864,79 @@ def main() -> None:
     if {c["engine"] for c in cells} != {"exact", "ivfflat", "lsh", "tfidf"}:
         fail("the evaluation grid does not cover the four engines")
 
-    # 7. small inputs: card vs the CPU's plain path --------------------------
+    # 7. Table I main path ------------------------------------------------
+    from repro_torch.retrieval.experiment import run_table1_experiment
+    t0 = time.perf_counter()
+    t1_corpus = eval_corpus(EVAL_QUERIES, 2048, embed=False)
+    log(f"[7/8] Table I corpus: {t1_corpus.num_entities} entities, "
+        f"{t1_corpus.num_queries} queries, passages "
+        f"{t1_corpus.passage_tokens.shape[1]} tokens, queries "
+        f"{t1_corpus.query_tokens.shape[1]}, vocab {t1_corpus.vocab_size} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    table1_trace = os.path.join(OUT, "table1_trace.jsonl")
+    if os.path.exists(table1_trace):
+        os.remove(table1_trace)
+    trace.enable(table1_trace)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    rows = run_table1_experiment(t1_corpus, encoder_steps=300, seed=0,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t1_launches = {kern.name: kern.launches for kern in kernels}
+    trace.disable()
+    log(f"    Table I: {wall:.2f} s wall; launches {t1_launches}")
+    log(f"    time: {span_breakdown(table1_trace, wall)}")
+    for r in rows.values():
+        log(f"    {r.name:10s} p@3 {r.p_at_3:.4f} rho_q {r.rho_q:.4f} "
+            f"entities {r.n_entities} queries {r.n_queries}")
+    n_batches = (-(-t1_corpus.num_entities // ENCODER_BATCH)
+                 - (-t1_corpus.num_queries // ENCODER_BATCH))
+    want_flash = ENCODER_LAYERS * n_batches
+    if t1_launches["flash_attention"] != want_flash:
+        fail(f"Table I launched flash_attention "
+             f"{t1_launches['flash_attention']} times, expected "
+             f"{ENCODER_LAYERS} layers x {n_batches} batches = {want_flash}")
+    for kname in ("lp_round", "gathered_partial"):
+        if t1_launches[kname] == 0:
+            fail(f"the Table I run launched no {kname} kernel")
+    if list(rows) != ["full", "uniform", "windtunnel"]:
+        fail(f"Table I rows {list(rows)}")
+    for r in rows.values():
+        if not (0.0 <= r.p_at_3 <= 1.0 and 0.0 <= r.rho_q <= 1.0
+                and r.n_queries > 0 and r.n_entities > 0):
+            fail(f"Table I row {r}")
+    if rows["full"].n_entities != t1_corpus.num_entities or \
+            rows["full"].rho_q != 1.0:
+        fail(f"Table I full row {rows['full']}: the full corpus keeps "
+             f"every entity, so rho_q is 1")
+    if rows["windtunnel"].n_entities >= t1_corpus.num_primary:
+        fail("Table I: the WindTunnel sample is not a sample")
+    # where the time of the two encoder stages goes on the device: 20
+    # steps of training, and 20 batches of passages embedded (the flash
+    # kernel's per-launch device time at the main path's passage shape)
+    from repro_torch.core import prng as tprng
+    from repro_torch.retrieval.encoder import (EncoderConfig, embed_corpus,
+                                               init_encoder)
+    from repro_torch.retrieval.experiment import train_encoder
+    enc_cfg = EncoderConfig(vocab_size=t1_corpus.vocab_size)
+    enc_params = init_encoder(tprng.prng_key(0), enc_cfg)
+    toks = t1_corpus.passage_tokens[:20 * ENCODER_BATCH]
+    embed_corpus(enc_params, toks, enc_cfg)             # warm-up
+    log_profile("train_encoder, 20 steps", device_profile(
+        lambda: train_encoder(t1_corpus, enc_cfg, steps=20, log_every=0)))
+    prof = device_profile(lambda: embed_corpus(enc_params, toks, enc_cfg))
+    log_profile(f"embed_corpus, 20 batches of {ENCODER_BATCH}", prof)
+    flash_dev = [(n, sec) for k, (n, sec) in prof[2].items()
+                 if "flash_kernel" in k]
+    if flash_dev:
+        n, sec = flash_dev[0]
+        log(f"    flash_attention at the main path's passage shape "
+            f"(this window): {n} launches, {sec / n * 1e3:.4f} ms of device "
+            f"time each")
+    del t1_corpus, enc_params, toks
+
+    # 8. small inputs: card vs the CPU's plain path --------------------------
     with tempfile.TemporaryDirectory(dir=OUT) as tmp:
         small = ["--queries", "512", "--qrels-per-query", "8",
                  "--topics", "16", "--quiet"]
@@ -724,43 +1002,102 @@ def main() -> None:
                  f"cuda and cpu")
         log(f"    {grid} grid: {len(grids['cuda'][0])} cells and the "
             f"fidelity report equal on cuda and cpu")
-    log("[7/7] small inputs: sample.npz and grid cells equal on cuda and cpu")
+    # the encoder: 5 training steps, embeddings of the same parameters and
+    # evaluate_sample on the same embeddings, card vs CPU
+    import dataclasses
+    from repro_torch.core import SamplerSession
+    from repro_torch.retrieval.encoder import EncoderConfig, embed_corpus
+    from repro_torch.retrieval.experiment import (evaluate_sample,
+                                                  train_encoder)
+    small = generate_corpus(num_queries=256, qrels_per_query=8,
+                            num_topics=16, aux_fraction=1.0, vocab_size=256,
+                            query_len=24, seed=0)
+    enc = EncoderConfig(vocab_size=small.vocab_size)
+    trained = {where: train_encoder(small, enc, steps=5, seed=0,
+                                    log_every=0, device=where)
+               for where in ("cuda", "cpu")}
+    loss_g = np.array(trained["cuda"][1])
+    loss_c = np.array(trained["cpu"][1])
+    if not np.allclose(loss_g, loss_c, rtol=LOSS_RTOL, atol=0.0):
+        fail(f"small encoder: 5 training steps' losses differ beyond rtol "
+             f"{LOSS_RTOL} between cuda {loss_g} and cpu {loss_c}")
+    params = trained["cpu"][0]
+    vecs = {where: (embed_corpus(params, small.passage_tokens, enc,
+                                 device=where),
+                    embed_corpus(params, small.query_tokens, enc,
+                                 device=where))
+            for where in ("cuda", "cpu")}
+    rtol, atol = EMBED_TOL
+    emb_err = 0.0
+    for a, b in zip(vecs["cuda"], vecs["cpu"]):
+        if not np.allclose(a, b, rtol=rtol, atol=atol):
+            fail(f"small encoder: embeddings of the same parameters differ "
+                 f"beyond rtol {rtol} atol {atol} between cuda and cpu "
+                 f"(max |diff| {np.abs(a - b).max():.3e})")
+        emb_err = max(emb_err, float(np.abs(a - b).max()))
+    ev_c, qv_c = vecs["cpu"]
+    wt = SamplerSession(small.qrels, num_queries=small.num_queries,
+                        num_entities=small.num_entities, device="cpu",
+                        spec=SamplerSpec(engine="ell", target_size=150))
+    uni = np.random.default_rng(1).random(small.num_entities) < 0.2
+    for which, mask in (("full", None), ("uniform", uni),
+                        ("windtunnel", wt.draw().entity_mask.numpy())):
+        got = {where: dataclasses.asdict(evaluate_sample(
+            which, small, ev_c, qv_c, mask, device=where))
+            for where in ("cuda", "cpu")}
+        if got["cuda"] != got["cpu"]:
+            fail(f"small encoder: evaluate_sample({which}) differs: cuda "
+                 f"{got['cuda']} cpu {got['cpu']}")
+    log(f"    encoder ({small.num_entities} passages, full width): 5 steps' "
+        f"losses within rtol {LOSS_RTOL} (max rel diff "
+        f"{float(np.abs(loss_g / loss_c - 1).max()):.2e}), embeddings "
+        f"within rtol {rtol} atol {atol} (max |diff| {emb_err:.3e}), "
+        f"evaluate_sample equal on 3 samples, on cuda and cpu")
+    log("[8/8] small inputs: sample.npz, grid cells and the encoder's "
+        "results equal (or within the stated tolerance) on cuda and cpu")
+
+    def launches(kname: str) -> int:
+        """A kernel's launches over the three main-path runs."""
+        return (sample_launches[kname] + eval_launches[kname]
+                + t1_launches[kname])
 
     table = {"kernels": [
         {"name": "lp_round", "route": "cuda",
          "source": "src/repro_torch/csrc/lp_round.cu",
          "replaces": "src/repro/kernels/label_prop/label_prop.py:29",
-         "launches": sample_launches["lp_round"] + eval_launches["lp_round"],
+         "launches": launches("lp_round"),
          "max_abs_err": 0, "ms": lp_ms, "plain_ms": lp_plain_ms,
          "bound_ms": lp_bound, "bound_by": lp_by, "library_ms": None},
         {"name": "topk_scores", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_scores.cu",
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:23",
-         "launches": (sample_launches["topk_partial"]
-                      + eval_launches["topk_partial"]),
+         "launches": launches("topk_partial"),
          "max_abs_err": topk_err, "ms": tk_ms, "plain_ms": tk_plain_ms,
          "bound_ms": tk_bound, "bound_by": tk_by, "library_ms": tk_lib_ms},
         {"name": "topk_scores_int8", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_scores.cu",
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:49",
-         "launches": (sample_launches["topk_int8_partial"]
-                      + eval_launches["topk_int8_partial"]),
+         "launches": launches("topk_int8_partial"),
          "max_abs_err": 0, "ms": i8_ms, "plain_ms": i8_plain_ms,
          "bound_ms": i8_bound, "bound_by": i8_by, "library_ms": i8_lib_ms},
         {"name": "gathered_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_scores.cu",
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:84",
-         "launches": (sample_launches["gathered_partial"]
-                      + eval_launches["gathered_partial"]),
+         "launches": launches("gathered_partial"),
          "max_abs_err": gath_err, "ms": g_ms, "plain_ms": g_plain_ms,
          "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib_ms},
         {"name": "hamming_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_scores.cu",
          "replaces": "src/repro/kernels/lsh_hamming/lsh_hamming.py:27",
-         "launches": (sample_launches["hamming_partial"]
-                      + eval_launches["hamming_partial"]),
+         "launches": launches("hamming_partial"),
          "max_abs_err": 0, "ms": h_ms, "plain_ms": h_plain_ms,
          "bound_ms": h_bound, "bound_by": h_by, "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:28",
+         "launches": launches("flash_attention"),
+         "max_abs_err": attn_err, "ms": a_ms, "plain_ms": a_plain_ms,
+         "bound_ms": a_bound, "bound_by": a_by, "library_ms": a_lib_ms},
     ]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))

@@ -18,7 +18,7 @@ mantissa trick of ``jax/_src/random.py::_uniform``:
   shape, split into ``(hi, lo)`` words, and xors the two output words;
 * ``uniform`` keeps the top 23 bits as the mantissa of a float in [1, 2)
   and subtracts 1;
-* ``split(key)`` hashes the counter pairs ``(0, 0)`` and ``(0, 1)``;
+* ``split(key, num)`` hashes the counter pairs ``(0, i)``, i < num;
 * ``permutation(key, n)`` is ``jax.random._shuffle``: ``ceil(3 ln n /
   ln(2**32 - 1))`` rounds, each splitting the key and stably sorting the
   values by 32 fresh random bits; ``choice(..., replace=False)`` is its
@@ -98,10 +98,10 @@ def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
     return fbits.view(torch.float32) - 1.0
 
 
-def split(key: Key) -> Tuple[Key, Key]:
-    """``jax.random.split(key)`` (two keys)."""
-    return (threefry2x32(key[0], key[1], 0, 0),
-            threefry2x32(key[0], key[1], 0, 1))
+def split(key: Key, num: int = 2) -> Tuple[Key, ...]:
+    """``jax.random.split(key, num)``: key i hashes the counter pair
+    ``(0, i)``."""
+    return tuple(threefry2x32(key[0], key[1], 0, i) for i in range(num))
 
 
 def permutation(key: Key, n: int, device="cpu") -> torch.Tensor:

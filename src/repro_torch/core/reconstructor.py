@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core import segment_utils as su
 from repro_torch.core.graph_builder import QRelTable
+from repro_torch.core.sampler import xla_sum
 
 
 class ReconstructedSample(NamedTuple):
@@ -75,7 +76,9 @@ def query_density(qrels: QRelTable, entity_mask: torch.Tensor,
                   query_mask: torch.Tensor, *, num_queries: int,
                   num_entities: int) -> torch.Tensor:
     """rho_q of Table II: mean over sampled queries of the fraction of the
-    query's relevant entities that survive in the sample."""
+    query's relevant entities that survive in the sample. The sum over
+    queries runs in XLA:CPU's order (:func:`~repro_torch.core.sampler.
+    xla_sum`), so rho_q is the reference's bit for bit."""
     del num_entities
     keep_row = _kept_rows(qrels, entity_mask)
     rel_kept = _count_rows(qrels.query_ids, keep_row, num_queries,
@@ -85,4 +88,5 @@ def query_density(qrels: QRelTable, entity_mask: torch.Tensor,
     frac = torch.where(rel_all > 0,
                        rel_kept / torch.clamp(rel_all, min=1.0), 0.0)
     qn = query_mask.to(torch.float32).sum()
-    return torch.where(query_mask, frac, 0.0).sum() / torch.clamp(qn, min=1.0)
+    total = xla_sum(torch.where(query_mask, frac, 0.0))
+    return total / torch.clamp(qn, min=1.0)

@@ -2,11 +2,11 @@
 
 Plain functions that build the port's structures from any array-likes —
 the reference's ``QRelTable`` / ``EdgeList`` / ``IVFFlatIndex`` /
-``LSHIndex`` fields, labels, entity and query vectors — via
-``np.asarray``, so the port never imports the reference. The parity tests
-use them to feed both packages the same state; the synthetic corpus needs
-none of this, being numpy in both packages and identical from the same
-seed.
+``LSHIndex`` fields, labels, entity and query vectors, transformer
+parameter trees and AdamW state — via ``np.asarray``, so the port never
+imports the reference. The parity tests use them to feed both packages
+the same state; the synthetic corpus needs none of this, being numpy in
+both packages and identical from the same seed.
 """
 from __future__ import annotations
 
@@ -66,6 +66,22 @@ def lsh_index(index, device="cpu") -> LSHIndex:
     return LSHIndex(tensor(proj, torch.float32, device),
                     tensor(codes, torch.int32, device),
                     tensor(vecs, torch.float32, device))
+
+
+def transformer_params(tree, device="cpu"):
+    """The reference's transformer parameter pytree (nested dicts of
+    arrays: ``embed``, ``layers`` stacked ``(L, ...)``, ``ln_f``, maybe
+    ``lm_head``) as the port's tree of tensors, leaf for leaf."""
+    if isinstance(tree, dict):
+        return {k: transformer_params(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def adamw_state(state, device="cpu"):
+    """The reference's AdamW state ``{"m", "v", "step"}`` as the port's."""
+    return {"m": transformer_params(state["m"], device),
+            "v": transformer_params(state["v"], device),
+            "step": tensor(state["step"], torch.int32, device)}
 
 
 def to_numpy(x) -> np.ndarray:

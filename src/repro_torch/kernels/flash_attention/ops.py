@@ -1,0 +1,98 @@
+"""Dispatch wrapper for the flash-attention kernel (port of
+``repro/kernels/flash_attention/ops.py``).
+
+On CPU tensors the wrapper runs the plain version (ref.py); on CUDA tensors
+it launches ``flash_attention`` of csrc/flash_attention.cu or raises. It
+pads nothing: the kernel masks query rows past Sq and keys past Skv itself,
+where the reference pads both to its block sizes and, when bidirectional,
+hides the padded keys behind a sentinel dimension. It reads the (B, S, H,
+D) layout through strides, so no transposed copy is made, and reads GQA's
+kv head ``h // (H / Hkv)`` in place.
+
+The TPU kernel has no gradient, and neither has this one: asking for one
+raises rather than detaching in silence.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels.build import Kernel
+from repro_torch.kernels.flash_attention import ref
+
+FLASH_ATTENTION = Kernel("flash_attention", "flash_attention.cu",
+                         (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 18
+                         + (ctypes.c_float,))
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _no_grad_asked(*ts: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            "flash_attention has no gradient (nor has the TPU kernel it "
+            "ports); call it under torch.no_grad() or use the model's "
+            "plain attention for training")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, window=None) -> torch.Tensor:
+    """Launch the kernel: q (B, Sq, H, D), k/v (B, Skv, Hkv, D) CUDA
+    tensors of one type (f32 or bf16), unit stride along D, D in
+    ``HEAD_DIMS`` -> a new contiguous (B, Sq, H, D) tensor."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: type {q.dtype} is not one of "
+                         f"{tuple(_DTYPES)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4 or t.dtype != q.dtype or t.device != dev:
+            raise ValueError(f"flash_attention: {name} must be a 4-d "
+                             f"{q.dtype} tensor on {dev}, got {t.dim()}-d "
+                             f"{t.dtype} on {t.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} needs unit stride "
+                             f"along D, got strides {t.stride()}")
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"flash_attention: {h} heads over {hkv} kv heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: D={d} is not one of {HEAD_DIMS}")
+    strides = (*q.stride(), *k.stride(), *v.stride())
+    if max(b * h, sq, skv, *strides) >= 2 ** 31:
+        raise ValueError("flash_attention: sizes or strides exceed the "
+                         "kernel's int arguments")
+    if window is not None and window < 0:
+        raise ValueError(f"flash_attention: window={window} is negative")
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    win = -1 if window is None else int(window)
+    with torch.cuda.device(dev):
+        FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), b, sq, skv, h, hkv, d,
+                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                        int(bool(causal)), win, _DTYPES[q.dtype],
+                        1.0 / math.sqrt(d))
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos=None, k_pos=None, *, causal: bool = True,
+                    window=None) -> torch.Tensor:
+    """Drop-in for ``models.transformer.attention`` (self-attention:
+    ``q_pos == k_pos == arange``, so the positions are not read, as in the
+    reference). The kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    del q_pos, k_pos
+    _no_grad_asked(q, k, v)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)

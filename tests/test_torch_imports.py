@@ -20,6 +20,8 @@ from repro_torch.kernels.topk_scoring.ops import (topk_scores,
                                                   topk_scores_cuda,
                                                   topk_scores_int8,
                                                   topk_scores_int8_cuda)
+from repro_torch.retrieval import experiment
+from repro_torch.retrieval.encoder import EncoderConfig, embed_corpus
 from repro_torch.retrieval.search_core import SearchConfig, SearchSession
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -153,3 +155,29 @@ def test_int8_wrapper_takes_the_plain_path_only_on_cpu_tensors():
                                  [18.0, 6.0, 3.0]]
     with pytest.raises(ValueError, match="CUDA"):
         topk_scores_int8_cuda(codes, codes, 2)
+
+
+def test_encoder_entry_points_default_to_the_card(no_card):
+    """train_encoder, embed_corpus and run_table1_experiment run on the
+    card unless given device='cpu', and raise without one."""
+    c = generate_corpus(num_queries=48, qrels_per_query=6, num_topics=4,
+                        vocab_size=32, passage_len=8, query_len=4, seed=0)
+    cfg = EncoderConfig(vocab_size=32, d_model=16, n_layers=1, n_heads=1,
+                        d_ff=16)
+    calls = [lambda **kw: experiment.train_encoder(c, cfg, steps=1,
+                                                   batch_size=4,
+                                                   log_every=0, **kw),
+             lambda **kw: experiment.run_table1_experiment(
+                 c, encoder_cfg=cfg, encoder_steps=1, verbose=False, **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            call()
+    params, losses = calls[0](device="cpu")
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        embed_corpus(params, c.passage_tokens, cfg)
+    vecs = embed_corpus(params, c.passage_tokens, cfg, device="cpu")
+    assert vecs.shape == (c.num_entities, 16)
+    np.testing.assert_allclose(np.linalg.norm(vecs, axis=1), 1.0, rtol=1e-5)
+    res = calls[1](device="cpu")
+    assert set(res) == {"full", "uniform", "windtunnel"}

@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from repro_torch.core.label_prop import ell_round
+from repro_torch.kernels.flash_attention.ops import (FLASH_ATTENTION,
+                                                     flash_attention)
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.label_prop.ops import lp_round_cuda
 from repro_torch.kernels.lsh_hamming.ops import HAMMING_PARTIAL, hamming_topk
 from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
@@ -254,3 +257,99 @@ def test_ivfflat_build_on_the_card_is_deterministic(cuda):
     b = build_ivfflat(prng.prng_key(1), vecs.to(cuda), n_lists=16)
     assert torch.equal(a.centroids, b.centroids)
     assert torch.equal(a.ids, b.ids)
+
+
+def _attn_inputs(b, sq, skv, h, hkv, d, dtype, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, sq, h, d, generator=g)
+    k = torch.randn(b, skv, hkv, d, generator=g)
+    v = torch.randn(b, skv, hkv, d, generator=g)
+    return (t.to(device=device, dtype=dtype) for t in (q, k, v))
+
+
+def _flash_vs_plain(q, k, v, causal, window):
+    """Kernel vs plain on the card. f32: rtol 1e-5, atol 2e-5, the
+    reference's own kernel tolerance (sums in another order). bf16: 2e-2,
+    the reference's: the plain version rounds scores and probabilities to
+    bf16 where the kernel keeps f32."""
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert out.shape == want.shape and out.dtype == want.dtype
+    tol = 2e-2 if q.dtype == torch.bfloat16 else None
+    torch.testing.assert_close(out.float(), want.float(),
+                               rtol=tol or 1e-5, atol=tol or 2e-5)
+
+
+_MODES = [(True, None), (True, 40), (False, None)]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d", [
+    (2, 64, 64, 4, 2, 32), (1, 128, 128, 8, 8, 64), (2, 96, 96, 4, 1, 32),
+    (1, 200, 200, 4, 2, 16),                       # the reference's grid
+    (256, 64, 64, 4, 4, 32), (256, 24, 24, 4, 4, 32),   # the encoder's
+    (3, 1, 1, 2, 1, 16), (2, 1, 77, 4, 2, 128),          # S = 1
+    (2, 37, 37, 4, 2, 128), (1, 33, 100, 2, 2, 64),      # ragged tiles
+    (1, 100, 33, 4, 4, 32)])
+@pytest.mark.parametrize("causal,window", _MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, b, sq, skv, h, hkv, d, causal,
+                                    window, dtype):
+    q, k, v = _attn_inputs(b, sq, skv, h, hkv, d, dtype, sq * skv + d, cuda)
+    _flash_vs_plain(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 512)])
+def test_flash_kernel_long_gqa_bf16(cuda, causal, window):
+    """The LM configs' head layout (yi-9b: 32 heads over 4 kv heads, D 128)
+    at S 2048, one batch row."""
+    q, k, v = _attn_inputs(1, 2048, 2048, 32, 4, 128, torch.bfloat16, 5,
+                           cuda)
+    _flash_vs_plain(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (40, 40, True, 0),        # no row has an allowed key
+    (70, 40, False, 10),      # rows past Skv + window see no key
+    (70, 40, True, 5),
+    (5, 0, False, None)])     # no keys at all
+def test_flash_kernel_rows_with_no_allowed_key(cuda, sq, skv, causal,
+                                               window):
+    """A row whose every key is masked takes the plain softmax's uniform
+    average over the Skv keys (masked logits are -1e30, not -inf), and no
+    key past Skv ever counts; with no keys the output is 0."""
+    q, k, v = _attn_inputs(2, sq, skv, 4, 2, 32, torch.float32, sq + skv,
+                           cuda)
+    _flash_vs_plain(q, k, v, causal, window)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """(B, H, S, D) storage seen as (B, S, H, D): read through strides,
+    equal to the contiguous copy's result."""
+    q, k, v = _attn_inputs(2, 50, 50, 4, 2, 64, torch.float32, 9, cuda)
+    qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    assert not qv.is_contiguous()
+    a = flash_attention(qv, kv, vv, causal=False)
+    b = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_flash_kernel_counts_launches_and_raises_on_launch_error(cuda):
+    q, k, v = _attn_inputs(1, 8, 8, 2, 2, 32, torch.float32, 1, cuda)
+    before = FLASH_ATTENTION.launches
+    flash_attention(q, k, v, causal=True)
+    assert FLASH_ATTENTION.launches == before + 1
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        # D = 48 has no instance: the C entry point returns an error code
+        FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), 1, 8, 8, 2, 2, 48, *q.stride()[:3],
+                        *k.stride()[:3], *v.stride()[:3], 1, -1, 0, 0.1)
+    assert FLASH_ATTENTION.launches == before + 1
+    with pytest.raises(ValueError, match="D=48"):
+        flash_attention(*_attn_inputs(1, 8, 8, 2, 2, 48, torch.float32, 1,
+                                      cuda))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        flash_attention(q.requires_grad_(), k, v)
