@@ -16,13 +16,20 @@ From the root of a checkout, with one card. In order:
    x 2048, indexed as the ivfflat engine does: 64 lists, nprobe 8) for 512
    queries, and Table I's probe: 128-wide unit-norm vectors of the same
    corpus and of a 4e4-row sample, indexed the same way, 256 queries (the
-   search's chunk) at k = 3; flash attention's are the encoder's passage and query batches
-   (256 x 64 and 256 x 24 tokens, 4 heads of 32), the reference's test
-   grid, bf16, and the LM configs' head layout (S 2048, 32 heads over 4
-   kv heads of 128, causal and causal + window, bf16).
+   search's chunk) at k = 3; its odd shapes include candidates cut into
+   pieces of length 1, repeated rows, runs across row tiles and a tile
+   probed by more queries than a block takes. Flash attention's are the
+   encoder's passage and query batches (256 x 64 and 256 x 24 tokens, 4
+   heads of 32), the reference's test grid, bf16, Skv on both sides of
+   the short-row kernel's limit of 128 with GQA groups of 1, 2 and 8, and
+   the LM configs' head layout (S 2048, 32 heads over 4 kv heads of 128,
+   causal and causal + window, bf16).
 4. Times: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events after a
-   warm-up, beside the least time the card could take.
+   warm-up, beside the least time the card could take; the gathered
+   kernel also at Table I's probe, and the flash kernel and
+   ``scaled_dot_product_attention`` also by the profiler's device time a
+   call.
 5. Sampling: ``repro_torch.launch.sample`` at 65536 queries with the LP
    kernel engine (about 2.1M qrel rows and 3.1M entities).
 6. Evaluation: ``repro_torch.launch.evaluate --grid default --backend
@@ -277,6 +284,36 @@ def gathered_inputs(q: int, c: int, d: int, r: int, *, seed: int,
             ids.to(device))
 
 
+def piece_inputs(kind: str, d: int, *, seed: int, device):
+    """Candidates shaped to exercise the gathered kernel's pieces (runs of
+    consecutive rows inside one tile of ``TILE_ROWS``): every piece of
+    length 1, a row repeated within a query, runs across tile boundaries,
+    and one tile probed by more queries than a block takes. Query 0 has no
+    valid slot and query 1 two; ids are the rows."""
+    import torch
+    from repro_torch.kernels.topk_scoring.ops import TILE_PIECES, TILE_ROWS
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, c, r = 2 * TILE_PIECES + 8, 400, 3000
+    if kind == "no_runs":
+        rows = 2 * torch.randint(0, r // 2, (q, c), generator=g)
+    elif kind == "repeats":
+        rows = torch.randint(0, r, (q, c // 4), generator=g) \
+            .repeat_interleave(4, dim=1)
+    elif kind == "straddle":
+        rows = torch.randint(0, r - c, (q, 1), generator=g) + torch.arange(c)
+    else:                           # crowded: one tile
+        rows = (torch.arange(c) % TILE_ROWS).expand(q, c)
+    rows = rows.to(torch.int32).contiguous()
+    ids = rows.clone()
+    ids[torch.rand(q, c, generator=g) < 0.2] = -1
+    ids[0] = -1
+    ids[1, 2:] = -1
+    table = torch.randn(r, d, generator=g)
+    qs = torch.randn(q, d, generator=g)
+    return (qs.to(device), table.to(device), rows.to(device),
+            ids.to(device))
+
+
 def check_gathered(qs, table, rows, ids, k: int, id_vecs) -> float:
     """Kernel vs plain gathered top-k. Scores must agree within the f32
     summation bound D * 2**-24 * |q| * max|c| (Cauchy-Schwarz over the
@@ -511,7 +548,8 @@ def main() -> None:
     from repro_torch.kernels.lsh_hamming.ops import (HAMMING_PARTIAL,
                                                      hamming_topk)
     from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
-    from repro_torch.kernels.topk_scoring.ops import (GATHERED_PARTIAL,
+    from repro_torch.kernels.topk_scoring.ops import (GATHERED_TILES,
+                                                      TILE_PIECES, TILE_ROWS,
                                                       TOPK_INT8_PARTIAL,
                                                       TOPK_MERGE,
                                                       TOPK_PARTIAL,
@@ -527,7 +565,7 @@ def main() -> None:
     from repro_torch.retrieval.engines import IVFFlatEngine, LSHEngine
     from repro_torch.retrieval.ivfflat import probe_candidates
     from repro_torch.retrieval.lsh import encode
-    kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_PARTIAL,
+    kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
                HAMMING_PARTIAL, TOPK_MERGE, FLASH_ATTENTION)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -601,6 +639,10 @@ def main() -> None:
         gq, gt, gr, gi = gathered_inputs(q, c, d, r, seed=q * c + d,
                                          device=dev)
         gath_err = max(gath_err, check_gathered(gq, gt, gr, gi, k, gt))
+    for kind in ("no_runs", "repeats", "straddle", "crowded"):
+        for d, k in ((5, 3), (64, 10), (128, 40)):
+            gq, gt, gr, gi = piece_inputs(kind, d, seed=d + k, device=dev)
+            gath_err = max(gath_err, check_gathered(gq, gt, gr, gi, k, gt))
     t0 = time.perf_counter()
     corpus, (ev_np, qv_np) = eval_corpus(EVAL_QUERIES, 2048)
     ev = torch.from_numpy(ev_np).to(dev)
@@ -633,14 +675,19 @@ def main() -> None:
     q128 = torch.nn.functional.normalize(pq[:ENCODER_BATCH] @ proj, dim=1)
     kept = torch.randperm(e128.shape[0], generator=g)[:SAMPLE_ROWS]
     t1_probes = []
-    for tab in (e128, e128[kept.sort().values.to(dev)]):
+    for i, tab in enumerate((e128, e128[kept.sort().values.to(dev)])):
         idx = ivf_engine.build(prng.prng_key(0), tab)
         rows_, ids_ = probe_candidates(idx, q128, nprobe=ivf_engine.nprobe)
-        gath_err = max(gath_err, check_gathered(
-            q128, idx.vecs.reshape(-1, ENCODER_DIM), rows_, ids_, 3, tab))
+        table_ = idx.vecs.reshape(-1, ENCODER_DIM)
+        gath_err = max(gath_err, check_gathered(q128, table_, rows_, ids_,
+                                                3, tab))
         t1_probes.append(f"N={tab.shape[0]} C={ids_.shape[1]}")
-    del proj, e128, q128, kept, idx, rows_, ids_
-    log(f"    gathered_topk: within the summation bound at 12 shapes incl. "
+        if i == 0:                  # the full corpus's probe, timed in 4.
+            t1_probe = (q128, table_, rows_, ids_)
+    del proj, e128, q128, kept, idx, table_, rows_, ids_
+    log(f"    gathered_topk: within the summation bound at 24 shapes incl. "
+        f"pieces of length 1, repeated rows, runs across {TILE_ROWS}-row "
+        f"tiles and a tile probed by more than {TILE_PIECES} queries, "
         f"the ivfflat probe Q={PROBE_QUERIES} C={p_ids.shape[1]} "
         f"D={ev.shape[1]} k=3,10 and Table I's Q={ENCODER_BATCH} "
         f"D={ENCODER_DIM} k=3 at {', '.join(t1_probes)}; max |err| "
@@ -679,7 +726,12 @@ def main() -> None:
            ((2, 64, 64, 4, 2, 32), bf16, True, None),
            ((256, 64, 64, 4, 4, 32), bf16, False, None),
            ((1, 2048, 2048, 32, 4, 128), bf16, True, None),   # yi-9b heads
-           ((1, 2048, 2048, 32, 4, 128), bf16, True, 512)])
+           ((1, 2048, 2048, 32, 4, 128), bf16, True, 512)]
+        # both sides of the short-row kernel's limit (Skv <= 128), GQA
+        # groups of 1, 2 and 8
+        + [((2, skv, skv, 8, 8 // grp, 32), dt, c, w)
+           for skv in (1, 63, 64, 65, 127, 128, 129) for grp in (1, 2, 8)
+           for c, w in modes for dt in (f32, bf16)])
     with torch.no_grad():
         for i, (shp, dt, causal, window) in enumerate(attn_cases):
             err = check_flash(*attn_inputs(*shp, dtype=dt, seed=100 + i,
@@ -690,7 +742,8 @@ def main() -> None:
                 attn_bf16_err = max(attn_bf16_err, err)
     log(f"    flash_attention: within the stated tolerance at "
         f"{len(attn_cases)} shapes incl. the encoder's B=256 S=64,24 H=4 "
-        f"D=32 and S=2048 H=32/4 D=128 bf16; max |err| f32 {attn_err:.3e}, "
+        f"D=32, Skv 1..129 over GQA groups 1, 2, 8 and S=2048 H=32/4 D=128 "
+        f"bf16; max |err| f32 {attn_err:.3e}, "
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
@@ -742,17 +795,45 @@ def main() -> None:
             torch.sort(sc, dim=1, descending=True, stable=True)
 
     g_lib_ms = cuda_ms(gathered_library, 1, 1)
-    valid = p_ids >= 0
-    c_valid = int(valid.sum())
-    probed_rows = int(torch.unique(p_rows[valid]).numel())
-    g_bound, g_by = bound(
-        probed_rows * d * 4 + pq.numel() * 4 + c_valid * 8
-        + pq.shape[0] * k_g * 8, 2.0 * c_valid * d)
+
+    def gathered_bound(qs, rows, ids, k):
+        valid = ids >= 0
+        c_valid = int(valid.sum())
+        probed = int(torch.unique(rows[valid]).numel())
+        width = qs.shape[1]
+        return (c_valid, probed) + bound(
+            probed * width * 4 + qs.numel() * 4 + c_valid * 8
+            + qs.shape[0] * k * 8, 2.0 * c_valid * width)
+
+    c_valid, probed_rows, g_bound, g_by = gathered_bound(pq, p_rows, p_ids,
+                                                         k_g)
     log(f"    gathered_topk Q={pq.shape[0]} C={p_ids.shape[1]} "
         f"(valid {c_valid}, distinct probed rows {probed_rows}) D={d} "
         f"k={k_g}: kernel {g_ms:.4f} ms, plain {g_plain_ms:.4f} ms, "
         f"gather+bmm+stable sort by {lib_chunk} queries {g_lib_ms:.4f} ms, "
         f"bound {g_bound:.4f} ms ({g_by})")
+    # and at Table I's own probe (24 of the kernel's main-path launches):
+    # 256 queries, D 128, k 3, over the 524,700-row index
+    tq1, tt1, tr1, ti1 = t1_probe
+    t1_ms = cuda_ms(lambda: gathered_topk(tq1, tt1, tr1, ti1, k=3), 10)
+    t1_plain_ms = cuda_ms(lambda: gathered_topk_ref(tq1, tt1, tr1, ti1,
+                                                    k=3), 2, 1)
+
+    def gathered_library_t1():
+        for q0 in range(0, tq1.shape[0], 16):   # 16 x C x 128 f32: 1.1 GB
+            cand = tt1[tr1[q0:q0 + 16].long()]
+            sc = torch.bmm(cand, tq1[q0:q0 + 16, :, None])[..., 0]
+            sc = torch.where(ti1[q0:q0 + 16] >= 0, sc, -torch.inf)
+            torch.sort(sc, dim=1, descending=True, stable=True)
+
+    t1_lib_ms = cuda_ms(gathered_library_t1, 2, 1)
+    t1_valid, t1_probed, t1_bound, t1_by = gathered_bound(tq1, tr1, ti1, 3)
+    log(f"    gathered_topk at Table I's probe Q={tq1.shape[0]} "
+        f"C={ti1.shape[1]} (valid {t1_valid}, distinct probed rows "
+        f"{t1_probed}) D={tq1.shape[1]} k=3: kernel {t1_ms:.4f} ms, plain "
+        f"{t1_plain_ms:.4f} ms, gather+bmm+stable sort by 16 queries "
+        f"{t1_lib_ms:.4f} ms, bound {t1_bound:.4f} ms ({t1_by})")
+    del t1_probe, tq1, tt1, tr1, ti1
     # Hamming at the lsh rerank pool of the main path (k = 64); three
     # integer operations (xor, popc, add) a word, counted at the f32 rate
     # of the CUDA cores; no single PyTorch call computes a popcount
@@ -786,6 +867,26 @@ def main() -> None:
         f"bidirectional: kernel {a_ms:.4f} ms, plain {a_plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {a_lib_ms:.4f} ms, bound "
         f"{a_bound:.4f} ms ({a_by})")
+    # the same 50 calls each under the profiler: device time a launch,
+    # which the event times above include only where the card, not the
+    # host's work around each call, sets the pace
+
+    def device_ms(fn, n=50):
+        fn()
+        per_kernel = device_profile(lambda: [fn() for _ in range(n)])[2]
+        if not per_kernel:
+            return None
+        return sum(sec for _, sec in per_kernel.values()) / n * 1e3
+
+    with torch.no_grad():
+        a_dev = device_ms(lambda: flash_attention(aq, ak, av, causal=False))
+        a_lib_dev = device_ms(lambda: sdpa(aq.transpose(1, 2),
+                                           ak.transpose(1, 2),
+                                           av.transpose(1, 2)))
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    log(f"    flash_attention at the same shape, profiler device time a "
+        f"call: kernel {fmt(a_dev)}, scaled_dot_product_attention "
+        f"{fmt(a_lib_dev)}")
     yq, yk, yv = attn_inputs(1, 2048, 2048, 32, 4, 128, dtype=bf16, seed=8,
                              device=dev)
     with torch.no_grad():
@@ -849,7 +950,7 @@ def main() -> None:
     log(f"    fidelity: {json.dumps(out['fidelity']['mean_abs_delta'])}")
     log(f"    winners: {json.dumps(out['fidelity']['winners'])}")
     log(f"    backend curve: {json.dumps(out['backend_curve'])}")
-    for kname in ("gathered_partial", "hamming_partial", "topk_partial",
+    for kname in ("gathered_tiles", "hamming_partial", "topk_partial",
                   "topk_int8_partial", "topk_merge", "lp_round"):
         if eval_launches[kname] == 0:
             fail(f"the evaluation run launched no {kname} kernel")
@@ -897,7 +998,7 @@ def main() -> None:
         fail(f"Table I launched flash_attention "
              f"{t1_launches['flash_attention']} times, expected "
              f"{ENCODER_LAYERS} layers x {n_batches} batches = {want_flash}")
-    for kname in ("lp_round", "gathered_partial"):
+    for kname in ("lp_round", "gathered_tiles"):
         if t1_launches[kname] == 0:
             fail(f"the Table I run launched no {kname} kernel")
     if list(rows) != ["full", "uniform", "windtunnel"]:
@@ -928,7 +1029,7 @@ def main() -> None:
     prof = device_profile(lambda: embed_corpus(enc_params, toks, enc_cfg))
     log_profile(f"embed_corpus, 20 batches of {ENCODER_BATCH}", prof)
     flash_dev = [(n, sec) for k, (n, sec) in prof[2].items()
-                 if "flash_kernel" in k]
+                 if "flash_short" in k]
     if flash_dev:
         n, sec = flash_dev[0]
         log(f"    flash_attention at the main path's passage shape "
@@ -1083,7 +1184,7 @@ def main() -> None:
         {"name": "gathered_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_scores.cu",
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:84",
-         "launches": launches("gathered_partial"),
+         "launches": launches("gathered_tiles"),
          "max_abs_err": gath_err, "ms": g_ms, "plain_ms": g_plain_ms,
          "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib_ms},
         {"name": "hamming_topk", "route": "cuda",

@@ -1,5 +1,4 @@
-// GQA attention with an online softmax: causal, sliding-window or
-// bidirectional.
+// GQA attention: causal, sliding-window or bidirectional.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py::_flash_kernel.
@@ -12,48 +11,70 @@
 // all Skv keys, as the plain softmax does. Keys past Skv and rows past Sq
 // are masked here (keys score -inf, rows are not written): nothing is
 // padded, where the reference pads both and hides padded keys behind a
-// sentinel dimension. The running max m starts at -1e30, as in the
-// reference, so the terms a row gathers from wholly masked keys before its
-// first allowed key are rescaled to 0 there. m, l and acc are f32; the
-// output is acc / max(l, 1e-30) in the input's type (f32 or bf16). The kv
-// head of query head h is h / (H / Hkv), read in place (the Pallas wrapper
-// materialises the repeat). q, k and v are read through their (B, S, H)
-// strides, D at unit stride, so the (B, S, H, D) layout needs no copy.
+// sentinel dimension. Sums are f32; the output is sum / max(l, 1e-30) in
+// the input's type (f32 or bf16). The kv head of query head h is
+// h / (H / Hkv), read in place (the Pallas wrapper materialises the
+// repeat). q, k and v are read through their (B, S, H) strides, D at unit
+// stride, so the (B, S, H, D) layout needs no copy.
 //
-// What bounds it on an H100: at the retrieval encoder's shape (B 256,
-// S 64 or 24, H 4, D 32, f32) bytes: q, k, v and o are 33.5 MB a call at
-// S 64, 0.010 ms at 3.35 TB/s, against 0.5 GFLOP, 0.008 ms at 67 TFLOP/s.
-// That is one small launch per layer per batch of 256 passages, so launch
-// overhead, not the card, is expected to set the pace there. At long
-// sequence lengths (S 2048, D 128, bf16) operations bound it, and this
-// kernel, on the CUDA cores in f32, is far from the tensor cores' rate.
+// What bounds it on an H100. At the retrieval encoder's shape (B 256,
+// S 64 or 24, H 4, D 32, f32, bidirectional) bytes: q, k, v and o are
+// 33.5 MB a call at S 64, 0.010 ms at 3.35 TB/s, against 0.54 GFLOP,
+// 0.008 ms at 67 TFLOP/s on the CUDA cores (f32 stays f32: no TF32). At
+// the LM configs' S 2048, 32 heads over 4, D 128, bf16, causal,
+// operations: 34 GFLOP, 0.035 ms at the tensor cores' 989 TFLOP/s.
 //
-// Design (first version: simple and right). A block of 4 warps takes 32
-// query rows of one (b, h): the Q tile sits in shared memory as f32, and
-// the block loops over K/V tiles of 32 keys staged through shared memory.
-// Each warp owns 8 query rows; in the score step lane j owns key j of the
-// tile and forms its 8 scores from float4 reads of its K row (rows padded
-// by 4 floats, so the lanes' reads do not conflict) and broadcast reads of
-// Q. Two butterfly reductions give each row's tile max and sum, so every
-// lane holds the same m and l. The probabilities go to shared memory, and
-// for P.V each lane owns D/32 output dims (D 16: lanes 16-31 repeat lanes
-// 0-15 and do not write). Tiles that no row of the block may see are
-// skipped, but only when every row of the block has an allowed key: a row
-// with none averages over all keys, as the plain version does.
-// Tensor-core products (mma.sync / wgmma), TMA and a warp-specialised
-// pipeline are later work.
+// Three kernels.
+//
+//  * flash_short (Skv <= 128: the encoder's passages and queries). A row
+//    fits one block whole, so there is no online softmax: one block per
+//    (b, kv head, 64 query rows; 32 where the kv head has no more) stages
+//    that kv head's whole K and V once and serves every query head of its
+//    group (GQA reads K/V once; at the encoder's shape one block per
+//    (b, h), where the first version used two, each staging K/V again).
+//    Rows of the block are (position, head-in-group) pairs,
+//    position-major, so a contiguous (B, S, H, D) q is read as one run. Q
+//    and K land in shared memory by 16-byte cp.async copies (f32, aligned
+//    strides; bf16 goes through 16-byte loads and a conversion), V by a
+//    second copy group that lands while the scores are formed. Thread
+//    (rg, cg) of a (rows/4) x 16 grid owns rows 4rg..4rg+3 and keys
+//    cg + 16j, a 4 x (Skv/16) tile of S = QK^T in registers, fed by float4
+//    reads of Q (broadcast) and K (rows padded by 4 floats, so the 16 keys
+//    a warp reads hit distinct banks). The softmax is exact in one pass:
+//    each row's max and sum are reduced once over the 16 lanes that share
+//    it (4 shuffle steps each). P (not yet normalised) goes to shared
+//    memory in Q/K's place, and the same thread grid forms P.V, rows
+//    4rg..4rg+3 by dims cg*D/16.., from float4 reads of P and vector reads
+//    of V; the thread already holds its rows' sums. f32 stays f32 (FMA on
+//    the CUDA cores): at 0.54 GFLOP a call the operations cost about what
+//    the bytes do, and TF32 would miss the encoder's tolerance.
+//  * flash_long_tc (Skv > 128, bf16, 16-byte aligned rows; on no path of
+//    the port yet): FlashAttention-2 on the tensor cores. A block of 4
+//    warps takes 64 query rows of one (b, h), 16 a warp, and walks K/V
+//    tiles of 64 keys, double-buffered through shared memory by cp.async
+//    (rows padded by 16 bytes, so ldmatrix reads no bank twice). Q's
+//    fragments stay in registers; S = QK^T and O += PV are
+//    mma.sync.m16n8k16 bf16 products with f32 sums, P going from S's
+//    accumulators to A fragments in registers (rounded to bf16, as the
+//    plain version rounds it). The online softmax (running max m from
+//    -1e30, sum l, O rescaled) is kept in registers, a row's max reduced
+//    over the 4 lanes that hold it. Late query tiles, which see the most
+//    keys under a causal mask, are scheduled first.
+//  * flash_long (Skv > 128 otherwise: f32, or bf16 rows that are not
+//    16-byte aligned): a block of 4 warps takes 32 query rows of one
+//    (b, h) and loops over K/V tiles of 32 keys with the same online
+//    softmax, on the CUDA cores in f32.
+//  Both long kernels skip the K/V tiles that no row of the block may see,
+//  but only when every row of the block has an allowed key: a row with
+//  none averages over all keys, as the plain version does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 4;              // warps per block
-constexpr int kRows = 8;               // query rows per warp
-constexpr int kBQ = kWarps * kRows;    // query rows per block
-constexpr int kBK = 32;                // keys per tile, one per lane
-constexpr int kThreads = kWarps * 32;
 constexpr float kMasked = -1e30f;      // the reference's masked logit
 
 struct Args {
@@ -62,6 +83,7 @@ struct Args {
   int causal, window;                  // window < 0: none
   float scale;
   int n_qtiles;
+  int vec;                             // 16-byte aligned rows and strides
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -72,6 +94,274 @@ __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+
+// Key j is allowed for query row i (before the Skv bound).
+__device__ __forceinline__ bool allowed(const Args& a, int i, int j) {
+  return (!a.causal || j <= i) && (a.window < 0 || j > i - a.window);
+}
+
+// ---- flash_short -----------------------------------------------------------
+
+constexpr int kShortMax = 128;         // the longest Skv it takes
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage one 16-byte vector of a row into f32 shared memory: 4 f32 by
+// cp.async, or 8 bf16 by one load and a conversion; element-wise when the
+// row is not 16-byte aligned.
+__device__ __forceinline__ void stage16(float* dst, const float* src,
+                                        int vec) {
+  if (vec) {
+    cp_async16(dst, src);
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) dst[t] = src[t];
+  }
+}
+__device__ __forceinline__ void stage16(float* dst, const __nv_bfloat16* src,
+                                        int vec) {
+  if (vec) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    float4 lo, hi;
+    float2 f = __bfloat1622float2(h[0]);
+    lo.x = f.x; lo.y = f.y;
+    f = __bfloat1622float2(h[1]);
+    lo.z = f.x; lo.w = f.y;
+    f = __bfloat1622float2(h[2]);
+    hi.x = f.x; hi.y = f.y;
+    f = __bfloat1622float2(h[3]);
+    hi.z = f.x; hi.w = f.y;
+    reinterpret_cast<float4*>(dst)[0] = lo;
+    reinterpret_cast<float4*>(dst)[1] = hi;
+  } else {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) dst[t] = __bfloat162float(src[t]);
+  }
+}
+
+// ROWS query rows a block (64, or 32 where a kv head has no more), 4 a
+// thread: ROWS / 4 row groups by 16 column groups of threads.
+template <int D, int SKV, int ROWS>
+struct ShortLayout {                   // in floats
+  static constexpr int QS = D + 4;     // padded Q and K row
+  static constexpr int PS = SKV + 4;   // padded P row
+  static constexpr int QK = (ROWS + SKV) * QS;
+  static constexpr int P = ROWS * PS;
+  static constexpr int U = QK > P ? QK : P;   // Q and K, then P
+  static constexpr int floats = U + SKV * D;  // + V
+  static constexpr int threads = ROWS * 4;
+  // 1024 threads an SM at the encoder's widths, where 64 registers a
+  // thread suffice; wider tiles get the registers
+  static constexpr int min_blocks = D <= 32 && SKV <= 64 ? 1024 / threads
+                                                         : 1;
+};
+
+// Load DT consecutive floats of shared memory (DT in {1, 2, 4, 8}).
+template <int DT>
+__device__ __forceinline__ void load_dt(float (&r)[DT], const float* p) {
+  if constexpr (DT % 4 == 0) {
+#pragma unroll
+    for (int t = 0; t < DT; t += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + t);
+      r[t] = x.x; r[t + 1] = x.y; r[t + 2] = x.z; r[t + 3] = x.w;
+    }
+  } else if constexpr (DT == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    r[0] = x.x; r[1] = x.y;
+  } else {
+    r[0] = p[0];
+  }
+}
+
+template <typename T, int D, int SKV, int ROWS>
+__global__ void __launch_bounds__(ShortLayout<D, SKV, ROWS>::threads,
+                                  ShortLayout<D, SKV, ROWS>::min_blocks)
+flash_short(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, T* __restrict__ out, const Args a) {
+  using L = ShortLayout<D, SKV, ROWS>;
+  constexpr int kSThreads = L::threads;
+  constexpr int NJ = SKV / 16;         // keys a thread scores
+  constexpr int DT = D / 16;           // output dims a thread owns
+  constexpr int VW = 16 / sizeof(T);   // elements per 16-byte vector
+  constexpr int NV = D / VW;           // vectors per row
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);   // [ROWS][QS]
+  float* k_s = q_s + ROWS * L::QS;                // [SKV][QS]
+  float* p_s = q_s;                               // [ROWS][PS], later
+  float* v_s = q_s + L::U;                        // [SKV][D]
+
+  const int grp = a.h / a.hkv;
+  const int n_rows = grp * a.sq;       // query rows of this kv head
+  const int tile = blockIdx.x % a.n_qtiles;
+  const int bhk = blockIdx.x / a.n_qtiles;
+  const int bi = bhk / a.hkv, hk = bhk % a.hkv;
+  const int r0 = tile * ROWS;
+  const int tid = threadIdx.x;
+  const int rg = tid >> 4, cg = tid & 15;
+
+  // Q rows r = i * grp + g (position i, head hk * grp + g) and K: group 0
+  const T* kb = k + (long long)bi * a.ks_b + (long long)hk * a.ks_h;
+  const T* vb = v + (long long)bi * a.vs_b + (long long)hk * a.vs_h;
+  for (int e = tid; e < ROWS * NV; e += kSThreads) {
+    const int r = e / NV, c = (e % NV) * VW;
+    float* dst = q_s + r * L::QS + c;
+    const int gr = r0 + r;
+    if (gr < n_rows) {
+      const int i = gr / grp, h = hk * grp + gr % grp;
+      stage16(dst, q + (long long)bi * a.qs_b + (long long)i * a.qs_s +
+                       (long long)h * a.qs_h + c, a.vec);
+    } else {
+#pragma unroll
+      for (int t = 0; t < VW; ++t) dst[t] = 0.f;
+    }
+  }
+  for (int e = tid; e < SKV * NV; e += kSThreads) {
+    const int j = e / NV, c = (e % NV) * VW;
+    float* dst = k_s + j * L::QS + c;
+    if (j < a.skv) {
+      stage16(dst, kb + (long long)j * a.ks_s + c, a.vec);
+    } else {
+#pragma unroll
+      for (int t = 0; t < VW; ++t) dst[t] = 0.f;
+    }
+  }
+  cp_async_commit();
+  for (int e = tid; e < SKV * NV; e += kSThreads) {     // V: group 1
+    const int j = e / NV, c = (e % NV) * VW;
+    float* dst = v_s + j * D + c;
+    if (j < a.skv) {
+      stage16(dst, vb + (long long)j * a.vs_s + c, a.vec);
+    } else {
+#pragma unroll
+      for (int t = 0; t < VW; ++t) dst[t] = 0.f;   // P is 0 there, V too
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // S = Q K^T: rows 4rg + rr, keys cg + 16j
+  float s[4][NJ];
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[rr][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 kk[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      kk[j] = *reinterpret_cast<const float4*>(k_s + (cg + 16 * j) * L::QS +
+                                               d);
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const float4 qq =
+          *reinterpret_cast<const float4*>(q_s + (4 * rg + rr) * L::QS + d);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[rr][j] = fmaf(qq.x, kk[j].x, s[rr][j]);
+        s[rr][j] = fmaf(qq.y, kk[j].y, s[rr][j]);
+        s[rr][j] = fmaf(qq.z, kk[j].z, s[rr][j]);
+        s[rr][j] = fmaf(qq.w, kk[j].w, s[rr][j]);
+      }
+    }
+  }
+
+  // exact softmax: each row's max and sum over its 16 lanes, once
+  float l[4];
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    const int i = (r0 + 4 * rg + rr) / grp;
+    float mx = kMasked;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int key = cg + 16 * j;
+      float x = allowed(a, i, key) ? s[rr][j] * a.scale : kMasked;
+      if (key >= a.skv) x = -CUDART_INF_F;
+      s[rr][j] = x;
+      mx = fmaxf(mx, x);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      s[rr][j] = expf(s[rr][j] - mx);
+      sum += s[rr][j];
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(kFull, sum, off);
+    l[rr] = sum;
+  }
+  __syncthreads();                     // every read of Q and K is done
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      p_s[(4 * rg + rr) * L::PS + cg + 16 * j] = s[rr][j];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // O = P V: rows 4rg + rr, dims cg*DT .. cg*DT + DT - 1; keys past Skv
+  // (rounded up to 4) carry P = 0 and are not visited
+  float o[4][DT];
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+    for (int t = 0; t < DT; ++t) o[rr][t] = 0.f;
+  const int kend = min(SKV, (a.skv + 3) & ~3);
+#pragma unroll 2
+  for (int kk = 0; kk < kend; kk += 4) {
+    float vv[4][DT];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      load_dt<DT>(vv[u], v_s + (kk + u) * D + cg * DT);
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const float4 pp =
+          *reinterpret_cast<const float4*>(p_s + (4 * rg + rr) * L::PS + kk);
+#pragma unroll
+      for (int t = 0; t < DT; ++t) {
+        o[rr][t] = fmaf(pp.x, vv[0][t], o[rr][t]);
+        o[rr][t] = fmaf(pp.y, vv[1][t], o[rr][t]);
+        o[rr][t] = fmaf(pp.z, vv[2][t], o[rr][t]);
+        o[rr][t] = fmaf(pp.w, vv[3][t], o[rr][t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    const int gr = r0 + 4 * rg + rr;
+    if (gr >= n_rows) break;
+    const int i = gr / grp, h = hk * grp + gr % grp;
+    const float denom = fmaxf(l[rr], 1e-30f);
+    T* dst = out + (((long long)bi * a.sq + i) * a.h + h) * D + cg * DT;
+#pragma unroll
+    for (int t = 0; t < DT; ++t) put(dst + t, o[rr][t] / denom);
+  }
+}
+
+// ---- flash_long ------------------------------------------------------------
+
+constexpr int kWarps = 4;              // warps per block
+constexpr int kRows = 8;               // query rows per warp
+constexpr int kBQ = kWarps * kRows;    // query rows per block
+constexpr int kBK = 32;                // keys per tile, one per lane
+constexpr int kThreads = kWarps * 32;
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1)
@@ -93,14 +383,14 @@ __device__ __forceinline__ int key_hi(const Args& a, int i) {
 }
 
 template <int D>
-constexpr int smem_floats() {
+constexpr int long_smem_floats() {
   return kBQ * D + kBK * (D + 4) + kBK * D + kWarps * kRows * kBK;
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, const Args a) {
+flash_long(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, T* __restrict__ out, const Args a) {
   constexpr int KS = D + 4;                   // padded K row, in floats
   constexpr int DPL = D >= 32 ? D / 32 : 1;   // output dims per lane
   extern __shared__ float4 smem4[];
@@ -185,9 +475,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int i = q0 + r0 + r;
-      const bool ok =
-          (!a.causal || j <= i) && (a.window < 0 || j > i - a.window);
-      float x = ok ? sc[r] * a.scale : kMasked;
+      float x = allowed(a, i, j) ? sc[r] * a.scale : kMasked;
       if (j >= a.skv) x = -CUDART_INF_F;
       const float m_new = fmaxf(m[r], warp_max(x));
       const float alpha = expf(m[r] - m_new);
@@ -235,34 +523,332 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const Args& a, cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
+// ---- flash_long_tc: bf16 on the tensor cores -------------------------------
+
+constexpr int kTRows = 64;             // query rows per block, 16 a warp
+constexpr int kTKeys = 64;             // keys per K/V tile
+constexpr int kTThreads = 128;
+
+template <int D>
+struct TcLayout {                      // in bf16 elements
+  static constexpr int S = D + 8;      // padded row: 16 bytes more, so the
+                                       // 8 rows an ldmatrix reads hit
+                                       // distinct banks
+  static constexpr int Q = kTRows * S;
+  static constexpr int KV = kTKeys * S;
+  static constexpr int elems = Q + 4 * KV;   // Q, then K and V twice
+};
+
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Stage rows [r0, r0 + n) of a (row -> base + row * rs) bf16 matrix of
+// width D into sm (row stride S); rows at or past `lim` are zeros.
+template <int D, int S, int N>
+__device__ __forceinline__ void tc_stage(__nv_bfloat16* sm,
+                                         const __nv_bfloat16* base,
+                                         long long rs, int r0, int lim) {
+  constexpr int NV = D / 8;            // 16-byte vectors a row
+  for (int e = threadIdx.x; e < N * NV; e += kTThreads) {
+    const int r = e / NV, c = (e % NV) * 8;
+    const bool ok = r0 + r < lim;
+    cp_async16_zfill(sm + r * S + c, ok ? base + (r0 + r) * rs + c : base,
+                     ok);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTThreads, 2)
+flash_long_tc(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              __nv_bfloat16* __restrict__ out, const Args a) {
+  using L = TcLayout<D>;
+  constexpr int S = L::S;
+  constexpr int NT = kTKeys / 8;       // n-tiles of S per warp
+  constexpr int KD = D / 16;           // k-steps over D
+  constexpr int ND = D / 8;            // n-tiles of O per warp
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* k_s = q_s + L::Q;     // [2][kTKeys][S]
+  __nv_bfloat16* v_s = k_s + 2 * L::KV;
+
+  // heavy (late, causal) query tiles first
+  const int tile = a.n_qtiles - 1 - blockIdx.x % a.n_qtiles;
+  const int bh = blockIdx.x / a.n_qtiles;
+  const int bi = bh / a.h, hi = bh % a.h;
+  const int hk = hi / (a.h / a.hkv);
+  const int q0 = tile * kTRows;
+  const int q_last = min(q0 + kTRows, a.sq) - 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  const __nv_bfloat16* qb =
+      q + (long long)bi * a.qs_b + (long long)hi * a.qs_h;
+  const __nv_bfloat16* kb =
+      k + (long long)bi * a.ks_b + (long long)hk * a.ks_h;
+  const __nv_bfloat16* vb =
+      v + (long long)bi * a.vs_b + (long long)hk * a.vs_h;
+
+  bool every_row = true;
+  for (int i = q0; i <= q_last; ++i)
+    every_row = every_row && key_lo(a, i) <= key_hi(a, i);
+  int t_lo = 0, t_hi = (a.skv + kTKeys - 1) / kTKeys - 1;
+  if (every_row) {
+    t_lo = key_lo(a, q0) / kTKeys;
+    t_hi = key_hi(a, q_last) / kTKeys;
+  }
+
+  tc_stage<D, S, kTRows>(q_s, qb, a.qs_s, q0, a.sq);
+  tc_stage<D, S, kTKeys>(k_s, kb, a.ks_s, t_lo * kTKeys, a.skv);
+  tc_stage<D, S, kTKeys>(v_s, vb, a.vs_s, t_lo * kTKeys, a.skv);
+  cp_async_commit();
+
+  unsigned qf[KD][4];
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + g;     // and row0 + 8
+
+  for (int kt = t_lo; kt <= t_hi; ++kt) {
+    const int st = (kt - t_lo) & 1;
+    if (kt < t_hi) {                   // the next tile lands meanwhile
+      tc_stage<D, S, kTKeys>(k_s + (st ^ 1) * L::KV, kb, a.ks_s,
+                             (kt + 1) * kTKeys, a.skv);
+      tc_stage<D, S, kTKeys>(v_s + (st ^ 1) * L::KV, vb, a.vs_s,
+                             (kt + 1) * kTKeys, a.skv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == t_lo) {
+#pragma unroll
+      for (int ks = 0; ks < KD; ++ks)
+        ldsm_x4(qf[ks], q_s + (warp * 16 + (lane & 15)) * S + ks * 16 +
+                            (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* kt_s = k_s + st * L::KV;
+    const __nv_bfloat16* vt_s = v_s + st * L::KV;
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
+    float sc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned b[4];
+        ldsm_x4(b, kt_s + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * S +
+                       ks * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[2 * np], qf[ks], b[0], b[1]);
+        mma_bf16(sc[2 * np + 1], qf[ks], b[2], b[3]);
+      }
+    }
+
+    // online softmax over the tile: rows row0 (e = 0, 1) and row0 + 8
+    const int k0 = kt * kTKeys;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = row0 + (e >> 1) * 8, j = k0 + n * 8 + 2 * t4 + (e & 1);
+        float x = allowed(a, i, j) ? sc[n][e] * a.scale : kMasked;
+        if (j >= a.skv) x = -CUDART_INF_F;
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    unsigned pa[kTKeys / 16][4];       // P as the A operand, in bf16
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(sc[n][e] - m[e >> 1]);
+        l[e >> 1] += p[e];
+      }
+      pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+
+    // O += P V
+#pragma unroll
+    for (int kp = 0; kp < kTKeys / 16; ++kp) {
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        unsigned b[4];
+        ldsm_x4_t(b, vt_s + (kp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                S + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa[kp], b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], pa[kp], b[2], b[3]);
+      }
+    }
+    __syncthreads();                   // the next prefetch reuses a stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    const int i = row0 + r * 8;
+    if (i >= a.sq) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* dst = out + (((long long)bi * a.sq + i) * a.h + hi) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<unsigned*>(dst + n * 8 + 2 * t4) =
+          pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+  }
+}
+
+// ---- launch ----------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T, int D, int SKV, int ROWS>
+cudaError_t launch_rows(const void* q, const void* k, const void* v,
+                        void* out, Args a, cudaStream_t stream) {
+  using L = ShortLayout<D, SKV, ROWS>;
+  const size_t bytes = L::floats * sizeof(float);
+  const cudaError_t err = allow_smem(flash_short<T, D, SKV, ROWS>, bytes);
+  if (err != cudaSuccess) return err;
+  a.n_qtiles = (a.h / a.hkv * a.sq + ROWS - 1) / ROWS;
+  const long long blocks = (long long)a.b * a.hkv * a.n_qtiles;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidConfiguration;
+  flash_short<T, D, SKV, ROWS><<<static_cast<unsigned>(blocks), L::threads,
+                                 bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, int SKV>
+cudaError_t launch_short(const void* q, const void* k, const void* v,
+                         void* out, const Args& a, cudaStream_t stream) {
+  if (a.h / a.hkv * a.sq <= 32)
+    return launch_rows<T, D, SKV, 32>(q, k, v, out, a, stream);
+  return launch_rows<T, D, SKV, 64>(q, k, v, out, a, stream);
+}
+
+template <typename T, int D>
+cudaError_t launch_long(const void* q, const void* k, const void* v,
+                        void* out, Args a, cudaStream_t stream) {
+  const size_t bytes = long_smem_floats<D>() * sizeof(float);
+  const cudaError_t err = allow_smem(flash_long<T, D>, bytes);
+  if (err != cudaSuccess) return err;
+  a.n_qtiles = (a.sq + kBQ - 1) / kBQ;
   const long long blocks = (long long)a.b * a.h * a.n_qtiles;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidConfiguration;
-  flash_kernel<T, D><<<static_cast<unsigned>(blocks), kThreads, bytes,
-                       stream>>>(static_cast<const T*>(q),
-                                 static_cast<const T*>(k),
-                                 static_cast<const T*>(v),
-                                 static_cast<T*>(out), a);
+  flash_long<T, D><<<static_cast<unsigned>(blocks), kThreads, bytes,
+                     stream>>>(static_cast<const T*>(q),
+                               static_cast<const T*>(k),
+                               static_cast<const T*>(v),
+                               static_cast<T*>(out), a);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_long_tc(const void* q, const void* k, const void* v,
+                           void* out, Args a, cudaStream_t stream) {
+  const size_t bytes = TcLayout<D>::elems * sizeof(__nv_bfloat16);
+  const cudaError_t err = allow_smem(flash_long_tc<D>, bytes);
+  if (err != cudaSuccess) return err;
+  a.n_qtiles = (a.sq + kTRows - 1) / kTRows;
+  const long long blocks = (long long)a.b * a.h * a.n_qtiles;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidConfiguration;
+  flash_long_tc<D><<<static_cast<unsigned>(blocks), kTThreads, bytes,
+                     stream>>>(static_cast<const __nv_bfloat16*>(q),
+                               static_cast<const __nv_bfloat16*>(k),
+                               static_cast<const __nv_bfloat16*>(v),
+                               static_cast<__nv_bfloat16*>(out), a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
+                     const Args& a, cudaStream_t stream) {
+  if (a.skv > kShortMax) {
+    if constexpr (sizeof(T) == 2) {    // bf16 with 16-byte rows
+      if (a.vec) return launch_long_tc<D>(q, k, v, out, a, stream);
+    }
+    return launch_long<T, D>(q, k, v, out, a, stream);
+  }
+  if (a.skv > 64) return launch_short<T, D, 128>(q, k, v, out, a, stream);
+  if (a.skv > 32) return launch_short<T, D, 64>(q, k, v, out, a, stream);
+  return launch_short<T, D, 32>(q, k, v, out, a, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
                        void* out, const Args& a, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, out, a, stream);
-    case 32: return launch<T, 32>(q, k, v, out, a, stream);
-    case 64: return launch<T, 64>(q, k, v, out, a, stream);
-    case 128: return launch<T, 128>(q, k, v, out, a, stream);
+    case 16: return launch_d<T, 16>(q, k, v, out, a, stream);
+    case 32: return launch_d<T, 32>(q, k, v, out, a, stream);
+    case 64: return launch_d<T, 64>(q, k, v, out, a, stream);
+    case 128: return launch_d<T, 128>(q, k, v, out, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -282,8 +868,17 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (b <= 0 || sq <= 0 || h <= 0) return 0;
   if (hkv <= 0 || h % hkv != 0 || skv < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte vectors: every row start 16-byte aligned
+  const int vw = dtype == 0 ? 4 : 8;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  const int strides[9] = {qs_b, qs_s, qs_h, ks_b, ks_s, ks_h,
+                          vs_b, vs_s, vs_h};
+  int vec = ptrs % 16 == 0;
+  for (int t = 0; t < 9; ++t) vec = vec && strides[t] % vw == 0;
   Args a{b, sq, skv, h, hkv, qs_b, qs_s, qs_h, ks_b, ks_s, ks_h,
-         vs_b, vs_s, vs_h, causal, window, scale, (sq + kBQ - 1) / kBQ};
+         vs_b, vs_s, vs_h, causal, window, scale, 0, vec};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)

@@ -21,12 +21,15 @@
 // the dp4a issue rate sets its time. The (Q, N) score matrix never leaves
 // registers: like the TPU kernels, only per-split top-k partials reach device
 // memory. Gathered: the least the card must move is each distinct probed
-// list once, and its 2*Q*C*D flops then bound it at the f32 rate; this
-// kernel reads each query's candidate rows anew (no reuse across queries
-// beyond what L2 happens to hold), so the bytes of Q*C_valid rows set its
-// time. Hamming: 3 integer operations (xor, popc, add) per word per
-// (query, row) pair over 16 bytes a row; at W = 4 selection, not scoring,
-// is most of the work.
+// row once, and its 2*C_valid*D flops (C_valid valid slots over all
+// queries) then bound it at the f32 rate: at the ivfflat probe of the
+// evaluation path, 98 GFLOP against 2.6 GB of distinct rows. A kernel that
+// scores each query's rows on their own reads a list once per query that
+// probes it (about 64 at that shape), so bytes set its time; this one
+// shares each row tile among the queries that probe it, so operations do.
+// Hamming: 3 integer operations (xor, popc, add) per word per (query, row)
+// pair over 16 bytes a row; at W = 4 selection, not scoring, is most of
+// the work.
 //
 // Design (simple first; wgmma/TMA/pipelining are later work):
 //  * topk_partial_{reg,mem}<T>: grid (candidate split, query tile). A block of
@@ -55,17 +58,28 @@
 //    queries in registers, words read as 16-byte vectors when W % 4 == 0.
 //    Distances are small integers, so ties are the rule: the (score, id)
 //    order of the lists is what returns exactly the plain version's ids.
-//  * gathered_partial<kMem>: grid (query, group of 8 splits); each warp owns
-//    one (query, split of the candidate positions). For every 32 positions
-//    each lane loads one (row, id); the warp then computes the dot of each
-//    valid candidate in turn (lanes stride D in 16-byte vectors, a shuffle
-//    tree sums them), lane t keeping candidate t's score, and offers the 32
-//    (score, position) pairs to its list. Invalid slots cost one load of
-//    their id. Lists key on the position, so the merge's (score desc, key
-//    asc) order is the reference's earliest-position rule; the wrapper maps
-//    positions to ids.
+//  * gathered_tiles_kernel<kMem>: the wrapper cuts each query's valid
+//    candidate positions into pieces, runs of consecutive table rows cut
+//    again at 128-row tiles (an ivfflat probe's list is one run, so a
+//    piece is a whole tile of it), and sorts them by tile. A block takes
+//    one tile and up to 32 of its pieces (a tile probed by more queries
+//    gets more blocks): D streams through shared memory in chunks of 32,
+//    the pieces' query rows and the tile's rows, in a ring of 3 stages
+//    fed by 16-byte cp.async copies two chunks ahead (zero-filled past the
+//    table, the block's pieces or D); each thread keeps a 4 x 4 tile of
+//    the 32 x 128 f32 sums (FMA, no TF32), and a warp whose pieces are all
+//    absent skips the products. At that tile the shared-memory reads (8
+//    16-byte reads for 64 FMAs) limit the loop; a larger thread tile is
+//    the next step. The sums then go to shared
+//    memory, and each warp offers a piece's rows, as (score, position),
+//    to a list of min(k, length) entries (lanes for k <= 32, else shared
+//    memory), written to the piece's slot in its query's row of the
+//    partials. Lists key on the position, so the merge's (score desc, key
+//    asc) order is the reference's earliest-position rule; the wrapper
+//    maps positions to ids.
 //  * topk_merge_kernel: one warp per query merges the n_splits*k partials
-//    with the same insertion, so ties still go to the lowest id (position).
+//    with the same insertion, so ties still go to the lowest id (position);
+//    for the gathered kernel, each query's row of piece lists.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -519,78 +533,205 @@ hamming_partial_kernel(const int* __restrict__ q, const int* __restrict__ c,
   }
 }
 
-// q [nq, d]; candidate p of query qi is table[rows[qi, p]], valid when
-// ids[qi, p] >= 0. Writes each split's top-k list of (score, position) into
-// part_s/part_i [nq, n_splits * k].
-template <bool kMem>
-__global__ void __launch_bounds__(kThreads)
-gathered_partial_kernel(const float* __restrict__ q,
-                        const float* __restrict__ table,
-                        const int* __restrict__ rows,
-                        const int* __restrict__ ids, float* part_s,
-                        int* part_i, int nq, int c, int d, int k,
-                        int per_split, int n_splits, int vec,
-                        int smem_lists) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int qi = blockIdx.x;
-  const int split = blockIdx.y * kWarps + warp;
-  if (qi >= nq || split >= n_splits) return;  // uniform in the warp
-  const int p_begin = split * per_split;
-  const int p_end = min(p_begin + per_split, c);
-  const float* qrow = q + static_cast<long long>(qi) * d;
-  const long long crow = static_cast<long long>(qi) * c;
-  const long long o = (static_cast<long long>(qi) * n_splits + split) * k;
+// ---- gathered: row tiles shared by the pieces that probe them --------------
 
-  float ls = -CUDART_INF_F;
-  int li = -1;
-  MemList ml;
-  if (kMem) mem_place(ml, smem_lists, warp, part_s + o, part_i + o, k, lane);
+constexpr int kGTR = 128;            // table rows per tile
+constexpr int kGBQ = 32;             // pieces per block
+constexpr int kGDC = 32;             // D chunk staged per step (floats)
+constexpr int kGS = kGDC + 4;        // padded staged row
+constexpr int kGStage = (kGBQ + kGTR) * kGS;   // floats per stage
+constexpr int kGStages = 3;          // stages in flight: 2 prefetched
+constexpr int kGMinBlocks = 3;       // blocks an SM holds (80 registers)
+constexpr int kGSP = kGTR + 8;       // padded score row
+constexpr int kPieceInts = 5;        // query, first row, length, first
+                                     // position, slot offset in the query
 
-  for (int p0 = p_begin; p0 < p_end; p0 += 32) {
-    const int p = p0 + lane;
-    int my_row = 0;
-    int my_id = -1;
-    if (p < p_end) {
-      my_row = rows[crow + p];
-      my_id = ids[crow + p];
-    }
-    float my_s = -CUDART_INF_F;
-    unsigned live = __ballot_sync(kFull, my_id >= 0);
-    while (live) {
-      const int t = __ffs(live) - 1;
-      live &= live - 1;
-      const float* v =
-          table + static_cast<long long>(__shfl_sync(kFull, my_row, t)) * d;
-      float acc = 0.f;
-      if (vec) {
-#pragma unroll 4
-        for (int e = 4 * lane; e < d; e += 128) {
-          const float4 a = *reinterpret_cast<const float4*>(qrow + e);
-          const float4 b = *reinterpret_cast<const float4*>(v + e);
-          acc = fmaf(a.x, b.x, acc);
-          acc = fmaf(a.y, b.y, acc);
-          acc = fmaf(a.z, b.z, acc);
-          acc = fmaf(a.w, b.w, acc);
-        }
-      } else {
-        for (int e = lane; e < d; e += 32) acc = fmaf(qrow[e], v[e], acc);
-      }
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// Stage D chunk [d0, d0 + kGDC) of the block's query rows (qrow[j] < 0:
+// zeros) and of the tile's rows (past the table: zeros) into stage[].
+__device__ __forceinline__ void gathered_stage(
+    float* stage, const float* __restrict__ q,
+    const float* __restrict__ table, const int* qrow, long long row0, int r,
+    int d, int d0, int vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
 #pragma unroll
-      for (int off = 16; off; off >>= 1)
-        acc += __shfl_xor_sync(kFull, acc, off);
-      if (lane == t) my_s = acc;
+    for (int p = 0; p < (kGBQ + kGTR) * (kGDC / 4) / kThreads; ++p) {
+      const int e = tid + p * kThreads;
+      const int x = e / (kGDC / 4), c = d0 + (e % (kGDC / 4)) * 4;
+      const float* src = table;
+      bool ok = c < d;
+      if (x < kGBQ) {
+        ok = ok && qrow[x] >= 0;
+        if (ok) src = q + static_cast<long long>(qrow[x]) * d + c;
+      } else {
+        const long long g = row0 + x - kGBQ;
+        ok = ok && g < r;
+        if (ok) src = table + g * d + c;
+      }
+      cp_async16(stage + x * kGS + (e % (kGDC / 4)) * 4, src, ok);
     }
-    if (kMem)
-      mem_offer(ml, my_s, p, k, lane);
-    else
-      reg_offer(ls, li, my_s, p, k, lane);
+  } else {
+    for (int e = tid; e < (kGBQ + kGTR) * kGDC; e += kThreads) {
+      const int x = e / kGDC, c = d0 + e % kGDC;
+      float val = 0.f;
+      if (c < d) {
+        if (x < kGBQ) {
+          if (qrow[x] >= 0) val = q[static_cast<long long>(qrow[x]) * d + c];
+        } else if (row0 + x - kGBQ < r) {
+          val = table[(row0 + x - kGBQ) * d + c];
+        }
+      }
+      stage[x * kGS + e % kGDC] = val;
+    }
   }
-  if (!kMem && lane < k) {
-    part_s[o + lane] = ls;
-    part_i[o + lane] = li;
-  } else if (kMem && smem_lists) {
-    mem_store(ml, part_s + o, part_i + o, k, lane);
+}
+
+// One block per (row tile, up to kGBQ of the pieces that probe it): the
+// pieces from blk_first[blockIdx.x] on, while they stay in its tile.
+// pieces [n, 5] sorted by tile; part_s/part_i [nq, width]: piece j's
+// top-min(k, length) (score, position) list goes to row query_j at
+// column slot_j.
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads, kGMinBlocks)
+gathered_tiles_kernel(const float* __restrict__ q,
+                      const float* __restrict__ table,
+                      const int* __restrict__ pieces,
+                      const int* __restrict__ blk_first, float* part_s,
+                      int* part_i, int n, int r, int d, int k, int width,
+                      int vec) {
+  extern __shared__ __align__(16) float gsm[];
+  __shared__ int p_q[kGBQ], p_lo[kGBQ], p_hi[kGBQ], p_pos[kGBQ], p_off[kGBQ];
+  const int first = blk_first[blockIdx.x];
+  if (first < 0) return;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int tile =
+      pieces[static_cast<long long>(first) * kPieceInts + 1] / kGTR;
+  const long long row0 = static_cast<long long>(tile) * kGTR;
+  if (tid < kGBQ) {
+    const int j = first + tid;
+    const int* pc = pieces + static_cast<long long>(j) * kPieceInts;
+    if (j < n && pc[1] / kGTR == tile) {
+      p_q[tid] = pc[0];
+      p_lo[tid] = pc[1] - static_cast<int>(row0);
+      p_hi[tid] = pc[1] - static_cast<int>(row0) + pc[2];
+      p_pos[tid] = pc[3];
+      p_off[tid] = pc[4];
+    } else {
+      p_q[tid] = -1;
+      p_lo[tid] = p_hi[tid] = 0;
+    }
+  }
+  __syncthreads();
+
+  // scores: warp (wq, wr) owns pieces 16wq + qs + 4i and rows
+  // 32wr + rs + 8j of the tile (lane = 8qs + rs), so each float4 read
+  // of a staged row is 4 (pieces) or 8 (rows) distinct vectors: no bank
+  // conflict
+  const int wq = warp & 1, wr = warp >> 1;
+  const int qs = lane >> 3, rs = lane & 7;
+  // pieces fill the block's slots from 0, so a warp whose first slot is
+  // empty has no piece: it stages and syncs, but skips the products
+  const bool busy = p_q[16 * wq] >= 0;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int n_chunks = (d + kGDC - 1) / kGDC;
+  // a ring of kGStages stages: chunk ch + kGStages - 1 is staged while
+  // chunk ch is multiplied; a group is committed every step, empty or
+  // not, so "all but the last kGStages - 1 groups" is always chunk ch
+#pragma unroll
+  for (int ch = 0; ch < kGStages - 1; ++ch) {
+    if (ch < n_chunks)
+      gathered_stage(gsm + ch * kGStage, q, table, p_q, row0, r, d,
+                     ch * kGDC, vec);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int ahead = ch + kGStages - 1;
+    if (ahead < n_chunks)
+      gathered_stage(gsm + ahead % kGStages * kGStage, q, table, p_q, row0,
+                     r, d, ahead * kGDC, vec);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kGStages - 1));
+    __syncthreads();
+    const float* qsm = gsm + ch % kGStages * kGStage;
+    const float* tsm = qsm + kGBQ * kGS;
+    if (busy) {
+#pragma unroll
+      for (int c = 0; c < kGDC; c += 4) {
+        float4 a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(
+              qsm + (16 * wq + qs + 4 * i) * kGS + c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          b[j] = *reinterpret_cast<const float4*>(
+              tsm + (32 * wr + rs + 8 * j) * kGS + c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+            acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+            acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+            acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+          }
+      }
+    }
+    __syncthreads();   // the next step overwrites this stage
+  }
+
+  // the scores take the stages' place; each warp then selects for 4 pieces
+  float* sc = gsm;                                   // [kGBQ][kGSP]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      sc[(16 * wq + qs + 4 * i) * kGSP + 32 * wr + rs + 8 * j] = acc[i][j];
+  __syncthreads();
+  float* lists = gsm + kGBQ * kGSP + warp * 2 * kGTR;
+  for (int pj = warp; pj < kGBQ; pj += kWarps) {
+    const int qi = p_q[pj];
+    if (qi < 0) continue;                            // uniform in the warp
+    const int lo = p_lo[pj], hi = p_hi[pj];
+    const int kk = min(k, hi - lo);
+    const int pos0 = p_pos[pj] - lo;
+    const long long o = static_cast<long long>(qi) * width + p_off[pj];
+    const float* row = sc + pj * kGSP;
+    float ls = -CUDART_INF_F;
+    int li = -1;
+    MemList ml;
+    if (kMem) {
+      ml.s = lists;
+      ml.i = reinterpret_cast<int*>(lists + kGTR);
+      mem_init(ml, kk, lane);
+    }
+    for (int x0 = lo; x0 < hi; x0 += 32) {
+      const int x = x0 + lane;
+      const float s = x < hi ? row[x] : -CUDART_INF_F;
+      if (kMem)
+        mem_offer(ml, s, pos0 + x, kk, lane);
+      else
+        reg_offer(ls, li, s, pos0 + x, kk, lane);
+    }
+    if (!kMem && lane < kk) {
+      part_s[o + lane] = ls;
+      part_i[o + lane] = li;
+    } else if (kMem) {
+      mem_store(ml, part_s + o, part_i + o, kk, lane);
+    }
+    __syncwarp();     // the list is reused by the warp's next piece
   }
 }
 
@@ -733,32 +874,40 @@ extern "C" int hamming_partial(const void* q, const void* c, void* part_s,
                         n_splits, vec, stream);
 }
 
-// queries f32 [nq, d], table f32 [r, d], rows/ids int32 [nq, c]; positions
-// [p * per_split, (p + 1) * per_split) of each query form split p; vec = 1
+// queries f32 [nq, d], table f32 [r, d]; pieces int32 [n, 5] (query,
+// first row, length, first position, slot offset) sorted by row tile of
+// kGTR rows, no piece crossing a tile; blk_first int32 [n_blocks], the
+// first piece of each block (every kGBQ-th piece of a tile, -1: none);
+// part_s/part_i [nq, width], filled with (-inf, -1) by the caller. vec = 1
 // when queries and table are 16-byte aligned and d % 4 == 0.
-extern "C" int gathered_partial(const void* q, const void* table,
-                                const void* rows, const void* ids,
-                                void* part_s, void* part_i, int nq, int c,
-                                int d, int k, int per_split, int n_splits,
-                                int vec, void* stream) {
-  if (nq > 0 && n_splits > 0 && k > 0) {
-    const dim3 grid(nq, (n_splits + kWarps - 1) / kWarps);
+extern "C" int gathered_tiles(const void* q, const void* table,
+                              const void* pieces, const void* blk_first,
+                              void* part_s, void* part_i, int n,
+                              int n_blocks, int r, int d, int k, int width,
+                              int vec, void* stream) {
+  if (n > 0 && n_blocks > 0 && k > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* qp = static_cast<const float*>(q);
     const float* tp = static_cast<const float*>(table);
-    const int* rp = static_cast<const int*>(rows);
-    const int* ip = static_cast<const int*>(ids);
+    const int* pp = static_cast<const int*>(pieces);
+    const int* bp = static_cast<const int*>(blk_first);
     float* ps = static_cast<float*>(part_s);
     int* pi = static_cast<int*>(part_i);
-    const int smem = k <= kSmemK;
-    const size_t bytes = smem ? size_t(kWarps) * k * 8 : 0;
+    const size_t bytes = kGStages * kGStage * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        gathered_tiles_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(gathered_tiles_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
     if (k <= kRegK)
-      gathered_partial_kernel<false><<<grid, kThreads, 0, st>>>(
-          qp, tp, rp, ip, ps, pi, nq, c, d, k, per_split, n_splits, vec, 0);
+      gathered_tiles_kernel<false><<<n_blocks, kThreads, bytes, st>>>(
+          qp, tp, pp, bp, ps, pi, n, r, d, k, width, vec);
     else
-      gathered_partial_kernel<true><<<grid, kThreads, bytes, st>>>(
-          qp, tp, rp, ip, ps, pi, nq, c, d, k, per_split, n_splits, vec,
-          smem);
+      gathered_tiles_kernel<true><<<n_blocks, kThreads, bytes, st>>>(
+          qp, tp, pp, bp, ps, pi, n, r, d, k, width, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -102,7 +102,11 @@ class Kernel:
             fn.argtypes = list(self.argtypes) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fn = fn
-        stream = torch.cuda.current_stream().cuda_stream
+        # the current stream's raw handle, as torch's own launchers read
+        # it: torch.cuda.current_stream() builds a Stream object on every
+        # launch
+        stream = torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device())
         rc = self._fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "

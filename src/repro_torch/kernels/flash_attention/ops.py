@@ -37,25 +37,38 @@ def _no_grad_asked(*ts: torch.Tensor) -> None:
             "plain attention for training")
 
 
+def _bad_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Why q, k and v cannot go to the kernel, or '' if they can."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4 or t.dtype != q.dtype or t.device != q.device:
+            return (f"{name} must be a 4-d {q.dtype} tensor on {q.device}, "
+                    f"got {t.dim()}-d {t.dtype} on {t.device}")
+        if t.stride(3) != 1:
+            return f"{name} needs unit stride along D, got {t.stride()}"
+    return ""
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window=None) -> torch.Tensor:
     """Launch the kernel: q (B, Sq, H, D), k/v (B, Skv, Hkv, D) CUDA
     tensors of one type (f32 or bf16), unit stride along D, D in
-    ``HEAD_DIMS`` -> a new contiguous (B, Sq, H, D) tensor."""
+    ``HEAD_DIMS`` -> a new contiguous (B, Sq, H, D) tensor.
+
+    The checks run once a launch (the embedding path launches 8712 times),
+    so the common case takes one test per property; the loop that names
+    the fault runs only when one fails."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
-    if q.dtype not in _DTYPES:
+    dtype = _DTYPES.get(q.dtype)
+    if dtype is None:
         raise ValueError(f"flash_attention: type {q.dtype} is not one of "
                          f"{tuple(_DTYPES)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dim() != 4 or t.dtype != q.dtype or t.device != dev:
-            raise ValueError(f"flash_attention: {name} must be a 4-d "
-                             f"{q.dtype} tensor on {dev}, got {t.dim()}-d "
-                             f"{t.dtype} on {t.device}")
-        if t.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name} needs unit stride "
-                             f"along D, got strides {t.stride()}")
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    if not (k.dtype == v.dtype == q.dtype and k.device == v.device == dev
+            and q.dim() == k.dim() == v.dim() == 4
+            and qs[3] == ks[3] == vs[3] == 1):
+        raise ValueError(f"flash_attention: {_bad_operands(q, k, v)}")
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -65,8 +78,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: {h} heads over {hkv} kv heads")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: D={d} is not one of {HEAD_DIMS}")
-    strides = (*q.stride(), *k.stride(), *v.stride())
-    if max(b * h, sq, skv, *strides) >= 2 ** 31:
+    if max(b * h, sq, skv, *qs, *ks, *vs) >= 2 ** 31:
         raise ValueError("flash_attention: sizes or strides exceed the "
                          "kernel's int arguments")
     if window is not None and window < 0:
@@ -74,13 +86,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    win = -1 if window is None else int(window)
-    with torch.cuda.device(dev):
-        FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b, sq, skv, h, hkv, d,
-                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                        int(bool(causal)), win, _DTYPES[q.dtype],
-                        1.0 / math.sqrt(d))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            skv, h, hkv, d, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
+            vs[1], vs[2], int(bool(causal)),
+            -1 if window is None else int(window), dtype, 1.0 / math.sqrt(d))
+    if dev.index == torch.cuda.current_device():
+        FLASH_ATTENTION(*args)
+    else:
+        with torch.cuda.device(dev):
+            FLASH_ATTENTION(*args)
     return out
 
 

@@ -15,6 +15,7 @@ or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -31,10 +32,9 @@ TOPK_INT8_PARTIAL = Kernel("topk_int8_partial", "topk_scores.cu",
                            _PARTIAL_ARGS)
 TOPK_MERGE = Kernel("topk_merge", "topk_scores.cu",
                     (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3)
-GATHERED_PARTIAL = Kernel("gathered_partial", "topk_scores.cu",
-                          (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7)
-_SPLIT_WARPS = 8 * _TARGET_BLOCKS    # gathered: warps (query, split) to aim at
-_MIN_SPLIT = 256                     # gathered: fewest positions a split takes
+GATHERED_TILES = Kernel("gathered_tiles", "topk_scores.cu",
+                        (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7)
+TILE_ROWS, TILE_PIECES = 128, 32     # gathered: rows a tile, pieces a block
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, kernel: str) -> None:
@@ -109,16 +109,100 @@ def topk_scores_int8_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor,
                        16)
 
 
+class Pieces(NamedTuple):
+    """The valid candidates of a gathered search, cut into pieces.
+
+    A piece is a run of one query's valid candidate positions whose rows
+    are consecutive table rows inside one tile of ``TILE_ROWS`` rows. Row
+    ``j`` of ``pieces`` is (query, first row, length, first position, slot
+    offset), int32, sorted by tile (stably, so queries keep their order in
+    a tile). A piece's top-min(k, length) list goes to row ``query`` of a
+    (Q, ``width``) partial buffer, from column ``slot offset``; ``width``
+    bounds every query's slots (C, or k per piece of the query with the
+    most, whichever is fewer). ``blk_first`` names the first piece of each
+    block of the kernel: every ``TILE_PIECES``-th piece of a tile, then -1
+    up to a length the host can compute without reading the device."""
+
+    pieces: torch.Tensor
+    blk_first: torch.Tensor
+    width: int
+
+
+def gathered_pieces(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
+                    n_rows: int, k: int, *, tile: int = TILE_ROWS,
+                    per_block: int = TILE_PIECES,
+                    kernel: str = "gathered_topk") -> Pieces:
+    """Cut the valid slots (``cand_ids >= 0``) of ``cand_rows`` (Q, C)
+    into pieces, in plain torch ops on their device. One host read (the
+    piece count, the most pieces a query has, whether a valid slot's row
+    lies outside ``[0, n_rows)``, which raises) sizes the outputs; the
+    passes over the (Q, C) inputs are elementwise, the rest works on the
+    pieces."""
+    qn, c = cand_ids.shape
+    dev = cand_ids.device
+    if n_rows + n_rows // tile >= 2 ** 31:
+        raise ValueError(f"{kernel}: {n_rows} table rows exceed the "
+                         f"int32 row index with a gap after each tile")
+    valid = cand_ids >= 0
+    rows = cand_rows
+    if n_rows:
+        lo, hi = (torch.aminmax(torch.where(valid, rows, 0)) if valid.numel()
+                  else (torch.zeros((), dtype=rows.dtype, device=dev),) * 2)
+        stray = (lo < 0) | (hi >= n_rows)
+    else:
+        stray = valid.any()
+    # rows with a gap after each tile and -2 at invalid slots: a slot
+    # continues its left neighbour's piece (both valid, the next row, the
+    # same tile) exactly when the step between them is 1
+    gapped = torch.where(valid, rows + rows // tile, -2)
+    cont = torch.diff(gapped, dim=1) == 1
+    # cont implies valid on both sides, so xor clears the slots it joins
+    start = torch.empty_like(valid)
+    start[:, :1] = valid[:, :1]
+    torch.bitwise_xor(valid[:, 1:], cont, out=start[:, 1:])
+    end = torch.empty_like(valid)
+    end[:, -1:] = valid[:, -1:]
+    torch.bitwise_xor(valid[:, :-1], cont, out=end[:, :-1])
+    per_query = start.sum(1)
+    most = per_query.max() if qn else per_query.sum()
+    n, any_stray, most = torch.stack([per_query.sum(), stray.long(),
+                                      most]).tolist()
+    if any_stray:
+        raise ValueError(f"{kernel}: a valid candidate's row lies outside "
+                         f"the table's {n_rows} rows")
+    s_at = torch.nonzero_static(start.flatten(), size=n).flatten()
+    length = torch.nonzero_static(end.flatten(), size=n).flatten() - s_at + 1
+    q_of = s_at // c
+    # slot offsets: the lists of the query's earlier pieces come first
+    kept = length.clamp(max=k)
+    before = torch.cumsum(kept, 0) - kept
+    off = before - before[torch.searchsorted(q_of, q_of)]
+    first_row = rows.flatten()[s_at].long()
+    order = torch.sort(first_row // tile, stable=True).indices
+    pieces = torch.stack([q_of, first_row, length, s_at % c, off],
+                         1)[order].to(torch.int32)
+    # blocks: every per_block-th piece of a tile opens one
+    t_sorted = (first_row // tile)[order].contiguous()
+    rank = (torch.arange(n, device=dev)
+            - torch.searchsorted(t_sorted, t_sorted))
+    n_blocks = -(-n // per_block) + min(n, -(-n_rows // tile))
+    blk_first = torch.nonzero_static(rank % per_block == 0, size=n_blocks,
+                                     fill_value=-1)
+    return Pieces(pieces, blk_first.flatten().to(torch.int32),
+                  max(min(c, k * most), 1))
+
+
 def gathered_topk_cuda(queries: torch.Tensor, table: torch.Tensor,
                        cand_rows: torch.Tensor, cand_ids: torch.Tensor,
                        k: int):
     """Launch the gathered kernel and the merge kernel: queries f32[Q, D],
     table f32[R, D], cand_rows/cand_ids i32[Q, C], 1 <= k <= C ->
-    (scores f32[Q, k], ids i32[Q, k]). The kernels rank (score, position);
-    one gather maps the winning positions to ids, -1 where the score is
-    -inf."""
+    (scores f32[Q, k], ids i32[Q, k]). Each probed row tile is read once
+    for every 32 pieces that probe it (``gathered_pieces``); the kernels
+    rank (score, position); one gather maps the winning positions to ids,
+    -1 where the score is -inf."""
     dev = queries.device
-    name = GATHERED_PARTIAL.name
+    name = GATHERED_TILES.name
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     _check(queries, "queries", torch.float32, dev, name)
@@ -127,6 +211,7 @@ def gathered_topk_cuda(queries: torch.Tensor, table: torch.Tensor,
     _check(cand_ids, "cand_ids", torch.int32, dev, name)
     nq, d = queries.shape
     c = cand_ids.shape[1]
+    r = table.shape[0]
     if table.shape[1] != d:
         raise ValueError(f"{name}: widths differ, {d} vs {table.shape[1]}")
     if cand_rows.shape != (nq, c) or cand_ids.shape[0] != nq:
@@ -135,27 +220,21 @@ def gathered_topk_cuda(queries: torch.Tensor, table: torch.Tensor,
                          f"(Q={nq}, C)")
     if not 1 <= k <= c:
         raise ValueError(f"{name}: k={k} outside [1, C={c}]")
-    r = table.shape[0]
-    stray = (cand_ids >= 0) & ((cand_rows < 0) | (cand_rows >= r))
-    if bool(stray.any()):
-        raise ValueError(f"{name}: a valid candidate's row lies outside the "
-                         f"table's {r} rows")
-    n_splits = max(1, min(-(-c // _MIN_SPLIT), -(-_SPLIT_WARPS // nq)))
-    per_split = -(-c // n_splits)
-    n_splits = -(-c // per_split)
-    width = n_splits * k
-    if max(nq, c, d, width) >= 2 ** 31:
+    if max(nq, c, d, r) >= 2 ** 31:
         raise ValueError(f"{name}: a dimension exceeds int32")
-    part_s = torch.empty((nq, width), dtype=torch.float32, device=dev)
-    part_p = torch.empty((nq, width), dtype=torch.int32, device=dev)
+    pieces, blk_first, width = gathered_pieces(cand_rows, cand_ids, r, k,
+                                               kernel=name)
+    part_s = torch.full((nq, width), -torch.inf, dtype=torch.float32,
+                        device=dev)
+    part_p = torch.full((nq, width), -1, dtype=torch.int32, device=dev)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_p = torch.empty((nq, k), dtype=torch.int32, device=dev)
     vec = int(d % 4 == 0 and _aligned(queries, table))
     with torch.cuda.device(dev):
-        GATHERED_PARTIAL(queries.data_ptr(), table.data_ptr(),
-                         cand_rows.data_ptr(), cand_ids.data_ptr(),
-                         part_s.data_ptr(), part_p.data_ptr(), nq, c, d, k,
-                         per_split, n_splits, vec)
+        GATHERED_TILES(queries.data_ptr(), table.data_ptr(),
+                       pieces.data_ptr(), blk_first.data_ptr(),
+                       part_s.data_ptr(), part_p.data_ptr(), pieces.shape[0],
+                       blk_first.shape[0], r, d, k, width, vec)
         TOPK_MERGE(part_s.data_ptr(), part_p.data_ptr(), out_s.data_ptr(),
                    out_p.data_ptr(), nq, width, k)
     ids = torch.gather(cand_ids, 1, out_p.clamp(min=0).long())

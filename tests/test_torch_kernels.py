@@ -18,7 +18,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.label_prop.ops import lp_round_cuda
 from repro_torch.kernels.lsh_hamming.ops import HAMMING_PARTIAL, hamming_topk
 from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
-from repro_torch.kernels.topk_scoring.ops import (GATHERED_PARTIAL,
+from repro_torch.kernels.topk_scoring.ops import (GATHERED_TILES,
+                                                  TILE_PIECES, TILE_ROWS,
                                                   TOPK_INT8_PARTIAL,
                                                   TOPK_MERGE, TOPK_PARTIAL,
                                                   gathered_topk, topk_scores,
@@ -181,6 +182,84 @@ def test_gathered_kernel_matches_plain(cuda, q, c, d, r, k, integer):
         assert bool((gaps[diff.any(dim=1)] <= 2 * tol).all())
 
 
+def _piece_inputs(kind, d, seed):
+    """Small-integer candidates shaped to exercise the kernel's pieces
+    (runs of consecutive rows inside one 128-row tile): none of length > 1,
+    a row repeated within a query, runs across tile boundaries, one tile
+    probed by more queries than a block takes, and an ivfflat probe. Query
+    0 has no valid slot and query 1 two, below every k tested."""
+    rng = np.random.default_rng(seed)
+    q, c, r = 2 * TILE_PIECES + 8, 400, 3000
+    if kind == "no_runs":
+        rows = 2 * rng.integers(0, r // 2, (q, c))
+    elif kind == "repeats":
+        rows = np.repeat(rng.integers(0, r, (q, c // 4)), 4, axis=1)
+    elif kind == "straddle":
+        rows = rng.integers(0, r - c, (q, 1)) + np.arange(c)[None, :]
+    elif kind == "crowded":
+        rows = np.broadcast_to(np.arange(c) % TILE_ROWS, (q, c)).copy()
+    else:
+        raise ValueError(kind)
+    ids = rng.integers(0, 10 ** 6, (q, c))
+    ids[rng.random((q, c)) < 0.2] = -1
+    ids[0] = -1
+    ids[1, 2:] = -1
+    qs = rng.integers(-3, 4, (q, d)).astype(np.float32)
+    table = rng.integers(-3, 4, (r, d)).astype(np.float32)
+    return (torch.from_numpy(qs), torch.from_numpy(table),
+            torch.from_numpy(rows.astype(np.int32)),
+            torch.from_numpy(ids.astype(np.int32)))
+
+
+@pytest.mark.parametrize("kind", ["no_runs", "repeats", "straddle",
+                                  "crowded"])
+@pytest.mark.parametrize("d", [5, 64])
+@pytest.mark.parametrize("k", [1, 3, 40])
+def test_gathered_kernel_pieces(cuda, kind, d, k):
+    """Integer vectors, so every score is exact: scores and ids equal the
+    plain version's, ties to the earlier position included, whatever the
+    pieces look like; D = 5 takes the scalar staging path."""
+    qs, table, rows, ids = (t.to(cuda) for t in _piece_inputs(kind, d, k))
+    s, i = gathered_topk(qs, table, rows, ids, k=k)
+    torch.cuda.synchronize()
+    s_ref, i_ref = gathered_topk_ref(qs, table, rows, ids, k=k)
+    assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+    assert bool((i[0] == -1).all()) and bool((i[1, 2:] == -1).all())
+
+
+def test_gathered_kernel_ivfflat_probe(cuda):
+    """An ivfflat index and probe on the card: lists are runs that cross
+    tiles, probed by many queries."""
+    from repro_torch.core import prng
+    from repro_torch.retrieval.ivfflat import build_ivfflat, probe_candidates
+    g = torch.Generator().manual_seed(4)
+    vecs = torch.randint(-3, 4, (6000, 24), generator=g).float().to(cuda)
+    qs = torch.randint(-3, 4, (300, 24), generator=g).float().to(cuda)
+    index = build_ivfflat(prng.prng_key(4), vecs, n_lists=16)
+    rows, ids = probe_candidates(index, qs, nprobe=4)
+    table = index.vecs.reshape(-1, 24)
+    for k in (3, 10, 50):
+        s, i = gathered_topk(qs, table, rows, ids, k=k)
+        s_ref, i_ref = gathered_topk_ref(qs, table, rows, ids, k=k)
+        assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+
+
+def test_gathered_kernel_tie_goes_to_the_earlier_position(cuda):
+    """Equal scores at two positions, in other pieces and tiles: the
+    earlier position wins, whichever row comes first in the table."""
+    table = torch.zeros(300, 8, device=cuda)
+    table[0] = table[200] = 1.0
+    table[100] = 0.5
+    qs = torch.ones(2, 8, device=cuda)
+    rows = torch.tensor([[200, 100, 0], [0, 100, 200]], dtype=torch.int32,
+                        device=cuda)
+    ids = torch.tensor([[7, 8, 9], [9, 8, 7]], dtype=torch.int32,
+                       device=cuda)
+    s, i = gathered_topk(qs, table, rows, ids, k=3)
+    assert i.tolist() == [[7, 9, 8], [9, 7, 8]]
+    assert s.tolist() == [[8.0, 8.0, 4.0], [8.0, 8.0, 4.0]]
+
+
 @pytest.mark.parametrize("q,n,w,k", [
     (1, 1, 4, 1), (3, 5, 4, 9), (7, 513, 4, 5), (33, 1000, 4, 32),
     (40, 4096, 4, 64), (9, 1000, 3, 100), (5, 300, 1, 300),
@@ -213,7 +292,7 @@ def test_topk_kernels_launch_at_any_k(cuda, k):
     cs = torch.randn(500, 16, device=cuda)
     rows = torch.randint(0, 500, (4, 400), device=cuda, dtype=torch.int32)
     kernels = (TOPK_PARTIAL, TOPK_INT8_PARTIAL, HAMMING_PARTIAL,
-               GATHERED_PARTIAL, TOPK_MERGE)
+               GATHERED_TILES, TOPK_MERGE)
     before = [kern.launches for kern in kernels]
     topk_scores(qs, cs, k=k)
     topk_scores_int8(qs.to(torch.int8), cs.to(torch.int8), k=k)
@@ -296,6 +375,20 @@ _MODES = [(True, None), (True, 40), (False, None)]
 def test_flash_kernel_matches_plain(cuda, b, sq, skv, h, hkv, d, causal,
                                     window, dtype):
     q, k, v = _attn_inputs(b, sq, skv, h, hkv, d, dtype, sq * skv + d, cuda)
+    _flash_vs_plain(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("skv", [1, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("causal,window", _MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_short_row_limit(cuda, skv, group, causal, window,
+                                      dtype):
+    """Both sides of the short-row kernel's limit (Skv <= 128 takes one
+    block per kv head and 64 query rows, exact softmax; 129 the tiled
+    online-softmax loop), with 1, 2 and 8 query heads per kv head."""
+    q, k, v = _attn_inputs(2, skv, skv, 8, 8 // group, 32, dtype,
+                           skv * 10 + group, cuda)
     _flash_vs_plain(q, k, v, causal, window)
 
 
