@@ -21,9 +21,10 @@ From the root of a checkout, with one card. In order:
    probed by more queries than a block takes. Flash attention's are the
    encoder's passage and query batches (256 x 64 and 256 x 24 tokens, 4
    heads of 32), the reference's test grid, bf16, Skv on both sides of
-   the short-row kernel's limit of 128 with GQA groups of 1, 2 and 8, and
-   the LM configs' head layout (S 2048, 32 heads over 4 kv heads of 128,
-   causal and causal + window, bf16).
+   the short-row kernel's limit of 128 with GQA groups of 1, 2 and 8,
+   every instance of that kernel (each head width, type, key bucket and
+   row block) once, and the LM configs' head layout (S 2048, 32 heads
+   over 4 kv heads of 128, causal and causal + window, bf16).
 4. Times: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events after a
    warm-up, beside the least time the card could take; the gathered
@@ -497,6 +498,18 @@ def device_profile(fn):
     return wall, (busy * 1e-6 if spans else None), per_kernel
 
 
+def call_device_ms(per_kernel: dict, calls: int):
+    """Device ms a call from ``device_profile``'s kernels over ``calls``
+    identical calls, or None with no device event. The profiler may miss
+    a launch now and then (seen on the H100: one to three of 8-10): that
+    lowers a kernel's count, not its mean, so each kernel counts its mean
+    times its launches a call (its count over ``calls``, rounded up)."""
+    if not per_kernel:
+        return None
+    return sum(sec / n * -(-n // calls)
+               for n, sec in per_kernel.values()) * 1e3
+
+
 def log_profile(what: str, prof) -> None:
     wall, busy, per_kernel = prof
     if busy is None:
@@ -731,7 +744,15 @@ def main() -> None:
         # groups of 1, 2 and 8
         + [((2, skv, skv, 8, 8 // grp, 32), dt, c, w)
            for skv in (1, 63, 64, 65, 127, 128, 129) for grp in (1, 2, 8)
-           for c, w in modes for dt in (f32, bf16)])
+           for c, w in modes for dt in (f32, bf16)]
+        # every instance of the short-row kernel: up to 32, 64 and 128
+        # keys, 32 and 64 query rows a block (GQA group x Sq <= 32 takes
+        # 32), each head width and type
+        + [((2, sq, skv, 8, 8 // grp, d), dt, *modes[i % 3])
+           for i, (skv, sq, grp) in enumerate(
+               [(20, 4, 8), (32, 32, 2), (50, 4, 8), (64, 64, 1),
+                (100, 4, 8), (128, 128, 8)])
+           for d in (16, 32, 64, 128) for dt in (f32, bf16)])
     with torch.no_grad():
         for i, (shp, dt, causal, window) in enumerate(attn_cases):
             err = check_flash(*attn_inputs(*shp, dtype=dt, seed=100 + i,
@@ -742,8 +763,9 @@ def main() -> None:
                 attn_bf16_err = max(attn_bf16_err, err)
     log(f"    flash_attention: within the stated tolerance at "
         f"{len(attn_cases)} shapes incl. the encoder's B=256 S=64,24 H=4 "
-        f"D=32, Skv 1..129 over GQA groups 1, 2, 8 and S=2048 H=32/4 D=128 "
-        f"bf16; max |err| f32 {attn_err:.3e}, "
+        f"D=32, Skv 1..129 over GQA groups 1, 2, 8, every short-row "
+        f"instance (D 16..128, 32 and 64 rows a block) and S=2048 H=32/4 "
+        f"D=128 bf16; max |err| f32 {attn_err:.3e}, "
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
@@ -873,10 +895,8 @@ def main() -> None:
 
     def device_ms(fn, n=50):
         fn()
-        per_kernel = device_profile(lambda: [fn() for _ in range(n)])[2]
-        if not per_kernel:
-            return None
-        return sum(sec for _, sec in per_kernel.values()) / n * 1e3
+        return call_device_ms(device_profile(
+            lambda: [fn() for _ in range(n)])[2], n)
 
     with torch.no_grad():
         a_dev = device_ms(lambda: flash_attention(aq, ak, av, causal=False))

@@ -86,15 +86,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, h, hkv, d, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0],
-            vs[1], vs[2], int(bool(causal)),
-            -1 if window is None else int(window), dtype, 1.0 / math.sqrt(d))
-    if dev.index == torch.cuda.current_device():
-        FLASH_ATTENTION(*args)
-    else:
-        with torch.cuda.device(dev):
-            FLASH_ATTENTION(*args)
+    with torch.cuda.device(dev):
+        FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), b, sq, skv, h, hkv, d, qs[0], qs[1],
+                        qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+                        int(bool(causal)),
+                        -1 if window is None else int(window), dtype,
+                        1.0 / math.sqrt(d))
     return out
 
 

@@ -34,7 +34,10 @@ TOPK_MERGE = Kernel("topk_merge", "topk_scores.cu",
                     (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3)
 GATHERED_TILES = Kernel("gathered_tiles", "topk_scores.cu",
                         (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7)
-TILE_ROWS, TILE_PIECES = 128, 32     # gathered: rows a tile, pieces a block
+# gathered: table rows a tile, pieces a block; they must equal kGTR and
+# kGBQ in csrc/topk_scores.cu, whose blocks find their tile and pieces
+# by them
+TILE_ROWS, TILE_PIECES = 128, 32
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, kernel: str) -> None:
@@ -129,9 +132,7 @@ class Pieces(NamedTuple):
 
 
 def gathered_pieces(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
-                    n_rows: int, k: int, *, tile: int = TILE_ROWS,
-                    per_block: int = TILE_PIECES,
-                    kernel: str = "gathered_topk") -> Pieces:
+                    n_rows: int, k: int) -> Pieces:
     """Cut the valid slots (``cand_ids >= 0``) of ``cand_rows`` (Q, C)
     into pieces, in plain torch ops on their device. One host read (the
     piece count, the most pieces a query has, whether a valid slot's row
@@ -140,8 +141,8 @@ def gathered_pieces(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
     pieces."""
     qn, c = cand_ids.shape
     dev = cand_ids.device
-    if n_rows + n_rows // tile >= 2 ** 31:
-        raise ValueError(f"{kernel}: {n_rows} table rows exceed the "
+    if n_rows + n_rows // TILE_ROWS >= 2 ** 31:
+        raise ValueError(f"gathered_topk: {n_rows} table rows exceed the "
                          f"int32 row index with a gap after each tile")
     valid = cand_ids >= 0
     rows = cand_rows
@@ -154,7 +155,7 @@ def gathered_pieces(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
     # rows with a gap after each tile and -2 at invalid slots: a slot
     # continues its left neighbour's piece (both valid, the next row, the
     # same tile) exactly when the step between them is 1
-    gapped = torch.where(valid, rows + rows // tile, -2)
+    gapped = torch.where(valid, rows + rows // TILE_ROWS, -2)
     cont = torch.diff(gapped, dim=1) == 1
     # cont implies valid on both sides, so xor clears the slots it joins
     start = torch.empty_like(valid)
@@ -168,8 +169,8 @@ def gathered_pieces(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
     n, any_stray, most = torch.stack([per_query.sum(), stray.long(),
                                       most]).tolist()
     if any_stray:
-        raise ValueError(f"{kernel}: a valid candidate's row lies outside "
-                         f"the table's {n_rows} rows")
+        raise ValueError(f"gathered_topk: a valid candidate's row lies "
+                         f"outside the table's {n_rows} rows")
     s_at = torch.nonzero_static(start.flatten(), size=n).flatten()
     length = torch.nonzero_static(end.flatten(), size=n).flatten() - s_at + 1
     q_of = s_at // c
@@ -178,15 +179,15 @@ def gathered_pieces(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
     before = torch.cumsum(kept, 0) - kept
     off = before - before[torch.searchsorted(q_of, q_of)]
     first_row = rows.flatten()[s_at].long()
-    order = torch.sort(first_row // tile, stable=True).indices
+    order = torch.sort(first_row // TILE_ROWS, stable=True).indices
     pieces = torch.stack([q_of, first_row, length, s_at % c, off],
                          1)[order].to(torch.int32)
-    # blocks: every per_block-th piece of a tile opens one
-    t_sorted = (first_row // tile)[order].contiguous()
+    # blocks: every TILE_PIECES-th piece of a tile opens one
+    t_sorted = (first_row // TILE_ROWS)[order].contiguous()
     rank = (torch.arange(n, device=dev)
             - torch.searchsorted(t_sorted, t_sorted))
-    n_blocks = -(-n // per_block) + min(n, -(-n_rows // tile))
-    blk_first = torch.nonzero_static(rank % per_block == 0, size=n_blocks,
+    n_blocks = -(-n // TILE_PIECES) + min(n, -(-n_rows // TILE_ROWS))
+    blk_first = torch.nonzero_static(rank % TILE_PIECES == 0, size=n_blocks,
                                      fill_value=-1)
     return Pieces(pieces, blk_first.flatten().to(torch.int32),
                   max(min(c, k * most), 1))
@@ -222,8 +223,7 @@ def gathered_topk_cuda(queries: torch.Tensor, table: torch.Tensor,
         raise ValueError(f"{name}: k={k} outside [1, C={c}]")
     if max(nq, c, d, r) >= 2 ** 31:
         raise ValueError(f"{name}: a dimension exceeds int32")
-    pieces, blk_first, width = gathered_pieces(cand_rows, cand_ids, r, k,
-                                               kernel=name)
+    pieces, blk_first, width = gathered_pieces(cand_rows, cand_ids, r, k)
     part_s = torch.full((nq, width), -torch.inf, dtype=torch.float32,
                         device=dev)
     part_p = torch.full((nq, width), -1, dtype=torch.int32, device=dev)

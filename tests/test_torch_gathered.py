@@ -8,7 +8,7 @@ runs only on the card; the pieces are plain torch ops and run here.
 
 These tests hold the pieces to their contract (every valid (query,
 position) covered exactly once, with its row; pieces inside one tile,
-sorted by tile; blocks of at most ``per_block`` pieces of one tile; slots
+sorted by tile; blocks of at most ``TILE_PIECES`` pieces of one tile; slots
 of a query disjoint and inside its row of partials) and hold a plain
 emulation of the kernel and its merge over those pieces equal to
 ``gathered_topk_ref`` and to the JAX package's jnp ``gathered_topk``.
@@ -71,7 +71,7 @@ def _candidates(kind: str, seed: int):
 KINDS = ["random", "ivfflat", "no_runs", "repeats", "straddle", "crowded"]
 
 
-def _blocks(pieces, blk_first, tile):
+def _blocks(pieces, blk_first):
     """The pieces each block of the kernel takes, as the kernel finds
     them: from its first piece on, at most TILE_PIECES, while they stay in
     the first one's tile."""
@@ -80,10 +80,10 @@ def _blocks(pieces, blk_first, tile):
     for first in blk_first.tolist():
         if first < 0:
             continue
-        t = pc[first][1] // tile
+        t = pc[first][1] // TILE_ROWS
         out.append([j for j in range(first, min(first + TILE_PIECES,
                                                 len(pc)))
-                    if pc[j][1] // tile == t])
+                    if pc[j][1] // TILE_ROWS == t])
     return out
 
 
@@ -116,7 +116,7 @@ def test_pieces_cover_every_valid_slot_once(kind, k):
     for a, b in zip(pc, pc[1:]):            # stable: query order in a tile
         if a[1] // TILE_ROWS == b[1] // TILE_ROWS:
             assert (a[0], a[3]) < (b[0], b[3])
-    blocks = _blocks(pieces, blk_first, TILE_ROWS)
+    blocks = _blocks(pieces, blk_first)
     assert sorted(j for blk in blocks for j in blk) == list(range(len(pc)))
     if kind == "no_runs":
         assert all(p[2] == 1 for p in pc)
@@ -147,7 +147,7 @@ def _emulate(queries, table, cand_rows, cand_ids, k):
     part_s = torch.full((qn, width), -torch.inf)
     part_p = torch.full((qn, width), -1, dtype=torch.int32)
     pc = pieces.tolist()
-    for blk in _blocks(pieces, blk_first, TILE_ROWS):
+    for blk in _blocks(pieces, blk_first):
         t0 = pc[blk[0]][1] // TILE_ROWS * TILE_ROWS
         scores = queries[[pc[j][0] for j in blk]] @ \
             table[t0:t0 + TILE_ROWS].T
@@ -189,3 +189,16 @@ def test_grouped_scoring_equals_the_reference_jnp(kind):
         jnp.asarray(ids.numpy()), k=10)
     assert np.array_equal(interop.to_numpy(s), np.asarray(js))
     assert np.array_equal(interop.to_numpy(i), np.asarray(ji))
+
+
+def test_tile_constants_match_the_kernel():
+    """The pieces are cut for the kernel's tile and block: TILE_ROWS and
+    TILE_PIECES must be its kGTR and kGBQ, or pieces would cross its
+    tiles or be dropped from its blocks."""
+    import re
+    from pathlib import Path
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+           / "csrc" / "topk_scores.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kGTR|kGBQ) = (\d+);", src))
+    assert (int(consts["kGTR"]), int(consts["kGBQ"])) == (TILE_ROWS,
+                                                          TILE_PIECES)

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.label_prop import ell_round
 from repro_torch.kernels.flash_attention.ops import (FLASH_ATTENTION,
+                                                     HEAD_DIMS,
                                                      flash_attention)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.label_prop.ops import lp_round_cuda
@@ -369,7 +370,10 @@ _MODES = [(True, None), (True, 40), (False, None)]
     (256, 64, 64, 4, 4, 32), (256, 24, 24, 4, 4, 32),   # the encoder's
     (3, 1, 1, 2, 1, 16), (2, 1, 77, 4, 2, 128),          # S = 1
     (2, 37, 37, 4, 2, 128), (1, 33, 100, 2, 2, 64),      # ragged tiles
-    (1, 100, 33, 4, 4, 32)])
+    (1, 100, 33, 4, 4, 32)]
+    # at most 32 query rows a kv head (8 heads over one, 4 rows): the
+    # short-row kernel's 32-row blocks at up to 32, 64 and 128 keys
+    + [(2, 4, skv, 8, 1, d) for skv in (20, 50, 100) for d in HEAD_DIMS])
 @pytest.mark.parametrize("causal,window", _MODES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, b, sq, skv, h, hkv, d, causal,
@@ -378,17 +382,21 @@ def test_flash_kernel_matches_plain(cuda, b, sq, skv, h, hkv, d, causal,
     _flash_vs_plain(q, k, v, causal, window)
 
 
-@pytest.mark.parametrize("skv", [1, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("skv", [1, 32, 63, 64, 65, 127, 128, 129])
 @pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("causal,window", _MODES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_short_row_limit(cuda, skv, group, causal, window,
+def test_flash_kernel_short_row_limit(cuda, skv, group, d, causal, window,
                                       dtype):
     """Both sides of the short-row kernel's limit (Skv <= 128 takes one
-    block per kv head and 64 query rows, exact softmax; 129 the tiled
-    online-softmax loop), with 1, 2 and 8 query heads per kv head."""
-    q, k, v = _attn_inputs(2, skv, skv, 8, 8 // group, 32, dtype,
-                           skv * 10 + group, cuda)
+    block per kv head and 32 or 64 query rows, exact softmax; 129 the
+    tiled online-softmax loop), with 1, 2 and 8 query heads per kv head,
+    at every head width; with the few-row shapes of
+    test_flash_kernel_matches_plain this runs every instance of the
+    short-row kernel."""
+    q, k, v = _attn_inputs(2, skv, skv, 8, 8 // group, d, dtype,
+                           skv * 10 + group + d, cuda)
     _flash_vs_plain(q, k, v, causal, window)
 
 

@@ -1,259 +1,238 @@
 #!/usr/bin/env python3
-"""Time the parent's flash-attention and gathered top-k kernels against the
-tree's own, in turns, on one card.
+"""Time the port's kernels in two or more checkouts against each other, in
+turns, on one card.
 
-    for f in topk_scores flash_attention; do
-        git show REV:src/repro_torch/csrc/$f.cu > build/parent/$f.cu
-    done
-    python3 tools/kernel_ab.py build/parent
+    mkdir -p build/parent
+    git archive REV src/repro_torch | tar -x -C build/parent
+    python3 tools/kernel_ab.py build/parent . [--only dense,gathered]
 
-The parent's sources (the machine with the card has no git, so they are
-written out beforehand, under ``build/``, which git ignores) are built
-with the port's nvcc flags into ``build/ab/`` and called through ctypes
-with the host work their own wrappers did: for ``gathered_partial``, the
-stray-row check and the split plan of the parent's
-``kernels/topk_scoring/ops.py``, against the tree's ``gathered_topk``
-(its pieces included); for ``flash_attention``, one bare call with the
-same 24 arguments on each side, and the tree's wrapper beside them.
+Each argument is a checkout of the port: a directory holding
+``src/repro_torch``, for example an earlier commit's, written out
+beforehand under ``build/`` (which git ignores; the machine with the card
+has no git). Each checkout runs in a process of its own, which builds its
+own kernels (into its own ``build/kernels``) and calls its own public
+entry points (``topk_scores``, ``topk_scores_int8``, ``gathered_topk``,
+``flash_attention``), so each version is timed with the host work of its
+own wrapper, whatever its kernels' C interface. The inputs are made once,
+on the card, by this tree's ``chip_smoke.py`` helpers, and handed to every
+process through CUDA IPC, so all versions see the same tensors.
 
-Shapes: the gathered kernel at the ivfflat probe of the evaluation path
-(512 queries, D 2048, k 10, over ``chip_smoke.py``'s 5.2e5-entity corpus
-and index) and at Table I's probe (256 queries, D 128, k 3, over a
-128-wide projection of the same corpus); flash attention at the encoder's
-passage and query batches (B 256, S 64 and 24, H 4, D 32, f32,
-bidirectional) and at S 2048, 32/4 heads, D 128, bf16, causal. Each pair
-is timed with CUDA events in the order parent, tree, tree, parent, three
-times; the script prints each version's median and range, the profiler's
-device time (for flash attention a launch of each version; for the
-gathered search the tree's call split into its kernel, the merge and the
-rest, which is mostly the piece building), then how far the two
-versions' results differ. Run it from the repository root on a machine
-with a card.
+Cases, at the main path's shapes (``--only`` picks groups):
+
+- dense: ``topk_scores`` at Q 128, N 524288, D 2048, k 3 and 40;
+- int8: ``topk_scores_int8`` at the same shape, k 10 and 40;
+- gathered: ``gathered_topk`` at the ivfflat probe of the evaluation path
+  (512 queries, D 2048, k 10, over ``chip_smoke.py``'s 5.2e5-entity
+  corpus and index) and at Table I's (256 queries, D 128, k 3, over a
+  128-wide projection of the same corpus);
+- flash: ``flash_attention`` at the encoder's passage and query batches
+  (B 256, S 64 and 24, H 4, D 32, f32, bidirectional) and at S 2048,
+  32/4 heads, D 128, bf16, causal.
+
+Each case is timed with CUDA events, the versions in the order A B ... B A,
+three times; each process then reports the profiler's device time a call
+(every kernel the call launched, as ``chip_smoke.call_device_ms`` counts
+it). The script prints each version's median
+and range, its device time, and how far each version's result is from the
+first's, then one JSON line of it all. Run it from the repository root on
+a machine with a card.
 """
 from __future__ import annotations
 
-import ctypes
+import contextlib
+import functools
 import json
-import math
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
-import torch
-
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
-
-import chip_smoke  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
-
-OUT = ROOT / "build" / "ab"
-GATHERED = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-MERGE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-FLASH = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [ctypes.c_float]
-         + [ctypes.c_void_p])
+GROUPS = ("dense", "int8", "gathered", "flash")
 
 
-def build_parent(parent: Path):
-    """Build the parent's two sources in parallel: {stem: library}."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for stem in ("topk_scores", "flash_attention"):
-        so = OUT / f"libparent_{stem}.so"
-        procs[stem] = (so, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so),
-             str(parent / f"{stem}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for stem, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            sys.exit(f"nvcc failed for the parent's {stem}.cu:\n{log}")
-        libs[stem] = ctypes.CDLL(str(so))
-    t = libs["topk_scores"]
-    t.gathered_partial.argtypes, t.gathered_partial.restype = GATHERED, \
-        ctypes.c_int
-    t.topk_merge.argtypes, t.topk_merge.restype = MERGE, ctypes.c_int
-    f = libs["flash_attention"]
-    f.flash_attention.argtypes, f.flash_attention.restype = FLASH, \
-        ctypes.c_int
-    return libs
+def worker(src: str, conn) -> None:
+    """Serve one checkout: take a case (an entry point's name and its
+    arguments), then time it, profile it and return its result on
+    request."""
+    sys.path.insert(0, src)
+    import torch
+    import chip_smoke
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.topk_scoring.ops import (gathered_topk,
+                                                      topk_scores,
+                                                      topk_scores_int8)
+    entry = {"topk_scores": topk_scores, "topk_scores_int8": topk_scores_int8,
+             "gathered_topk": gathered_topk,
+             "flash_attention": flash_attention}
+    import repro_torch
+    conn.send(str(Path(repro_torch.__file__).parent))
+    fn = None
+    torch.set_grad_enabled(False)
+    while (msg := conn.recv()) is not None:
+        if msg[0] == "case":
+            fn = functools.partial(entry[msg[1]], *msg[2], **msg[3])
+            conn.send(None)
+        elif msg[0] == "time":
+            iters, warmup = msg[1:]
+            for _ in range(warmup):
+                fn()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            conn.send(start.elapsed_time(end) / iters)
+        else:                                   # "result"
+            reps = msg[1]
+            per_kernel = chip_smoke.device_profile(
+                lambda: [fn() for _ in range(reps)])[2]
+            out = fn()
+            out = out if isinstance(out, tuple) else (out,)
+            conn.send((chip_smoke.call_device_ms(per_kernel, reps),
+                       tuple(t.cpu() for t in out)))
+            fn = msg = None              # let the case's inputs go
 
 
-def parent_gathered(lib, qs, table, rows, ids, k):
-    """The parent's gathered_topk_cuda: one warp per (query, split of
-    positions), each scoring its own rows."""
-    nq, d = qs.shape
-    c, r = ids.shape[1], table.shape[0]
-    if bool(((ids >= 0) & ((rows < 0) | (rows >= r))).any()):
-        raise ValueError("a valid candidate's row lies outside the table")
-    n_splits = max(1, min(-(-c // 256), -(-(8 * 4 * 132) // nq)))
-    per_split = -(-c // n_splits)
-    n_splits = -(-c // per_split)
-    width = n_splits * k
-    dev = qs.device
-    part_s = torch.empty((nq, width), dtype=torch.float32, device=dev)
-    part_p = torch.empty((nq, width), dtype=torch.int32, device=dev)
-    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_p = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
-    rc = lib.gathered_partial(qs.data_ptr(), table.data_ptr(),
-                              rows.data_ptr(), ids.data_ptr(),
-                              part_s.data_ptr(), part_p.data_ptr(), nq, c, d,
-                              k, per_split, n_splits, int(d % 4 == 0),
-                              stream)
-    rc |= lib.topk_merge(part_s.data_ptr(), part_p.data_ptr(),
-                         out_s.data_ptr(), out_p.data_ptr(), nq, width, k,
-                         stream)
-    if rc:
-        sys.exit(f"kernel_ab: the parent's gathered kernel failed ({rc})")
-    out_i = torch.gather(ids, 1, out_p.clamp(min=0).long())
-    return out_s, torch.where(torch.isfinite(out_s), out_i, -1)
+def cases(groups):
+    """Yield (label, entry point, args, kwargs, iters, warmup), making each
+    group's inputs on the card as it comes."""
+    import torch
+    import chip_smoke as cs
+    dev = torch.device("cuda")
+    if "dense" in groups:
+        q, c = cs.topk_inputs(128, 524288, 2048, seed=11, negative=False,
+                              device=dev)
+        for k in (3, 40):
+            yield f"topk_scores k={k}", "topk_scores", (q, c), {"k": k}, 8, 2
+        del q, c
+    if "int8" in groups:
+        q, c = cs.int8_inputs(128, 524288, 2048, seed=11, negative=False,
+                              device=dev)
+        for k in (10, 40):
+            yield (f"topk_scores_int8 k={k}", "topk_scores_int8", (q, c),
+                   {"k": k}, 8, 2)
+        del q, c
+    if "gathered" in groups:
+        from repro_torch.core import prng
+        from repro_torch.retrieval.engines import IVFFlatEngine
+        from repro_torch.retrieval.ivfflat import probe_candidates
+        _, (ev_np, qv_np) = cs.eval_corpus(cs.EVAL_QUERIES, 2048)
+        ev = torch.from_numpy(ev_np).to(dev)
+        pq = torch.from_numpy(qv_np[:cs.PROBE_QUERIES]).to(dev)
+        del ev_np, qv_np
+        g = torch.Generator(device="cpu").manual_seed(19)
+        proj = torch.randn(ev.shape[1], cs.ENCODER_DIM, generator=g).to(dev)
+        engine = IVFFlatEngine()
+        for label, vecs, qs, k, iters in (
+                ("evaluation D2048 k10", lambda: ev, pq, 10, 3),
+                ("table1 D128 k3",
+                 lambda: torch.nn.functional.normalize(ev @ proj, dim=1),
+                 torch.nn.functional.normalize(
+                     pq[:cs.ENCODER_BATCH] @ proj, dim=1), 3, 10)):
+            index = engine.build(prng.prng_key(0), vecs())
+            rows, ids = probe_candidates(index, qs, nprobe=engine.nprobe)
+            table = index.vecs.reshape(-1, index.vecs.shape[2])
+            yield (f"gathered_topk {label}", "gathered_topk",
+                   (qs, table, rows, ids), {"k": k}, iters, 1)
+            del index, rows, ids, table
+        del ev, pq, proj
+    if "flash" in groups:
+        for label, shp, dtype, causal, iters in (
+                ("passages", (256, 64, 64, 4, 4, 32), torch.float32, False,
+                 200),
+                ("queries", (256, 24, 24, 4, 4, 32), torch.float32, False,
+                 200),
+                ("S2048 bf16 causal", (1, 2048, 2048, 32, 4, 128),
+                 torch.bfloat16, True, 10)):
+            qkv = cs.attn_inputs(*shp, dtype=dtype, seed=7, device=dev)
+            yield (f"flash_attention {label}", "flash_attention", qkv,
+                   {"causal": causal}, iters, 5)
+    torch.cuda.empty_cache()
 
 
-def flash_args(q, k, v, causal, out):
-    b, sq, h, d = q.shape
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            k.shape[1], h, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], int(causal), -1,
-            0 if q.dtype == torch.float32 else 1, 1.0 / math.sqrt(d))
-
-
-def in_turns(fns: dict, iters: int, warmup: int = 1) -> dict:
-    """{label: [ms, ...]}: each fn timed with CUDA events, in the order
-    A B B A, three times."""
-    times = {lb: [] for lb in fns}
-    labels = list(fns)
-    for _ in range(3):
-        for lb in labels + labels[::-1]:
-            times[lb].append(chip_smoke.cuda_ms(fns[lb], iters, warmup))
-    return times
-
-
-def summary(times: dict) -> str:
-    return ", ".join(f"{lb} {statistics.median(v):.4f} [{min(v):.4f}, "
-                     f"{max(v):.4f}]" for lb, v in times.items())
-
-
-def main(parent: Path) -> None:
+def main(trees, groups) -> None:
+    import torch
+    import torch.multiprocessing as mp
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: no CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    libs = build_parent(parent)
-    from repro_torch.core import prng
-    from repro_torch.kernels.flash_attention.ops import (FLASH_ATTENTION,
-                                                         flash_attention)
-    from repro_torch.kernels.topk_scoring.ops import gathered_topk
-    from repro_torch.retrieval.engines import IVFFlatEngine
-    from repro_torch.retrieval.ivfflat import probe_candidates
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"kernel_ab on {smi}", flush=True)
-    dev = torch.device("cuda")
+    labels = [str(t) for t in trees]
+    ctx = mp.get_context("spawn")
+    conns, procs = [], []
+    for tree in trees:
+        src = Path(tree).resolve() / "src"
+        if not (src / "repro_torch").is_dir():
+            sys.exit(f"kernel_ab: no src/repro_torch in {tree}")
+        ours, theirs = ctx.Pipe()
+        proc = ctx.Process(target=worker, args=(str(src), theirs))
+        proc.start()
+        theirs.close()                  # so a worker's exit ends recv()
+        print(f"{tree}: {ours.recv()}", flush=True)
+        conns.append(ours)
+        procs.append(proc)
     results = {}
-
-    # gathered: the evaluation path's probe, then Table I's
-    _, (ev_np, qv_np) = chip_smoke.eval_corpus(chip_smoke.EVAL_QUERIES, 2048)
-    ev = torch.from_numpy(ev_np).to(dev)
-    pq = torch.from_numpy(qv_np[:chip_smoke.PROBE_QUERIES]).to(dev)
-    del ev_np, qv_np
-    engine = IVFFlatEngine()
-    g = torch.Generator(device="cpu").manual_seed(19)
-    proj = torch.randn(ev.shape[1], chip_smoke.ENCODER_DIM, generator=g) \
-        .to(dev)
-    e128 = torch.nn.functional.normalize(ev @ proj, dim=1)
-    q128 = torch.nn.functional.normalize(
-        pq[:chip_smoke.ENCODER_BATCH] @ proj, dim=1)
-    for name, vecs, qs, k, iters in (("evaluation D2048 k10", ev, pq, 10, 3),
-                                     ("table1 D128 k3", e128, q128, 3, 10)):
-        index = engine.build(prng.prng_key(0), vecs)
-        rows, ids = probe_candidates(index, qs, nprobe=engine.nprobe)
-        table = index.vecs.reshape(-1, index.vecs.shape[2])
-        fns = {"parent": lambda: parent_gathered(libs["topk_scores"], qs,
-                                                 table, rows, ids, k),
-               "tree": lambda: gathered_topk(qs, table, rows, ids, k=k)}
-        times = in_turns(fns, iters)
-        # where the tree's call spends the card: its kernel, the merge,
-        # and the rest (building the pieces, filling the partials, the id
-        # gather), by the profiler's device time
-        per = chip_smoke.device_profile(fns["tree"])[2]
-        split = {"kernel": 0.0, "merge": 0.0, "rest": 0.0}
-        for kname, (_, sec) in per.items():
-            part = ("kernel" if "gathered_tiles" in kname else
-                    "merge" if "topk_merge" in kname else "rest")
-            split[part] += sec * 1e3
-        (ps, pi), (ts, ti) = fns["parent"](), fns["tree"]()
-        torch.cuda.synchronize()
-        mag = float(qs.norm(dim=1).max() * table.norm(dim=1).max())
-        err = float((ts - ps).abs().nan_to_num(0.0).max())
-        results[f"gathered {name}"] = {
-            "ms": {lb: statistics.median(v) for lb, v in times.items()},
-            "tree_device_ms": split, "max_score_diff": err,
-            "score_bound": qs.shape[1] * 2.0 ** -24 * mag,
-            "ids_differ": int((ti != pi).sum())}
-        print(f"gathered {name} Q={qs.shape[0]} C={ids.shape[1]}: "
-              f"{summary(times)} ms; tree's device ms by part "
-              f"{json.dumps(split)}; max |score diff| {err:.3e}, "
-              f"{int((ti != pi).sum())} ids differ", flush=True)
-        del index, rows, ids, table
-    del ev, pq, e128, q128, proj
-    torch.cuda.empty_cache()
-
-    # flash attention: the encoder's batches, then the long-row shape
-    flib = libs["flash_attention"]
-    for name, shp, dtype, causal, iters in (
-            ("passages", (256, 64, 64, 4, 4, 32), torch.float32, False, 200),
-            ("queries", (256, 24, 24, 4, 4, 32), torch.float32, False, 200),
-            ("S2048 bf16 causal", (1, 2048, 2048, 32, 4, 128),
-             torch.bfloat16, True, 10)):
-        q, k, v = chip_smoke.attn_inputs(*shp, dtype=dtype, seed=7,
-                                         device=dev)
-        out_p, out_t = torch.empty_like(q), torch.empty_like(q)
-        args_p = flash_args(q, k, v, causal, out_p)
-        args_t = flash_args(q, k, v, causal, out_t)
-
-        def parent_flash():
-            stream = torch._C._cuda_getCurrentRawStream(
-                torch.cuda.current_device())
-            rc = flib.flash_attention(*args_p, stream)
-            if rc:
-                sys.exit(f"kernel_ab: the parent's flash kernel failed "
-                         f"({rc})")
-            return out_p
-
-        def tree_flash():
-            FLASH_ATTENTION(*args_t)
-            return out_t
-
-        # both kernels through one bare ctypes call a launch, so the
-        # comparison is of kernels; the tree's wrapper is timed beside them
-        with torch.no_grad():
-            fns = {"parent": parent_flash, "tree": tree_flash}
-            times = in_turns(fns, iters, 5)
-            wrapper_ms = chip_smoke.cuda_ms(
-                lambda: flash_attention(q, k, v, causal=causal), iters, 5)
-            dev_ms = {}
-            for lb, fn in fns.items():
-                per = chip_smoke.device_profile(
-                    lambda: [fn() for _ in range(50)])[2]
-                dev_ms[lb] = (sum(sec for _, sec in per.values()) / 50 * 1e3
-                              if per else None)
-            err = float((fns["tree"]().float()
-                         - fns["parent"]().float()).abs().max())
-        results[f"flash {name}"] = {
-            "ms": {lb: statistics.median(v) for lb, v in times.items()},
-            "tree_wrapper_ms": wrapper_ms, "device_ms": dev_ms,
-            "max_abs_diff": err}
-        print(f"flash {name}: {summary(times)} ms (tree through its wrapper "
-              f"{wrapper_ms:.4f}); profiler device ms a launch "
-              f"{json.dumps(dev_ms)}; max |diff| {err:.3e}", flush=True)
+    try:
+        for name, entry, args, kwargs, iters, warmup in cases(groups):
+            for conn in conns:
+                conn.send(("case", entry, args, kwargs))
+                conn.recv()
+            times = {lb: [] for lb in labels}
+            order = list(range(len(trees)))
+            for _ in range(3):
+                for i in order + order[::-1]:
+                    conns[i].send(("time", iters, warmup))
+                    times[labels[i]].append(conns[i].recv())
+            reps = min(iters, 50)
+            dev_ms, outs = {}, []
+            for lb, conn in zip(labels, conns):
+                conn.send(("result", reps))
+                dev_ms[lb], out = conn.recv()
+                outs.append(out)
+            diff = {lb: {"max_abs_diff": max(
+                        float((a.float() - b.float()).abs()
+                              .nan_to_num(0.0).max()) if a.numel() else 0.0
+                        for a, b in zip(out, outs[0])
+                        if a.is_floating_point()),
+                         "ints_differ": sum(int((a != b).sum())
+                                            for a, b in zip(out, outs[0])
+                                            if not a.is_floating_point())}
+                    for lb, out in zip(labels, outs)}
+            results[name] = {lb: {"ms": statistics.median(times[lb]),
+                                  "ms_range": [min(times[lb]),
+                                               max(times[lb])],
+                                  "device_ms": dev_ms[lb], **diff[lb]}
+                             for lb in labels}
+            print(f"{name}: " + "; ".join(
+                f"{lb} {r['ms']:.4f} ms [{r['ms_range'][0]:.4f}, "
+                f"{r['ms_range'][1]:.4f}], device "
+                + ("not measured" if r["device_ms"] is None
+                   else f"{r['device_ms']:.4f}")
+                + f", vs {labels[0]}: max |diff| {r['max_abs_diff']:.3e}, "
+                f"{r['ints_differ']} ids differ"
+                for lb, r in results[name].items()), flush=True)
+    finally:
+        for conn, proc in zip(conns, procs):
+            with contextlib.suppress(OSError):
+                conn.send(None)
+            proc.join()
     print(json.dumps({"kernel_ab": results, "device": smi}))
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    argv = sys.argv[1:]
+    only = GROUPS
+    if "--only" in argv:
+        i = argv.index("--only")
+        only = tuple(argv[i + 1].split(","))
+        del argv[i:i + 2]
+    if len(argv) < 2 or not set(only) <= set(GROUPS):
         sys.exit(__doc__)
-    main(Path(sys.argv[1]))
+    main(argv, only)
