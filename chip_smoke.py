@@ -11,7 +11,10 @@ From the root of a checkout, with one card. In order:
 3. Kernel vs plain: each kernel's wrapper (lp_round, the f32 top-k, the
    int8 top-k, the gathered top-k, the Hamming top-k, flash attention)
    against its plain PyTorch version on the card, at the main path's
-   shapes and at odd ones. The gathered kernel's main shape is the ivfflat
+   shapes and at odd ones (for the dense top-k kernels, Q, N, D and k on
+   both sides of their tiles, MMA depth and list layouts, and f32 rows
+   whose magnitudes span 2**-20..2**20). The gathered kernel's main shape
+   is the ivfflat
    probe of the evaluation path's full corpus (its tf-idf embedding, 5.2e5
    x 2048, indexed as the ivfflat engine does: 64 lists, nprobe 8) for 512
    queries, and Table I's probe: 128-wide unit-norm vectors of the same
@@ -27,10 +30,13 @@ From the root of a checkout, with one card. In order:
    over 4 kv heads of 128, causal and causal + window, bf16).
 4. Times: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events after a
-   warm-up, beside the least time the card could take; the gathered
-   kernel also at Table I's probe, and the flash kernel and
-   ``scaled_dot_product_attention`` also by the profiler's device time a
-   call.
+   warm-up, beside the least time the card could take (an f32 inner
+   product counted as three TF32 products at the tensor cores' rate, the
+   least an f32-accurate one takes there); the f32 top-k also at a grid
+   search's shape (256 queries over the rows of the evaluation grid's
+   uniform sample), the gathered kernel also at Table I's probe, and the
+   flash kernel and ``scaled_dot_product_attention`` also by the
+   profiler's device time a call.
 5. Sampling: ``repro_torch.launch.sample`` at 65536 queries with the LP
    kernel engine (about 2.1M qrel rows and 3.1M entities).
 6. Evaluation: ``repro_torch.launch.evaluate --grid default --backend
@@ -82,6 +88,8 @@ OUT = os.path.join(ROOT, "build", "chip_smoke")
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12        # TF32, tensor cores, dense: an f32-accurate
+                                # product takes three of them (3xTF32)
 H100_INT8_OPS = 1979e12         # int8, tensor cores, dense
 H100_BF16_FLOPS = 989e12        # bf16, tensor cores, dense
 SAMPLE_QUERIES = 65536
@@ -165,13 +173,18 @@ def lp_inputs(n: int, k: int, *, seed: int, quarter: bool, device):
 
 
 def topk_inputs(q: int, n: int, d: int, *, seed: int, negative: bool,
-                device):
+                device, wide: bool = False):
+    """Normal vectors; ``negative``: every score negative; ``wide``: each
+    row scaled by a power of two from 2**-20 to 2**20."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     qs = torch.randn(q, d, generator=g)
     cs = torch.randn(n, d, generator=g)
     if negative:                    # every score negative
         qs, cs = qs.abs(), -cs.abs()
+    if wide:
+        for x in (qs, cs):
+            x *= 2.0 ** torch.randint(-20, 21, (x.shape[0], 1), generator=g)
     return qs.to(device), cs.to(device)
 
 
@@ -228,11 +241,12 @@ def check_topk_int8(qc, cc, k: int) -> None:
         fail(f"int8 topk misses are not -inf/-1 for {shape}")
 
 
-def check_topk(qs, cs, k: int) -> float:
+def check_topk(qs, cs, k: int):
     """Kernel vs plain top-k. Scores must agree within the f32 summation
     bound D * 2**-24 * sum_d |q_d c_d| (the two sum in different orders);
     ids must be equal except where the kernel picked a different id whose
-    exact score lies within that tolerance of the plain one (a near-tie)."""
+    exact score lies within that tolerance of the plain one (a near-tie).
+    Returns the largest score error and its largest ratio to the bound."""
     import torch
     from repro_torch.kernels.topk_scoring.ops import topk_scores
     from repro_torch.kernels.topk_scoring.ref import topk_scores_ref
@@ -265,7 +279,9 @@ def check_topk(qs, cs, k: int) -> float:
         if bool((gap[diff] > 2 * tol[diff]).any()):
             fail(f"topk ids differ away from a near-tie for {shape}")
         log(f"    {int(diff.sum())} id(s) differ at near-ties ({shape})")
-    return float(err.max()) if err.numel() else 0.0
+    if not err.numel():
+        return 0.0, 0.0
+    return float(err.max()), float((err / tol).max())
 
 
 def gathered_inputs(q: int, c: int, d: int, r: int, *, seed: int,
@@ -617,33 +633,55 @@ def main() -> None:
     lp_main = lp_inputs(3_100_000, 32, seed=7, quarter=False, device=dev)
     check_lp(*lp_main[:3])
     log(f"    lp_round: labels equal at 8 shapes incl. N=3.1M K=32")
-    topk_err = 0.0
-    for q, n, d, k, neg in [(1, 1, 4, 1, False), (7, 513, 16, 5, True),
-                            (33, 1000, 37, 8, False), (3, 5, 8, 9, True),
-                            (1, 129, 2048, 3, True), (5, 40, 8, 60, False),
-                            (3, 33, 16, 32, False), (9, 1000, 24, 100, True),
-                            (128, 4096, 128, 32, False)]:
+    # the dense kernels' edges: Q across the 128-query tile, N off the
+    # 128-row tile, D off the MMA depth (8 floats, 32 codes) and the exact
+    # split's limit (D <= 8), k across the lists of one, two and three
+    # registers a lane (32, 64, 96) and those in shared memory (80)
+    topk_err = topk_ratio = 0.0
+    topk_cases = [(1, 1, 4, 1, False), (7, 513, 16, 5, True),
+                  (33, 1000, 37, 8, False), (3, 5, 8, 9, True),
+                  (1, 129, 2048, 3, True), (5, 40, 8, 60, False),
+                  (3, 33, 16, 32, False), (9, 1000, 24, 100, True),
+                  (128, 4096, 128, 32, False), (1, 300, 64, 1, False),
+                  (127, 1000, 64, 32, True), (129, 777, 64, 33, False),
+                  (257, 300, 16, 80, True), (130, 1000, 64, 100, False),
+                  (129, 777, 37, 1, False), (33, 300, 2050, 10, True),
+                  (129, 1000, 64, 90, False), (64, 129, 2048, 3, True)]
+    for q, n, d, k, neg in topk_cases:
         qs, cs = topk_inputs(q, n, d, seed=q * n + d, negative=neg,
                              device=dev)
-        topk_err = max(topk_err, check_topk(qs, cs, k))
+        err, ratio = check_topk(qs, cs, k)
+        topk_err, topk_ratio = max(topk_err, err), max(topk_ratio, ratio)
+    for d in (64, 2048):            # rows of magnitudes 2**-20..2**20:
+        qs, cs = topk_inputs(130, 1000, d, seed=d, negative=False,
+                             device=dev, wide=True)
+        topk_ratio = max(topk_ratio, check_topk(qs, cs, 10)[1])  # ratio only
     tq, tc = topk_inputs(128, 524_288, 2048, seed=11, negative=False,
                          device=dev)
     for k in (3, 10):
-        topk_err = max(topk_err, check_topk(tq, tc, k))
-    log(f"    topk_scores: within the summation bound at 11 shapes incl. "
-        f"Q=128 N=524288 D=2048 k=3,10; max |err| {topk_err:.3e}")
-    for q, n, d, k, neg in [(1, 1, 4, 1, False), (7, 513, 16, 5, True),
-                            (33, 1000, 37, 8, False), (3, 5, 20, 9, True),
-                            (5, 40, 8, 60, False), (9, 1000, 64, 100, True),
-                            (128, 4096, 128, 40, False)]:
+        err, ratio = check_topk(tq, tc, k)
+        topk_err, topk_ratio = max(topk_err, err), max(topk_ratio, ratio)
+    log(f"    topk_scores: within the summation bound at "
+        f"{len(topk_cases) + 4} shapes incl. two of magnitudes 2**-20..2**20 "
+        f"and Q=128 N=524288 D=2048 k=3,10; max |err| {topk_err:.3e} (unit "
+        f"magnitudes), at most {topk_ratio:.3f} of the bound")
+    int8_cases = [(1, 1, 4, 1, False), (7, 513, 16, 5, True),
+                  (33, 1000, 37, 8, False), (3, 5, 20, 9, True),
+                  (5, 40, 8, 60, False), (9, 1000, 64, 100, True),
+                  (128, 4096, 128, 40, False), (1, 777, 2047, 80, False),
+                  (127, 1000, 20, 32, True), (129, 300, 64, 33, False),
+                  (257, 2000, 128, 80, True), (130, 777, 48, 1, False),
+                  (3, 1000, 2047, 100, False), (129, 1000, 64, 90, True)]
+    for q, n, d, k, neg in int8_cases:
         check_topk_int8(*int8_inputs(q, n, d, seed=q * n + d, negative=neg,
                                      device=dev), k)
     iq, ic = int8_inputs(128, 524_288, 2048, seed=13, negative=False,
                          device=dev)
     for k in (10, 20, 40, 80):
         check_topk_int8(iq, ic, k)
-    log("    topk_scores_int8: scores and ids equal at 11 shapes incl. "
-        "Q=128 N=524288 D=2048 k=10,20,40,80")
+    log(f"    topk_scores_int8: scores and ids equal at "
+        f"{len(int8_cases) + 4} shapes incl. Q=128 N=524288 D=2048 "
+        f"k=10,20,40,80")
     gath_err = 0.0
     for q, c, d, r, k in [(1, 1, 4, 1, 1), (3, 5, 8, 4, 9),
                           (7, 300, 37, 50, 5), (16, 1000, 64, 200, 32),
@@ -660,7 +698,19 @@ def main() -> None:
     corpus, (ev_np, qv_np) = eval_corpus(EVAL_QUERIES, 2048)
     ev = torch.from_numpy(ev_np).to(dev)
     pq = torch.from_numpy(qv_np[:PROBE_QUERIES]).to(dev)
-    del corpus, qv_np
+    # a grid search's inputs, timed in 4.: the evaluation grid draws its
+    # uniform sample from this corpus with these settings
+    from repro_torch.core import SamplerSession, SamplerSpec
+    from repro_torch.eval.plans import GridSpec
+    spec = GridSpec()
+    draw = SamplerSession(
+        corpus.qrels, num_queries=corpus.num_queries,
+        num_entities=corpus.num_entities, device=dev,
+        spec=SamplerSpec(target_size=spec.sample_frac * corpus.num_primary,
+                         seed=spec.seed)).draw(strategy="uniform")
+    grid_search = (torch.from_numpy(qv_np[:256]).to(dev),
+                   ev[draw.entity_mask].contiguous())
+    del corpus, qv_np, draw
     ivf_engine, lsh_engine = IVFFlatEngine(), LSHEngine()
     ivf = ivf_engine.build(prng.prng_key(0), ev)
     torch.cuda.synchronize()
@@ -783,7 +833,7 @@ def main() -> None:
     tk_lib_ms = cuda_ms(lambda: torch.sort(tq @ tc.T, dim=1, descending=True,
                                            stable=True), 3)
     tk_bound, tk_by = bound((qn + n_c) * d * 4 + qn * k_t * 8,
-                            2.0 * qn * n_c * d)
+                            3 * 2.0 * qn * n_c * d, H100_TF32_FLOPS)
     k_i = 40
     i8_ms = cuda_ms(lambda: topk_scores_int8(iq, ic, k=k_i), 10)
     i8_plain_ms = cuda_ms(lambda: topk_scores_int8_ref(iq, ic, k=k_i), 3)
@@ -797,6 +847,23 @@ def main() -> None:
     log(f"    topk_scores Q={qn} N={n_c} D={d} k={k_t}: kernel {tk_ms:.4f} "
         f"ms, plain {tk_plain_ms:.4f} ms, matmul+stable sort "
         f"{tk_lib_ms:.4f} ms, bound {tk_bound:.4f} ms ({tk_by})")
+    # and at a grid search's shape (24 of its main-path launches): a query
+    # chunk of 256 over the rows of the evaluation grid's uniform sample
+    gq, gr = grid_search
+    k_s = 10
+    gs_ms = cuda_ms(lambda: topk_scores(gq, gr, k=k_s), 20)
+    gs_plain_ms = cuda_ms(lambda: topk_scores_ref(gq, gr, k=k_s), 5)
+    gs_lib_ms = cuda_ms(lambda: torch.sort(gq @ gr.T, dim=1, descending=True,
+                                           stable=True), 5)
+    gs_bound, gs_by = bound((gq.shape[0] + gr.shape[0]) * d * 4
+                            + gq.shape[0] * k_s * 8,
+                            3 * 2.0 * gq.shape[0] * gr.shape[0] * d,
+                            H100_TF32_FLOPS)
+    log(f"    topk_scores at a grid search Q={gq.shape[0]} N={gr.shape[0]} "
+        f"D={d} k={k_s}: kernel {gs_ms:.4f} ms, plain {gs_plain_ms:.4f} ms, "
+        f"matmul+stable sort {gs_lib_ms:.4f} ms, bound {gs_bound:.4f} ms "
+        f"({gs_by})")
+    del grid_search, gq, gr
     log(f"    topk_scores_int8 Q={qn} N={n_c} D={d} k={k_i}: kernel "
         f"{i8_ms:.4f} ms, plain {i8_plain_ms:.4f} ms, _int_mm+stable sort "
         f"{i8_lib_ms:.4f} ms, bound {i8_bound:.4f} ms ({i8_by})")
@@ -825,7 +892,8 @@ def main() -> None:
         width = qs.shape[1]
         return (c_valid, probed) + bound(
             probed * width * 4 + qs.numel() * 4 + c_valid * 8
-            + qs.shape[0] * k * 8, 2.0 * c_valid * width)
+            + qs.shape[0] * k * 8, 3 * 2.0 * c_valid * width,
+            H100_TF32_FLOPS)
 
     c_valid, probed_rows, g_bound, g_by = gathered_bound(pq, p_rows, p_ids,
                                                          k_g)
@@ -871,7 +939,8 @@ def main() -> None:
         f"bound {h_bound:.4f} ms ({h_by})")
     # flash attention at the encoder's passage batch (the main path's
     # shape): bytes of q, k, v and o once each; 4 * B * H * Sq * Skv * D
-    # operations (two products), every pair allowed (bidirectional)
+    # operations (two products), every pair allowed (bidirectional), f32
+    # products counted as three TF32 products at the tensor cores' rate
     aq, ak, av = attn_inputs(ENCODER_BATCH, 64, 64, 4, 4, 32, dtype=f32,
                              seed=7, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -884,7 +953,8 @@ def main() -> None:
                                         ak.transpose(1, 2),
                                         av.transpose(1, 2)), 50, 5)
     ab, asq, ah, ad = aq.shape
-    a_bound, a_by = bound(4 * aq.numel() * 4, 4.0 * ab * ah * asq * asq * ad)
+    a_bound, a_by = bound(4 * aq.numel() * 4,
+                          3 * 4.0 * ab * ah * asq * asq * ad, H100_TF32_FLOPS)
     log(f"    flash_attention B={ab} S={asq} H={ah} D={ad} f32 "
         f"bidirectional: kernel {a_ms:.4f} ms, plain {a_plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {a_lib_ms:.4f} ms, bound "
@@ -1072,7 +1142,6 @@ def main() -> None:
                 fail(f"small sample: {key} differs between cuda and cpu")
     # the grid on both devices with one LP engine family (ell's degree cap
     # is the kernel's), so the two sides compute the same function
-    from repro_torch.core import SamplerSpec
     from repro_torch.data.synthetic import generate_corpus
     from repro_torch.eval import (build_fidelity_report, run_grid,
                                   tfidf_embedder)

@@ -20,7 +20,10 @@ import torch
 
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.lsh_hamming import ref
-from repro_torch.kernels.topk_scoring.ops import empty_topk, launch_topk
+from repro_torch.kernels.topk_scoring.ops import (HAMMING_BLOCKS,
+                                                  HAMMING_QUERIES,
+                                                  HAMMING_ROWS, empty_topk,
+                                                  launch_topk)
 from repro_torch.kernels.topk_scoring.ref import pad_topk
 
 HAMMING_PARTIAL = Kernel("hamming_partial", "topk_scores.cu",
@@ -30,7 +33,9 @@ HAMMING_PARTIAL = Kernel("hamming_partial", "topk_scores.cu",
 def hamming_topk_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor, k: int):
     """Launch the Hamming kernel pair: codes i32[Q, W] x i32[N, W], 1 <= k
     <= N -> (-distance f32[Q, k], ids i32[Q, k])."""
-    return launch_topk(HAMMING_PARTIAL, q_codes, c_codes, k, torch.int32, 4)
+    return launch_topk(HAMMING_PARTIAL, q_codes, c_codes, k, torch.int32, 4,
+                       q_tile=HAMMING_QUERIES, rows=HAMMING_ROWS,
+                       blocks=HAMMING_BLOCKS)
 
 
 def hamming_topk(q_codes: torch.Tensor, c_codes: torch.Tensor, *, k: int):

@@ -6,7 +6,8 @@ to the corpus (candidate) count; misses come back as score -inf / id -1.
 The kernels take any k (csrc/topk_scores.cu keeps lists longer than 32 in
 memory), so there is no cap and no plain fallback on the card. Rows past
 the corpus end are masked inside the kernel, so nothing is padded or
-copied.
+copied. The dense kernels run their products on the tensor cores: f32 as
+three TF32 products of split operands ("3xTF32"), int8 as exact int32 MMA.
 
 On CPU tensors each wrapper runs its plain version (ref.py); on CUDA tensors
 it launches its partial kernel and the merge kernel of csrc/topk_scores.cu
@@ -23,8 +24,15 @@ from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.topk_scoring import ref
 from repro_torch.kernels.topk_scoring.ref import pad_topk
 
-_BQ, _BN = 32, 128           # tile geometry of csrc/topk_scores.cu
-_TARGET_BLOCKS = 4 * 132     # a few blocks per H100 SM
+# the dense kernels' query and corpus tiles, kDQ and kDN in
+# csrc/topk_scores.cu: a block takes DENSE_QUERIES queries and walks
+# DENSE_ROWS-row tiles of its split; one block fills an H100 SM, so the
+# plan aims at one block for each of its 132 SMs
+DENSE_QUERIES, DENSE_ROWS = 128, 128
+DENSE_BLOCKS = 132
+# the Hamming kernel's, kBQ and kBN there, four blocks an SM
+HAMMING_QUERIES, HAMMING_ROWS = 32, 128
+HAMMING_BLOCKS = 4 * 132
 
 _PARTIAL_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
 TOPK_PARTIAL = Kernel("topk_partial", "topk_scores.cu", _PARTIAL_ARGS)
@@ -57,12 +65,26 @@ def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
+def split_plan(nq: int, n: int, q_tile: int, rows: int, blocks: int):
+    """(tiles per split, splits): the corpus's ``rows``-row tiles cut into
+    splits so that (query tiles of ``q_tile``) x splits comes near
+    ``blocks``, every split but the last as long as the first and none
+    empty."""
+    n_tiles = -(-n // rows)
+    q_tiles = -(-nq // q_tile)
+    n_splits = max(1, min(n_tiles, -(-blocks // max(q_tiles, 1))))
+    per_split = -(-n_tiles // n_splits)
+    return per_split, -(-n_tiles // per_split)
+
+
 def launch_topk(partial: Kernel, queries: torch.Tensor, corpus: torch.Tensor,
-                k: int, dtype, vec_width: int):
+                k: int, dtype, vec_width: int, *, q_tile: int, rows: int,
+                blocks: int):
     """Check the inputs, then launch ``partial`` (a dense scan over the
     corpus rows: ``topk_partial``, ``topk_int8_partial`` or
-    ``hamming_partial``) and the merge kernel: queries [Q, D], corpus [N, D]
-    of ``dtype``, 1 <= k <= N -> (scores f32[Q, k], ids i32[Q, k])."""
+    ``hamming_partial``, whose tiles are ``q_tile`` queries by ``rows``
+    corpus rows) and the merge kernel: queries [Q, D], corpus [N, D] of
+    ``dtype``, 1 <= k <= N -> (scores f32[Q, k], ids i32[Q, k])."""
     dev = queries.device
     name = partial.name
     if dev.type != "cuda":
@@ -75,13 +97,9 @@ def launch_topk(partial: Kernel, queries: torch.Tensor, corpus: torch.Tensor,
         raise ValueError(f"{name}: widths differ, {d} vs {corpus.shape[1]}")
     if not 1 <= k <= n:
         raise ValueError(f"{name}: k={k} outside [1, N={n}]")
-    n_tiles = -(-n // _BN)
-    q_tiles = -(-nq // _BQ)
-    n_splits = max(1, min(n_tiles, -(-_TARGET_BLOCKS // max(q_tiles, 1))))
-    per_split = -(-n_tiles // n_splits)
-    n_splits = -(-n_tiles // per_split)
+    per_split, n_splits = split_plan(nq, n, q_tile, rows, blocks)
     width = n_splits * k
-    if max(nq, n, d, width) >= 2 ** 31:
+    if max(nq, n, d * dtype.itemsize, width) >= 2 ** 31:
         raise ValueError(f"{name}: a dimension exceeds int32")
     if dtype == torch.int8 and d * 127 * 127 >= 2 ** 31:
         raise ValueError(f"{name}: D={d} overflows the int32 int8 dot")
@@ -101,7 +119,9 @@ def launch_topk(partial: Kernel, queries: torch.Tensor, corpus: torch.Tensor,
 def topk_scores_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int):
     """Launch the f32 kernel pair: queries f32[Q, D], corpus f32[N, D],
     1 <= k <= N -> (scores f32[Q, k], ids i32[Q, k])."""
-    return launch_topk(TOPK_PARTIAL, queries, corpus, k, torch.float32, 4)
+    return launch_topk(TOPK_PARTIAL, queries, corpus, k, torch.float32, 4,
+                       q_tile=DENSE_QUERIES, rows=DENSE_ROWS,
+                       blocks=DENSE_BLOCKS)
 
 
 def topk_scores_int8_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor,
@@ -109,7 +129,8 @@ def topk_scores_int8_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor,
     """Launch the int8 kernel pair: codes int8[Q, D] x int8[N, D], 1 <= k
     <= N -> (int dot as f32 [Q, k], ids i32[Q, k])."""
     return launch_topk(TOPK_INT8_PARTIAL, q_codes, c_codes, k, torch.int8,
-                       16)
+                       16, q_tile=DENSE_QUERIES, rows=DENSE_ROWS,
+                       blocks=DENSE_BLOCKS)
 
 
 class Pieces(NamedTuple):

@@ -3,7 +3,7 @@
 
 One process-global tracer produces nested, attributed spans:
 
-    from repro.obs import trace
+    from repro_torch.obs import trace
 
     with trace.span("eval.sample", sampler="windtunnel") as sp:
         ...

@@ -66,10 +66,19 @@ def test_lp_round_kernel_matches_plain(cuda, n, k, quarter):
     assert torch.equal(got, want)
 
 
+# the dense kernels' tile edges: Q around the 128-query tile, N off the
+# 128-row tile, D off the MMA depth (8 floats, 32 int8 codes) and the
+# 16-byte copy, k across the lists of one, two and three registers a lane
+# (32, 64, 96) and those kept in shared memory (80)
+_DENSE_EDGES = [(1, 300, 64, 1), (127, 1000, 64, 32), (129, 777, 64, 33),
+                (257, 300, 16, 80), (130, 1000, 64, 100), (129, 777, 37, 1),
+                (33, 300, 2050, 10), (1, 5000, 2048, 80), (129, 1000, 64, 90)]
+
+
 @pytest.mark.parametrize("q,n,d,k", [
     (1, 1, 4, 1), (7, 513, 16, 5), (33, 1000, 37, 8), (128, 4096, 128, 32),
     (5, 40, 8, 60), (3, 5, 8, 9), (64, 129, 2048, 3), (3, 33, 16, 32),
-    (9, 1000, 24, 100), (40, 300, 8, 300)])
+    (9, 1000, 24, 100), (40, 300, 8, 300)] + _DENSE_EDGES)
 @pytest.mark.parametrize("negative", [False, True])
 def test_topk_kernel_matches_plain(cuda, q, n, d, k, negative):
     g = torch.Generator().manual_seed(q * n + d)
@@ -77,7 +86,25 @@ def test_topk_kernel_matches_plain(cuda, q, n, d, k, negative):
     cs = torch.randn(n, d, generator=g)
     if negative:            # every score negative: padding must never win
         qs, cs = qs.abs(), -cs.abs()
-    qs, cs = qs.to(cuda), cs.to(cuda)
+    _check_topk(qs.to(cuda), cs.to(cuda), k)
+
+
+@pytest.mark.parametrize("d", [64, 2048])
+def test_topk_kernel_wide_magnitudes(cuda, d):
+    """Rows and queries scaled by powers of two from 2**-20 to 2**20, so
+    the split products meet every exponent range: the same tolerances."""
+    rng = np.random.default_rng(d)
+    qs = rng.standard_normal((130, d)) * 2.0 ** rng.integers(-20, 21,
+                                                              (130, 1))
+    cs = rng.standard_normal((1000, d)) * 2.0 ** rng.integers(-20, 21,
+                                                               (1000, 1))
+    _check_topk(torch.from_numpy(qs.astype(np.float32)).to(cuda),
+                torch.from_numpy(cs.astype(np.float32)).to(cuda), 10)
+
+
+def _check_topk(qs, cs, k):
+    q, d = qs.shape
+    n = cs.shape[0]
     s, i = topk_scores(qs, cs, k=k)
     torch.cuda.synchronize()
     s_ref, i_ref = topk_scores_ref(qs, cs, k=min(k, n))
@@ -107,7 +134,11 @@ def test_topk_kernel_ties_go_to_lowest_id(cuda):
 
 @pytest.mark.parametrize("q,n,d,k", [
     (1, 1, 4, 1), (7, 513, 16, 5), (33, 1000, 37, 8), (128, 4096, 128, 40),
-    (5, 40, 8, 60), (3, 5, 20, 9), (64, 129, 2048, 10), (9, 1000, 64, 100)])
+    (5, 40, 8, 60), (3, 5, 20, 9), (64, 129, 2048, 10), (9, 1000, 64, 100),
+    # the tile edges of the dense kernel, D 20 and 2047 off the MMA depth
+    (1, 777, 2047, 80), (127, 1000, 20, 32), (129, 300, 64, 33),
+    (257, 2000, 128, 80), (130, 777, 48, 1), (3, 1000, 2047, 100),
+    (129, 1000, 64, 90)])
 @pytest.mark.parametrize("negative", [False, True])
 def test_topk_int8_kernel_matches_plain(cuda, q, n, d, k, negative):
     """Exact integer dots ranked as f32 on both sides: scores and ids are

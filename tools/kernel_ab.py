@@ -20,7 +20,8 @@ process through CUDA IPC, so all versions see the same tensors.
 Cases, at the main path's shapes (``--only`` picks groups):
 
 - dense: ``topk_scores`` at Q 128, N 524288, D 2048, k 3 and 40;
-- int8: ``topk_scores_int8`` at the same shape, k 10 and 40;
+- int8: ``topk_scores_int8`` at the same shape, k 10, 20, 40 and 80 (the
+  evaluation curve's pools);
 - gathered: ``gathered_topk`` at the ivfflat probe of the evaluation path
   (512 queries, D 2048, k 10, over ``chip_smoke.py``'s 5.2e5-entity
   corpus and index) and at Table I's (256 queries, D 128, k 3, over a
@@ -112,7 +113,7 @@ def cases(groups):
     if "int8" in groups:
         q, c = cs.int8_inputs(128, 524288, 2048, seed=11, negative=False,
                               device=dev)
-        for k in (10, 40):
+        for k in (10, 20, 40, 80):
             yield (f"topk_scores_int8 k={k}", "topk_scores_int8", (q, c),
                    {"k": k}, 8, 2)
         del q, c
