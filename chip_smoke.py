@@ -12,8 +12,12 @@ From the root of a checkout, with one card. In order:
    int8 top-k, the gathered top-k, the Hamming top-k, flash attention)
    against its plain PyTorch version on the card, at the main path's
    shapes and at odd ones (for the dense top-k kernels, Q, N, D and k on
-   both sides of their tiles, MMA depth and list layouts, and f32 rows
-   whose magnitudes span 2**-20..2**20). The gathered kernel's main shape
+   both sides of their tiles, MMA depth and list layouts, f32 rows whose
+   magnitudes span 2**-20..2**20, and one operand's rows near 2**-120
+   against the other's near 2**100; for lp_round, -1 padding scattered in
+   any slot, K 0 and 70; for the Hamming top-k, W 1, 3, 8 and 12, k = N
+   and k > N, all codes equal and few distinct codes, so the threshold
+   distance is one large tie). The gathered kernel's main shape
    is the ivfflat
    probe of the evaluation path's full corpus (its tf-idf embedding, 5.2e5
    x 2048, indexed as the ivfflat engine does: 64 lists, nprobe 8) for 512
@@ -32,18 +36,24 @@ From the root of a checkout, with one card. In order:
    computes the same function, that call, with CUDA events after a
    warm-up, beside the least time the card could take (an f32 inner
    product counted as three TF32 products at the tensor cores' rate, the
-   least an f32-accurate one takes there); the f32 top-k also at a grid
+   least an f32-accurate one takes there; a Hamming distance W popcounts
+   at the rate ``tools/mma_rate.popc_rate`` measures in this run); the
+   f32 top-k also at a grid
    search's shape (256 queries over the rows of the evaluation grid's
    uniform sample), the gathered kernel also at Table I's probe, and the
    flash kernel and ``scaled_dot_product_attention`` also by the
    profiler's device time a call.
 5. Sampling: ``repro_torch.launch.sample`` at 65536 queries with the LP
-   kernel engine (about 2.1M qrel rows and 3.1M entities).
+   kernel engine (about 2.1M qrel rows and 3.1M entities); then the degree
+   histogram of the ELL table its LP rounds ran on, and lp_round timed on
+   that table.
 6. Evaluation: ``repro_torch.launch.evaluate --grid default --backend
    cuda`` at 32768 queries (about 5e5 entities x 2048 f32 of corpus): the
    paper's grid, 3 samplers x 4 engines (exact, ivfflat, lsh, tfidf) x 2
    ks x 4 metrics = 96 cells, with its default backend recall curve, whose
-   int8 rows run the int8 kernel.
+   int8 rows run the int8 kernel; then the Hamming top-k timed at each
+   distinct shape the run launched it at (query chunks of 256 over the
+   full corpus and over each sample).
 7. Table I: ``repro_torch.retrieval.experiment.run_table1_experiment``
    on the evaluation phase's corpus (32768 queries, vocab 2048, passages
    of 64 tokens, queries of 24): the default encoder (d_model 128, 4
@@ -56,15 +66,19 @@ From the root of a checkout, with one card. In order:
    device time a launch at the main path's passage shape (a profiler
    window of its own, after the Table I run).
 8. Small-input check: the sampling and evaluation entry points on the
-   card and on the CPU's plain path must give equal outputs; for the
-   default grid, the ivfflat centroids and the lsh projection first agree
-   within a stated rtol (cuBLAS and the CPU sum in other orders). The
+   card and on the CPU's plain path must give equal outputs; ``prng.normal``
+   (the lsh projection's draw) equal bit for bit on both; for the default
+   grid, the lsh projection equal and the ivfflat centroids within a
+   stated rtol (cuBLAS and the CPU sum in other orders). The
    encoder: 5 training steps give losses within a stated rtol, the CPU's
    parameters embed within a stated tolerance on both, and
    ``evaluate_sample`` on the CPU's embeddings gives equal results.
 
 Launch counts are set to 0 just before each main-path run (5, 6, 7) and
-read just after; a kernel the run did not launch is a failure. No phase
+read just after; a kernel the run did not launch is a failure. Each run
+also logs its launches by shape (the entry point's integer arguments) and
+each kernel's device time summed over the run (CUDA events recorded
+around every launch, ``Kernel.timed``). No phase
 catches its own failure: any error exits nonzero. The last three lines of
 stdout are the kernel table (JSON), the nvidia-smi line and the result
 (JSON).
@@ -173,9 +187,12 @@ def lp_inputs(n: int, k: int, *, seed: int, quarter: bool, device):
 
 
 def topk_inputs(q: int, n: int, d: int, *, seed: int, negative: bool,
-                device, wide: bool = False):
+                device, wide: bool = False, tiny: str = ""):
     """Normal vectors; ``negative``: every score negative; ``wide``: each
-    row scaled by a power of two from 2**-20 to 2**20."""
+    row scaled by a power of two from 2**-20 to 2**20; ``tiny``
+    ("queries" or "corpus"): that operand's rows scaled to near 2**-120
+    (2**-123..2**-117), the other's by 2**100, so products are normal
+    f32 near 2**-20."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     qs = torch.randn(q, d, generator=g)
@@ -185,12 +202,28 @@ def topk_inputs(q: int, n: int, d: int, *, seed: int, negative: bool,
     if wide:
         for x in (qs, cs):
             x *= 2.0 ** torch.randint(-20, 21, (x.shape[0], 1), generator=g)
+    if tiny:
+        small, big = (qs, cs) if tiny == "queries" else (cs, qs)
+        small *= 2.0 ** (torch.randint(-3, 4, (small.shape[0], 1),
+                                       generator=g) - 120.0)
+        big *= 2.0 ** 100
     return qs.to(device), cs.to(device)
 
 
 # --------------------------------------------------------------------------
 # phase 3: kernel vs plain
 # --------------------------------------------------------------------------
+
+def scatter_slots(nbr, wgt, seed: int):
+    """The same ELL rows with each row's slots in a random order, so -1
+    padding lies anywhere, not packed last as ``edges_to_ell`` packs it."""
+    import torch
+    n, k = nbr.shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    perm = torch.argsort(torch.rand(n, k, generator=g), dim=1).to(nbr.device)
+    return (torch.gather(nbr, 1, perm).contiguous(),
+            torch.gather(wgt, 1, perm).contiguous())
+
 
 def check_lp(labels, nbr, wgt) -> None:
     import torch
@@ -390,6 +423,24 @@ def hamming_inputs(q: int, n: int, w: int, *, seed: int, device):
     return qc.to(device), cc.to(device)
 
 
+def hamming_tie_inputs(q: int, n: int, w: int, *, kind: str, seed: int,
+                       device):
+    """Codes whose distances pile up on a few values: ``equal``, every
+    corpus code the same (one bin holds all N rows); ``few``, drawn from 5
+    codes. Queries are corpus codes, every other one with a bit flipped."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if kind == "equal":
+        cc = torch.full((n, w), 12345, dtype=torch.int32)
+    else:
+        pool = torch.randint(-2 ** 31, 2 ** 31 - 1, (5, w), generator=g,
+                             dtype=torch.int32)
+        cc = pool[torch.randint(0, 5, (n,), generator=g)].contiguous()
+    qc = cc[torch.randint(0, n, (q,), generator=g)].clone()
+    qc[::2, 0] ^= 1
+    return qc.to(device), cc.to(device)
+
+
 def check_hamming(qc, cc, k: int) -> None:
     """Kernel vs plain Hamming top-k: exact integer distances on both
     sides, so scores and ids must be equal, ties included."""
@@ -540,8 +591,59 @@ def log_profile(what: str, prof) -> None:
 
 
 def reset_counts(kernels) -> None:
+    """Zero every kernel's launch and shape counts and start timing each
+    launch (``Kernel.timed``)."""
+    from repro_torch.kernels.build import Kernel
     for kern in kernels:
         kern.launches = 0
+        kern.shapes.clear()
+    Kernel.timed = []
+
+
+def read_counts(kernels, what: str) -> dict:
+    """Stop timing launches; log each launched kernel's count by shape (the
+    entry point's integer arguments) and its device time summed over the
+    run (the CUDA events around its every launch). Returns {name:
+    launches}."""
+    import torch
+    from repro_torch.kernels.build import Kernel
+    torch.cuda.synchronize()
+    timed, Kernel.timed = Kernel.timed or [], None
+    dev_ms: dict = {}
+    for kname, start, end in timed:
+        dev_ms[kname] = dev_ms.get(kname, 0.0) + start.elapsed_time(end)
+    for kern in kernels:
+        if not kern.launches:
+            continue
+        top = kern.shapes.most_common(4)
+        more = len(kern.shapes) - len(top)
+        log(f"    {what}: {kern.name} {kern.launches} launches, "
+            f"{dev_ms.get(kern.name, 0.0):.3f} ms of device time in all; by "
+            f"shape: " + "; ".join(f"{shape} x{n}" for shape, n in top)
+            + (f"; and {more} more shapes" if more else ""))
+    return {kern.name: kern.launches for kern in kernels}
+
+
+class Capture:
+    """Within ``with``, record the arguments of ``module.name``'s calls
+    (the first of each distinct ``key(*args)``) and call it unchanged."""
+
+    def __init__(self, module, name: str, key):
+        self.module, self.name, self.key = module, name, key
+        self.calls: dict = {}
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def spy(*args, **kwargs):
+            self.calls.setdefault(self.key(*args, **kwargs), (args, kwargs))
+            return self.orig(*args, **kwargs)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
 
 
 def run_sample(argv):
@@ -568,13 +670,13 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a card")
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout")
-    sys.path.insert(0, SRC)
+    sys.path[:0] = [SRC, os.path.join(ROOT, "tools")]
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.ops import (FLASH_ATTENTION,
                                                          flash_attention)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.label_prop.ops import LP_ROUND, lp_round_cuda
-    from repro_torch.kernels.lsh_hamming.ops import (HAMMING_PARTIAL,
+    from repro_torch.kernels.lsh_hamming.ops import (HAMMING_TOPK,
                                                      hamming_topk)
     from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
     from repro_torch.kernels.topk_scoring.ops import (GATHERED_TILES,
@@ -595,7 +697,7 @@ def main() -> None:
     from repro_torch.retrieval.ivfflat import probe_candidates
     from repro_torch.retrieval.lsh import encode
     kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
-               HAMMING_PARTIAL, TOPK_MERGE, FLASH_ATTENTION)
+               HAMMING_TOPK, TOPK_MERGE, FLASH_ATTENTION)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -630,9 +732,13 @@ def main() -> None:
         labels, nbr, wgt, _ = lp_inputs(n, k, seed=n + k, quarter=quarter,
                                         device=dev)
         check_lp(labels, nbr, wgt)
+        if k > 1:                   # the same rows, padding anywhere
+            check_lp(labels, *scatter_slots(nbr, wgt, seed=n))
     lp_main = lp_inputs(3_100_000, 32, seed=7, quarter=False, device=dev)
     check_lp(*lp_main[:3])
-    log(f"    lp_round: labels equal at 8 shapes incl. N=3.1M K=32")
+    check_lp(lp_main[0], *scatter_slots(*lp_main[1:3], seed=7))
+    log(f"    lp_round: labels equal at 8 shapes incl. N=3.1M K=32, K=0 and "
+        f"K=70, and at 6 of them again with padding scattered in any slot")
     # the dense kernels' edges: Q across the 128-query tile, N off the
     # 128-row tile, D off the MMA depth (8 floats, 32 codes) and the exact
     # split's limit (D <= 8), k across the lists of one, two and three
@@ -656,14 +762,19 @@ def main() -> None:
         qs, cs = topk_inputs(130, 1000, d, seed=d, negative=False,
                              device=dev, wide=True)
         topk_ratio = max(topk_ratio, check_topk(qs, cs, 10)[1])  # ratio only
+        for tiny in ("queries", "corpus"):      # rows near 2**-120
+            qs, cs = topk_inputs(130, 1000, d, seed=d + len(tiny),
+                                 negative=False, device=dev, tiny=tiny)
+            topk_ratio = max(topk_ratio, check_topk(qs, cs, 10)[1])
     tq, tc = topk_inputs(128, 524_288, 2048, seed=11, negative=False,
                          device=dev)
     for k in (3, 10):
         err, ratio = check_topk(tq, tc, k)
         topk_err, topk_ratio = max(topk_err, err), max(topk_ratio, ratio)
     log(f"    topk_scores: within the summation bound at "
-        f"{len(topk_cases) + 4} shapes incl. two of magnitudes 2**-20..2**20 "
-        f"and Q=128 N=524288 D=2048 k=3,10; max |err| {topk_err:.3e} (unit "
+        f"{len(topk_cases) + 8} shapes incl. two of magnitudes 2**-20..2**20, "
+        f"four with one operand's rows near 2**-120 (D=64, 2048) and "
+        f"Q=128 N=524288 D=2048 k=3,10; max |err| {topk_err:.3e} (unit "
         f"magnitudes), at most {topk_ratio:.3f} of the bound")
     int8_cases = [(1, 1, 4, 1, False), (7, 513, 16, 5, True),
                   (33, 1000, 37, 8, False), (3, 5, 20, 9, True),
@@ -755,21 +866,32 @@ def main() -> None:
         f"D={ev.shape[1]} k=3,10 and Table I's Q={ENCODER_BATCH} "
         f"D={ENCODER_DIM} k=3 at {', '.join(t1_probes)}; max |err| "
         f"{gath_err:.3e}")
-    for q, n, w, k in [(1, 1, 4, 1), (3, 5, 4, 9), (7, 513, 4, 5),
-                       (33, 1000, 4, 32), (40, 4096, 4, 64),
-                       (9, 1000, 3, 100), (5, 300, 1, 300),
-                       (64, 20000, 4, 10), (2, 129, 8, 33)]:
+    ham_cases = [(1, 1, 4, 1), (3, 5, 4, 9), (7, 513, 4, 5),
+                 (33, 1000, 4, 32), (40, 4096, 4, 64), (9, 1000, 3, 100),
+                 (5, 300, 1, 300), (64, 20000, 4, 10), (2, 129, 8, 33),
+                 (1, 300, 4, 300), (33, 300, 1, 301), (31, 1000, 12, 40),
+                 (4099, 3000, 4, 64)]
+    for q, n, w, k in ham_cases:
         check_hamming(*hamming_inputs(q, n, w, seed=q * n + w, device=dev),
                       k)
+    ham_ties = [(1, 300, 4, 300), (33, 300, 1, 64), (5, 300, 3, 301),
+                (65, 5000, 8, 64), (31, 1000, 12, 40)]
+    for q, n, w, k in ham_ties:
+        for kind in ("equal", "few"):
+            check_hamming(*hamming_tie_inputs(q, n, w, kind=kind,
+                                              seed=q + n + w, device=dev), k)
     hq, hc = hamming_inputs(PROBE_QUERIES, 524_288, 4, seed=17, device=dev)
     for k in (3, 10, 64):
         check_hamming(hq, hc, k)
     lsh = lsh_engine.build(prng.prng_key(0), ev)
     lq = encode(lsh.proj, pq)
     check_hamming(lq, lsh.codes, lsh_engine.rerank)
-    log(f"    hamming_topk: scores and ids equal at 13 shapes incl. "
-        f"Q={PROBE_QUERIES} N=524288 W=4 k=3,10,64 and the lsh codes of "
-        f"the corpus, N={lsh.codes.shape[0]} k={lsh_engine.rerank}")
+    log(f"    hamming_topk: scores and ids equal at "
+        f"{len(ham_cases) + 2 * len(ham_ties) + 4} shapes incl. W=1,3,8,12, "
+        f"k=N and k>N, {2 * len(ham_ties)} where the threshold distance is "
+        f"a tie of many rows, Q={PROBE_QUERIES} N=524288 W=4 k=3,10,64 and "
+        f"the lsh codes of the corpus, N={lsh.codes.shape[0]} "
+        f"k={lsh_engine.rerank}")
 
     f32, bf16 = torch.float32, torch.bfloat16
     attn_err = 0.0
@@ -924,19 +1046,30 @@ def main() -> None:
         f"{t1_plain_ms:.4f} ms, gather+bmm+stable sort by 16 queries "
         f"{t1_lib_ms:.4f} ms, bound {t1_bound:.4f} ms ({t1_by})")
     del t1_probe, tq1, tt1, tr1, ti1
-    # Hamming at the lsh rerank pool of the main path (k = 64); three
-    # integer operations (xor, popc, add) a word, counted at the f32 rate
-    # of the CUDA cores; no single PyTorch call computes a popcount
+    # Hamming at the lsh rerank pool of the main path (k = 64): W 32-bit
+    # popcounts a (query, row) pair, at the rate the card issues them
+    # (measured here: tools/mma_rate.popc_rate), or the codes' bytes; no
+    # single PyTorch call computes a popcount
+    import mma_rate
+    popc_per_s, popc_ms = mma_rate.popc_rate()
+    log(f"    popc rate (tools/mma_rate.py, 64 warps an SM): "
+        f"{popc_per_s / 1e9:.1f} Gpopc/s ({popc_ms:.4f} ms)")
     k_h = lsh_engine.rerank
     hn, hw = hc.shape
+
+    def hamming_bound(nq, n, w, k):
+        return bound((nq + n) * w * 4 + nq * k * 8, float(nq) * n * w,
+                     popc_per_s)
+
     h_ms = cuda_ms(lambda: hamming_topk(hq, hc, k=k_h), 10)
     h_plain_ms = cuda_ms(lambda: hamming_topk_ref(hq, hc, k=k_h), 2)
-    h_bound, h_by = bound((hq.shape[0] + hn) * hw * 4
-                          + hq.shape[0] * k_h * 8,
-                          3.0 * hq.shape[0] * hn * hw)
+    h_bound, h_by = hamming_bound(hq.shape[0], hn, hw, k_h)
     log(f"    hamming_topk Q={hq.shape[0]} N={hn} W={hw} k={k_h}: kernel "
         f"{h_ms:.4f} ms, plain {h_plain_ms:.4f} ms, no library call, "
         f"bound {h_bound:.4f} ms ({h_by})")
+    h10_ms = cuda_ms(lambda: hamming_topk(hq, hc, k=10), 10)
+    log(f"    hamming_topk at k=10, the same codes: kernel {h10_ms:.4f} ms, "
+        f"bound {hamming_bound(hq.shape[0], hn, hw, 10)[0]:.4f} ms")
     # flash attention at the encoder's passage batch (the main path's
     # shape): bytes of q, k, v and o once each; 4 * B * H * Sq * Skv * D
     # operations (two products), every pair allowed (bidirectional), f32
@@ -1006,17 +1139,34 @@ def main() -> None:
     for path in (sample_trace, eval_trace):
         if os.path.exists(path):
             os.remove(path)
-    stats, wall = run_sample([
-        "--queries", str(SAMPLE_QUERIES), "--qrels-per-query", "32",
-        "--topics", "96", "--aux-fraction", "2.0", "--engine", "cuda",
-        "--device", "cuda", "--out", os.path.join(OUT, "sample"),
-        "--trace", sample_trace])
-    sample_launches = {kern.name: kern.launches for kern in kernels}
+    from repro_torch.kernels.label_prop import ops as lp_ops
+    with Capture(lp_ops, "lp_round_cuda",
+                 lambda labels, nbr, wgt: tuple(nbr.shape)) as lp_seen:
+        stats, wall = run_sample([
+            "--queries", str(SAMPLE_QUERIES), "--qrels-per-query", "32",
+            "--topics", "96", "--aux-fraction", "2.0", "--engine", "cuda",
+            "--device", "cuda", "--out", os.path.join(OUT, "sample"),
+            "--trace", sample_trace])
     log(f"[5/8] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
         f"{stats['communities']} communities, changes/round "
         f"{stats['changes_per_round']}, {stats['entities']} entities "
-        f"sampled; launches {sample_launches}")
+        f"sampled")
+    sample_launches = read_counts(kernels, "sampling")
     log(f"    time: {span_breakdown(sample_trace, wall)}")
+    # the ELL table the LP rounds ran on: its degree law, and lp_round on it
+    (s_labels, s_nbr, s_wgt), _ = next(iter(lp_seen.calls.values()))
+    s_deg = (s_nbr >= 0).sum(dim=1)
+    hist = torch.bincount(s_deg, minlength=s_nbr.shape[1] + 1).tolist()
+    log(f"    sampling ELL N={s_nbr.shape[0]} K={s_nbr.shape[1]}: nodes by "
+        f"degree {hist}; mean degree {float(s_deg.float().mean()):.3f}, "
+        f"degree <= 8: {float((s_deg <= 8).float().mean()):.3f} of nodes, "
+        f"<= 16: {float((s_deg <= 16).float().mean()):.3f}")
+    s_lp_ms = cuda_ms(lambda: lp_round_cuda(s_labels, s_nbr, s_wgt), 20)
+    s_lp_bound, s_lp_by = bound(lp_bytes(s_nbr),
+                                2.0 * float((s_deg.double() ** 2).sum()))
+    log(f"    lp_round on the sampling run's ELL: kernel {s_lp_ms:.4f} ms, "
+        f"bound {s_lp_bound:.4f} ms ({s_lp_by})")
+    del lp_seen, s_labels, s_nbr, s_wgt, s_deg
     if sample_launches["lp_round"] == 0:
         fail("the sampling run launched no lp_round kernel")
     if sample_launches["lp_round"] != len(stats["changes_per_round"]):
@@ -1027,20 +1177,30 @@ def main() -> None:
 
     # 6. evaluation main path ----------------------------------------------
     reset_counts(kernels)
-    out, wall = run_evaluate([
-        "--grid", "default", "--backend", "cuda", "--device", "cuda",
-        "--queries", str(EVAL_QUERIES), "--json",
-        os.path.join(OUT, "eval.json"), "--trace", eval_trace])
-    eval_launches = {kern.name: kern.launches for kern in kernels}
+    from repro_torch.kernels.lsh_hamming import ops as ham_ops
+    with Capture(ham_ops, "hamming_topk_cuda",
+                 lambda q, c, k: (tuple(q.shape), tuple(c.shape), k)) \
+            as ham_seen:
+        out, wall = run_evaluate([
+            "--grid", "default", "--backend", "cuda", "--device", "cuda",
+            "--queries", str(EVAL_QUERIES), "--json",
+            os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     cells = out["grid"]["cells"]
-    log(f"[6/8] evaluation: {wall:.2f} s wall, {len(cells)} cells; "
-        f"launches {eval_launches}")
+    log(f"[6/8] evaluation: {wall:.2f} s wall, {len(cells)} cells")
+    eval_launches = read_counts(kernels, "evaluation")
     trace.disable()
+    # the Hamming kernel at each shape the grid launched it at
+    for (qshape, cshape, k), (args, _) in sorted(ham_seen.calls.items()):
+        ms = cuda_ms(lambda: ham_ops.hamming_topk_cuda(*args), 20)
+        log(f"    hamming_topk at the grid's Q={qshape[0]} N={cshape[0]} "
+            f"W={cshape[1]} k={k}: kernel {ms:.4f} ms, bound "
+            f"{hamming_bound(qshape[0], cshape[0], cshape[1], k)[0]:.4f} ms")
+    del ham_seen
     log(f"    time: {span_breakdown(eval_trace, wall)}")
     log(f"    fidelity: {json.dumps(out['fidelity']['mean_abs_delta'])}")
     log(f"    winners: {json.dumps(out['fidelity']['winners'])}")
     log(f"    backend curve: {json.dumps(out['backend_curve'])}")
-    for kname in ("gathered_tiles", "hamming_partial", "topk_partial",
+    for kname in ("gathered_tiles", "hamming_topk", "topk_partial",
                   "topk_int8_partial", "topk_merge", "lp_round"):
         if eval_launches[kname] == 0:
             fail(f"the evaluation run launched no {kname} kernel")
@@ -1074,9 +1234,9 @@ def main() -> None:
                                  device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    t1_launches = {kern.name: kern.launches for kern in kernels}
     trace.disable()
-    log(f"    Table I: {wall:.2f} s wall; launches {t1_launches}")
+    log(f"    Table I: {wall:.2f} s wall")
+    t1_launches = read_counts(kernels, "Table I")
     log(f"    time: {span_breakdown(table1_trace, wall)}")
     for r in rows.values():
         log(f"    {r.name:10s} p@3 {r.p_at_3:.4f} rho_q {r.rho_q:.4f} "
@@ -1149,9 +1309,19 @@ def main() -> None:
     corpus = generate_corpus(num_queries=512, qrels_per_query=16,
                              num_topics=48, aux_fraction=1.0, vocab_size=256,
                              query_len=24, seed=0)
-    # the default grid's ANN indexes start from cuBLAS vs CPU products and
-    # libdevice vs CPU log1p: first their centroids and projection, then
-    # the cells
+    # prng.normal, the lsh projection's draw, reproduces XLA's f32 log1p
+    # and erf_inv op by op: equal bit for bit on both devices
+    for seed, shape in ((0, (2048, 128)), (3, (1_000_003,))):
+        got = prng.normal(prng.prng_key(seed), shape, "cuda").cpu()
+        want = prng.normal(prng.prng_key(seed), shape, "cpu")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"prng.normal{shape}: cuda and cpu differ in "
+                 f"{int((got != want).sum())} values")
+    log("    prng.normal: 2048 x 128 and 1,000,003 draws equal bit for bit "
+        "on cuda and cpu")
+    # the default grid's ANN indexes: the ivfflat centroids start from
+    # cuBLAS vs CPU products, so they agree within a stated rtol; the lsh
+    # projection is prng.normal, equal; then the cells
     ev_small = torch.from_numpy(tfidf_embedder(corpus)[0])
     built = {}
     for where in ("cuda", "cpu"):
@@ -1159,17 +1329,18 @@ def main() -> None:
         built[where] = (IVFFlatEngine().build(prng.prng_key(0), vecs),
                         LSHEngine().build(prng.prng_key(0), vecs))
     (ivf_g, lsh_g), (ivf_c, lsh_c) = built["cuda"], built["cpu"]
-    for what, a, b in (("ivfflat centroids", ivf_g.centroids,
-                        ivf_c.centroids),
-                       ("lsh projection", lsh_g.proj, lsh_c.proj)):
-        if not torch.allclose(a.cpu(), b, rtol=INDEX_RTOL, atol=0.0):
-            fail(f"small index: {what} differ beyond rtol {INDEX_RTOL} "
-                 f"between cuda and cpu (max |diff| "
-                 f"{float((a.cpu() - b).abs().max()):.3e})")
+    cent_diff = (ivf_g.centroids.cpu() - ivf_c.centroids).abs()
+    if not torch.allclose(ivf_g.centroids.cpu(), ivf_c.centroids,
+                          rtol=INDEX_RTOL, atol=0.0):
+        fail(f"small index: ivfflat centroids differ beyond rtol "
+             f"{INDEX_RTOL} between cuda and cpu (max |diff| "
+             f"{float(cent_diff.max()):.3e})")
+    if not torch.equal(lsh_g.proj.cpu(), lsh_c.proj):
+        fail("small index: the lsh projection differs between cuda and cpu")
     same_lists = torch.equal(ivf_g.ids.cpu(), ivf_c.ids)
     same_codes = torch.equal(lsh_g.codes.cpu(), lsh_c.codes)
-    log(f"    small index ({tuple(ev_small.shape)}): centroids and "
-        f"projection within rtol {INDEX_RTOL}; ivfflat lists "
+    log(f"    small index ({tuple(ev_small.shape)}): centroids within "
+        f"rtol {INDEX_RTOL}, projection equal; ivfflat lists "
         f"{'equal' if same_lists else 'DIFFER'}, lsh codes "
         f"{'equal' if same_codes else 'DIFFER'} on cuda and cpu")
     for grid in ("smoke", "default"):
@@ -1277,9 +1448,9 @@ def main() -> None:
          "max_abs_err": gath_err, "ms": g_ms, "plain_ms": g_plain_ms,
          "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib_ms},
         {"name": "hamming_topk", "route": "cuda",
-         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "source": "src/repro_torch/csrc/hamming_topk.cu",
          "replaces": "src/repro/kernels/lsh_hamming/lsh_hamming.py:27",
-         "launches": launches("hamming_partial"),
+         "launches": launches("hamming_topk"),
          "max_abs_err": 0, "ms": h_ms, "plain_ms": h_plain_ms,
          "bound_ms": h_bound, "bound_by": h_by, "library_ms": None},
         {"name": "flash_attention", "route": "cuda",

@@ -11,8 +11,10 @@ Paper semantics (Raghavan et al. [9], weighted variant):
 Ties are broken toward the smaller label id. ``sort_round`` is one round as
 reduce-by-(dst, label) + reduce-by-dst argmax over a sorted edge list;
 ``ell_round`` is the dense degree-capped formulation and the plain version
-of the CUDA kernel (kernels/label_prop). The multi-round loop (the
-reference's ``lax.scan``) is ``engines.run_engine``, a Python loop.
+of the CUDA kernel (kernels/label_prop). The multi-round loops (the
+reference's ``lax.scan``) are Python loops: ``propagate`` and
+``propagate_ell`` here, and ``engines.run_engine`` behind the engine
+registry.
 """
 from __future__ import annotations
 
@@ -58,6 +60,19 @@ def sort_round(labels, src, dst, w, valid, num_nodes):
         best, torch.tensor(su.I32_MAX - 1, dtype=best.dtype,
                            device=best.device))[keep].to(labels.dtype)
     return new_labels
+
+
+def propagate(src, dst, w, valid, *, num_nodes: int,
+              rounds: int) -> LabelPropResult:
+    """Run ``rounds`` of weighted label propagation over a directed edge
+    list (``graph_builder.symmetrize`` first for undirected graphs)."""
+    labels = torch.arange(num_nodes, dtype=torch.int32, device=src.device)
+    changes = torch.zeros(rounds, dtype=torch.int32, device=src.device)
+    for r in range(rounds):
+        new = sort_round(labels, src, dst, w, valid, num_nodes)
+        changes[r] = (new != labels).sum()
+        labels = new
+    return LabelPropResult(labels, changes)
 
 
 # ---------------------------------------------------------------------------
@@ -116,3 +131,17 @@ def ell_round(labels, nbr, wgt):
     new = cand.amin(dim=1)
     return torch.where(mask.any(dim=1), new, labels).to(labels.dtype)
 
+
+
+def propagate_ell(nbr, wgt, *, rounds: int) -> LabelPropResult:
+    """Run ``rounds`` of label propagation over ELL adjacency, each round
+    through ``kernels/label_prop/ops.label_prop_round``: the CUDA kernel
+    ``lp_round`` on CUDA tensors, ``ell_round`` on CPU tensors."""
+    from repro_torch.kernels.label_prop.ops import label_prop_round
+    labels = torch.arange(nbr.shape[0], dtype=torch.int32, device=nbr.device)
+    changes = torch.zeros(rounds, dtype=torch.int32, device=nbr.device)
+    for r in range(rounds):
+        new = label_prop_round(labels, nbr, wgt)
+        changes[r] = (new != labels).sum()
+        labels = new
+    return LabelPropResult(labels, changes)

@@ -1,5 +1,4 @@
-"""Counter-based threefry2x32 in torch integer ops, bit-equal to JAX
-(``normal`` to a few ulps).
+"""Counter-based threefry2x32 in torch integer ops, bit-equal to JAX.
 
 The reference draws its samples with ``jax.random.PRNGKey``, ``fold_in``
 and ``uniform`` (``core/sampling_core.py``, ``core/sampler.py``,
@@ -23,13 +22,11 @@ mantissa trick of ``jax/_src/random.py::_uniform``:
   ln(2**32 - 1))`` rounds, each splitting the key and stably sorting the
   values by 32 fresh random bits; ``choice(..., replace=False)`` is its
   prefix;
-* ``normal`` is ``sqrt(2) * _erf_inv(u)`` for ``u`` uniform on
+* ``normal`` is ``sqrt(2) * erf_inv(u)`` for ``u`` uniform on
   ``[nextafter(-1, 0), 1)``, with XLA's f32 ``erf_inv`` (Giles'
-  polynomial). Each Horner step here runs in f64 and rounds once to f32,
-  as a fused multiply-add does, which matches XLA's values more often
-  than f32 steps; ``log1p`` is torch's, whose last bit differs from XLA's
-  on some inputs. So the values agree to a few ulps (the tests state the
-  bound), not bit for bit.
+  polynomial) and, inside it, XLA's f32 ``log1p``, both operation by
+  operation as the installed XLA:CPU compiles them (``core/xla_f32.py``),
+  so ``normal`` is the reference's bit for bit, on either device.
 
 Words are held in int64 tensors masked to 32 bits, so the same code runs
 on any device, and on Python ints for the scalar key operations.
@@ -40,6 +37,8 @@ import math
 from typing import Tuple
 
 import torch
+
+from repro_torch.core import xla_f32
 
 Key = Tuple[int, int]
 
@@ -123,40 +122,9 @@ def choice(key: Key, n: int, size: int, device="cpu") -> torch.Tensor:
     return permutation(key, n, device)[:size]
 
 
-# XLA's f32 erf_inv (Giles, "Approximating the erfinv function"): two
-# degree-8 polynomials in w = -log1p(-x*x), split at w = 5; row 0 for
-# w < 5, row 1 above.
-_ERFINV_COEFFS = (
-    (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
-     0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
-     1.50140941),
-    (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
-     0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
-
-
-def _erf_inv(x: torch.Tensor) -> torch.Tensor:
-    """f32 ``erf_inv`` on (-1, 1) as XLA computes it, each Horner step one
-    rounding to f32 of an exact f64 product and sum, as a fused
-    multiply-add."""
-    w = -torch.log1p(-x * x)
-    lt = w < 5.0
-    # the square root of the w >= 5 tail only (|x| > 0.9966), in f64 and
-    # rounded once: exactly XLA's f32 sqrt. torch's f32 sqrt on a large CPU
-    # tensor is not correctly rounded on every element.
-    t = w - 2.5
-    t[~lt] = torch.sqrt(w[~lt].double()).to(torch.float32) - 3.0
-    w = t.double()
-    coeffs = torch.tensor(_ERFINV_COEFFS, dtype=torch.float32,
-                          device=x.device).double()[(~lt).long()]
-    p = coeffs[..., 0]
-    for i in range(1, coeffs.shape[-1]):
-        p = (coeffs[..., i] + p * w).to(torch.float32).double()
-    return p.to(torch.float32) * x
-
-
 def normal(key: Key, shape, device="cpu") -> torch.Tensor:
     """``jax.random.normal(key, shape)``: float32 standard normals."""
     lo = torch.tensor(-1.0).nextafter(torch.tensor(0.0)).item()
     u = uniform(key, shape, device) * 2.0 + lo
     u = torch.clamp(u, min=lo)
-    return torch.tensor(math.sqrt(2), device=device) * _erf_inv(u)
+    return torch.tensor(math.sqrt(2), device=device) * xla_f32.erf_inv(u)

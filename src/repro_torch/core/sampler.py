@@ -26,6 +26,14 @@ class ClusterSample(NamedTuple):
     keep_prob: torch.Tensor        # f32[num_nodes] p_L actually used
 
 
+def community_sizes(labels: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """|L| per label id in [0, num_nodes), int32 as the labels are (a label
+    outside that range is dropped, as ``segment_sum`` drops it)."""
+    keep = su.in_range_rows(labels, num_nodes)
+    return su.segment_sum(torch.ones_like(labels[keep]), labels[keep],
+                          num_nodes)
+
+
 def xla_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum of a 1-d f32 tensor in the order XLA:CPU sums ``jnp.sum`` (as
     installed: jax 0.9). XLA rewrites a long reduction into windows of 32:
@@ -91,3 +99,10 @@ def cluster_sample(labels: torch.Tensor, key: prng.Key, *, num_nodes: int,
     entity_mask = label_kept[labels.to(torch.int64)] & eligible
     return ClusterSample(entity_mask, label_kept, sizes, p)
 
+
+
+def uniform_sample(num_nodes: int, key: prng.Key, *, rate: float,
+                   device="cpu") -> torch.Tensor:
+    """The paper's baseline: uniform random entity sampling (Section I-A),
+    which destroys community structure and inflates precision."""
+    return prng.uniform(key, (num_nodes,), device) < rate

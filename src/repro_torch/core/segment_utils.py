@@ -84,6 +84,15 @@ def in_range_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx >= 0) & (idx < n)
 
 
+def masked_min(values: torch.Tensor, mask: torch.Tensor, axis=None):
+    """Min of ``values`` where ``mask``, over ``axis`` (all when None); the
+    dtype's largest value (inf, or ``I32_MAX``) where nothing is kept."""
+    big = float("inf") if values.is_floating_point() else I32_MAX
+    kept = torch.where(mask, values, torch.tensor(big, dtype=values.dtype,
+                                                  device=values.device))
+    return kept.amin() if axis is None else kept.amin(dim=axis)
+
+
 def segment_sum(data, segment_ids, num_segments: int):
     """Sum of ``data`` per segment (0 for an empty segment).
 
@@ -118,3 +127,21 @@ def segment_max(data, segment_ids, num_segments: int):
 
 def segment_min(data, segment_ids, num_segments: int):
     return _segment_reduce(data, segment_ids, num_segments, "amin")
+
+
+def reduce_by_key_sum(keys: tuple, values: torch.Tensor,
+                      valid: torch.Tensor):
+    """Sum ``values`` over equal-``keys`` groups.
+
+    Returns per-position tensors aligned with the *sorted* order: sorted
+    keys, run-start mask, per-run sum broadcast back to positions, segment
+    ids, sorted valid mask. Masked rows get sentinel keys and zero value."""
+    skeys = tuple(torch.where(valid, k, I32_MAX) for k in keys)
+    svals = torch.where(valid, values, torch.zeros((), dtype=values.dtype,
+                                                   device=values.device))
+    sk, (sorted_vals, sorted_valid) = sort_by(skeys, (svals,
+                                                      valid.to(torch.int32)))
+    starts = run_starts(*sk)
+    seg = run_segment_ids(starts)
+    sums = segment_sum(sorted_vals, seg, values.shape[0])
+    return sk, starts, sums[seg], seg, sorted_valid.to(torch.bool)

@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import xla_f32
+
 
 class YuleSimonFit(NamedTuple):
     rho: torch.Tensor
@@ -61,3 +63,28 @@ def fit_em(degrees: torch.Tensor, weights: Optional[torch.Tensor] = None, *,
     ll = (wt * log_pmf(k, rho)).sum()
     return YuleSimonFit(rho, rho + 1.0, stderr, ll, iters)
 
+
+
+def degree_histogram(degrees: torch.Tensor, max_degree: int) -> torch.Tensor:
+    """Histogram of node degrees (Fig. 4 left), int32; degrees above
+    ``max_degree`` land in its bin, degree-0 nodes are excluded (the
+    paper's graph only contains passages that share a query)."""
+    d = torch.clamp(degrees.to(torch.int64), 0, max_degree)
+    hist = torch.bincount(d, minlength=max_degree + 1).to(torch.int32)
+    hist[0] = 0
+    return hist
+
+
+def theoretical_pmf(ks: torch.Tensor, rho) -> torch.Tensor:
+    """Yule-Simon pmf for the Fig. 4 right overlay, for k >= 1 and rho > 0,
+    in XLA's own f32 arithmetic (``core/xla_f32.py``): the reference's
+    ``exp(log_pmf)`` bit for bit, called op by op as a caller outside
+    ``jit`` runs it (each gammaln on its argument x, rounded, as z = x - 1;
+    under ``jit`` XLA folds rho + 1 - 1 and k + rho + 1 - 1 and rounds
+    less)."""
+    k = ks.to(torch.float32)
+    rho = torch.as_tensor(rho, dtype=torch.float32, device=k.device)
+    log_p = ((xla_f32.logf(rho) + xla_f32.lgamma(k - 1.0))
+             + xla_f32.lgamma((rho + 1.0) - 1.0)) \
+        - xla_f32.lgamma(((k + rho) + 1.0) - 1.0)
+    return xla_f32.flush_denormal(xla_f32.expf(log_p))

@@ -1,17 +1,15 @@
 // Fused scoring + top-k, any k: inner products over a dense corpus (f32
-// vectors and int8 codes), inner products over per-query candidate rows
-// gathered from a table (the ivfflat probe), and Hamming distances over
-// packed sign codes (the lsh scan).
+// vectors and int8 codes) and over per-query candidate rows gathered from a
+// table (the ivfflat probe). The Hamming top-k of the lsh scan is
+// hamming_topk.cu.
 //
 // Replaces the TPU kernels of src/repro/kernels/topk_scoring/topk_scoring.py:
 // _topk_kernel (f32; :23, its pallas_call at :168), _topk_int8_kernel (int8
 // x int8 -> int32 dot, ranked as f32, rows at or past n masked in the
 // kernel; :49, pallas_call at :208) and _gathered_kernel (each query scores
 // its own candidate set; an id of -1 scores -inf; ties to the earliest
-// candidate position), that of
-// src/repro/kernels/lsh_hamming/lsh_hamming.py: _hamming_kernel (XOR +
-// popcount over W words, top k of -distance, rows past n masked), and the
-// cross-block lax.top_k merge that follows each.
+// candidate position), and the cross-block lax.top_k merge that follows
+// each.
 //
 // What bounds them on an H100. Dense: scoring Q queries against N rows of
 // width D is 2*Q*N*D flops over the bytes of both
@@ -32,9 +30,7 @@
 // A kernel that scores each query's rows on their own reads a list once
 // per query that probes it (about 64 at that shape), so bytes would
 // set its time; this one shares each row tile among the queries that probe
-// it. Hamming: 3 integer operations (xor, popc, add) per
-// word per (query, row) pair over 16 bytes a row; at W = 4 selection, not
-// scoring, is most of the work.
+// it.
 //
 // Design (simple first; wgmma/TMA/warp specialisation are later work):
 //  * dense_partial<In, kPieces, kR> (topk_partial, topk_int8_partial):
@@ -63,8 +59,15 @@
 //    tighter than the split's error, so each value is split exactly into
 //    three TF32 pieces and the six products with i + j <= 2 are taken,
 //    small first. The pieces are TF32 values, whose denormals step by
-//    2^-136: a query or row whose entries all lie below about 2^-100 loses
-//    the bits under that step (the plain version does not). int8:
+//    2^-136, and the low piece of an entry below about 2^-115 would lie
+//    there and lose its bits (the plain version does not). So every
+//    product is taken 2^12 times larger: a piece below the leading one
+//    enters scaled by 2^12 (the corpus's as b_j * 2^12, the query's as
+//    a_i * 2^12 against the corpus's leading piece), which keeps it
+//    normal for any normal entry, and each chunk's sum is scaled back by
+//    2^-12 in the fused add to the running sum. Powers of two change no
+//    rounding, so entries of ordinary size give the same bits as without
+//    the scale; sums past about 2^116 would overflow. int8:
 //    mma.sync m16n8k32 s8.s8.s32, exact int32 sums, ranked as f32 like
 //    the reference's. mma.sync is not the card's full tensor-core rate:
 //    on an H100 at 700 W it issued 268-291 TFLOP/s of TF32 and about 1225
@@ -94,7 +97,7 @@
 //    beyond it in each query's slice of the output in device memory. Each
 //    split writes the same partial layout as the kernels before it, so
 //    topk_merge is shared.
-//  * Lists (the dense, Hamming and merge kernels): one running top-k list
+//  * Lists (the dense, gathered and merge kernels): one running top-k list
 //    per query ordered by score descending, ties to the lower id. For k <=
 //    32 the list lives in lanes 0..k-1. For larger k it lives in memory,
 //    shifted in parallel by the warp 32 entries at a time, with the k-th
@@ -103,13 +106,6 @@
 //    query's slice of the output in device memory, whose every access waits
 //    on L2. A ballot finds the candidates that beat the current k-th entry,
 //    and each is inserted in turn.
-//  * hamming_partial<kMem>: grid (candidate split, 32-query tile); a block
-//    of 256 threads walks its split's 128-row tiles; warp w owns queries
-//    4w..4w+3, and lane l of it holds rows n0 + 32j + l (j < 4) and the
-//    distances to the warp's 4 queries in registers, words read as 16-byte
-//    vectors when W % 4 == 0. Lists as above (k <= 96 in shared memory).
-//    Distances are small integers, so ties are the rule: the (score, id)
-//    order of the lists is what returns exactly the plain version's ids.
 //  * gathered_tiles_kernel<kMem>: the wrapper cuts each query's valid
 //    candidate positions into pieces, runs of consecutive table rows cut
 //    again at 128-row tiles (an ivfflat probe's list is one run, so a
@@ -139,8 +135,6 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
-constexpr int kBQ = 32;        // queries per block tile (Hamming)
-constexpr int kBN = 128;       // candidates per block tile (Hamming)
 constexpr int kRegK = 32;      // largest k whose list fits in warp lanes
 constexpr int kSmemK = 96;     // largest k whose lists fit in shared memory
 constexpr int kMergeWarps = 8;
@@ -333,106 +327,6 @@ __device__ __forceinline__ void mem_offer(MemList& l, float s, int id, int k,
     const float st = __shfl_sync(kFull, s, t);
     const int it = __shfl_sync(kFull, id, t);
     if (beats(st, it, l.kth_s, l.kth_i)) mem_insert(l, st, it, k, lane);
-  }
-}
-
-// ---- Hamming: packed sign codes -------------------------------------------
-
-// 4 words of row `src` from word e, zero past w.
-__device__ __forceinline__ int4 load4(const int* src, int e, int w,
-                                      int vec) {
-  if (vec && e + 3 < w) return *reinterpret_cast<const int4*>(src + e);
-  return make_int4(e < w ? src[e] : 0, e + 1 < w ? src[e + 1] : 0,
-                   e + 2 < w ? src[e + 2] : 0, e + 3 < w ? src[e + 3] : 0);
-}
-
-// q [nq, w] and c [n, w] packed codes. Writes each split's top-k list of
-// -distance for each query into part_s/part_i [nq, n_splits * k].
-template <bool kMem>
-__global__ void __launch_bounds__(kThreads)
-hamming_partial_kernel(const int* __restrict__ q, const int* __restrict__ c,
-                       float* part_s, int* part_i, int nq, int n, int w,
-                       int k, int tiles_per_split, int n_splits, int vec,
-                       int smem_lists) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int split = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
-  const int n_tiles = (n + kBN - 1) / kBN;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-
-  float ls[4];
-  int li[4];
-  MemList ml[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    ls[i] = -CUDART_INF_F;
-    li[i] = -1;
-    if (kMem && q0 + warp * 4 + i < nq) {  // uniform in the warp
-      const long long o =
-          static_cast<long long>(q0 + warp * 4 + i) * n_splits * k +
-          split * k;
-      mem_place(ml[i], smem_lists, warp * 4 + i, part_s + o, part_i + o, k,
-                lane);
-    }
-  }
-
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int n0 = tile * kBN;
-    int dist[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dist[i][j] = 0;
-    for (int x = 0; x < w; x += 4) {
-      int4 cv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gn = n0 + 32 * j + lane;
-        cv[j] = gn < n ? load4(c + static_cast<long long>(gn) * w, x, w, vec)
-                       : make_int4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int gq = q0 + warp * 4 + i;
-        const int4 qv = gq < nq ? load4(q + static_cast<long long>(gq) * w,
-                                        x, w, vec)
-                                : make_int4(0, 0, 0, 0);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          dist[i][j] += __popc(qv.x ^ cv[j].x) + __popc(qv.y ^ cv[j].y) +
-                        __popc(qv.z ^ cv[j].z) + __popc(qv.w ^ cv[j].w);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (kMem && q0 + warp * 4 + i >= nq) continue;  // uniform in the warp
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int id = n0 + 32 * j + lane;
-        const float s =
-            id < n ? -static_cast<float>(dist[i][j]) : -CUDART_INF_F;
-        if (kMem)
-          mem_offer(ml[i], s, id, k, lane);
-        else
-          reg_offer(ls[i], li[i], s, id, k, lane);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gq = q0 + warp * 4 + i;
-    const long long o =
-        static_cast<long long>(gq) * n_splits * k + split * k;
-    if (gq >= nq) continue;  // uniform in the warp
-    if (!kMem && lane < k) {
-      part_s[o + lane] = ls[i];
-      part_i[o + lane] = li[i];
-    } else if (kMem && smem_lists) {
-      mem_store(ml[i], part_s + o, part_i + o, k, lane);
-    }
   }
 }
 
@@ -719,7 +613,13 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
 // one accumulator (D 2048) bias a sum of like-signed terms low by parts in
 // 1e5, past the card tests' rtol of 1e-5; so each n8 tile sums the chunk's
 // products in a fresh accumulator and adds that to its running sum with a
-// rounded add.
+// rounded add. Each product a_i * b_j is taken kLoScale times larger, the
+// scale on a piece below the leading one where there is one (b_j for
+// j > 0, else a_i), so no such piece falls among TF32's denormals; the
+// rounded add scales the chunk's sum back exactly.
+constexpr float kLoScale = 4096.f;               // 2^12
+constexpr float kLoUnscale = 1.f / 4096.f;
+
 template <int kPieces>
 __device__ __forceinline__ void dense_chunk(float (&acc)[16][4],
                                             unsigned a_addr, unsigned b_addr,
@@ -736,14 +636,18 @@ __device__ __forceinline__ void dense_chunk(float (&acc)[16][4],
 #pragma unroll
     for (int kk = 0; kk < kDChunk / 32; ++kk) {
       if (kk >= steps) break;                     // uniform: past d
-      unsigned raw[4], a[kPieces][4];
+      // a[i]: piece i of the query value; as[i]: the same times kLoScale
+      unsigned raw[4], a[kPieces][4], as[kPieces][4];
       ldmatrix_x4(raw, a_addr + kk * 32);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         unsigned p[kPieces];
         tf32_split<kPieces>(p, raw[r]);
 #pragma unroll
-        for (int i = 0; i < kPieces; ++i) a[i][r] = p[i];
+        for (int i = 0; i < kPieces; ++i) {
+          a[i][r] = p[i];
+          as[i][r] = __float_as_uint(__uint_as_float(p[i]) * kLoScale);
+        }
       }
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
@@ -753,19 +657,28 @@ __device__ __forceinline__ void dense_chunk(float (&acc)[16][4],
           unsigned b0[kPieces], b1[kPieces];
           tf32_split<kPieces>(b0, raw[2 * h]);
           tf32_split<kPieces>(b1, raw[2 * h + 1]);
-          // the products a_i * b_j with i + j < kPieces, smallest first
+#pragma unroll
+          for (int j = 1; j < kPieces; ++j) {       // b_j * kLoScale
+            b0[j] = __float_as_uint(__uint_as_float(b0[j]) * kLoScale);
+            b1[j] = __float_as_uint(__uint_as_float(b1[j]) * kLoScale);
+          }
+          // the products a_i * b_j * kLoScale with i + j < kPieces,
+          // smallest first
 #pragma unroll
           for (int sum = kPieces - 1; sum >= 0; --sum)
 #pragma unroll
             for (int i = sum; i >= 0; --i)
-              mma_tf32(part[2 * jp + h], a[i], b0[sum - i], b1[sum - i]);
+              mma_tf32(part[2 * jp + h], sum == i ? as[i] : a[i],
+                       b0[sum - i], b1[sum - i]);
         }
       }
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[8 * half + j][e] += part[j][e];
+      for (int e = 0; e < 4; ++e)
+        acc[8 * half + j][e] =
+            __fmaf_rn(part[j][e], kLoUnscale, acc[8 * half + j][e]);
   }
 }
 
@@ -1214,29 +1127,6 @@ __global__ void topk_merge_kernel(const float* __restrict__ part_s,
   }
 }
 
-int launch_hamming(const void* q, const void* c, void* part_s, void* part_i,
-                   int nq, int n, int w, int k, int tiles_per_split,
-                   int n_splits, int vec, void* stream) {
-  if (nq > 0 && n_splits > 0 && k > 0) {
-    const dim3 grid(n_splits, (nq + kBQ - 1) / kBQ);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int* qp = static_cast<const int*>(q);
-    const int* cp = static_cast<const int*>(c);
-    float* ps = static_cast<float*>(part_s);
-    int* pi = static_cast<int*>(part_i);
-    const int smem = k <= kSmemK;
-    const size_t bytes = smem ? size_t(kBQ) * k * 8 : 0;
-    if (k <= kRegK)
-      hamming_partial_kernel<false><<<grid, kThreads, 0, st>>>(
-          qp, cp, ps, pi, nq, n, w, k, tiles_per_split, n_splits, vec, 0);
-    else
-      hamming_partial_kernel<true><<<grid, kThreads, bytes, st>>>(
-          qp, cp, ps, pi, nq, n, w, k, tiles_per_split, n_splits, vec,
-          smem);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // queries/corpus f32 [nq, d] / [n, d]; vec = 1 when both are 16-byte
@@ -1282,17 +1172,6 @@ extern "C" int topk_merge(const void* part_s, const void* part_i, void* out_s,
           ps, pi, os, oi, nq, width, k, smem);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// packed sign codes int32 [nq, w] / [n, w]; vec = 1 when both are 16-byte
-// aligned and w % 4 == 0. The same argument layout as topk_partial, so the
-// wrapper and topk_merge are shared.
-extern "C" int hamming_partial(const void* q, const void* c, void* part_s,
-                               void* part_i, int nq, int n, int w, int k,
-                               int tiles_per_split, int n_splits, int vec,
-                               void* stream) {
-  return launch_hamming(q, c, part_s, part_i, nq, n, w, k, tiles_per_split,
-                        n_splits, vec, stream);
 }
 
 // queries f32 [nq, d], table f32 [r, d]; pieces int32 [n, 5] (query,

@@ -13,6 +13,7 @@ machine may have no ``nvcc`` at all.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import hashlib
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import ClassVar, Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -86,13 +87,20 @@ class Kernel:
     """One C entry point of a CUDA source, with its launch count.
 
     ``launches`` is a plain integer bumped once per launch, so a run can
-    show that its main path went through the kernel."""
+    show that its main path went through the kernel; ``shapes`` counts the
+    launches by their integer arguments (the shape the entry point was
+    given). While ``Kernel.timed`` is a list, each launch also appends
+    (name, start, end) CUDA events recorded around it on its stream, whose
+    elapsed times, read after a synchronize, are its device time."""
 
     name: str
     source: str
     argtypes: tuple
     launches: int = 0
+    shapes: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter, repr=False)
     _fn: object = dataclasses.field(default=None, repr=False)
+    timed: ClassVar[Optional[list]] = None
 
     def __call__(self, *args) -> None:
         """Launch on the current CUDA stream; raise on a launch error."""
@@ -107,8 +115,18 @@ class Kernel:
         # launch
         stream = torch._C._cuda_getCurrentRawStream(
             torch.cuda.current_device())
+        events = None
+        if Kernel.timed is not None:
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
         rc = self._fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {rc}")
+        if events is not None:
+            events[1].record()
+            Kernel.timed.append((self.name, *events))
         self.launches += 1
+        self.shapes[tuple(a for a, t in zip(args, self.argtypes)
+                          if t is ctypes.c_int)] += 1

@@ -9,8 +9,10 @@ asks for its rerank pool, 64 by default, where the reference's k <= 32 cap
 sends it to its jnp path.
 
 On CPU tensors the wrapper runs the plain version (ref.py); on CUDA tensors
-it launches ``hamming_partial`` and ``topk_merge`` of csrc/topk_scores.cu
-or raises.
+it launches ``hamming_topk`` of csrc/hamming_topk.cu (a counting select:
+per-split distance histograms, a threshold and the rows at or below it
+written in (distance, id) order; where W <= 7 the distances are kept as
+bytes between the two passes) or raises.
 """
 from __future__ import annotations
 
@@ -20,22 +22,62 @@ import torch
 
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.lsh_hamming import ref
-from repro_torch.kernels.topk_scoring.ops import (HAMMING_BLOCKS,
-                                                  HAMMING_QUERIES,
-                                                  HAMMING_ROWS, empty_topk,
-                                                  launch_topk)
+from repro_torch.kernels.topk_scoring.ops import (_aligned, _check,
+                                                  empty_topk, split_plan)
 from repro_torch.kernels.topk_scoring.ref import pad_topk
 
-HAMMING_PARTIAL = Kernel("hamming_partial", "topk_scores.cu",
-                         (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7)
+HAMMING_TOPK = Kernel("hamming_topk", "hamming_topk.cu",
+                      (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7)
+# the kernel's query and corpus tiles, kHQ and kHN in csrc/hamming_topk.cu:
+# a block takes HAMMING_QUERIES queries and walks HAMMING_ROWS-row tiles of
+# its split; the plan aims at four blocks for each of an H100's 132 SMs
+HAMMING_QUERIES, HAMMING_ROWS = 32, 128
+HAMMING_BLOCKS = 4 * 132
+# up to this many words a distance fits a byte, and the kernel keeps each
+# one (uint8 [Q, N] scratch) for its collect pass: kStoreWords there
+STORE_WORDS = 7
+
+
+def hamming_bins(w: int) -> int:
+    """Distances to W packed words lie in [0, 32 W]: one bin each."""
+    return 32 * w + 1
 
 
 def hamming_topk_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor, k: int):
-    """Launch the Hamming kernel pair: codes i32[Q, W] x i32[N, W], 1 <= k
-    <= N -> (-distance f32[Q, k], ids i32[Q, k])."""
-    return launch_topk(HAMMING_PARTIAL, q_codes, c_codes, k, torch.int32, 4,
-                       q_tile=HAMMING_QUERIES, rows=HAMMING_ROWS,
-                       blocks=HAMMING_BLOCKS)
+    """Launch the Hamming kernels: codes i32[Q, W] x i32[N, W], 1 <= k <= N
+    -> (-distance f32[Q, k], ids i32[Q, k]), ordered by (distance, id)."""
+    dev = q_codes.device
+    name = HAMMING_TOPK.name
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    _check(q_codes, "q_codes", torch.int32, dev, name)
+    _check(c_codes, "c_codes", torch.int32, dev, name)
+    nq, w = q_codes.shape
+    n = c_codes.shape[0]
+    if c_codes.shape[1] != w:
+        raise ValueError(f"{name}: widths differ, {w} vs {c_codes.shape[1]}")
+    if not 1 <= k <= n:
+        raise ValueError(f"{name}: k={k} outside [1, N={n}]")
+    per_split, n_splits = split_plan(nq, n, HAMMING_QUERIES, HAMMING_ROWS,
+                                     HAMMING_BLOCKS)
+    bins = hamming_bins(w)
+    if (max(nq * k, n * w, nq * n_splits * bins) >= 2 ** 31
+            or nq * n >= 2 ** 62
+            or -(-nq // HAMMING_QUERIES) >= 2 ** 16):
+        raise ValueError(f"{name}: Q={nq} N={n} W={w} k={k} exceeds the "
+                         f"kernel's indices")
+    hist = torch.empty((nq, n_splits, bins), dtype=torch.int32, device=dev)
+    thr = torch.empty(nq, dtype=torch.int32, device=dev)
+    dist8 = torch.empty((nq, n) if w <= STORE_WORDS else (1,),
+                        dtype=torch.uint8, device=dev)
+    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    vec = int(w % 4 == 0 and _aligned(q_codes, c_codes))
+    with torch.cuda.device(dev):
+        HAMMING_TOPK(q_codes.data_ptr(), c_codes.data_ptr(), hist.data_ptr(),
+                     thr.data_ptr(), dist8.data_ptr(), out_s.data_ptr(),
+                     out_i.data_ptr(), nq, n, w, k, per_split, n_splits, vec)
+    return out_s, out_i
 
 
 def hamming_topk(q_codes: torch.Tensor, c_codes: torch.Tensor, *, k: int):

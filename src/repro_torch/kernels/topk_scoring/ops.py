@@ -30,9 +30,6 @@ from repro_torch.kernels.topk_scoring.ref import pad_topk
 # plan aims at one block for each of its 132 SMs
 DENSE_QUERIES, DENSE_ROWS = 128, 128
 DENSE_BLOCKS = 132
-# the Hamming kernel's, kBQ and kBN there, four blocks an SM
-HAMMING_QUERIES, HAMMING_ROWS = 32, 128
-HAMMING_BLOCKS = 4 * 132
 
 _PARTIAL_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
 TOPK_PARTIAL = Kernel("topk_partial", "topk_scores.cu", _PARTIAL_ARGS)
@@ -81,10 +78,10 @@ def launch_topk(partial: Kernel, queries: torch.Tensor, corpus: torch.Tensor,
                 k: int, dtype, vec_width: int, *, q_tile: int, rows: int,
                 blocks: int):
     """Check the inputs, then launch ``partial`` (a dense scan over the
-    corpus rows: ``topk_partial``, ``topk_int8_partial`` or
-    ``hamming_partial``, whose tiles are ``q_tile`` queries by ``rows``
-    corpus rows) and the merge kernel: queries [Q, D], corpus [N, D] of
-    ``dtype``, 1 <= k <= N -> (scores f32[Q, k], ids i32[Q, k])."""
+    corpus rows: ``topk_partial`` or ``topk_int8_partial``, whose tiles are
+    ``q_tile`` queries by ``rows`` corpus rows) and the merge kernel:
+    queries [Q, D], corpus [N, D] of ``dtype``, 1 <= k <= N -> (scores
+    f32[Q, k], ids i32[Q, k])."""
     dev = queries.device
     name = partial.name
     if dev.type != "cuda":

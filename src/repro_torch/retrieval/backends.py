@@ -11,7 +11,8 @@ A backend implements all three behind one protocol. Registered:
                 matrix is never materialised); the plain version of the
                 kernel. The parity tests map it to the reference's ``jnp``.
   * ``cuda``  — the hand-written CUDA kernels (kernels/topk_scoring and
-                kernels/lsh_hamming, csrc/topk_scores.cu). It runs only on
+                kernels/lsh_hamming, csrc/topk_scores.cu and
+                csrc/hamming_topk.cu). It runs only on
                 a CUDA device (``needs_cuda``); the parity tests map it to
                 ``pallas``.
   * ``int8``  — quantized dense scan + float rerank tail, as the

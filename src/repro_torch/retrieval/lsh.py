@@ -7,9 +7,9 @@ registry (retrieval/backends.py): ``torch`` streams the plain version over
 blocks of the corpus, ``cuda`` runs the Hamming kernel
 (kernels/lsh_hamming).
 
-The projection is ``prng.normal``, which follows ``jax.random.normal`` to a
-few ulps (core/prng.py); a code bit can differ from the reference's only
-where a projection lands within those ulps of zero.
+The projection is ``prng.normal``, bit-equal to ``jax.random.normal``
+(core/prng.py); a code bit can differ from the reference's only where the
+projection products, summed in another order, land on either side of zero.
 """
 from __future__ import annotations
 

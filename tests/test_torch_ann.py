@@ -1,5 +1,5 @@
 """The port's ANN engines against the JAX package on the CPU: the PRNG draws
-behind them (``choice`` bit for bit, ``normal`` to a stated ulp bound),
+behind them (``choice`` and ``normal`` bit for bit),
 k-means and the ivfflat index, the plain gathered and Hamming top-k
 against the reference's jnp paths and, at tiny sizes, its Pallas kernels
 in interpret mode, ivfflat and lsh through ``SearchSession``, and both
@@ -27,7 +27,7 @@ from repro.retrieval import lsh as jlsh
 from repro.retrieval import search_core as jsc
 from repro.retrieval.backends import get_backend as jget_backend
 from repro_torch import interop
-from repro_torch.core import prng
+from repro_torch.core import prng, xla_f32
 from repro_torch.data.synthetic import generate_corpus
 from repro_torch.kernels.lsh_hamming.ops import (hamming_topk,
                                                   hamming_topk_cuda)
@@ -44,7 +44,6 @@ from repro_torch.retrieval.engines import available_retrieval_engines
 from repro_torch.retrieval.tfidf import tfidf_vectors
 
 RTOL = 1e-5
-NORMAL_MAX_ULPS = 3     # measured bound of prng.normal against JAX
 
 
 def _words(key) -> tuple:
@@ -110,16 +109,71 @@ def test_permutation_matches_jax():
 @pytest.mark.parametrize("seed,shape", [(0, (256, 128)), (1, (2048, 128)),
                                         (9, (37, 5))])
 def test_normal_within_ulps_of_jax(seed, shape):
-    """``log1p`` and the fused Horner steps of XLA's ``erf_inv`` are not
-    reproduced bit for bit: values agree within NORMAL_MAX_ULPS, and most
-    are equal."""
+    """XLA's f32 ``log1p`` and ``erf_inv`` are reproduced operation by
+    operation, fused multiply-adds included: every value equal, bit for
+    bit (within 0 ulps)."""
     want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
     got = prng.normal(prng.prng_key(seed), shape).numpy()
     assert got.dtype == np.float32 and got.shape == want.shape
-    ulps = np.abs(got.view(np.int32).astype(np.int64)
-                  - want.view(np.int32).astype(np.int64))
-    assert int(ulps.max()) <= NORMAL_MAX_ULPS
-    assert float((ulps == 0).mean()) > 0.95
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_erf_inv_bit_equal_to_xla_on_every_uniform():
+    """Every one of the 2**23 values ``normal`` draws its uniform from, in
+    order, through ``sqrt(2) * erf_inv`` on both sides."""
+    bits = np.arange(2 ** 23, dtype=np.uint32) << 9
+
+    @jax.jit
+    def want_fn(b):
+        f = jax.lax.bitcast_convert_type(
+            (b >> 9) | jnp.uint32(0x3F800000), jnp.float32) - 1.0
+        lo = jnp.nextafter(jnp.float32(-1.0), jnp.float32(0.0))
+        u = jax.lax.max(lo, f * (jnp.float32(1.0) - lo) + lo)
+        return jnp.sqrt(jnp.float32(2.0)) * jax.lax.erf_inv(u)
+
+    want = np.asarray(want_fn(bits))
+    f = (torch.from_numpy(bits.astype(np.int64) >> 9) | 0x3F800000).to(
+        torch.int32).view(torch.float32) - 1.0
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    got = (torch.tensor(np.sqrt(2.0), dtype=torch.float32)
+           * xla_f32.erf_inv(torch.clamp(f * 2.0 + lo, min=lo))).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _round_f32(exact) -> np.float32:
+    """The f32 nearest the Fraction ``exact``, ties to even."""
+    from fractions import Fraction
+    f = np.float32(float(exact))
+    cands = [f, np.nextafter(f, np.float32(np.inf)),
+             np.nextafter(f, np.float32(-np.inf))]
+    return min(cands, key=lambda x: (abs(Fraction(float(x)) - exact),
+                                     int(np.array(x).view(np.int32)) & 1))
+
+
+def test_fma_rounds_once():
+    """``xla_f32.fma`` is a * b + c rounded once: against the exactly rounded
+    value on random operands, and where an f64 sum lands on an f32 midpoint
+    (rounding twice would take the even neighbour there)."""
+    from fractions import Fraction
+    rng = np.random.default_rng(0)
+    a, b, c = (rng.standard_normal(2048).astype(np.float32)
+               * np.float32(2.0) ** rng.integers(-30, 30, 2048)
+               .astype(np.float32) for _ in range(3))
+    got = xla_f32.fma(torch.from_numpy(a), torch.from_numpy(b),
+                    torch.from_numpy(c)).numpy()
+    want = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y))
+                                + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], dtype=np.float32)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    # (1 + 2**-23)(1 - 2**-23) + 255 + 3 * 2**-16 = 256 + 3 * 2**-16 -
+    # 2**-46: just below the midpoint of 256 + 2**-15 and 256 + 2**-14,
+    # onto which f64 rounds it
+    a1 = torch.tensor([1 + 2.0 ** -23], dtype=torch.float32)
+    b1 = torch.tensor([1 - 2.0 ** -23], dtype=torch.float32)
+    c1 = torch.tensor([255 + 3 * 2.0 ** -16], dtype=torch.float32)
+    twice = (a1.double() * b1.double() + c1.double()).to(torch.float32)
+    assert float(twice) == 256 + 2.0 ** -14
+    assert float(xla_f32.fma(a1, b1, c1)) == 256 + 2.0 ** -15
 
 
 # --------------------------------------------------------------------------

@@ -58,7 +58,6 @@ def test_tile_constants_match_the_kernel():
     emulate its staging: each shared constant must equal the source's."""
     c = _constants()
     assert (c["kDQ"], c["kDN"]) == (ops.DENSE_QUERIES, ops.DENSE_ROWS)
-    assert (c["kBQ"], c["kBN"]) == (ops.HAMMING_QUERIES, ops.HAMMING_ROWS)
     assert (c["kExactDepth"], c["kDChunk"]) == (EXACT_DEPTH, CHUNK)
     assert c["kDChunk"] + 16 == ROW
     assert c["kDN"] == 128 and c["kDQ"] == 8 * 16   # 8 warps of 16 queries

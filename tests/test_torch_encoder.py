@@ -14,8 +14,8 @@ with ``interop.transformer_params``. Tolerances, with their reasons:
   rsqrt, to within a few ulps of each other);
 * loss and gradients: rtol 1e-4, atol 1e-5 (backward passes sum in other
   orders too);
-* initial parameters: rtol 1e-6 (``prng.normal`` is within 3 ulps of
-  ``jax.random.normal``);
+* initial parameters: rtol 1e-6 (``prng.normal`` is bit-equal to
+  ``jax.random.normal``; the scaling by the fan-in is not);
 * optimizer updates: rtol 1e-6, and 2 ulps of the leaf's largest old
   value absolute (the global norms differ by an ulp or two, being sums
   in other orders, and where a step nearly cancels a parameter the

@@ -17,7 +17,7 @@ from repro_torch.kernels.flash_attention.ops import (FLASH_ATTENTION,
                                                      flash_attention)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.label_prop.ops import lp_round_cuda
-from repro_torch.kernels.lsh_hamming.ops import HAMMING_PARTIAL, hamming_topk
+from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK, hamming_topk
 from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
 from repro_torch.kernels.topk_scoring.ops import (GATHERED_TILES,
                                                   TILE_PIECES, TILE_ROWS,
@@ -66,6 +66,24 @@ def test_lp_round_kernel_matches_plain(cuda, n, k, quarter):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("n,k", [(1, 1), (37, 5), (1000, 32), (513, 33),
+                                 (300, 70), (4096, 0), (100_003, 32)])
+@pytest.mark.parametrize("quarter", [True, False])
+def test_lp_round_kernel_scattered_padding(cuda, n, k, quarter):
+    """The kernel walks the valid slots wherever they lie: -1 scattered in
+    any slot, not packed first as ``edges_to_ell`` packs them."""
+    rng = np.random.default_rng(n * 7 + k)
+    labels, nbr, wgt = _ell(rng, n, k, quarter_weights=quarter)
+    perm = np.argsort(rng.random((n, k)), axis=1)
+    nbr = np.take_along_axis(nbr, perm, axis=1)
+    wgt = np.take_along_axis(wgt, perm, axis=1)
+    assert k < 2 or np.any(np.diff((nbr < 0).astype(int), axis=1) < 0)
+    lt, nt, wt = (torch.from_numpy(x).to(cuda) for x in (labels, nbr, wgt))
+    got = lp_round_cuda(lt, nt, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ell_round(lt, nt, wt))
+
+
 # the dense kernels' tile edges: Q around the 128-query tile, N off the
 # 128-row tile, D off the MMA depth (8 floats, 32 int8 codes) and the
 # 16-byte copy, k across the lists of one, two and three registers a lane
@@ -98,6 +116,22 @@ def test_topk_kernel_wide_magnitudes(cuda, d):
                                                               (130, 1))
     cs = rng.standard_normal((1000, d)) * 2.0 ** rng.integers(-20, 21,
                                                                (1000, 1))
+    _check_topk(torch.from_numpy(qs.astype(np.float32)).to(cuda),
+                torch.from_numpy(cs.astype(np.float32)).to(cuda), 10)
+
+
+@pytest.mark.parametrize("d", [64, 2048])
+@pytest.mark.parametrize("tiny", ["queries", "corpus"])
+def test_topk_kernel_tiny_magnitudes(cuda, d, tiny):
+    """One operand's rows near 2**-120, the other's large enough that the
+    products are normal f32 (near 2**-20): the same tolerances, where TF32
+    pieces below their denormal step would lose the bits."""
+    rng = np.random.default_rng(d + len(tiny))
+    qs = rng.standard_normal((130, d))
+    cs = rng.standard_normal((1000, d))
+    small, big = (qs, cs) if tiny == "queries" else (cs, qs)
+    small *= 2.0 ** -120 * 2.0 ** rng.integers(-3, 4, (small.shape[0], 1))
+    big *= 2.0 ** 100
     _check_topk(torch.from_numpy(qs.astype(np.float32)).to(cuda),
                 torch.from_numpy(cs.astype(np.float32)).to(cuda), 10)
 
@@ -317,13 +351,59 @@ def test_hamming_kernel_matches_plain(cuda, q, n, w, k):
     assert bool(torch.isneginf(s[:, k_eff:]).all())
 
 
+def _check_hamming(qc, cc, k):
+    q, n = qc.shape[0], cc.shape[0]
+    s, i = hamming_topk(qc, cc, k=k)
+    torch.cuda.synchronize()
+    k_eff = min(k, n)
+    s_ref, i_ref = hamming_topk_ref(qc, cc, k=k_eff)
+    assert s.shape == (q, k) and i.shape == (q, k)
+    assert torch.equal(s[:, :k_eff], s_ref)
+    assert torch.equal(i[:, :k_eff], i_ref)
+    assert bool((i[:, k_eff:] == -1).all())
+    assert bool(torch.isneginf(s[:, k_eff:]).all())
+
+
+@pytest.mark.parametrize("q,n,w,k", [
+    (1, 300, 4, 300), (33, 300, 1, 300), (5, 300, 3, 301), (65, 5000, 8, 64),
+    (31, 1000, 12, 40), (3, 200, 40, 7), (100, 2000, 4, 1)])
+@pytest.mark.parametrize("codes", ["equal", "few", "bits"])
+def test_hamming_kernel_heavy_ties(cuda, q, n, w, k, codes):
+    """Ties at the threshold distance: every code equal (one bin holds all
+    N rows), codes from a set of 5 (a few bins hold everything), or codes
+    that differ in their low bits only; W 1, 3, 4, 8, 12 (past the shared
+    histograms' limit) and 40; Q off the 32-query tile; k = N and k > N."""
+    g = torch.Generator().manual_seed(q + n + w + k)
+    if codes == "equal":
+        cc = torch.full((n, w), 12345, dtype=torch.int32)
+    elif codes == "few":
+        pool = torch.randint(-2 ** 31, 2 ** 31 - 1, (5, w), generator=g,
+                             dtype=torch.int32)
+        cc = pool[torch.randint(0, 5, (n,), generator=g)]
+    else:
+        cc = torch.randint(0, 4, (n, w), generator=g, dtype=torch.int32)
+    qc = cc[torch.randint(0, n, (q,), generator=g)].clone()
+    qc[::2, 0] ^= 1
+    _check_hamming(qc.to(cuda), cc.contiguous().to(cuda), k)
+
+
+def test_hamming_kernel_many_queries(cuda):
+    """More queries than the split plan gives blocks to (one split)."""
+    g = torch.Generator().manual_seed(5)
+    qc = torch.randint(-2 ** 31, 2 ** 31 - 1, (4099, 4), generator=g,
+                       dtype=torch.int32)
+    cc = torch.randint(-2 ** 31, 2 ** 31 - 1, (3000, 4), generator=g,
+                       dtype=torch.int32)
+    _check_hamming(qc.to(cuda), cc.to(cuda), 64)
+
+
 @pytest.mark.parametrize("k", [1, 32, 33, 200])
 def test_topk_kernels_launch_at_any_k(cuda, k):
     """No cap: every k reaches the kernels on the card."""
     qs = torch.randn(4, 16, device=cuda)
     cs = torch.randn(500, 16, device=cuda)
     rows = torch.randint(0, 500, (4, 400), device=cuda, dtype=torch.int32)
-    kernels = (TOPK_PARTIAL, TOPK_INT8_PARTIAL, HAMMING_PARTIAL,
+    kernels = (TOPK_PARTIAL, TOPK_INT8_PARTIAL, HAMMING_TOPK,
                GATHERED_TILES, TOPK_MERGE)
     before = [kern.launches for kern in kernels]
     topk_scores(qs, cs, k=k)
@@ -331,7 +411,8 @@ def test_topk_kernels_launch_at_any_k(cuda, k):
     hamming_topk(qs.to(torch.int32), cs.to(torch.int32), k=k)
     gathered_topk(qs, cs, rows, rows, k=k)
     after = [kern.launches for kern in kernels]
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 4]
+    # the Hamming kernel selects by counting: no merge follows it
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 3]
 
 
 def test_sort_engine_on_the_card_matches_the_cpu(cuda):

@@ -12,8 +12,9 @@ beforehand under ``build/`` (which git ignores; the machine with the card
 has no git). Each checkout runs in a process of its own, which builds its
 own kernels (into its own ``build/kernels``) and calls its own public
 entry points (``topk_scores``, ``topk_scores_int8``, ``gathered_topk``,
-``flash_attention``), so each version is timed with the host work of its
-own wrapper, whatever its kernels' C interface. The inputs are made once,
+``hamming_topk``, ``label_prop_round``, ``flash_attention``), so each
+version is timed with the host work of its own wrapper, whatever its
+kernels' C interface. The inputs are made once,
 on the card, by this tree's ``chip_smoke.py`` helpers, and handed to every
 process through CUDA IPC, so all versions see the same tensors.
 
@@ -26,6 +27,10 @@ Cases, at the main path's shapes (``--only`` picks groups):
   (512 queries, D 2048, k 10, over ``chip_smoke.py``'s 5.2e5-entity
   corpus and index) and at Table I's (256 queries, D 128, k 3, over a
   128-wide projection of the same corpus);
+- hamming: ``hamming_topk`` at Q 512, N 524288, W 4 (random codes, half
+  the rows duplicated), k 10 and 64 (the lsh engine's rerank pool);
+- lp: ``label_prop_round`` at N 3.1M, K 32 (``chip_smoke.lp_inputs``:
+  a heavy-tailed degree law, half the nodes isolated);
 - flash: ``flash_attention`` at the encoder's passage and query batches
   (B 256, S 64 and 24, H 4, D 32, f32, bidirectional) and at S 2048,
   32/4 heads, D 128, bf16, causal.
@@ -49,7 +54,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-GROUPS = ("dense", "int8", "gathered", "flash")
+GROUPS = ("dense", "int8", "gathered", "hamming", "lp", "flash")
 
 
 def worker(src: str, conn) -> None:
@@ -60,11 +65,14 @@ def worker(src: str, conn) -> None:
     import torch
     import chip_smoke
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.label_prop.ops import label_prop_round
+    from repro_torch.kernels.lsh_hamming.ops import hamming_topk
     from repro_torch.kernels.topk_scoring.ops import (gathered_topk,
                                                       topk_scores,
                                                       topk_scores_int8)
     entry = {"topk_scores": topk_scores, "topk_scores_int8": topk_scores_int8,
-             "gathered_topk": gathered_topk,
+             "gathered_topk": gathered_topk, "hamming_topk": hamming_topk,
+             "label_prop_round": label_prop_round,
              "flash_attention": flash_attention}
     import repro_torch
     conn.send(str(Path(repro_torch.__file__).parent))
@@ -141,6 +149,19 @@ def cases(groups):
                    (qs, table, rows, ids), {"k": k}, iters, 1)
             del index, rows, ids, table
         del ev, pq, proj
+    if "hamming" in groups:
+        q, c = cs.hamming_inputs(cs.PROBE_QUERIES, 524288, 4, seed=17,
+                                 device=dev)
+        for k in (10, 64):
+            yield f"hamming_topk k={k}", "hamming_topk", (q, c), {"k": k}, \
+                20, 2
+        del q, c
+    if "lp" in groups:
+        labels, nbr, wgt, _ = cs.lp_inputs(3_100_000, 32, seed=7,
+                                           quarter=False, device=dev)
+        yield ("label_prop_round N=3.1M K=32", "label_prop_round",
+               (labels, nbr, wgt), {}, 20, 2)
+        del labels, nbr, wgt
     if "flash" in groups:
         for label, shp, dtype, causal, iters in (
                 ("passages", (256, 64, 64, 4, 4, 32), torch.float32, False,
@@ -198,10 +219,10 @@ def main(trees, groups) -> None:
                 dev_ms[lb], out = conn.recv()
                 outs.append(out)
             diff = {lb: {"max_abs_diff": max(
-                        float((a.float() - b.float()).abs()
-                              .nan_to_num(0.0).max()) if a.numel() else 0.0
-                        for a, b in zip(out, outs[0])
-                        if a.is_floating_point()),
+                        (float((a.float() - b.float()).abs()
+                               .nan_to_num(0.0).max()) if a.numel() else 0.0
+                         for a, b in zip(out, outs[0])
+                         if a.is_floating_point()), default=0.0),
                          "ints_differ": sum(int((a != b).sum())
                                             for a, b in zip(out, outs[0])
                                             if not a.is_floating_point())}
