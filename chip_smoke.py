@@ -38,11 +38,11 @@ From the root of a checkout, with one card. In order:
    product counted as three TF32 products at the tensor cores' rate, the
    least an f32-accurate one takes there; a Hamming distance W popcounts
    at the rate ``tools/mma_rate.popc_rate`` measures in this run); the
-   f32 top-k also at a grid
-   search's shape (256 queries over the rows of the evaluation grid's
-   uniform sample), the gathered kernel also at Table I's probe, and the
-   flash kernel and ``scaled_dot_product_attention`` also by the
-   profiler's device time a call.
+   f32 top-k also at a grid search's shape (256 queries over the rows of
+   the evaluation grid's uniform sample), the gathered kernel also at
+   Table I's probe, the Hamming kernel's three kernels and the flash
+   kernel and ``scaled_dot_product_attention`` also by the profiler's
+   device time a call.
 5. Sampling: ``repro_torch.launch.sample`` at 65536 queries with the LP
    kernel engine (about 2.1M qrel rows and 3.1M entities); then the degree
    histogram of the ELL table its LP rounds ran on, and lp_round timed on
@@ -88,6 +88,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1070,6 +1071,14 @@ def main() -> None:
     h10_ms = cuda_ms(lambda: hamming_topk(hq, hc, k=10), 10)
     log(f"    hamming_topk at k=10, the same codes: kernel {h10_ms:.4f} ms, "
         f"bound {hamming_bound(hq.shape[0], hn, hw, 10)[0]:.4f} ms")
+    # its three kernels' device time a call (the profiler's mean a launch)
+    ham_prof = device_profile(lambda: [hamming_topk(hq, hc, k=k_h)
+                                       for _ in range(10)])[2]
+    kname = re.compile(r"hamming_\w+(<\w+>)?")
+    log("    hamming_topk's kernels at k=64, profiler device time a launch: "
+        + ("; ".join(f"{kname.search(name)[0]} {sec / n * 1e3:.4f} ms"
+                     for name, (n, sec) in sorted(ham_prof.items())
+                     if kname.search(name)) or "not measured"))
     # flash attention at the encoder's passage batch (the main path's
     # shape): bytes of q, k, v and o once each; 4 * B * H * Sq * Skv * D
     # operations (two products), every pair allowed (bidirectional), f32
