@@ -7,7 +7,10 @@ From the root of a checkout, with one card. In order:
 
 1. Device: the card's name and power limit; no card is a failure.
 2. Build: every CUDA source under src/repro_torch/csrc, one nvcc each,
-   started together; prints each build's ``-Xptxas -v`` report.
+   started together; prints each build's ``-Xptxas -v`` report. The
+   recompile sentinel (``obs/recompile``) is on from here: it must count
+   one build for each source whose library was not built yet, and none in
+   phases 5-11.
 3. Kernel vs plain: each kernel's wrapper (lp_round, the f32 top-k, the
    int8 top-k, the gathered top-k, the Hamming top-k, flash attention)
    against its plain PyTorch version on the card, at the main path's
@@ -42,7 +45,8 @@ From the root of a checkout, with one card. In order:
    the evaluation grid's uniform sample), the gathered kernel also at
    Table I's probe, the Hamming kernel's three kernels and the flash
    kernel and ``scaled_dot_product_attention`` also by the profiler's
-   device time a call.
+   device time a call; ``topk_merge`` alone on the f32 kernel's partial
+   lists at k 10, held equal to its plain version (two stable sorts).
 5. Sampling: ``repro_torch.launch.sample`` at 65536 queries with the LP
    kernel engine (about 2.1M qrel rows and 3.1M entities); then the degree
    histogram of the ELL table its LP rounds ran on, and lp_round timed on
@@ -65,6 +69,9 @@ From the root of a checkout, with one card. In order:
    batches: the device's idle share in each, and the flash kernel's
    device time a launch at the main path's passage shape (a profiler
    window of its own, after the Table I run).
+   Phases 5-7 print their trace as ``repro_torch.launch.trace`` tables it,
+   the wall time outside every span, and the ``build.peak_bytes_per_device``
+   gauge with the allocator's peak over the run.
 8. Small-input check: the sampling and evaluation entry points on the
    card and on the CPU's plain path must give equal outputs; ``prng.normal``
    (the lsh projection's draw) equal bit for bit on both; for the default
@@ -73,9 +80,31 @@ From the root of a checkout, with one card. In order:
    encoder: 5 training steps give losses within a stated rtol, the CPU's
    parameters embed within a stated tolerance on both, and
    ``evaluate_sample`` on the CPU's embeddings gives equal results.
+9. Pipeline: ``core.run_windtunnel`` with a default ``WindTunnelConfig``
+   on phase 5's corpus (its engine left to the card: the LP kernel, one
+   launch a round), labels and entity mask equal bit for bit to a
+   ``SamplerSession`` draw of the same spec; ``run_uniform_baseline``
+   once, its mask equal to ``uniform_sample``'s.
+10. Autotuner: ``kernels/tuning.autotune`` on the card for ``topk``
+    (float32, int8) and ``hamming_topk`` over the le65536 and gt65536
+    buckets, each bucket measured at the calls phases 5-7 launched in it
+    (a cell they never launched gets no entry), its table written under
+    build/chip_smoke and printed; every
+    split-target candidate against the default at the main path's shapes
+    (f32 Q 128 x N 524288 x D 2048 k 3, int8 the same at k 40, Hamming Q
+    512 x N 524288 x W 4 k 64): ids and scores equal, each one's CUDA-event
+    time; then the default grid at 8192 queries (full-corpus searches of
+    1.3e5 rows: a tuned bucket) with the table active and under
+    ``--no-tuned-kernels``: equal cells, fidelity report and curve recall.
+11. Host time: the sampling and evaluation CLIs once more at phases 5 and
+    6's sizes under cProfile, the 15 functions with the largest cumulative
+    and the largest own time in each (profiles kept in build/chip_smoke).
 
-Launch counts are set to 0 just before each main-path run (5, 6, 7) and
-read just after; a kernel the run did not launch is a failure. Each run
+Launch counts are set to 0 just before each main-path run (5, 6, 7, 9) and
+read just after; a kernel the run did not launch is a failure. No tuned
+table is active outside phase 10, whatever ``REPRO_TORCH_TUNED_KERNELS``
+names: a launch that resolves through one is a failure, so every other
+phase runs today's split plans. Each run
 also logs its launches by shape (the entry point's integer arguments) and
 each kernel's device time summed over the run (CUDA events recorded
 around every launch, ``Kernel.timed``). No phase
@@ -86,6 +115,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -101,12 +131,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 OUT = os.path.join(ROOT, "build", "chip_smoke")
 
-H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
-H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
-H100_TF32_FLOPS = 495e12        # TF32, tensor cores, dense: an f32-accurate
-                                # product takes three of them (3xTF32)
-H100_INT8_OPS = 1979e12         # int8, tensor cores, dense
-H100_BF16_FLOPS = 989e12        # bf16, tensor cores, dense
 SAMPLE_QUERIES = 65536
 EVAL_QUERIES = 32768
 PROBE_QUERIES = 512             # the grid's per-sample query cap
@@ -119,6 +143,9 @@ ENCODER_DIM = 128               # EncoderConfig's default d_model
 SAMPLE_ROWS = 40_000            # about a Table I sample's entities
 EMBED_TOL = (1e-4, 2e-5)        # rtol, atol: unit-norm embeddings, card vs CPU
 LOSS_RTOL = 1e-4                # 5 training steps, card vs CPU
+TUNED_GRID_QUERIES = 8192       # the tuned-table grid: full-corpus searches
+                                # of about 1.3e5 rows, a tuned bucket
+PROFILE_TOP = 15                # functions listed per cProfile ordering
 
 
 def log(msg: str) -> None:
@@ -130,25 +157,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(n_bytes: float, n_ops: float, peak_ops: float = H100_F32_FLOPS):
-    """The least time (ms) the card could take, and what sets it."""
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_ops / peak_ops * 1e3
+def bound(n_bytes: float, n_ops: float, peak_ops: float = None):
+    """The least time (ms) the card could take, and what sets it: the
+    larger of ``kernels/tuning.roofline``'s two terms at the H100's
+    data-sheet peaks (f32 outside the tensor cores unless ``peak_ops``)."""
+    from repro_torch.kernels import tuning
+    t = tuning.roofline(n_bytes, n_ops, peak_ops or tuning.H100_F32_FLOPS)
+    t_bytes, t_ops = t["memory_ms"], t["compute_ms"]
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -316,6 +331,16 @@ def check_topk(qs, cs, k: int):
     if not err.numel():
         return 0.0, 0.0
     return float(err.max()), float((err / tol).max())
+
+
+def merge_plain(part_s, part_i, k: int):
+    """The merge's plain version: a stable sort by id, then a stable sort
+    by score descending, the first k."""
+    import torch
+    by_id = torch.sort(part_i, dim=1, stable=True).indices
+    s, i = torch.gather(part_s, 1, by_id), torch.gather(part_i, 1, by_id)
+    pos = torch.sort(s, dim=1, descending=True, stable=True).indices[:, :k]
+    return torch.gather(s, 1, pos), torch.gather(i, 1, pos)
 
 
 def gathered_inputs(q: int, c: int, d: int, r: int, *, seed: int,
@@ -516,20 +541,78 @@ def eval_corpus(num_queries: int, vocab: int, *, embed: bool = True):
 # main-path runs
 # --------------------------------------------------------------------------
 
-def span_breakdown(path: str, wall: float) -> str:
-    """Seconds per top-level span of a CLI's ``--trace`` file, plus the
-    wall time outside every span (corpus generation, embedding, fits)."""
-    totals: dict = {}
-    with open(path) as f:
-        for line in f:
-            rec = json.loads(line)
-            if rec["parent"] is None:
-                totals[rec["name"]] = totals.get(rec["name"], 0.0) + \
-                    rec["dur_s"]
-    parts = [f"{name} {sec:.3f} s" for name, sec in sorted(
-        totals.items(), key=lambda kv: -kv[1])]
-    parts.append(f"outside spans {wall - sum(totals.values()):.3f} s")
-    return ", ".join(parts)
+def reset_memory() -> None:
+    """Zero the allocator's peak and the build-peak gauge before a run."""
+    import torch
+    from repro_torch.obs import REGISTRY, memory
+    torch.cuda.reset_peak_memory_stats()
+    REGISTRY.gauge(memory.PEAK_GAUGE).set(0)
+
+
+def log_trace(path: str, wall: float) -> None:
+    """A run's ``--trace`` file as ``repro_torch.launch.trace`` tables it
+    (per span name: count, total, mean, p50, p99 s, the first calls'
+    share), the wall time outside every top-level span (corpus
+    generation, embedding, fits), and the memory gauge after the run."""
+    import torch
+    from repro_torch.launch import trace as trace_cli
+    from repro_torch.obs import REGISTRY, memory
+    spans = trace_cli.load_spans(path)
+    table = trace_cli.format_table(trace_cli.aggregate(spans), sort="total")
+    for line in table.splitlines():
+        log(f"    {line}")
+    top = sum(r["dur_s"] for r in spans if r["parent"] is None)
+    log(f"    outside spans {wall - top:.3f} s of {wall:.3f} s wall")
+    log(f"    {memory.PEAK_GAUGE} "
+        f"{REGISTRY.gauge(memory.PEAK_GAUGE).value:.0f} B (0 when the run "
+        f"builds no index); allocator peak over the run "
+        f"{torch.cuda.max_memory_allocated()} B")
+
+
+def check_no_build(region: str) -> None:
+    """Fail if the recompile sentinel counted an nvcc build in ``region``:
+    every kernel was built in phase 2."""
+    from repro_torch.obs import recompile
+    if recompile.total(region):
+        fail(f"{recompile.total(region)} kernel build(s) in {region}; "
+             f"phase 2 built every source")
+    log(f"    recompile sentinel: 0 builds in {region}")
+
+
+def check_untuned(region: str, hits0: float) -> None:
+    """Fail if a launch in ``region`` took its params from a tuned table
+    (the ``tuning.resolve.hit`` counter moved past ``hits0``): outside
+    phase 10 no table is active, so every launch uses today's split
+    plans."""
+    from repro_torch.obs import REGISTRY
+    hits = REGISTRY.counter("tuning.resolve.hit").value - hits0
+    if hits:
+        fail(f"{hits:.0f} launch(es) in {region} resolved through a tuned "
+             f"table; only phase 10 activates one")
+
+
+def profile_top(label: str, fn):
+    """Run ``fn()`` under cProfile; log the functions with the largest
+    cumulative and the largest own time, and keep the profile in OUT."""
+    import cProfile
+    import io
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    wall = time.perf_counter() - t0
+    prof.dump_stats(os.path.join(OUT, f"{label}.prof"))
+    log(f"    {label} under cProfile: {wall:.2f} s wall")
+    for order in ("cumulative", "tottime"):
+        buf = io.StringIO()
+        pstats.Stats(prof, stream=buf).sort_stats(order).print_stats(
+            PROFILE_TOP)
+        rows = [line for line in buf.getvalue().splitlines()
+                if re.match(r"\s*[\d/]+(\s+[\d.]+){4}\s", line)]
+        log(f"    top {PROFILE_TOP} by {order} (ncalls tottime percall "
+            f"cumtime percall function):")
+        for line in rows[:PROFILE_TOP]:
+            log(f"      {line.strip().replace(ROOT + os.sep, '')[:160]}")
 
 
 def device_profile(fn):
@@ -601,10 +684,11 @@ def reset_counts(kernels) -> None:
     Kernel.timed = []
 
 
-def read_counts(kernels, what: str) -> dict:
+def read_counts(kernels, what: str, shapes: dict = None) -> dict:
     """Stop timing launches; log each launched kernel's count by shape (the
     entry point's integer arguments) and its device time summed over the
-    run (the CUDA events around its every launch). Returns {name:
+    run (the CUDA events around its every launch); add the counts by shape
+    into ``shapes`` ({name: Counter}) when given. Returns {name:
     launches}."""
     import torch
     from repro_torch.kernels.build import Kernel
@@ -622,23 +706,31 @@ def read_counts(kernels, what: str) -> dict:
             f"{dev_ms.get(kern.name, 0.0):.3f} ms of device time in all; by "
             f"shape: " + "; ".join(f"{shape} x{n}" for shape, n in top)
             + (f"; and {more} more shapes" if more else ""))
+        if shapes is not None:
+            shapes.setdefault(kern.name, collections.Counter()).update(
+                kern.shapes)
     return {kern.name: kern.launches for kern in kernels}
 
 
 class Capture:
-    """Within ``with``, record the arguments of ``module.name``'s calls
-    (the first of each distinct ``key(*args)``) and call it unchanged."""
+    """Within ``with``, record the arguments and the result of
+    ``module.name``'s calls (the first of each distinct ``key(*args)``)
+    and call it unchanged."""
 
     def __init__(self, module, name: str, key):
         self.module, self.name, self.key = module, name, key
         self.calls: dict = {}
+        self.results: dict = {}
 
     def __enter__(self):
         self.orig = getattr(self.module, self.name)
 
         def spy(*args, **kwargs):
-            self.calls.setdefault(self.key(*args, **kwargs), (args, kwargs))
-            return self.orig(*args, **kwargs)
+            key = self.key(*args, **kwargs)
+            self.calls.setdefault(key, (args, kwargs))
+            out = self.orig(*args, **kwargs)
+            self.results.setdefault(key, out)
+            return out
 
         setattr(self.module, self.name, spy)
         return self
@@ -686,6 +778,8 @@ def main() -> None:
                                                       TOPK_MERGE,
                                                       TOPK_PARTIAL,
                                                       gathered_topk,
+                                                      launch_merge,
+                                                      topk_partials_cuda,
                                                       topk_scores,
                                                       topk_scores_int8)
     from repro_torch.kernels.topk_scoring.ref import (gathered_topk_ref,
@@ -693,7 +787,11 @@ def main() -> None:
                                                       topk_scores_ref)
     from repro_torch.core import prng
     from repro_torch.core.label_prop import ell_round
-    from repro_torch.obs import trace
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.tuning import (H100_BF16_FLOPS, H100_INT8_OPS,
+                                            H100_TF32_FLOPS)
+    from repro_torch.obs import REGISTRY, recompile, trace
+    from repro_torch.obs.timing import cuda_ms
     from repro_torch.retrieval.engines import IVFFlatEngine, LSHEngine
     from repro_torch.retrieval.ivfflat import probe_candidates
     from repro_torch.retrieval.lsh import encode
@@ -710,23 +808,44 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/8] device: {name}; nvidia-smi: {smi}; "
+    log(f"[1/11] device: {name}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build -------------------------------------------------------------
+    # the recompile sentinel counts each nvcc run from here on: one a
+    # source whose library is not built yet, then none
+    recompile.enable()
+    recompile.reset()
     t0 = time.perf_counter()
     sources = sorted({kern.source for kern in kernels})
+    uncached = [src for src in sources if not build._paths(src)[1].exists()]
+
+    def load_counted(src):
+        with recompile.region("phase 2"):
+            return build.load(src)
+
     with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(build.load, sources))
-    log(f"[2/8] built {', '.join(sources)} in "
+        list(pool.map(load_counted, sources))
+    log(f"[2/11] built {', '.join(sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if recompile.counts() != ({"phase 2": len(uncached)} if uncached
+                              else {}):
+        fail(f"recompile sentinel counted {recompile.counts()}, expected "
+             f"one build for each of {uncached}")
+    log(f"    recompile sentinel: {len(uncached)} builds in phase 2, one "
+        f"for each source not built before ({', '.join(uncached)})")
     for src in sources:
         for line in build.ptxas_report(src).splitlines():
             if "ptxas" in line:
                 log(f"    {src}: {line.strip()}")
 
     # 3. kernel vs plain ---------------------------------------------------
-    log("[3/8] kernel vs plain")
+    # no tuned table from here to phase 10, whatever the environment names:
+    # every launch uses today's split plans, which check_untuned holds
+    tuning.set_table(None)
+    untuned_hits = REGISTRY.counter("tuning.resolve.hit").value
+    main_shapes: dict = {}      # phases 5-7's launches by shape, for phase 10
+    log("[3/11] kernel vs plain")
     for n, k, quarter in [(1, 1, True), (37, 5, True), (513, 33, True),
                           (300, 70, False), (4096, 0, True),
                           (100_003, 32, True), (100_003, 32, False)]:
@@ -942,7 +1061,7 @@ def main() -> None:
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
-    log("[4/8] times (CUDA events, after warm-up)")
+    log("[4/11] times (CUDA events, after warm-up)")
     labels, nbr, wgt, deg_sq = lp_main
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
@@ -957,6 +1076,24 @@ def main() -> None:
                                            stable=True), 3)
     tk_bound, tk_by = bound((qn + n_c) * d * 4 + qn * k_t * 8,
                             3 * 2.0 * qn * n_c * d, H100_TF32_FLOPS)
+    # the merge kernel alone on that corpus's partial lists at the
+    # curve's k (4 of the f32 kernel's main-path launches): its lists
+    # equal the plain merge's and the whole search's
+    k_m = 10
+    part_s, part_i = topk_partials_cuda(tq, tc, k_m)
+    m_out = launch_merge(part_s, part_i, k_m)
+    torch.cuda.synchronize()
+    for got, want in zip(m_out, merge_plain(part_s, part_i, k_m)):
+        if not torch.equal(got, want):
+            fail("topk_merge != its plain version on the dense partials")
+    for got, want in zip(m_out, topk_scores(tq, tc, k=k_m)):
+        if not torch.equal(got, want):
+            fail("topk_merge of the dense partials != topk_scores")
+    m_ms = cuda_ms(lambda: launch_merge(part_s, part_i, k_m), 50)
+    m_plain_ms = cuda_ms(lambda: merge_plain(part_s, part_i, k_m), 10)
+    m_bound, m_by = bound(part_s.numel() * 8 + qn * k_m * 8, part_s.numel())
+    m_width = part_s.shape[1]
+    del part_s, part_i, m_out
     k_i = 40
     i8_ms = cuda_ms(lambda: topk_scores_int8(iq, ic, k=k_i), 10)
     i8_plain_ms = cuda_ms(lambda: topk_scores_int8_ref(iq, ic, k=k_i), 3)
@@ -970,6 +1107,11 @@ def main() -> None:
     log(f"    topk_scores Q={qn} N={n_c} D={d} k={k_t}: kernel {tk_ms:.4f} "
         f"ms, plain {tk_plain_ms:.4f} ms, matmul+stable sort "
         f"{tk_lib_ms:.4f} ms, bound {tk_bound:.4f} ms ({tk_by})")
+    log(f"    topk_merge of that corpus's partial lists at k={k_m} (Q={qn}, "
+        f"{m_width} entries a row): kernel {m_ms:.4f} ms, plain (two "
+        f"stable sorts) {m_plain_ms:.4f} ms, no library call, bound "
+        f"{m_bound:.4f} ms ({m_by}); lists equal to the plain merge's and "
+        f"to topk_scores'")
     # and at a grid search's shape (24 of its main-path launches): a query
     # chunk of 256 over the rows of the evaluation grid's uniform sample
     gq, gr = grid_search
@@ -1139,6 +1281,7 @@ def main() -> None:
     del lp_main, labels, nbr, wgt, tq, tc, iq, ic, ev, pq, ivf, p_rows
     del p_ids, p_table, lsh, lq, hq, hc
     torch.cuda.empty_cache()
+    check_untuned("phases 3-4", untuned_hits)
 
     # 5. sampling main path ------------------------------------------------
     os.makedirs(OUT, exist_ok=True)
@@ -1149,19 +1292,28 @@ def main() -> None:
         if os.path.exists(path):
             os.remove(path)
     from repro_torch.kernels.label_prop import ops as lp_ops
+    from repro_torch.launch import sample as sample_cli
+    sample_argv = ["--queries", str(SAMPLE_QUERIES), "--qrels-per-query",
+                   "32", "--topics", "96", "--aux-fraction", "2.0",
+                   "--engine", "cuda", "--device", "cuda"]
+    reset_memory()
     with Capture(lp_ops, "lp_round_cuda",
-                 lambda labels, nbr, wgt: tuple(nbr.shape)) as lp_seen:
-        stats, wall = run_sample([
-            "--queries", str(SAMPLE_QUERIES), "--qrels-per-query", "32",
-            "--topics", "96", "--aux-fraction", "2.0", "--engine", "cuda",
-            "--device", "cuda", "--out", os.path.join(OUT, "sample"),
-            "--trace", sample_trace])
-    log(f"[5/8] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
+                 lambda labels, nbr, wgt: tuple(nbr.shape)) as lp_seen, \
+            Capture(sample_cli, "generate_corpus",
+                    lambda **kw: "corpus") as corpus_seen, \
+            recompile.region("phase 5"):
+        stats, wall = run_sample(sample_argv + [
+            "--out", os.path.join(OUT, "sample"), "--trace", sample_trace])
+    sample_corpus = corpus_seen.results["corpus"]
+    del corpus_seen
+    log(f"[5/11] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
         f"{stats['communities']} communities, changes/round "
         f"{stats['changes_per_round']}, {stats['entities']} entities "
         f"sampled")
-    sample_launches = read_counts(kernels, "sampling")
-    log(f"    time: {span_breakdown(sample_trace, wall)}")
+    sample_launches = read_counts(kernels, "sampling", main_shapes)
+    log_trace(sample_trace, wall)
+    check_no_build("phase 5")
+    check_untuned("phase 5", untuned_hits)
     # the ELL table the LP rounds ran on: its degree law, and lp_round on it
     (s_labels, s_nbr, s_wgt), _ = next(iter(lp_seen.calls.values()))
     s_deg = (s_nbr >= 0).sum(dim=1)
@@ -1187,16 +1339,18 @@ def main() -> None:
     # 6. evaluation main path ----------------------------------------------
     reset_counts(kernels)
     from repro_torch.kernels.lsh_hamming import ops as ham_ops
+    eval_argv = ["--grid", "default", "--backend", "cuda", "--device",
+                 "cuda", "--queries", str(EVAL_QUERIES)]
+    reset_memory()
     with Capture(ham_ops, "hamming_topk_cuda",
-                 lambda q, c, k: (tuple(q.shape), tuple(c.shape), k)) \
-            as ham_seen:
-        out, wall = run_evaluate([
-            "--grid", "default", "--backend", "cuda", "--device", "cuda",
-            "--queries", str(EVAL_QUERIES), "--json",
-            os.path.join(OUT, "eval.json"), "--trace", eval_trace])
+                 lambda q, c, k, *blocks: (tuple(q.shape), tuple(c.shape),
+                                           k)) as ham_seen, \
+            recompile.region("phase 6"):
+        out, wall = run_evaluate(eval_argv + [
+            "--json", os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     cells = out["grid"]["cells"]
-    log(f"[6/8] evaluation: {wall:.2f} s wall, {len(cells)} cells")
-    eval_launches = read_counts(kernels, "evaluation")
+    log(f"[6/11] evaluation: {wall:.2f} s wall, {len(cells)} cells")
+    eval_launches = read_counts(kernels, "evaluation", main_shapes)
     trace.disable()
     # the Hamming kernel at each shape the grid launched it at
     for (qshape, cshape, k), (args, _) in sorted(ham_seen.calls.items()):
@@ -1205,7 +1359,9 @@ def main() -> None:
             f"W={cshape[1]} k={k}: kernel {ms:.4f} ms, bound "
             f"{hamming_bound(qshape[0], cshape[0], cshape[1], k)[0]:.4f} ms")
     del ham_seen
-    log(f"    time: {span_breakdown(eval_trace, wall)}")
+    log_trace(eval_trace, wall)
+    check_no_build("phase 6")
+    check_untuned("phase 6", untuned_hits)
     log(f"    fidelity: {json.dumps(out['fidelity']['mean_abs_delta'])}")
     log(f"    winners: {json.dumps(out['fidelity']['winners'])}")
     log(f"    backend curve: {json.dumps(out['backend_curve'])}")
@@ -1228,7 +1384,7 @@ def main() -> None:
     from repro_torch.retrieval.experiment import run_table1_experiment
     t0 = time.perf_counter()
     t1_corpus = eval_corpus(EVAL_QUERIES, 2048, embed=False)
-    log(f"[7/8] Table I corpus: {t1_corpus.num_entities} entities, "
+    log(f"[7/11] Table I corpus: {t1_corpus.num_entities} entities, "
         f"{t1_corpus.num_queries} queries, passages "
         f"{t1_corpus.passage_tokens.shape[1]} tokens, queries "
         f"{t1_corpus.query_tokens.shape[1]}, vocab {t1_corpus.vocab_size} "
@@ -1238,15 +1394,19 @@ def main() -> None:
         os.remove(table1_trace)
     trace.enable(table1_trace)
     reset_counts(kernels)
+    reset_memory()
     t0 = time.perf_counter()
-    rows = run_table1_experiment(t1_corpus, encoder_steps=300, seed=0,
-                                 device="cuda")
-    torch.cuda.synchronize()
+    with recompile.region("phase 7"):
+        rows = run_table1_experiment(t1_corpus, encoder_steps=300, seed=0,
+                                     device="cuda")
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     trace.disable()
     log(f"    Table I: {wall:.2f} s wall")
-    t1_launches = read_counts(kernels, "Table I")
-    log(f"    time: {span_breakdown(table1_trace, wall)}")
+    t1_launches = read_counts(kernels, "Table I", main_shapes)
+    log_trace(table1_trace, wall)
+    check_no_build("phase 7")
+    check_untuned("phase 7", untuned_hits)
     for r in rows.values():
         log(f"    {r.name:10s} p@3 {r.p_at_3:.4f} rho_q {r.rho_q:.4f} "
             f"entities {r.n_entities} queries {r.n_queries}")
@@ -1423,8 +1583,163 @@ def main() -> None:
         f"{float(np.abs(loss_g / loss_c - 1).max()):.2e}), embeddings "
         f"within rtol {rtol} atol {atol} (max |diff| {emb_err:.3e}), "
         f"evaluate_sample equal on 3 samples, on cuda and cpu")
-    log("[8/8] small inputs: sample.npz, grid cells and the encoder's "
+    log("[8/11] small inputs: sample.npz, grid cells and the encoder's "
         "results equal (or within the stated tolerance) on cuda and cpu")
+
+    # 9. the legacy pipeline at full width -----------------------------------
+    # run_windtunnel with a default WindTunnelConfig (engine None: the
+    # card's LP kernel) on phase 5's corpus, against a session draw of the
+    # same spec; then the uniform baseline once
+    from repro_torch.core import (SamplerSession, SamplerSpec,
+                                  WindTunnelConfig, run_uniform_baseline,
+                                  run_windtunnel, uniform_sample)
+    wt_cfg = WindTunnelConfig()
+    corpus_kw = dict(num_queries=sample_corpus.num_queries,
+                     num_entities=sample_corpus.num_entities)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    with recompile.region("phase 9"):
+        wt = run_windtunnel(sample_corpus.qrels, config=wt_cfg,
+                            device="cuda", **corpus_kw)
+        torch.cuda.synchronize()
+    wt_wall = time.perf_counter() - t0
+    pipe_launches = read_counts(kernels, "run_windtunnel")
+    if pipe_launches["lp_round"] != wt_cfg.lp_rounds:
+        fail(f"run_windtunnel launched lp_round {pipe_launches['lp_round']} "
+             f"times, expected {wt_cfg.lp_rounds} rounds")
+    session = SamplerSession(sample_corpus.qrels, device="cuda",
+                             spec=SamplerSpec.from_config(wt_cfg),
+                             **corpus_kw)
+    for what, got, want in (("labels", wt.labels, session.labels()[0]),
+                            ("entity_mask", wt.sample.entity_mask,
+                             session.draw().entity_mask)):
+        if not torch.equal(got, want):
+            fail(f"run_windtunnel's {what} differ from the session's in "
+                 f"{int((got != want).sum())} entries")
+    t0 = time.perf_counter()
+    with recompile.region("phase 9"):
+        uni = run_uniform_baseline(sample_corpus.qrels, rate=0.15, seed=0,
+                                   device="cuda", **corpus_kw)
+        torch.cuda.synchronize()
+    uni_wall = time.perf_counter() - t0
+    if not torch.equal(uni.entity_mask, uniform_sample(
+            sample_corpus.num_entities, prng.prng_key(0), rate=0.15,
+            device="cuda")):
+        fail("run_uniform_baseline's mask != uniform_sample's")
+    log(f"[9/11] run_windtunnel (engine {session.spec.engine}, "
+        f"{sample_corpus.num_entities} entities): {wt_wall:.2f} s wall, "
+        f"{int(wt.sample.entity_mask.sum())} entities sampled; labels and "
+        f"entity_mask equal to the session's bit for bit; "
+        f"run_uniform_baseline at rate 0.15: {uni_wall:.2f} s wall, "
+        f"{int(uni.entity_mask.sum())} entities, "
+        f"{int(uni.query_mask.sum())} queries")
+    check_no_build("phase 9")
+    check_untuned("phase 9", untuned_hits)
+    del wt, session, uni, sample_corpus
+
+    # 10. autotuner ----------------------------------------------------------
+    # tuned for the traffic phases 5-7 launched (each bucket at the calls
+    # the main path made in it), the table written under build/chip_smoke
+    traffic = tuning.launched_traffic(main_shapes)
+    t0 = time.perf_counter()
+    tuned_path = os.path.join(OUT, "tuned_kernels_torch.json")
+    with recompile.region("phase 10"):
+        table = tuning.autotune(["topk", "hamming_topk"], traffic=traffic,
+                                buckets=("le65536", "gt65536"), max_evals=4,
+                                iters=5, out_path=tuned_path, verbose=False)
+    untuned = sorted(f"{kernel} {dt} {bucket}"
+                     for kernel, dt in traffic
+                     for bucket in ("le65536", "gt65536")
+                     if (kernel, bucket, dt) not in table.entries)
+    log(f"[10/11] autotune (topk float32/int8, hamming_topk; le65536, "
+        f"gt65536) over phases 5-7's launches in "
+        f"{time.perf_counter() - t0:.1f} s; {smi}; cells the main path "
+        f"never launched, so left untuned: {', '.join(untuned) or 'none'}; "
+        f"table {tuned_path}:")
+    log(json.dumps(table.to_json()))
+    # every split-target candidate against the default at the main path's
+    # shapes (inputs made on the card, half the corpus rows repeating the
+    # other half: exact ties): equal ids and scores, and each one's time
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def card_rows(rows, width, dtype):
+        if dtype == torch.float32:
+            x = torch.randn(rows, width, generator=g, device=dev)
+        else:
+            lo, hi = ((-127, 128) if dtype == torch.int8
+                      else (-2 ** 31, 2 ** 31 - 1))
+            x = torch.randint(lo, hi, (rows, width), generator=g, device=dev,
+                              dtype=dtype)
+        x[rows // 2:] = x[:rows - rows // 2].clone()
+        return x
+
+    cand_inputs = [(kernel, dtype, fn, k, card_rows(q, w, dtype),
+                    card_rows(524_288, w, dtype))
+                   for kernel, dtype, fn, k, q, w in (
+                       ("topk", torch.float32, topk_scores, 3, 128, 2048),
+                       ("topk", torch.int8, topk_scores_int8, 40, 128, 2048),
+                       ("hamming_topk", torch.int32, hamming_topk, 64,
+                        PROBE_QUERIES, 4))]
+    for kernel, dtype, fn, k, qx, cx in cand_inputs:
+        default = tuning.DEFAULTS[kernel]["split_blocks"]
+        want = fn(qx, cx, k=k, split_blocks=default)
+        times = []
+        for cand in tuning.SPACES[kernel].axes["split_blocks"]:
+            got = fn(qx, cx, k=k, split_blocks=cand)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                fail(f"{kernel} {dtype}: split target {cand} gives other "
+                     f"ids or scores than the default {default}")
+            ms = cuda_ms(lambda: fn(qx, cx, k=k, split_blocks=cand), 10)
+            times.append(f"{cand}{'*' if cand == default else ''} "
+                         f"{ms:.4f} ms")
+        log(f"    {kernel} {str(dtype)[6:]} Q={qx.shape[0]} N={cx.shape[0]} "
+            f"{'W' if kernel == 'hamming_topk' else 'D'}={qx.shape[1]} k={k}: "
+            f"ids and scores equal for every split target; CUDA events "
+            f"(* the default): {'; '.join(times)}")
+    del cand_inputs, qx, cx, want, got
+    # the grid at a size whose full-corpus searches fall in a tuned bucket,
+    # with the table active and under --no-tuned-kernels
+    grid_argv = ["--grid", "default", "--backend", "cuda", "--device",
+                 "cuda", "--queries", str(TUNED_GRID_QUERIES), "--quiet"]
+    hits0 = REGISTRY.counter("tuning.resolve.hit").value
+    with recompile.region("phase 10"):
+        tuned_out, tuned_wall = run_evaluate(grid_argv)
+        hits = REGISTRY.counter("tuning.resolve.hit").value - hits0
+        plain_out, plain_wall = run_evaluate(grid_argv
+                                             + ["--no-tuned-kernels"])
+    tuning.set_table(None)
+    untuned_hits = REGISTRY.counter("tuning.resolve.hit").value
+    if hits == 0:
+        fail("the grid with the tuned table active resolved no tuned entry")
+    if tuned_out["grid"]["cells"] != plain_out["grid"]["cells"] or \
+            tuned_out["fidelity"] != plain_out["fidelity"]:
+        fail("the grid's cells differ between the tuned table and "
+             "--no-tuned-kernels")
+    recall = lambda out: [r["recall_at_k"] for r in out["backend_curve"]]
+    if recall(tuned_out) != recall(plain_out):
+        fail("the backend curve's recall differs between the tuned table "
+             "and --no-tuned-kernels")
+    log(f"    grid at {TUNED_GRID_QUERIES} queries: "
+        f"{len(tuned_out['grid']['cells'])} cells, the fidelity report and "
+        f"the backend curve's recall equal with the tuned table ({hits:.0f} "
+        f"tuned resolutions, {tuned_wall:.2f} s wall) and under "
+        f"--no-tuned-kernels ({plain_wall:.2f} s wall)")
+    check_no_build("phase 10")
+
+    # 11. where the host time goes ----------------------------------------
+    # the two CLIs once more at the timed runs' sizes, under cProfile (the
+    # timed runs above stay unprofiled)
+    log("[11/11] host time: the sampling and evaluation CLIs under cProfile")
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp, \
+            recompile.region("phase 11"):
+        profile_top("sampling", lambda: run_sample(
+            sample_argv + ["--quiet", "--out", tmp]))
+        profile_top("evaluation", lambda: run_evaluate(
+            eval_argv + ["--quiet"]))
+    check_no_build("phase 11")
+    check_untuned("phase 11", untuned_hits)
 
     def launches(kname: str) -> int:
         """A kernel's launches over the three main-path runs."""
@@ -1456,6 +1771,12 @@ def main() -> None:
          "launches": launches("gathered_tiles"),
          "max_abs_err": gath_err, "ms": g_ms, "plain_ms": g_plain_ms,
          "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib_ms},
+        {"name": "topk_merge", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:23",
+         "launches": launches("topk_merge"),
+         "max_abs_err": 0, "ms": m_ms, "plain_ms": m_plain_ms,
+         "bound_ms": m_bound, "bound_by": m_by, "library_ms": None},
         {"name": "hamming_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/hamming_topk.cu",
          "replaces": "src/repro/kernels/lsh_hamming/lsh_hamming.py:27",

@@ -2,9 +2,9 @@
 
 GraphBuilder (Alg. 1) -> GraphSampler (Alg. 2, weighted label propagation +
 cluster sampling) -> CorpusReconstructor, plus the Yule-Simon community-
-structure analysis of §III-A, behind the ``SamplerSession`` front door.
-The reference's ``core/pipeline.py`` wrappers wait for ROADMAP.md queue 1
-item 17, its sharded pipeline for item 12.
+structure analysis of §III-A, behind the ``SamplerSession`` front door,
+with the legacy one-shot wrappers of ``core/pipeline.py``. The
+reference's sharded pipeline waits for ROADMAP.md queue 1 item 12.
 """
 from repro_torch.core.engines import (LPEngine, available_engines,
                                       get_engine, register, run_engine)
@@ -13,6 +13,8 @@ from repro_torch.core.graph_builder import (EdgeList, QRelTable,
                                             node_degrees, symmetrize)
 from repro_torch.core.label_prop import (edges_to_ell, ell_round, propagate,
                                          propagate_ell, sort_round)
+from repro_torch.core.pipeline import (WindTunnelConfig, run_uniform_baseline,
+                                       run_windtunnel)
 from repro_torch.core.reconstructor import (associated_queries,
                                             query_density, reconstruct)
 from repro_torch.core.sampler import cluster_sample, uniform_sample
@@ -27,6 +29,7 @@ __all__ = [
     "EdgeList", "QRelTable", "build_affinity_graph", "node_degrees",
     "symmetrize", "propagate", "propagate_ell", "edges_to_ell",
     "sort_round", "ell_round",
+    "WindTunnelConfig", "run_windtunnel", "run_uniform_baseline",
     "LPEngine", "available_engines", "get_engine", "register", "run_engine",
     "SamplerStrategy", "available_samplers", "get_sampler",
     "register_sampler",

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core import segment_utils as su
+from repro_torch.device import resolve_device
 
 
 class ClusterSample(NamedTuple):
@@ -102,7 +103,8 @@ def cluster_sample(labels: torch.Tensor, key: prng.Key, *, num_nodes: int,
 
 
 def uniform_sample(num_nodes: int, key: prng.Key, *, rate: float,
-                   device="cpu") -> torch.Tensor:
+                   device="cuda") -> torch.Tensor:
     """The paper's baseline: uniform random entity sampling (Section I-A),
-    which destroys community structure and inflates precision."""
-    return prng.uniform(key, (num_nodes,), device) < rate
+    which destroys community structure and inflates precision. Runs on the
+    card unless ``device="cpu"``."""
+    return prng.uniform(key, (num_nodes,), resolve_device(device)) < rate

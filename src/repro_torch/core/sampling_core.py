@@ -18,9 +18,10 @@ Configuration is one declarative :class:`SamplerSpec`:
     absolute entity count, ``None`` the strategy default).
 
 The reference's ``sharded`` / ``streamed`` / ``mesh`` paths are not ported
-yet (ROADMAP queue 1 item 12); asking for them raises. Nor are its
-deprecated one-shot wrappers (``core/pipeline.py``): a session is the one
-entry point.
+yet (ROADMAP queue 1 item 12); asking for them raises. The legacy entry
+points ``run_windtunnel`` / ``run_uniform_baseline`` (``core/pipeline.py``)
+are thin wrappers over a session and remain bit-compatible; new code
+should construct the session directly.
 
 Stages execute lazily and exactly once per session, with ``executions`` /
 ``requests`` counters, and draws are cached per (strategy, opts, target,
@@ -38,6 +39,7 @@ from repro_torch.core import graph_builder as gb
 from repro_torch.core import prng
 from repro_torch.core import reconstructor as rc
 from repro_torch.core import sampler as sm
+from repro_torch.core.pipeline import WindTunnelConfig, WindTunnelResult
 from repro_torch.core.samplers import DrawState, get_sampler
 from repro_torch.device import check_runs_on, default_engine, resolve_device
 from repro_torch.obs import REGISTRY, trace
@@ -64,16 +66,20 @@ class SamplerSpec:
     mesh: Any = None                      # not ported: raises
     strategy_opts: Optional[Mapping[str, Any]] = None
 
+    def to_config(self) -> WindTunnelConfig:
+        """The backend-knob subset as the legacy pipeline config."""
+        return WindTunnelConfig(
+            tau_quantile=self.tau_quantile, fanout=self.fanout,
+            lp_rounds=self.lp_rounds, max_degree=self.max_degree,
+            target_size=self.target_size, engine=self.engine, seed=self.seed)
 
-class WindTunnelResult(NamedTuple):
-    """Everything one cluster-sampling run produced (``result()``)."""
-
-    edges: gb.EdgeList
-    labels: torch.Tensor
-    changes_per_round: torch.Tensor
-    sample: sm.ClusterSample
-    reconstructed: rc.ReconstructedSample
-    degrees: torch.Tensor
+    @classmethod
+    def from_config(cls, config: WindTunnelConfig,
+                    **overrides) -> "SamplerSpec":
+        fields = {f.name: getattr(config, f.name)
+                  for f in dataclasses.fields(config)}
+        fields.update(overrides)
+        return cls(**fields)
 
 
 class SamplerDraw(NamedTuple):

@@ -6,7 +6,8 @@ compiled at first use by ``nvcc`` into a shared library under
 ``ctypes``. Libraries are named by a hash of their source, so an edited
 source is rebuilt and a stale library is never loaded. Each source has its
 own lock, so callers on several threads build several sources at once
-(``chip_smoke.py`` does, to stay inside its time limit).
+(``chip_smoke.py`` does, to stay inside its time limit). Each nvcc run is
+counted by the recompile sentinel against the calling thread's region.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc`` at all.
@@ -23,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import ClassVar, Dict, Optional
+
+from repro_torch.obs import recompile
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -51,7 +54,8 @@ def _paths(source: str):
 
 
 def _build(source: str) -> None:
-    """Compile ``source`` into its library unless it is already built."""
+    """Compile ``source`` into its library unless it is already built; a
+    build is reported to the recompile sentinel (``obs/recompile``)."""
     src, lib, log = _paths(source)
     if lib.exists():
         return
@@ -64,6 +68,7 @@ def _build(source: str) -> None:
         raise RuntimeError(f"nvcc failed ({rc}) building {lib.name}:\n"
                            f"{log.read_text()}")
     os.replace(tmp, lib)
+    recompile.report(recompile.COMPILE_EVENT)
 
 
 def load(source: str) -> ctypes.CDLL:

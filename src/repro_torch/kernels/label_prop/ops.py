@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from repro_torch.core.label_prop import ell_round
+from repro_torch.kernels import tuning
 from repro_torch.kernels.build import Kernel
 
 LP_ROUND = Kernel("lp_round", "lp_round.cu",
@@ -58,7 +59,9 @@ def label_prop_round(labels: torch.Tensor, nbr: torch.Tensor,
                      wgt: torch.Tensor) -> torch.Tensor:
     """One LP round over ELL adjacency: labels (N,), nbr (N, K) node ids
     (-1 pad), wgt (N, K). The kernel on CUDA tensors, ``ell_round`` on CPU
-    tensors."""
+    tensors. Its block shape resolves through the autotuner, which holds a
+    tuned table's to the compiled one (csrc/lp_round.cu)."""
+    tuning.resolve("label_prop_round", n=labels.shape[0], dtype="float32")
     if labels.device.type == "cpu":
         return ell_round(labels, nbr, wgt)
     return lp_round_cuda(labels, nbr, wgt)

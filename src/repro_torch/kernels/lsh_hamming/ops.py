@@ -12,7 +12,10 @@ On CPU tensors the wrapper runs the plain version (ref.py); on CUDA tensors
 it launches ``hamming_topk`` of csrc/hamming_topk.cu (a counting select:
 per-split distance histograms, a threshold and the rows at or below it
 written in (distance, id) order; where W <= 7 the distances are kept as
-bytes between the two passes) or raises.
+bytes between the two passes) or raises. It first resolves its launch
+params through the autotuner (kernels/tuning.py), as the reference's
+does; of these only the split target (``split_blocks``, HAMMING_BLOCKS by
+default) varies a launch.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import tuning
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.lsh_hamming import ref
 from repro_torch.kernels.topk_scoring.ops import (_aligned, _check,
@@ -43,9 +47,11 @@ def hamming_bins(w: int) -> int:
     return 32 * w + 1
 
 
-def hamming_topk_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor, k: int):
+def hamming_topk_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor, k: int,
+                      blocks: int = HAMMING_BLOCKS):
     """Launch the Hamming kernels: codes i32[Q, W] x i32[N, W], 1 <= k <= N
-    -> (-distance f32[Q, k], ids i32[Q, k]), ordered by (distance, id)."""
+    -> (-distance f32[Q, k], ids i32[Q, k]), ordered by (distance, id);
+    ``blocks`` is the split plan's target block count."""
     dev = q_codes.device
     name = HAMMING_TOPK.name
     if dev.type != "cuda":
@@ -59,7 +65,7 @@ def hamming_topk_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor, k: int):
     if not 1 <= k <= n:
         raise ValueError(f"{name}: k={k} outside [1, N={n}]")
     per_split, n_splits = split_plan(nq, n, HAMMING_QUERIES, HAMMING_ROWS,
-                                     HAMMING_BLOCKS)
+                                     blocks)
     bins = hamming_bins(w)
     if (max(nq * k, n * w, nq * n_splits * bins) >= 2 ** 31
             or nq * n >= 2 ** 62
@@ -80,14 +86,20 @@ def hamming_topk_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor, k: int):
     return out_s, out_i
 
 
-def hamming_topk(q_codes: torch.Tensor, c_codes: torch.Tensor, *, k: int):
+def hamming_topk(q_codes: torch.Tensor, c_codes: torch.Tensor, *, k: int,
+                 split_blocks: int = None):
     """Top-k of -Hamming distance: packed codes (Q, W) x (N, W) -> (Q, k)
-    scores/ids, ties to the lowest id."""
+    scores/ids, ties to the lowest id. The split target resolves through
+    the autotuner (``kernels/tuning``): ``split_blocks`` > tuned table >
+    HAMMING_BLOCKS."""
+    blocks = tuning.resolve("hamming_topk", n=c_codes.shape[0],
+                            dtype=c_codes.dtype, split_blocks=split_blocks)
     k_eff = min(k, c_codes.shape[0])
     if q_codes.device.type == "cpu":
         return pad_topk(*ref.hamming_topk_ref(q_codes, c_codes, k=k_eff), k)
     if k_eff == 0 or q_codes.shape[0] == 0:
         return empty_topk(q_codes.shape[0], k, q_codes.device)
     s, i = hamming_topk_cuda(q_codes.to(torch.int32).contiguous(),
-                             c_codes.to(torch.int32).contiguous(), k_eff)
+                             c_codes.to(torch.int32).contiguous(), k_eff,
+                             blocks["split_blocks"])
     return pad_topk(s, i, k)

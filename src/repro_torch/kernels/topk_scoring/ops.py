@@ -11,7 +11,10 @@ three TF32 products of split operands ("3xTF32"), int8 as exact int32 MMA.
 
 On CPU tensors each wrapper runs its plain version (ref.py); on CUDA tensors
 it launches its partial kernel and the merge kernel of csrc/topk_scores.cu
-or raises.
+or raises. Each wrapper first resolves its launch params through the
+autotuner (kernels/tuning.py: explicit kwarg > tuned table > default), as
+the reference's do; of these only the dense kernels' split target
+(``split_blocks``, DENSE_BLOCKS by default) varies a launch.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import tuning
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.topk_scoring import ref
 from repro_torch.kernels.topk_scoring.ref import pad_topk
@@ -74,14 +78,14 @@ def split_plan(nq: int, n: int, q_tile: int, rows: int, blocks: int):
     return per_split, -(-n_tiles // per_split)
 
 
-def launch_topk(partial: Kernel, queries: torch.Tensor, corpus: torch.Tensor,
-                k: int, dtype, vec_width: int, *, q_tile: int, rows: int,
-                blocks: int):
-    """Check the inputs, then launch ``partial`` (a dense scan over the
-    corpus rows: ``topk_partial`` or ``topk_int8_partial``, whose tiles are
-    ``q_tile`` queries by ``rows`` corpus rows) and the merge kernel:
-    queries [Q, D], corpus [N, D] of ``dtype``, 1 <= k <= N -> (scores
-    f32[Q, k], ids i32[Q, k])."""
+def launch_partials(partial: Kernel, queries: torch.Tensor,
+                    corpus: torch.Tensor, k: int, dtype, vec_width: int, *,
+                    q_tile: int, rows: int, blocks: int):
+    """Check the inputs, plan the splits and launch ``partial`` (a dense
+    scan over the corpus rows: ``topk_partial`` or ``topk_int8_partial``,
+    whose tiles are ``q_tile`` queries by ``rows`` corpus rows): queries
+    [Q, D], corpus [N, D] of ``dtype``, 1 <= k <= N -> each split's top k,
+    (scores f32[Q, splits * k], ids i32[Q, splits * k])."""
     dev = queries.device
     name = partial.name
     if dev.type != "cuda":
@@ -102,32 +106,52 @@ def launch_topk(partial: Kernel, queries: torch.Tensor, corpus: torch.Tensor,
         raise ValueError(f"{name}: D={d} overflows the int32 int8 dot")
     part_s = torch.empty((nq, width), dtype=torch.float32, device=dev)
     part_i = torch.empty((nq, width), dtype=torch.int32, device=dev)
-    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     vec = int(d % vec_width == 0 and _aligned(queries, corpus))
     with torch.cuda.device(dev):
         partial(queries.data_ptr(), corpus.data_ptr(), part_s.data_ptr(),
                 part_i.data_ptr(), nq, n, d, k, per_split, n_splits, vec)
+    return part_s, part_i
+
+
+def launch_merge(part_s: torch.Tensor, part_i: torch.Tensor, k: int):
+    """The merge kernel over partial lists: the top k of each row by
+    (score desc, id asc) -> (scores f32[Q, k], ids i32[Q, k])."""
+    nq, width = part_s.shape
+    out_s = torch.empty((nq, k), dtype=torch.float32, device=part_s.device)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=part_s.device)
+    with torch.cuda.device(part_s.device):
         TOPK_MERGE(part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
                    out_i.data_ptr(), nq, width, k)
     return out_s, out_i
 
 
-def topk_scores_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int):
+def topk_partials_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                       blocks: int = DENSE_BLOCKS):
+    """The f32 kernel's partial lists before the merge: queries f32[Q, D],
+    corpus f32[N, D], 1 <= k <= N -> (scores f32[Q, splits * k], ids
+    i32[Q, splits * k]); ``blocks`` is the split plan's target block
+    count."""
+    return launch_partials(TOPK_PARTIAL, queries, corpus, k, torch.float32,
+                           4, q_tile=DENSE_QUERIES, rows=DENSE_ROWS,
+                           blocks=blocks)
+
+
+def topk_scores_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                     blocks: int = DENSE_BLOCKS):
     """Launch the f32 kernel pair: queries f32[Q, D], corpus f32[N, D],
-    1 <= k <= N -> (scores f32[Q, k], ids i32[Q, k])."""
-    return launch_topk(TOPK_PARTIAL, queries, corpus, k, torch.float32, 4,
-                       q_tile=DENSE_QUERIES, rows=DENSE_ROWS,
-                       blocks=DENSE_BLOCKS)
+    1 <= k <= N -> (scores f32[Q, k], ids i32[Q, k]); ``blocks`` is the
+    split plan's target block count."""
+    return launch_merge(*topk_partials_cuda(queries, corpus, k, blocks), k)
 
 
 def topk_scores_int8_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor,
-                          k: int):
+                          k: int, blocks: int = DENSE_BLOCKS):
     """Launch the int8 kernel pair: codes int8[Q, D] x int8[N, D], 1 <= k
-    <= N -> (int dot as f32 [Q, k], ids i32[Q, k])."""
-    return launch_topk(TOPK_INT8_PARTIAL, q_codes, c_codes, k, torch.int8,
-                       16, q_tile=DENSE_QUERIES, rows=DENSE_ROWS,
-                       blocks=DENSE_BLOCKS)
+    <= N -> (int dot as f32 [Q, k], ids i32[Q, k]); ``blocks`` is the
+    split plan's target block count."""
+    return launch_merge(*launch_partials(
+        TOPK_INT8_PARTIAL, q_codes, c_codes, k, torch.int8, 16,
+        q_tile=DENSE_QUERIES, rows=DENSE_ROWS, blocks=blocks), k)
 
 
 class Pieces(NamedTuple):
@@ -265,24 +289,32 @@ def empty_topk(nq: int, k: int, device):
                     torch.empty((nq, 0), dtype=torch.int32, device=device), k)
 
 
-def topk_scores(queries: torch.Tensor, corpus: torch.Tensor, *, k: int):
-    """Top-k inner-product search: (Q, D) x (N, D) -> (Q, k) scores/ids."""
+def topk_scores(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
+                split_blocks: int = None):
+    """Top-k inner-product search: (Q, D) x (N, D) -> (Q, k) scores/ids.
+    The split target resolves through the autotuner (``kernels/tuning``):
+    ``split_blocks`` > tuned table > DENSE_BLOCKS."""
+    blocks = tuning.resolve("topk", n=corpus.shape[0], dtype=queries.dtype,
+                            split_blocks=split_blocks)
     k_eff = min(k, corpus.shape[0])
     if queries.device.type == "cpu":
         return pad_topk(*ref.topk_scores_ref(queries, corpus, k=k_eff), k)
     if k_eff == 0 or queries.shape[0] == 0:
         return empty_topk(queries.shape[0], k, queries.device)
     s, i = topk_scores_cuda(queries.to(torch.float32).contiguous(),
-                            corpus.to(torch.float32).contiguous(), k_eff)
+                            corpus.to(torch.float32).contiguous(), k_eff,
+                            blocks["split_blocks"])
     return pad_topk(s, i, k)
 
 
 def topk_scores_int8(q_codes: torch.Tensor, c_codes: torch.Tensor, *,
-                     k: int):
+                     k: int, split_blocks: int = None):
     """Quantized top-k scan: int8 codes (Q, D) x (N, D) -> (Q, k) int-dot
     scores (as f32) and ids. Ranking is scale-invariant, so callers rank on
     the raw dot and rerank the winners in float
     (retrieval/backends.py ``Int8Backend``)."""
+    blocks = tuning.resolve("topk", n=c_codes.shape[0], dtype="int8",
+                            split_blocks=split_blocks)
     k_eff = min(k, c_codes.shape[0])
     if q_codes.device.type == "cpu":
         return pad_topk(*ref.topk_scores_int8_ref(q_codes, c_codes, k=k_eff),
@@ -290,7 +322,7 @@ def topk_scores_int8(q_codes: torch.Tensor, c_codes: torch.Tensor, *,
     if k_eff == 0 or q_codes.shape[0] == 0:
         return empty_topk(q_codes.shape[0], k, q_codes.device)
     s, i = topk_scores_int8_cuda(q_codes.contiguous(), c_codes.contiguous(),
-                                 k_eff)
+                                 k_eff, blocks["split_blocks"])
     return pad_topk(s, i, k)
 
 
@@ -301,7 +333,9 @@ def gathered_topk(queries: torch.Tensor, table: torch.Tensor,
     ``table[cand_rows[q, c]]``, id ``cand_ids[q, c]`` (-1 = invalid slot,
     scored -inf) -> (Q, k) scores/ids, ties to the earlier position. The
     ivfflat probe passes its index's list table and the probed list rows,
-    so no (Q, C, D) tensor is ever built."""
+    so no (Q, C, D) tensor is ever built. Its tiles resolve through the
+    autotuner, which holds a tuned table's to the compiled ones."""
+    tuning.resolve("gathered_topk", n=cand_ids.shape[1], dtype=queries.dtype)
     k_eff = min(k, cand_ids.shape[1])
     if queries.device.type == "cpu":
         return pad_topk(*ref.gathered_topk_ref(queries, table, cand_rows,

@@ -10,8 +10,10 @@ trie-shared plan executor and prints the sample-fidelity report.
 
 The default grid is the reference's ``GridSpec()``: 3 samplers x 4 engines
 (exact, ivfflat, lsh, tfidf) x 2 ks x 4 metrics = 96 cells, the paper's own
-comparison. ``--sharded``/``--streamed``/``--mesh`` wait for ROADMAP queue
-1 item 12 and ``--no-tuned-kernels`` for the tuner (item 10).
+comparison. ``--no-tuned-kernels`` ignores the autotuner's table
+(``kernels/tuning.py``; env ``REPRO_TORCH_TUNED_KERNELS``) and launches the
+kernels with their default split plans. ``--sharded``/``--streamed``/
+``--mesh`` wait for ROADMAP queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch.eval import (GridSpec, SearchConfig, available_backends,
                               format_fidelity_report, get_backend,
                               get_retrieval_engine, get_sampler, run_grid,
                               tfidf_embedder)
+from repro_torch.kernels import tuning
 from repro_torch.launch.logs import (add_logging_args, add_obs_args,
                                      init_obs, setup_logging, write_metrics)
 
@@ -67,6 +70,11 @@ def main(argv=None):
                         + "; default cuda on a card, torch on the CPU")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda or cpu)")
+    p.add_argument("--no-tuned-kernels", action="store_true",
+                   help="ignore the autotuned kernel table "
+                        "(kernels/tuning.py) and use the hard-coded kernel "
+                        "launch params (env equivalent: "
+                        "REPRO_TORCH_TUNED_KERNELS=off)")
     p.add_argument("--no-backend-curve", action="store_true",
                    help="skip the backend recall-vs-speed curve appended to "
                         "the fidelity output")
@@ -87,6 +95,8 @@ def main(argv=None):
     setup_logging(args)
     init_obs(args)
     device = resolve_device(args.device)
+    if args.no_tuned_kernels:
+        tuning.set_table(None)      # force the hard-coded launch params
 
     spec = GRIDS[args.grid]
     overrides = {}

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 
@@ -107,11 +108,12 @@ def _dense_init(key, shape, in_axis, dtype):
     return (prng.normal(key, shape) / float(np.sqrt(fan_in))).to(dtype)
 
 
-def init_transformer(key: prng.Key, cfg: TransformerConfig, device="cpu"):
+def init_transformer(key: prng.Key, cfg: TransformerConfig, device="cuda"):
     """The reference's parameter tree from the same key, drawn on the CPU
-    (so every device starts from the same values) and moved to
-    ``device``."""
+    (so every device starts from the same values) and moved to ``device``,
+    the card unless ``device="cpu"``."""
     check_ported(cfg)
+    device = resolve_device(device)
     dh, h, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     L, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
     pd = cfg.param_dtype

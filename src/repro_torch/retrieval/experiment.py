@@ -15,8 +15,10 @@ caller asks for the CPU. On the card the encoder embeds through the
 flash-attention kernel, the WindTunnel draw's label propagation through
 the LP kernel and the ivfflat probe through the gathered top-k kernel.
 The WindTunnel draw goes through a ``SamplerSession`` (the reference's
-deprecated ``run_windtunnel`` wraps the same session), with the LP engine
-left to the device's default.
+deprecated ``run_windtunnel`` wraps the same session), its spec the
+caller's or the reference's ``wt_config`` mapped by
+``SamplerSpec.from_config``; the LP engine is left to the device's
+default unless the spec names one.
 
 Spans (``obs/trace``): ``table1.train``, ``table1.embed``,
 ``table1.sample`` and ``table1.search``.
@@ -30,7 +32,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import (SamplerSession, SamplerSpec,
+from repro_torch.core import (SamplerSession, SamplerSpec, WindTunnelConfig,
                               associated_queries, prng, query_density)
 from repro_torch.core.graph_builder import QRelTable
 from repro_torch.data.batching import TokenBatcher
@@ -137,6 +139,7 @@ def evaluate_sample(name: str, corpus: SyntheticCorpus,
 def run_table1_experiment(corpus: SyntheticCorpus, *,
                           encoder_cfg: Optional[EncoderConfig] = None,
                           encoder_steps: int = 300,
+                          wt_config: Optional[WindTunnelConfig] = None,
                           sampler: Optional[SamplerSpec] = None,
                           sample_size: Optional[int] = None,
                           seed: int = 0,
@@ -144,10 +147,15 @@ def run_table1_experiment(corpus: SyntheticCorpus, *,
                           device="cuda") -> Dict[str, SearchResult]:
     """Reproduces Tables I & II: full vs uniform vs WindTunnel.
 
-    ``sampler`` takes the place of the reference's ``wt_config``: by
-    default the reference's WindTunnel settings (tau quantile 0.5, fanout
-    16, 5 LP rounds, max degree 32) at ``sample_size`` and ``seed``, with
-    the device's LP engine."""
+    The WindTunnel draw takes the reference's ``wt_config`` or the port's
+    ``sampler`` spec, not both (``SamplerSpec.from_config`` maps one to the
+    other; the draw is ``run_windtunnel``'s): by default the reference's
+    WindTunnel settings (tau quantile 0.5, fanout 16, 5 LP rounds, max
+    degree 32) at ``sample_size`` and ``seed``, with the device's LP
+    engine."""
+    if wt_config is not None and sampler is not None:
+        raise ValueError("run_table1_experiment takes wt_config or sampler, "
+                         "not both")
     dev = resolve_device(device)
     enc_cfg = encoder_cfg or EncoderConfig(vocab_size=corpus.vocab_size)
     level = logging.INFO if verbose else logging.DEBUG
@@ -170,6 +178,8 @@ def run_table1_experiment(corpus: SyntheticCorpus, *,
     # unjudged auxiliary entities.
     if sample_size is None:
         sample_size = int(0.15 * corpus.num_primary)
+    if wt_config is not None:
+        sampler = SamplerSpec.from_config(wt_config)
     spec = sampler or SamplerSpec(tau_quantile=0.5, fanout=16, lp_rounds=5,
                                   target_size=sample_size, seed=seed)
     with trace.span("table1.sample", target=sample_size):

@@ -13,6 +13,11 @@ Configuration is one declarative :class:`SearchConfig`:
   * ``query_chunk`` — chunked multi-query batching;
   * ``engine_opts`` — hyper-parameter overrides (``dataclasses.replace``).
 
+Every index build publishes the CUDA allocator's peak as the
+``build.peak_bytes_per_device`` gauge (``obs/memory``), and each chunk's
+span carries the launch params its kernel wrappers resolved
+(``tuned_blocks``, ``kernels/tuning``) while tracing is on.
+
 The reference's ``sharded`` / ``streamed`` / ``mesh`` search waits for the
 multi-device port (ROADMAP queue 1 item 12). ``k`` is clamped to the
 indexed corpus size and padded back with -1 ids, so tiny sampled corpora
@@ -28,6 +33,8 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.device import check_runs_on, default_backend, resolve_device
+from repro_torch.kernels import tuning
+from repro_torch.obs import memory as obs_memory
 from repro_torch.obs import trace
 from repro_torch.retrieval.backends import get_backend
 from repro_torch.retrieval.engines import get_retrieval_engine
@@ -84,9 +91,11 @@ class SearchSession:
             bkey = key if key is not None else prng.prng_key(0)
             self.index = self.engine.build(bkey, vecs)
             sp.declare(self.index)
+        obs_memory.record_build_peak()
 
     def _search_chunk(self, queries: torch.Tensor, k: int):
         cfg = self.config
+        mark = tuning.resolution_mark() if trace.is_enabled() else 0
         with trace.device_span(
                 "search.chunk",
                 compile_key=(f"search.chunk/{cfg.engine}/{cfg.backend}/"
@@ -95,6 +104,13 @@ class SearchSession:
                 n=self.corpus_size, q=int(queries.shape[0]), k=k) as sp:
             scores, ids = self.engine.search_scored(self.index, queries, k=k)
             sp.declare(ids)
+            blocks = tuning.resolutions_since(mark)
+            if blocks:
+                # the launch params of each kernel wrapper this chunk
+                # dispatched (every call resolves: there is no trace cache)
+                sp.set(tuned_blocks=[
+                    {"kernel": b["kernel"], "params": b["params"],
+                     "tuned": b["tuned"]} for b in blocks])
         return scores.cpu().numpy(), ids.cpu().numpy()
 
     def search_scored(self, queries, *, k: int):

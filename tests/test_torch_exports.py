@@ -35,12 +35,8 @@ NOT_YET_PORTED = {
     "models": {"lm_loss": 15, "decode_step": 15, "init_kv_cache": 15},
     "train": {"save_checkpoint": 15, "restore_checkpoint": 15,
               "latest_step": 15, "AsyncCheckpointer": 15},
-    "core": {"WindTunnelConfig": 17, "run_windtunnel": 17,
-             "run_uniform_baseline": 17, "run_windtunnel_sharded": 12,
-             "sharded_graph_and_labels": 12},
-    "obs": {"locks": 11, "memory": 11, "recompile": 11, "make_lock": 11,
-            "make_rlock": 11, "git_sha": 11, "provenance": 11,
-            "timeit": 11},
+    "core": {"run_windtunnel_sharded": 12, "sharded_graph_and_labels": 12},
+    "obs": {},
     "eval": {},
 }
 
@@ -132,10 +128,26 @@ def test_propagate_ell_dispatches_through_the_kernel_wrapper(monkeypatch):
 @pytest.mark.parametrize("n,rate", [(1, 0.5), (1000, 0.1), (4099, 0.3),
                                     (20000, 0.015)])
 def test_uniform_sample_bit_equal(seed, n, rate):
-    got = tsm.uniform_sample(n, prng.prng_key(seed), rate=rate)
+    got = tsm.uniform_sample(n, prng.prng_key(seed), rate=rate,
+                             device="cpu")
     want = jsm.uniform_sample(n, jax.random.PRNGKey(seed), rate=rate)
     assert got.dtype == torch.bool
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """``uniform_sample`` and ``init_transformer`` run on the card unless
+    asked for the CPU: with no card they raise, never fall back."""
+    from repro_torch.models import TransformerConfig, init_transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(vocab_size=8, d_model=8, n_layers=1, n_heads=2,
+                            n_kv_heads=2, d_ff=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsm.uniform_sample(10, prng.prng_key(0), rate=0.5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_transformer(prng.prng_key(0), cfg)
+    params = init_transformer(prng.prng_key(0), cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("n", [1, 17, 500])
