@@ -18,7 +18,8 @@ From the root of a checkout, with one card. In order:
    both sides of their tiles, MMA depth and list layouts, f32 rows whose
    magnitudes span 2**-20..2**20, and one operand's rows near 2**-120
    against the other's near 2**100; for lp_round, -1 padding scattered in
-   any slot, K 0 and 70; for the Hamming top-k, W 1, 3, 8 and 12, k = N
+   any slot, K 0 and 70, and the sampling run's shape as a block of rows
+   from half of N, ``row0``; for the Hamming top-k, W 1, 3, 8 and 12, k = N
    and k > N, all codes equal and few distinct codes, so the threshold
    distance is one large tie). The gathered kernel's main shape
    is the ivfflat
@@ -99,8 +100,33 @@ From the root of a checkout, with one card. In order:
 11. Host time: the sampling and evaluation CLIs once more at phases 5 and
     6's sizes under cProfile, the 15 functions with the largest cumulative
     and the largest own time in each (profiles kept in build/chip_smoke).
+12. Sharded sampling at full width: ``repro_torch.launch.sample --streamed
+    --mesh host`` on phase 5's arguments, a 1-rank NCCL group on the card
+    (the QRel table sharded from birth, the LP kernel on the rank's rows);
+    ``sample.npz`` equal bit for bit to phase 5's. Then a legacy
+    ``--sharded`` ``SamplerSession`` in-process on phase 5's corpus, its
+    labels and changes equal to phase 5's. 5 ``lp_round`` launches each;
+    the wall and the ``build.peak_bytes_per_device`` gauge, which the
+    sharded stage records.
+13. Sharded evaluation at full width: ``repro_torch.launch.evaluate --grid
+    default --backend cuda --streamed --mesh host`` at 32768 queries (every
+    index built per shard from a streamed corpus, every search merged
+    across shards); cells and fidelity report equal to phase 6's; the
+    kernels' launches by shape, device ms and the gauge.
+14. Two ranks on the card: two processes in one gloo group made through
+    the API, each on the one H100, at 8192 queries. A stand-in for two
+    cards: NCCL refuses two ranks on one device, and this machine has one
+    card; gloo carries the card's tensors through host copies. A streamed
+    ``SamplerSession`` (``lp_round`` on each rank's rows, ``row0`` not 0
+    on rank 1), then a streamed ``SearchSession`` for each engine on the
+    ``cuda`` backend and the born ``int8`` plan, with N odd so every pad
+    path runs. Rank 0 holds them to a 1-rank run on the card: labels,
+    changes and mask equal; exact, tfidf and lsh top-k set-equal; ivfflat
+    recall against exact within ``SHARDED_RECALL_TOL`` of the 1-rank
+    index's (distributed Lloyd sums in another order); int8 recall logged.
 
-Launch counts are set to 0 just before each main-path run (5, 6, 7, 9) and
+Launch counts are set to 0 just before each main-path run (5, 6, 7, 9, 12,
+13) and
 read just after; a kernel the run did not launch is a failure. No tuned
 table is active outside phase 10, whatever ``REPRO_TORCH_TUNED_KERNELS``
 names: a launch that resolves through one is a failure, so every other
@@ -145,7 +171,147 @@ EMBED_TOL = (1e-4, 2e-5)        # rtol, atol: unit-norm embeddings, card vs CPU
 LOSS_RTOL = 1e-4                # 5 training steps, card vs CPU
 TUNED_GRID_QUERIES = 8192       # the tuned-table grid: full-corpus searches
                                 # of about 1.3e5 rows, a tuned bucket
+TWO_RANK_QUERIES = 8192         # phase 14's corpora
+TWO_RANK_TIMEOUT = 600          # s, phase 14's two processes together
+SHARDED_RECALL_TOL = 0.01       # ivfflat recall@10 vs exact: 2 ranks vs 1
 PROFILE_TOP = 15                # functions listed per cProfile ordering
+
+
+# phase 14's child: one rank of two in a gloo group on the one card;
+# argv: rank, FileStore path, queries, ivfflat recall tolerance. It prints
+# "    rank r: ..." lines, then one JSON report as its last line; rank 0
+# holds the sharded results to a 1-rank run and raises on a difference.
+TWO_RANK_CHILD = r"""
+import dataclasses, json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+rank, store, nq, tol = (int(sys.argv[1]), sys.argv[2], int(sys.argv[3]),
+                        float(sys.argv[4]))
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                        world_size=2)
+mesh = DeviceMesh("cpu", torch.arange(2).reshape(2, 1),
+                  mesh_dim_names=("data", "model"))
+from repro_torch.core import SamplerSession, SamplerSpec
+from repro_torch.data.synthetic import generate_corpus
+from repro_torch.eval import tfidf_embedder
+from repro_torch.kernels.label_prop.ops import LP_ROUND
+from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK
+from repro_torch.kernels.topk_scoring.ops import (
+    GATHERED_TILES, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_PARTIAL)
+from repro_torch.obs import recompile
+from repro_torch.retrieval.search_core import SearchConfig, SearchSession
+
+torch.backends.cuda.matmul.allow_tf32 = False
+recompile.enable()
+recompile.reset()
+KERNELS = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
+           HAMMING_TOPK, TOPK_MERGE)
+ENGINES = ("exact", "tfidf", "lsh", "ivfflat")
+K = 10
+
+
+def reset():
+    for kern in KERNELS:
+        kern.launches = 0
+        kern.shapes.clear()
+
+
+def counts():
+    return {kern.name: {"launches": kern.launches,
+                        "shapes": sorted(list(s) for s in kern.shapes)}
+            for kern in KERNELS}
+
+
+def log(msg):
+    print(f"    rank {rank}: {msg}", flush=True)
+
+
+def check(ok, msg):
+    if not ok:
+        raise AssertionError(msg)
+
+
+report = {"rank": rank}
+corpus = generate_corpus(num_queries=nq, qrels_per_query=32, num_topics=96,
+                         aux_fraction=2.0, seed=0)
+kw = dict(num_queries=corpus.num_queries, num_entities=corpus.num_entities,
+          device="cuda")
+spec = SamplerSpec(engine="cuda", target_size=0.15 * corpus.num_primary)
+reset()
+t0 = time.perf_counter()
+born = SamplerSession(corpus.qrels, spec=dataclasses.replace(
+    spec, streamed=True, mesh=mesh), **kw)
+labels, changes = born.labels()
+mask = born.draw().entity_mask
+degrees = born.graph()[1]
+torch.cuda.synchronize()
+report["sampling"] = counts()
+report["changes"] = changes.tolist()
+log(f"streamed SamplerSession, {corpus.num_entities} entities: "
+    f"{time.perf_counter() - t0:.2f} s; lp_round {LP_ROUND.launches} "
+    f"launches at (rows, K, row0) {sorted(LP_ROUND.shapes)}; changes "
+    f"{changes.tolist()}")
+if rank == 0:
+    single = SamplerSession(corpus.qrels, spec=spec, **kw)
+    check(torch.equal(single.labels()[0], labels), "labels != 1 rank")
+    check(torch.equal(single.labels()[1], changes), "changes != 1 rank")
+    check(torch.equal(single.graph()[1], degrees), "degrees != 1 rank")
+    check(torch.equal(single.draw().entity_mask, mask), "mask != 1 rank")
+    log("labels, changes, degrees and mask equal to a 1-rank run")
+    del single
+del born
+
+ecorpus = generate_corpus(num_queries=nq, qrels_per_query=16, num_topics=48,
+                          aux_fraction=1.0, vocab_size=2048, query_len=24,
+                          seed=0)
+ev, qv = tfidf_embedder(ecorpus)
+n = ev.shape[0] - (1 - ev.shape[0] % 2)       # odd: every pad path runs
+ev, q = ev[:n], qv[:256]
+reset()
+t0 = time.perf_counter()
+got = {}
+for engine, backend in [(e, "cuda") for e in ENGINES] + [("exact", "int8")]:
+    s = SearchSession(ev, SearchConfig(engine=engine, backend=backend,
+                                       streamed=True, mesh=mesh),
+                      device="cuda")
+    got[(engine, backend)] = s.search(q, k=K)
+    del s
+torch.cuda.synchronize()
+report["search"] = counts()
+log(f"streamed SearchSession x5 (exact, tfidf, lsh, ivfflat on cuda; "
+    f"exact on int8) over N={n} x {ev.shape[1]}, {q.shape[0]} queries, "
+    f"k {K}: {time.perf_counter() - t0:.2f} s; launches "
+    + ", ".join(f"{k} {v['launches']}" for k, v in report["search"].items()))
+if rank == 0:
+    want = {key: SearchSession(ev, SearchConfig(engine=key[0],
+                                                backend=key[1]),
+                               device="cuda").search(q, k=K)
+            for key in got}
+    for engine in ("exact", "tfidf", "lsh"):
+        check(np.array_equal(np.sort(got[(engine, "cuda")], 1),
+                             np.sort(want[(engine, "cuda")], 1)),
+              f"{engine} top-k not set-equal to 1 rank")
+    exact = want[("exact", "cuda")]
+
+    def recall(ids):
+        return float(np.mean([len(set(a) & set(b)) / K
+                              for a, b in zip(ids, exact)]))
+
+    r2, r1 = recall(got[("ivfflat", "cuda")]), recall(want[("ivfflat",
+                                                            "cuda")])
+    check(abs(r2 - r1) <= tol, f"ivfflat recall {r2} vs 1 rank {r1}")
+    i2, i1 = recall(got[("exact", "int8")]), recall(want[("exact", "int8")])
+    report["recall"] = {"ivfflat": [r2, r1], "int8": [i2, i1]}
+    log(f"exact, tfidf, lsh top-k set-equal to 1 rank; recall@{K} vs exact: "
+        f"ivfflat {r2:.4f} (1 rank {r1:.4f}, tolerance {tol}), int8 "
+        f"{i2:.4f} (1 rank {i1:.4f})")
+report["builds"] = recompile.total()
+dist.destroy_process_group()
+print(json.dumps(report), flush=True)
+"""
 
 
 def log(msg: str) -> None:
@@ -241,17 +407,18 @@ def scatter_slots(nbr, wgt, seed: int):
             torch.gather(wgt, 1, perm).contiguous())
 
 
-def check_lp(labels, nbr, wgt) -> None:
+def check_lp(labels, nbr, wgt, row0: int = 0) -> None:
     import torch
     from repro_torch.core.label_prop import ell_round
     from repro_torch.kernels.label_prop.ops import lp_round_cuda
-    got = lp_round_cuda(labels, nbr, wgt)
+    got = lp_round_cuda(labels, nbr, wgt, row0)
     torch.cuda.synchronize()
-    want = ell_round(labels, nbr, wgt)
+    want = ell_round(labels, nbr, wgt, row0)
     if not torch.equal(got, want):
         bad = int((got != want).sum())
         fail(f"lp_round kernel != plain ell_round on {bad} of "
-             f"{labels.shape[0]} nodes (N={nbr.shape[0]}, K={nbr.shape[1]})")
+             f"{nbr.shape[0]} nodes (N={nbr.shape[0]}, K={nbr.shape[1]}, "
+             f"row0={row0})")
 
 
 def int8_inputs(q: int, n: int, d: int, *, seed: int, negative: bool,
@@ -808,7 +975,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/11] device: {name}; nvidia-smi: {smi}; "
+    log(f"[1/14] device: {name}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build -------------------------------------------------------------
@@ -826,7 +993,7 @@ def main() -> None:
 
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_counted, sources))
-    log(f"[2/11] built {', '.join(sources)} in "
+    log(f"[2/14] built {', '.join(sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     if recompile.counts() != ({"phase 2": len(uncached)} if uncached
                               else {}):
@@ -845,7 +1012,7 @@ def main() -> None:
     tuning.set_table(None)
     untuned_hits = REGISTRY.counter("tuning.resolve.hit").value
     main_shapes: dict = {}      # phases 5-7's launches by shape, for phase 10
-    log("[3/11] kernel vs plain")
+    log("[3/14] kernel vs plain")
     for n, k, quarter in [(1, 1, True), (37, 5, True), (513, 33, True),
                           (300, 70, False), (4096, 0, True),
                           (100_003, 32, True), (100_003, 32, False)]:
@@ -857,8 +1024,15 @@ def main() -> None:
     lp_main = lp_inputs(3_100_000, 32, seed=7, quarter=False, device=dev)
     check_lp(*lp_main[:3])
     check_lp(lp_main[0], *scatter_slots(*lp_main[1:3], seed=7))
+    # the sharded pipeline's rounds: a block of rows from half of N, the
+    # whole graph's labels (row0 on the block's own label)
+    half = lp_main[1].shape[0] // 2
+    for blk in (slice(half, None), slice(half, half + 1001)):
+        check_lp(lp_main[0], *(x[blk].contiguous() for x in lp_main[1:3]),
+                 row0=half)
     log(f"    lp_round: labels equal at 8 shapes incl. N=3.1M K=32, K=0 and "
-        f"K=70, and at 6 of them again with padding scattered in any slot")
+        f"K=70, at 6 of them again with padding scattered in any slot, and "
+        f"on blocks of the N=3.1M rows from row0={half}")
     # the dense kernels' edges: Q across the 128-query tile, N off the
     # 128-row tile, D off the MMA depth (8 floats, 32 codes) and the exact
     # split's limit (D <= 8), k across the lists of one, two and three
@@ -1061,7 +1235,7 @@ def main() -> None:
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
-    log("[4/11] times (CUDA events, after warm-up)")
+    log("[4/14] times (CUDA events, after warm-up)")
     labels, nbr, wgt, deg_sq = lp_main
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
@@ -1298,15 +1472,17 @@ def main() -> None:
                    "--engine", "cuda", "--device", "cuda"]
     reset_memory()
     with Capture(lp_ops, "lp_round_cuda",
-                 lambda labels, nbr, wgt: tuple(nbr.shape)) as lp_seen, \
+                 lambda labels, nbr, wgt, row0=0: tuple(nbr.shape)) \
+            as lp_seen, \
             Capture(sample_cli, "generate_corpus",
                     lambda **kw: "corpus") as corpus_seen, \
             recompile.region("phase 5"):
         stats, wall = run_sample(sample_argv + [
             "--out", os.path.join(OUT, "sample"), "--trace", sample_trace])
     sample_corpus = corpus_seen.results["corpus"]
+    sample_stats, sample_wall = stats, wall
     del corpus_seen
-    log(f"[5/11] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
+    log(f"[5/14] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
         f"{stats['communities']} communities, changes/round "
         f"{stats['changes_per_round']}, {stats['entities']} entities "
         f"sampled")
@@ -1315,7 +1491,7 @@ def main() -> None:
     check_no_build("phase 5")
     check_untuned("phase 5", untuned_hits)
     # the ELL table the LP rounds ran on: its degree law, and lp_round on it
-    (s_labels, s_nbr, s_wgt), _ = next(iter(lp_seen.calls.values()))
+    (s_labels, s_nbr, s_wgt, _), _ = next(iter(lp_seen.calls.values()))
     s_deg = (s_nbr >= 0).sum(dim=1)
     hist = torch.bincount(s_deg, minlength=s_nbr.shape[1] + 1).tolist()
     log(f"    sampling ELL N={s_nbr.shape[0]} K={s_nbr.shape[1]}: nodes by "
@@ -1349,7 +1525,8 @@ def main() -> None:
         out, wall = run_evaluate(eval_argv + [
             "--json", os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     cells = out["grid"]["cells"]
-    log(f"[6/11] evaluation: {wall:.2f} s wall, {len(cells)} cells")
+    eval_out, eval_wall = out, wall
+    log(f"[6/14] evaluation: {wall:.2f} s wall, {len(cells)} cells")
     eval_launches = read_counts(kernels, "evaluation", main_shapes)
     trace.disable()
     # the Hamming kernel at each shape the grid launched it at
@@ -1384,7 +1561,7 @@ def main() -> None:
     from repro_torch.retrieval.experiment import run_table1_experiment
     t0 = time.perf_counter()
     t1_corpus = eval_corpus(EVAL_QUERIES, 2048, embed=False)
-    log(f"[7/11] Table I corpus: {t1_corpus.num_entities} entities, "
+    log(f"[7/14] Table I corpus: {t1_corpus.num_entities} entities, "
         f"{t1_corpus.num_queries} queries, passages "
         f"{t1_corpus.passage_tokens.shape[1]} tokens, queries "
         f"{t1_corpus.query_tokens.shape[1]}, vocab {t1_corpus.vocab_size} "
@@ -1583,7 +1760,7 @@ def main() -> None:
         f"{float(np.abs(loss_g / loss_c - 1).max()):.2e}), embeddings "
         f"within rtol {rtol} atol {atol} (max |diff| {emb_err:.3e}), "
         f"evaluate_sample equal on 3 samples, on cuda and cpu")
-    log("[8/11] small inputs: sample.npz, grid cells and the encoder's "
+    log("[8/14] small inputs: sample.npz, grid cells and the encoder's "
         "results equal (or within the stated tolerance) on cuda and cpu")
 
     # 9. the legacy pipeline at full width -----------------------------------
@@ -1626,7 +1803,7 @@ def main() -> None:
             sample_corpus.num_entities, prng.prng_key(0), rate=0.15,
             device="cuda")):
         fail("run_uniform_baseline's mask != uniform_sample's")
-    log(f"[9/11] run_windtunnel (engine {session.spec.engine}, "
+    log(f"[9/14] run_windtunnel (engine {session.spec.engine}, "
         f"{sample_corpus.num_entities} entities): {wt_wall:.2f} s wall, "
         f"{int(wt.sample.entity_mask.sum())} entities sampled; labels and "
         f"entity_mask equal to the session's bit for bit; "
@@ -1635,7 +1812,7 @@ def main() -> None:
         f"{int(uni.query_mask.sum())} queries")
     check_no_build("phase 9")
     check_untuned("phase 9", untuned_hits)
-    del wt, session, uni, sample_corpus
+    del wt, session, uni
 
     # 10. autotuner ----------------------------------------------------------
     # tuned for the traffic phases 5-7 launched (each bucket at the calls
@@ -1651,7 +1828,7 @@ def main() -> None:
                      for kernel, dt in traffic
                      for bucket in ("le65536", "gt65536")
                      if (kernel, bucket, dt) not in table.entries)
-    log(f"[10/11] autotune (topk float32/int8, hamming_topk; le65536, "
+    log(f"[10/14] autotune (topk float32/int8, hamming_topk; le65536, "
         f"gt65536) over phases 5-7's launches in "
         f"{time.perf_counter() - t0:.1f} s; {smi}; cells the main path "
         f"never launched, so left untuned: {', '.join(untuned) or 'none'}; "
@@ -1731,7 +1908,7 @@ def main() -> None:
     # 11. where the host time goes ----------------------------------------
     # the two CLIs once more at the timed runs' sizes, under cProfile (the
     # timed runs above stay unprofiled)
-    log("[11/11] host time: the sampling and evaluation CLIs under cProfile")
+    log("[11/14] host time: the sampling and evaluation CLIs under cProfile")
     with tempfile.TemporaryDirectory(dir=OUT) as tmp, \
             recompile.region("phase 11"):
         profile_top("sampling", lambda: run_sample(
@@ -1741,10 +1918,174 @@ def main() -> None:
     check_no_build("phase 11")
     check_untuned("phase 11", untuned_hits)
 
+    # 12. sharded sampling at full width -------------------------------------
+    # the sampling CLI streamed on a 1-rank NCCL mesh, on phase 5's
+    # arguments; then the legacy sharded session on phase 5's corpus
+    import gc
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.obs import memory
+    streamed_trace = os.path.join(OUT, "sample_streamed_trace.jsonl")
+    if os.path.exists(streamed_trace):
+        os.remove(streamed_trace)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts(kernels)
+    reset_memory()
+    with recompile.region("phase 12"):
+        sh_stats, sh_wall = run_sample(sample_argv + [
+            "--streamed", "--mesh", "host", "--out",
+            os.path.join(OUT, "sample_streamed"), "--trace", streamed_trace])
+    trace.disable()
+    log(f"[12/14] streamed sampling (1-rank NCCL mesh, "
+        f"{dist.get_backend()}): {sh_wall:.2f} s wall (phase 5: "
+        f"{sample_wall:.2f} s), changes/round "
+        f"{sh_stats['changes_per_round']}")
+    sh_launches = read_counts(kernels, "streamed sampling")
+    log_trace(streamed_trace, sh_wall)
+    check_no_build("phase 12")
+    check_untuned("phase 12", untuned_hits)
+    if REGISTRY.gauge(memory.PEAK_GAUGE).value <= 0:
+        fail("phase 12: the sharded stage recorded no "
+             f"{memory.PEAK_GAUGE} reading")
+    if sh_launches["lp_round"] != len(sh_stats["changes_per_round"]):
+        fail("streamed sampling: lp_round launches != LP rounds")
+    single_npz = np.load(os.path.join(OUT, "sample", "sample.npz"))
+    sharded_npz = np.load(os.path.join(OUT, "sample_streamed", "sample.npz"))
+    for key in ("entity_mask", "labels", "qrel_valid"):
+        if not np.array_equal(single_npz[key], sharded_npz[key]):
+            fail(f"streamed sampling: sample.npz {key} != phase 5's")
+    if sh_stats != sample_stats:
+        fail(f"streamed sampling: stats {sh_stats} != phase 5's "
+             f"{sample_stats}")
+    log("    sample.npz (entity_mask, labels, qrel_valid) and stats equal "
+        "to phase 5's bit for bit")
+    mesh = make_host_mesh(device="cuda")
+    reset_counts(kernels)
+    reset_memory()
+    t0 = time.perf_counter()
+    with recompile.region("phase 12"):
+        legacy = SamplerSession(
+            sample_corpus.qrels, device="cuda",
+            spec=SamplerSpec(engine="cuda", sharded=True, mesh=mesh),
+            num_queries=sample_corpus.num_queries,
+            num_entities=sample_corpus.num_entities)
+        leg_labels, leg_changes = legacy.labels()
+        torch.cuda.synchronize()
+    leg_wall = time.perf_counter() - t0
+    leg_launches = read_counts(kernels, "legacy sharded session")
+    check_no_build("phase 12")
+    check_untuned("phase 12", untuned_hits)
+    if leg_launches["lp_round"] != len(sample_stats["changes_per_round"]):
+        fail("legacy sharded session: lp_round launches != LP rounds")
+    if leg_changes.tolist() != sample_stats["changes_per_round"] or \
+            not np.array_equal(leg_labels.cpu().numpy(),
+                               single_npz["labels"]):
+        fail("legacy sharded session: labels or changes != phase 5's")
+    log(f"    legacy sharded SamplerSession (graph + LP, the full table on "
+        f"the card) on phase 5's corpus: {leg_wall:.2f} s; labels and "
+        f"changes equal to phase 5's; {memory.PEAK_GAUGE} "
+        f"{REGISTRY.gauge(memory.PEAK_GAUGE).value:.0f} B, allocator peak "
+        f"{torch.cuda.max_memory_allocated()} B")
+    del legacy, leg_labels, leg_changes, sample_corpus
+
+    # 13. sharded evaluation at full width -----------------------------------
+    streamed_eval_trace = os.path.join(OUT, "eval_streamed_trace.jsonl")
+    if os.path.exists(streamed_eval_trace):
+        os.remove(streamed_eval_trace)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts(kernels)
+    reset_memory()
+    with recompile.region("phase 13"):
+        sh_out, sh_eval_wall = run_evaluate(eval_argv + [
+            "--streamed", "--mesh", "host", "--json",
+            os.path.join(OUT, "eval_streamed.json"), "--trace",
+            streamed_eval_trace])
+    trace.disable()
+    log(f"[13/14] streamed evaluation (1-rank NCCL mesh): "
+        f"{sh_eval_wall:.2f} s wall (phase 6: {eval_wall:.2f} s), "
+        f"{len(sh_out['grid']['cells'])} cells")
+    sh_eval_launches = read_counts(kernels, "streamed evaluation")
+    log_trace(streamed_eval_trace, sh_eval_wall)
+    check_no_build("phase 13")
+    check_untuned("phase 13", untuned_hits)
+    if sh_out["grid"]["cells"] != eval_out["grid"]["cells"]:
+        fail("streamed evaluation: grid cells != phase 6's")
+    if sh_out["fidelity"] != eval_out["fidelity"]:
+        fail("streamed evaluation: fidelity report != phase 6's")
+    for kname in ("gathered_tiles", "hamming_topk", "topk_partial",
+                  "topk_merge", "lp_round"):
+        if sh_eval_launches[kname] == 0:
+            fail(f"the streamed evaluation launched no {kname} kernel")
+    log("    grid cells and fidelity report equal to phase 6's")
+    del sh_out
+    dist.destroy_process_group()
+
+    # 14. two ranks on the card ------------------------------------------------
+    # two processes, one gloo group, one card: a stand-in for two cards
+    # (NCCL refuses two ranks on one device, and this machine has one)
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = os.path.join(OUT, "phase14_store")
+    if os.path.exists(store):
+        os.remove(store)
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TWO_RANK_CHILD, str(r), store,
+         str(TWO_RANK_QUERIES), str(SHARDED_RECALL_TOL)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            left = TWO_RANK_TIMEOUT - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(left, 1.0))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 14: the two ranks did not finish in "
+             f"{TWO_RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    two_wall = time.perf_counter() - t0
+    log(f"[14/14] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
+        f"{two_wall:.2f} s wall, both processes")
+    reports = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        with open(os.path.join(OUT, f"phase14_rank{r}.log"), "w") as f:
+            f.write(text)
+        lines = text.strip().splitlines()
+        for line in lines[:-1]:
+            if f"rank {r}: " in line:
+                log("    " + line[line.index(f"rank {r}: "):])
+        if p.returncode != 0 or not lines:
+            log("\n".join(lines[-30:]))
+            fail(f"phase 14: rank {r} exited {p.returncode}")
+        reports.append(json.loads(lines[-1]))
+    for r, rep in enumerate(reports):
+        if rep["builds"]:
+            fail(f"phase 14: rank {r} built {rep['builds']} kernel(s)")
+        if rep["sampling"]["lp_round"]["launches"] != \
+                len(rep["changes"]):
+            fail(f"phase 14: rank {r}'s lp_round launches != LP rounds")
+        for kname in ("topk_partial", "topk_int8_partial",
+                      "gathered_tiles", "hamming_topk"):
+            if rep["search"][kname]["launches"] == 0:
+                fail(f"phase 14: rank {r} launched no {kname} kernel")
+    if not all(shape[2] > 0 for shape in
+               reports[1]["sampling"]["lp_round"]["shapes"]):
+        fail("phase 14: rank 1's lp_round launches ran at row0 0")
+
     def launches(kname: str) -> int:
-        """A kernel's launches over the three main-path runs."""
+        """A kernel's launches over the main-path runs (phases 5-7, 12,
+        13)."""
         return (sample_launches[kname] + eval_launches[kname]
-                + t1_launches[kname])
+                + t1_launches[kname] + sh_launches[kname]
+                + leg_launches[kname] + sh_eval_launches[kname])
 
     table = {"kernels": [
         {"name": "lp_round", "route": "cuda",

@@ -1,10 +1,10 @@
-"""WindTunnel core on PyTorch (port of ``repro.core``, single device).
+"""WindTunnel core on PyTorch (port of ``repro.core``).
 
 GraphBuilder (Alg. 1) -> GraphSampler (Alg. 2, weighted label propagation +
 cluster sampling) -> CorpusReconstructor, plus the Yule-Simon community-
 structure analysis of §III-A, behind the ``SamplerSession`` front door,
-with the legacy one-shot wrappers of ``core/pipeline.py``. The
-reference's sharded pipeline waits for ROADMAP.md queue 1 item 12.
+with the legacy one-shot wrappers of ``core/pipeline.py`` and the
+mesh-partitioned pipeline of ``core/sharded_pipeline.py``.
 """
 from repro_torch.core.engines import (LPEngine, available_engines,
                                       get_engine, register, run_engine)
@@ -23,6 +23,8 @@ from repro_torch.core.samplers import (SamplerStrategy, available_samplers,
 from repro_torch.core.sampling_core import (SamplerDraw, SamplerSession,
                                             SamplerSpec, SweepResult,
                                             WindTunnelResult)
+from repro_torch.core.sharded_pipeline import (run_windtunnel_sharded,
+                                               sharded_graph_and_labels)
 from repro_torch.core.yule_simon import YuleSimonFit, fit_em
 
 __all__ = [
@@ -30,6 +32,7 @@ __all__ = [
     "symmetrize", "propagate", "propagate_ell", "edges_to_ell",
     "sort_round", "ell_round",
     "WindTunnelConfig", "run_windtunnel", "run_uniform_baseline",
+    "run_windtunnel_sharded", "sharded_graph_and_labels",
     "LPEngine", "available_engines", "get_engine", "register", "run_engine",
     "SamplerStrategy", "available_samplers", "get_sampler",
     "register_sampler",

@@ -17,8 +17,8 @@ on the CPU), as ``SamplerSpec.engine`` is. The reference's field defaults
 to ``sort``; a copy of that default would keep ``run_windtunnel`` on the
 card off the LP kernel.
 
-The reference's multi-device ``run_windtunnel_sharded`` waits for ROADMAP
-queue 1 item 12.
+The multi-device ``run_windtunnel_sharded`` lives in
+``core/sharded_pipeline.py``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Sampling core front door — build once, draw many (port of
-``repro/core/sampling_core.py``, single device).
+``repro/core/sampling_core.py``).
 
 :class:`SamplerSession` pays the expensive staged state — affinity-graph
 construction (Alg. 1) and label propagation (Alg. 2 steps 1-3) — exactly
@@ -17,11 +17,19 @@ Configuration is one declarative :class:`SamplerSpec`:
     (0, 1] is a fraction of the strategy's eligible universe, > 1 an
     absolute entity count, ``None`` the strategy default).
 
-The reference's ``sharded`` / ``streamed`` / ``mesh`` paths are not ported
-yet (ROADMAP queue 1 item 12); asking for them raises. The legacy entry
-points ``run_windtunnel`` / ``run_uniform_baseline`` (``core/pipeline.py``)
-are thin wrappers over a session and remain bit-compatible; new code
-should construct the session directly.
+  * ``sharded`` / ``mesh`` (a ``DeviceMesh``, launch/mesh.py) / ``axes`` —
+    route the graph + LP stages through the mesh-partitioned path
+    (core/sharded_pipeline.py), one rank per device; draws run on the
+    replicated outputs, so a 1-rank mesh is bit-identical to the
+    single-device session;
+  * ``streamed`` / ``stream_chunk`` — shard the QRel table from birth
+    (distributed/sharded_corpus.ShardedQRels): rows are routed host-side
+    and streamed straight to their shards; a :class:`ShardedQRels` may
+    also be passed directly as ``qrels`` (both imply ``sharded=True``).
+
+The legacy entry points ``run_windtunnel`` / ``run_windtunnel_sharded`` /
+``run_uniform_baseline`` are thin wrappers over a session and remain
+bit-compatible; new code should construct the session directly.
 
 Stages execute lazily and exactly once per session, with ``executions`` /
 ``requests`` counters, and draws are cached per (strategy, opts, target,
@@ -41,17 +49,18 @@ from repro_torch.core import reconstructor as rc
 from repro_torch.core import sampler as sm
 from repro_torch.core.pipeline import WindTunnelConfig, WindTunnelResult
 from repro_torch.core.samplers import DrawState, get_sampler
-from repro_torch.device import check_runs_on, default_engine, resolve_device
+from repro_torch.core.sharded_pipeline import (check_engine, sharded_degrees,
+                                               sharded_graph_and_labels)
+from repro_torch.device import (check_runs_on, default_engine, on_device,
+                                resolve_device)
+from repro_torch.distributed.sharded_corpus import ShardedQRels
 from repro_torch.obs import REGISTRY, trace
-
-NOT_PORTED_SHARDED = ("sharded / streamed / mesh sampling is not ported to "
-                      "PyTorch yet (ROADMAP.md queue 1 item 12); use the "
-                      "single-device session")
+from repro_torch.obs import memory as obs_memory
 
 
 @dataclasses.dataclass(frozen=True)
 class SamplerSpec:
-    """Declarative sampling-core configuration (strategy × engine)."""
+    """Declarative sampling-core configuration (strategy × engine × mesh)."""
 
     strategy: str = "windtunnel"
     engine: Optional[str] = None   # None -> device default; see module doc
@@ -61,9 +70,11 @@ class SamplerSpec:
     max_degree: int = 32
     target_size: Optional[float] = None   # default draw target (None = paper)
     seed: int = 0                         # default draw seed
-    sharded: bool = False                 # not ported: raises
-    streamed: bool = False                # not ported: raises
-    mesh: Any = None                      # not ported: raises
+    sharded: bool = False
+    mesh: Any = None                      # DeviceMesh when sharded
+    axes: Any = None                      # mesh axes override (sharded path)
+    streamed: bool = False                # route the QRel table shard-local
+    stream_chunk: int = 65536             # host->device streaming chunk rows
     strategy_opts: Optional[Mapping[str, Any]] = None
 
     def to_config(self) -> WindTunnelConfig:
@@ -164,14 +175,48 @@ class SamplerSession:
         cfg = spec or SamplerSpec()
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
-        if cfg.sharded or cfg.streamed or cfg.mesh is not None:
-            raise NotImplementedError(NOT_PORTED_SHARDED)
         self.device = resolve_device(device)
         get_sampler(cfg.strategy)        # registry error UX, fail fast
         engine = eng.get_engine(cfg.engine or default_engine(self.device))
         check_runs_on("engine", engine.name, engine.needs_cuda, self.device)
-        self.spec = dataclasses.replace(cfg, engine=engine.name)
-        self.qrels = gb.QRelTable(*qrels).to(self.device)
+        cfg = dataclasses.replace(cfg, engine=engine.name)
+        born = qrels if isinstance(qrels, ShardedQRels) else None
+        if born is None and cfg.streamed:
+            if cfg.mesh is None:
+                raise ValueError("streamed sampling needs a mesh; pass "
+                                 "SamplerSpec(mesh=...) (launch.mesh "
+                                 "helpers)")
+            born = ShardedQRels.from_host(
+                qrels, num_queries=num_queries, num_entities=num_entities,
+                mesh=cfg.mesh, axes=cfg.axes, chunk_rows=cfg.stream_chunk,
+                device=self.device)
+        if born is not None:
+            # sharded-from-birth tables force the mesh-partitioned stages
+            # (the global stages would gather what birth sharding avoids)
+            if (born.num_queries, born.num_entities) != (num_queries,
+                                                         num_entities):
+                raise ValueError(
+                    f"ShardedQRels routed for {born.num_queries} queries / "
+                    f"{born.num_entities} entities; session asked for "
+                    f"{num_queries} / {num_entities}")
+            if not on_device(born.query_ids, self.device):
+                raise ValueError(
+                    f"ShardedQRels live on {born.query_ids.device}; the "
+                    f"session runs on {self.device}")
+            cfg = dataclasses.replace(cfg, sharded=True, streamed=True,
+                                      mesh=born.mesh, axes=born.axes)
+        if cfg.sharded:
+            if cfg.mesh is None:
+                raise ValueError("sharded sampling needs a mesh; pass "
+                                 "SamplerSpec(mesh=...) (launch.mesh helpers)")
+            check_engine(cfg.engine)
+        self.spec = cfg
+        self._born = born
+        # draws run on the flat table (the born one all-gathered in shard
+        # order): reconstruction and every registered strategy are
+        # row-order-free, so the born permutation is invisible downstream
+        self.qrels = (gb.QRelTable(*born.table()) if born is not None
+                      else gb.QRelTable(*qrels).to(self.device))
         self.num_queries = num_queries
         self.num_entities = num_entities
         self._graph = None      # (edges, degrees)
@@ -181,40 +226,78 @@ class SamplerSession:
 
     # -- staged state -------------------------------------------------------
 
+    def _stage_sharded(self) -> None:
+        """The mesh-partitioned dataflow computes graph AND labels; both
+        stage slots fill from it. It is traced as ``sampling.graph`` (where
+        the wall time lives) plus a zero-cost ``sampling.labels`` marker
+        with ``fused=True``, so per-stage aggregates list both stages on
+        either path. On the born path the degrees sum the ranks' edge
+        slices (an integer all-reduce)."""
+        born = self._born is not None
+        with trace.device_span("sampling.graph", sharded=True,
+                               streamed=born, engine=self.spec.engine,
+                               n=self.num_entities, q=self.num_queries,
+                               fused_labels=True) as sp:
+            edges, labels, changes = sharded_graph_and_labels(
+                self._born if born else self.qrels,
+                num_queries=self.num_queries,
+                num_entities=self.num_entities, config=self.spec.to_config(),
+                mesh=self.spec.mesh, axes=self.spec.axes)
+            degrees = sharded_degrees(
+                edges, self.num_entities, born=born, mesh=self.spec.mesh,
+                axes=self._born.axes if born else self.spec.axes)
+            self._graph = (edges, degrees)
+            self._labels = (labels, changes)
+            sp.declare(self._graph, self._labels)
+        obs_memory.record_build_peak()
+        with trace.span("sampling.labels", sharded=True, fused=True,
+                        engine=self.spec.engine):
+            pass
+        self._counts["graph"][0] += 1
+        self._counts["labels"][0] += 1
+
     def graph(self) -> tuple:
-        """(EdgeList, degrees i32[N]) — Alg. 1, executed once per session."""
+        """(EdgeList, degrees i32[N]) — Alg. 1, executed once per session
+        (the rank's slice of the edges on the born path)."""
         self._counts["graph"][1] += 1
         if self._graph is None:
-            with trace.device_span("sampling.graph", n=self.num_entities,
-                                   q=self.num_queries,
-                                   tau=self.spec.tau_quantile,
-                                   fanout=self.spec.fanout) as sp:
-                self._graph = _graph_stage(
-                    self.qrels, num_queries=self.num_queries,
-                    num_entities=self.num_entities,
-                    tau_quantile=self.spec.tau_quantile,
-                    fanout=self.spec.fanout)
-                sp.declare(self._graph)
-            self._counts["graph"][0] += 1
+            if self.spec.sharded:
+                self._stage_sharded()
+            else:
+                with trace.device_span("sampling.graph",
+                                       n=self.num_entities,
+                                       q=self.num_queries,
+                                       tau=self.spec.tau_quantile,
+                                       fanout=self.spec.fanout) as sp:
+                    self._graph = _graph_stage(
+                        self.qrels, num_queries=self.num_queries,
+                        num_entities=self.num_entities,
+                        tau_quantile=self.spec.tau_quantile,
+                        fanout=self.spec.fanout)
+                    sp.declare(self._graph)
+                self._counts["graph"][0] += 1
         return self._graph
 
     def labels(self) -> tuple:
         """(labels i32[N], changes i32[rounds]) — Alg. 2 LP, executed once."""
         self._counts["labels"][1] += 1
         if self._labels is None:
-            edges, _ = self.graph()
-            with trace.device_span("sampling.labels",
-                                   engine=self.spec.engine,
-                                   n=self.num_entities,
-                                   rounds=self.spec.lp_rounds,
-                                   max_degree=self.spec.max_degree) as sp:
-                self._labels = _labels_stage(
-                    edges, engine=self.spec.engine,
-                    num_entities=self.num_entities,
-                    max_degree=self.spec.max_degree,
-                    rounds=self.spec.lp_rounds)
-                sp.declare(self._labels)
-            self._counts["labels"][0] += 1
+            if self.spec.sharded:
+                self._stage_sharded()
+            else:
+                edges, _ = self.graph()
+                with trace.device_span("sampling.labels",
+                                       engine=self.spec.engine,
+                                       n=self.num_entities,
+                                       rounds=self.spec.lp_rounds,
+                                       max_degree=self.spec.max_degree) as sp:
+                    self._labels = _labels_stage(
+                        edges, engine=self.spec.engine,
+                        num_entities=self.num_entities,
+                        max_degree=self.spec.max_degree,
+                        rounds=self.spec.lp_rounds)
+                    sp.declare(self._labels)
+                self._counts["labels"][0] += 1
         return self._labels
 
     # -- draws --------------------------------------------------------------

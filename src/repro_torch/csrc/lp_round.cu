@@ -6,7 +6,10 @@
 // weights wgt[n, k] and current labels, the new label is argmax_j S(l_j) with
 //   S(l_j) = sum_k w_k [l_k == l_j],  l_k = labels[nbr[n, k]],
 // over the valid slots j, ties going to the smaller label; a node with no
-// neighbours keeps its label.
+// neighbours keeps its label. The table may be a block of rows of a larger
+// graph (the sharded pipeline's node-partitioned rounds): row n is node
+// row0 + n, whose own label is labels[row0 + n]; neighbour ids are global
+// and the output is the block's, out[0..n).
 //
 // What bounds it on an H100: device-memory bytes. Per node it reads K ids,
 // the weights of its valid slots and their gathered labels, and writes one
@@ -58,7 +61,7 @@ __device__ __forceinline__ int warp_argmax(float s, int l) {
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 lp_round_narrow(const int* __restrict__ labels, const int* __restrict__ nbr,
                 const float* __restrict__ wgt, int* __restrict__ out, int n,
-                int k) {
+                int k, int row0) {
   const int lane = threadIdx.x & 31;
   const long long node0 =
       (static_cast<long long>(blockIdx.x) * kWarpsPerBlock +
@@ -71,8 +74,8 @@ lp_round_narrow(const int* __restrict__ labels, const int* __restrict__ nbr,
     u[i] = node0 + i < n && lane < k ? nbr[(node0 + i) * k + lane] : -1;
   // lane i < kNodes: node node0 + i's own label, kept when it has no
   // neighbour
-  const int own = lane < kNodes && node0 + lane < n ? labels[node0 + lane]
-                                                    : 0;
+  const int own =
+      lane < kNodes && node0 + lane < n ? labels[row0 + node0 + lane] : 0;
 #pragma unroll
   for (int i = 0; i < kNodes; ++i) {
     lk[i] = u[i] >= 0 ? labels[u[i]] : -1;
@@ -102,7 +105,7 @@ lp_round_narrow(const int* __restrict__ labels, const int* __restrict__ nbr,
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 lp_round_wide(const int* __restrict__ labels, const int* __restrict__ nbr,
               const float* __restrict__ wgt, int* __restrict__ out, int n,
-              int k) {
+              int k, int row0) {
   const int lane = threadIdx.x & 31;
   const int node = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (node >= n) return;  // uniform across the warp
@@ -136,13 +139,15 @@ lp_round_wide(const int* __restrict__ labels, const int* __restrict__ nbr,
     }
   }
   const int best = warp_argmax(best_s, best_l);
-  if (lane == 0) out[node] = best == INT_MAX ? labels[node] : best;
+  if (lane == 0)
+    out[node] = best == INT_MAX ? labels[static_cast<long long>(row0) + node]
+                                : best;
 }
 
 }  // namespace
 
 extern "C" int lp_round(const void* labels, const void* nbr, const void* wgt,
-                        void* out, int n, int k, void* stream) {
+                        void* out, int n, int k, int row0, void* stream) {
   if (n > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int* lp = static_cast<const int*>(labels);
@@ -152,10 +157,12 @@ extern "C" int lp_round(const void* labels, const void* nbr, const void* wgt,
     if (k <= 32) {
       const int per_block = kWarpsPerBlock * kNodes;
       lp_round_narrow<<<(n + per_block - 1) / per_block,
-                        kWarpsPerBlock * 32, 0, st>>>(lp, np, wp, op, n, k);
+                        kWarpsPerBlock * 32, 0, st>>>(lp, np, wp, op, n, k,
+                                                      row0);
     } else {
       lp_round_wide<<<(n + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                      kWarpsPerBlock * 32, 0, st>>>(lp, np, wp, op, n, k);
+                      kWarpsPerBlock * 32, 0, st>>>(lp, np, wp, op, n, k,
+                                                    row0);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -22,6 +22,12 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def on_device(t: torch.Tensor, device: torch.device) -> bool:
+    """True where ``t`` lives on ``device`` (``cuda`` is the current
+    card, so it matches ``cuda:0`` there)."""
+    return t.device == torch.empty(0, device=device).device
+
+
 def default_engine(device: torch.device) -> str:
     return "cuda" if device.type == "cuda" else "sort"
 

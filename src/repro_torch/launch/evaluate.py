@@ -7,13 +7,20 @@ trie-shared plan executor and prints the sample-fidelity report.
   PYTHONPATH=src python -m repro_torch.launch.evaluate --grid smoke
   PYTHONPATH=src python -m repro_torch.launch.evaluate --grid smoke \
       --device cpu --json results/eval.json
+  PYTHONPATH=src python -m repro_torch.launch.evaluate --grid smoke \
+      --streamed --mesh host
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m \
+      repro_torch.launch.evaluate --grid smoke --device cpu --streamed \
+      --mesh auto
 
 The default grid is the reference's ``GridSpec()``: 3 samplers x 4 engines
 (exact, ivfflat, lsh, tfidf) x 2 ks x 4 metrics = 96 cells, the paper's own
 comparison. ``--no-tuned-kernels`` ignores the autotuner's table
 (``kernels/tuning.py``; env ``REPRO_TORCH_TUNED_KERNELS``) and launches the
-kernels with their default split plans. ``--sharded``/``--streamed``/
-``--mesh`` wait for ROADMAP queue 1 item 12.
+kernels with their default split plans. ``--sharded``/``--streamed``
+search every index over a mesh of ranks (retrieval/sharded.py,
+launch/mesh.py); results are replicated, and only rank 0 writes and logs
+them.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.eval import (GridSpec, SearchConfig, available_backends,
 from repro_torch.kernels import tuning
 from repro_torch.launch.logs import (add_logging_args, add_obs_args,
                                      init_obs, setup_logging, write_metrics)
+from repro_torch.launch.mesh import is_main_rank, parse_mesh
 
 log = logging.getLogger("repro_torch.launch.evaluate")
 
@@ -70,6 +78,20 @@ def main(argv=None):
                         + "; default cuda on a card, torch on the CPU")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda or cpu)")
+    p.add_argument("--sharded", action="store_true",
+                   help="run index search mesh-partitioned through "
+                        "retrieval/sharded.py")
+    p.add_argument("--streamed", action="store_true",
+                   help="shard each corpus from birth: stream it chunk-wise "
+                        "into per-rank buffers and build the index "
+                        "shard-locally (retrieval/sharded.sharded_build; "
+                        "implies --sharded)")
+    p.add_argument("--stream-chunk", type=int, default=65536,
+                   help="host->device streaming chunk rows for --streamed")
+    p.add_argument("--mesh", default="host", choices=["host", "auto"],
+                   help="mesh for --sharded/--streamed: the 1-rank host "
+                        "mesh, or every rank torchrun started on the data "
+                        "axis")
     p.add_argument("--no-tuned-kernels", action="store_true",
                    help="ignore the autotuned kernel table "
                         "(kernels/tuning.py) and use the hard-coded kernel "
@@ -123,7 +145,15 @@ def main(argv=None):
         get_retrieval_engine(name)
     if args.backend is not None:
         get_backend(args.backend)
-    search = SearchConfig(backend=args.backend)
+    sharded = args.sharded or args.streamed
+    search = SearchConfig(backend=args.backend, sharded=sharded,
+                          streamed=args.streamed,
+                          stream_chunk=args.stream_chunk,
+                          mesh=parse_mesh(args.mesh, device) if sharded
+                          else None)
+    main_rank = is_main_rank()
+    if not main_rank:           # rank 0 alone logs results
+        logging.getLogger("repro_torch").setLevel(logging.WARNING)
 
     corpus = generate_corpus(
         num_queries=args.queries, qrels_per_query=args.qrels_per_query,
@@ -132,10 +162,10 @@ def main(argv=None):
     log.info("corpus: %d entities (%d judged), %d queries",
              corpus.num_entities, corpus.num_primary, corpus.num_queries)
     log.info("grid: %d samplers x %d engines x %d ks x %d metrics "
-             "= %d cells (backend=%s, device=%s)",
+             "= %d cells (backend=%s, device=%s, sharded=%s)",
              len(spec.samplers), len(spec.engines), len(spec.ks),
              len(spec.metrics), spec.num_cells, args.backend or "default",
-             device)
+             device, "streamed" if args.streamed else sharded)
 
     result = run_grid(corpus, spec, search=search, verbose=True,
                       device=device)
@@ -169,6 +199,8 @@ def main(argv=None):
         out["fidelity"] = report.to_json()
     if curve is not None:
         out["backend_curve"] = curve
+    if not main_rank:
+        return out
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as f:

@@ -9,12 +9,19 @@ through the sampling-core front door (port of ``repro/launch/sample.py``).
   PYTHONPATH=src python -m repro_torch.launch.sample --sweep-sizes 0.05,0.1 \
       --sweep-seeds 0,1,2
 
+  # sharded graph + LP on a 1-rank mesh (bit-equal to the run above), and
+  # streamed (sharded from birth) over every rank torchrun starts
+  PYTHONPATH=src python -m repro_torch.launch.sample --streamed --mesh host
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.sample \
+      --device cpu --engine ell --streamed --mesh auto
+
 Generates a corpus, stages GraphBuilder -> GraphSampler state in a
 :class:`~repro_torch.core.sampling_core.SamplerSession`, draws the
 sample(s), reports community statistics and the Yule-Simon fit, and writes
 ``sample.npz`` (entity mask, labels, qrel validity) and ``stats.json``.
-The reference's ``--sharded`` / ``--streamed`` / ``--mesh`` wait for the
-multi-device port (ROADMAP queue 1 item 12).
+``--sharded`` / ``--streamed`` run the graph + LP stages on a mesh of
+ranks (core/sharded_pipeline.py, launch/mesh.py); their outputs are
+replicated, and only rank 0 writes ``--out`` and logs results.
 """
 from __future__ import annotations
 
@@ -29,9 +36,10 @@ from repro_torch.core import (SamplerSession, SamplerSpec, available_engines,
                               available_samplers, fit_em, get_sampler)
 from repro_torch.core.engines import get_engine
 from repro_torch.data.synthetic import generate_corpus
-from repro_torch.device import resolve_device
+from repro_torch.device import default_engine, resolve_device
 from repro_torch.launch.logs import (add_logging_args, add_obs_args,
                                      init_obs, setup_logging, write_metrics)
+from repro_torch.launch.mesh import is_main_rank, parse_mesh
 
 log = logging.getLogger("repro_torch.launch.sample")
 
@@ -63,6 +71,20 @@ def main(argv=None):
                         + "; default cuda on a card, sort on the CPU")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda or cpu)")
+    p.add_argument("--sharded", action="store_true",
+                   help="run the mesh-partitioned graph+LP stages "
+                        "(core/sharded_pipeline.py; requires an ELL-family "
+                        "engine)")
+    p.add_argument("--streamed", action="store_true",
+                   help="shard the qrel table from birth: route host-side, "
+                        "stream per-shard buffers to their ranks, and "
+                        "build the graph shard-locally (implies --sharded)")
+    p.add_argument("--stream-chunk", type=int, default=65536,
+                   help="host->device streaming chunk rows for --streamed")
+    p.add_argument("--mesh", default="host", choices=["host", "auto"],
+                   help="mesh for --sharded/--streamed: the 1-rank host "
+                        "mesh, or every rank torchrun started on the data "
+                        "axis")
     p.add_argument("--sweep-sizes", default=None, metavar="S1,S2,...",
                    help="comma list of target sizes (<=1: fraction of the "
                         "eligible universe; >1: entity count); runs "
@@ -83,6 +105,14 @@ def main(argv=None):
     get_sampler(args.strategy)
     if args.engine is not None:
         get_engine(args.engine)
+    sharded = args.sharded or args.streamed
+    if sharded and (args.engine or default_engine(device)) == "sort":
+        p.error("--sharded/--streamed require an ELL-family engine; "
+                "pass --engine ell or --engine cuda")
+    mesh = parse_mesh(args.mesh, device) if sharded else None
+    main_rank = is_main_rank()
+    if not main_rank:           # rank 0 alone logs results
+        logging.getLogger("repro_torch").setLevel(logging.WARNING)
 
     corpus = generate_corpus(
         num_queries=args.queries, qrels_per_query=args.qrels_per_query,
@@ -95,11 +125,17 @@ def main(argv=None):
         strategy=args.strategy, engine=args.engine,
         tau_quantile=args.tau_quantile, fanout=args.fanout,
         lp_rounds=args.lp_rounds,
-        target_size=args.target_frac * corpus.num_primary, seed=args.seed)
+        target_size=args.target_frac * corpus.num_primary, seed=args.seed,
+        sharded=sharded, streamed=args.streamed,
+        stream_chunk=args.stream_chunk, mesh=mesh)
     session = SamplerSession(corpus.qrels, num_queries=corpus.num_queries,
                              num_entities=corpus.num_entities, spec=spec,
                              device=device)
     log.info("device %s, LP engine %s", device, session.spec.engine)
+    if sharded:
+        log.info("%s graph+LP on mesh %s",
+                 "streamed shard-local" if args.streamed else "sharded",
+                 dict(zip(mesh.mesh_dim_names, mesh.shape)))
 
     stats = {}
     if args.sweep_sizes:
@@ -130,12 +166,16 @@ def main(argv=None):
         labels = np.zeros(corpus.num_entities, np.int32)
         if strat.needs_graph:
             edges, degrees = session.graph()
+            # a streamed session's edge list is this rank's slice; the
+            # replicated degrees count every edge at both ends
+            n_edges = (int(degrees.sum()) // 2 if args.streamed
+                       else int(edges.num_valid))
             fit = fit_em(degrees[degrees > 0], max_iters=300)
             log.info("affinity graph: %d edges; degree-law gamma = %.3f "
-                     "(se %.2e)", int(edges.num_valid), float(fit.gamma),
+                     "(se %.2e)", n_edges, float(fit.gamma),
                      float(fit.stderr))
             stats["gamma"] = float(fit.gamma)
-            stats["edges"] = int(edges.num_valid)
+            stats["edges"] = n_edges
         if strat.needs_labels:
             labels_t, changes = session.labels()
             labels = labels_t.cpu().numpy()
@@ -149,6 +189,8 @@ def main(argv=None):
                  int(draw.reconstructed.num_queries))
 
     stats["entities"] = int(mask.sum())
+    if not main_rank:
+        return stats
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         np.savez(os.path.join(args.out, "sample.npz"),

@@ -16,7 +16,7 @@ plain routes under autograd, as the reference does.
 
 Not ported here: ``prefill``, ``decode_step`` and the KV cache,
 ``moe_ffn``, ``remat="full"``, the activation sharding constraints and
-``lm_loss`` (ROADMAP queue 1 item 15; the constraints with item 12). A
+``lm_loss`` (ROADMAP queue 1 item 15, with model-parallel training). A
 config that needs one of them raises.
 """
 from __future__ import annotations
@@ -91,7 +91,7 @@ def check_ported(cfg: TransformerConfig) -> None:
             or cfg.attn_shard != "heads" or cfg.seq_parallel):
         raise NotImplementedError(
             "activation sharding constraints are not ported to PyTorch yet "
-            "(ROADMAP.md queue 1 item 12); leave act_batch_axes and "
+            "(ROADMAP.md queue 1 item 15); leave act_batch_axes and "
             "act_model_axis None, attn_shard 'heads' and seq_parallel False")
     if cfg.vocab_chunks != 1:
         raise NotImplementedError(

@@ -1,7 +1,7 @@
 """Retrieval on PyTorch (port of ``repro.retrieval``): the scoring-backend
 registry, the exact, ivfflat, lsh and tf-idf engines, the search-core front
-door, the retrieval encoder and the IR metrics. ``sharded_search`` waits
-for the multi-device port (ROADMAP.md queue 1 item 12)."""
+door (mesh-sharded search included), the retrieval encoder and the IR
+metrics."""
 from repro_torch.retrieval.encoder import (EncoderConfig, contrastive_loss,
                                            embed_tokens, init_encoder)
 from repro_torch.retrieval.backends import (ScoringBackend,
@@ -15,6 +15,7 @@ from repro_torch.retrieval.engines import (RetrievalEngine,
                                            available_retrieval_engines,
                                            get_retrieval_engine,
                                            register_retrieval_engine)
+from repro_torch.retrieval.sharded import sharded_search
 from repro_torch.retrieval.search_core import SearchConfig, SearchSession
 from repro_torch.retrieval.metrics import (mrr, ndcg_at_k, precision_at_k,
                                            qrel_dict, qrel_set, recall_at_k)
@@ -27,6 +28,6 @@ __all__ = ["EncoderConfig", "init_encoder", "contrastive_loss",
            "search_ivfflat", "LSHIndex", "build_lsh", "search_lsh",
            "RetrievalEngine", "available_retrieval_engines",
            "get_retrieval_engine", "register_retrieval_engine",
-           "SearchConfig", "SearchSession",
+           "sharded_search", "SearchConfig", "SearchSession",
            "precision_at_k", "recall_at_k", "ndcg_at_k", "mrr",
            "qrel_set", "qrel_dict"]

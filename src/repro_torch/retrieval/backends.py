@@ -47,6 +47,7 @@ from typing import Dict, NamedTuple, Protocol, runtime_checkable
 
 import torch
 
+from repro_torch.distributed.compression import quantize_int8
 from repro_torch.kernels.lsh_hamming import ops as lsh_ops
 from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
 from repro_torch.kernels.topk_scoring import ops as topk_ops
@@ -116,15 +117,6 @@ class QuantizedCorpus(NamedTuple):
     codes: torch.Tensor   # (N, D) int8
     scale: torch.Tensor   # () f32 global max-abs scale
     vecs: torch.Tensor    # (N, D) f32 originals (rerank + float backends)
-
-
-def quantize_int8(x: torch.Tensor):
-    """Symmetric per-tensor int8 quantization (port of
-    ``repro/distributed/compression.py::quantize_int8``): codes in
-    [-127, 127] and the f32 scale max|x| / 127 + 1e-30."""
-    scale = x.abs().max() / 127.0 + 1e-30
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return q, scale
 
 
 def _float_corpus(corpus) -> torch.Tensor:

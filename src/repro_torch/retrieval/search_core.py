@@ -1,5 +1,5 @@
 """Search core front door — Layer 3 (port of
-``repro/retrieval/search_core.py``, single device).
+``repro/retrieval/search_core.py``).
 
 One :class:`SearchSession` builds an index once and answers many query
 batches; the experiment grid and the evaluation CLI route through it.
@@ -10,6 +10,15 @@ Configuration is one declarative :class:`SearchConfig`:
   * ``backend`` — a registered scoring backend (retrieval/backends.py),
     ``None`` for the device's default (``cuda`` on a card, ``torch`` on the
     CPU); naming ``cuda`` on the CPU is an error;
+  * ``sharded`` / ``mesh`` (a ``DeviceMesh``, launch/mesh.py) — route
+    searches through the mesh-partitioned Layer 2 (retrieval/sharded.py),
+    one rank per device;
+  * ``streamed`` / ``stream_chunk`` — shard the corpus from birth: the
+    host array is streamed chunk-wise into each rank's buffer
+    (distributed/sharded_corpus.ShardedCorpus) and the index is built per
+    shard (retrieval/sharded.sharded_build), so no device holds the global
+    corpus or index; passing a ``ShardedCorpus`` as ``corpus_vecs`` does
+    the same (both imply ``sharded=True``);
   * ``query_chunk`` — chunked multi-query batching;
   * ``engine_opts`` — hyper-parameter overrides (``dataclasses.replace``).
 
@@ -18,10 +27,8 @@ Every index build publishes the CUDA allocator's peak as the
 span carries the launch params its kernel wrappers resolved
 (``tuned_blocks``, ``kernels/tuning``) while tracing is on.
 
-The reference's ``sharded`` / ``streamed`` / ``mesh`` search waits for the
-multi-device port (ROADMAP queue 1 item 12). ``k`` is clamped to the
-indexed corpus size and padded back with -1 ids, so tiny sampled corpora
-never crash a search.
+``k`` is clamped to the indexed corpus size and padded back with -1 ids,
+so tiny sampled corpora never crash a search.
 """
 from __future__ import annotations
 
@@ -32,20 +39,27 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.device import check_runs_on, default_backend, resolve_device
+from repro_torch.device import (check_runs_on, default_backend, on_device,
+                                resolve_device)
+from repro_torch.distributed.sharded_corpus import ShardedCorpus
 from repro_torch.kernels import tuning
 from repro_torch.obs import memory as obs_memory
 from repro_torch.obs import trace
 from repro_torch.retrieval.backends import get_backend
 from repro_torch.retrieval.engines import get_retrieval_engine
+from repro_torch.retrieval.sharded import sharded_build, sharded_search
 
 
 @dataclasses.dataclass(frozen=True)
 class SearchConfig:
-    """Declarative search-core configuration (engine × backend)."""
+    """Declarative search-core configuration (engine × backend × shard)."""
 
     engine: str = "exact"
     backend: Optional[str] = None   # None -> device default
+    sharded: bool = False
+    mesh: Any = None                # DeviceMesh when sharded
+    streamed: bool = False          # shard-local build from birth
+    stream_chunk: int = 65536       # host->device streaming chunk rows
     query_chunk: int = 256
     engine_opts: Optional[Mapping[str, Any]] = None
 
@@ -72,12 +86,42 @@ class SearchSession:
         check_runs_on("backend", backend.name, backend.needs_cuda,
                       self.device)
         cfg = dataclasses.replace(cfg, backend=backend.name)
+        born = corpus_vecs if isinstance(corpus_vecs, ShardedCorpus) else None
+        if born is None and cfg.streamed:
+            if cfg.mesh is None:
+                raise ValueError("streamed build needs a mesh; pass "
+                                 "SearchConfig(mesh=...) (launch.mesh "
+                                 "helpers)")
+            born = ShardedCorpus.from_host(corpus_vecs, mesh=cfg.mesh,
+                                           chunk_rows=cfg.stream_chunk,
+                                           device=self.device)
+        if born is not None:
+            # a sharded-from-birth corpus forces the sharded query plans
+            if not on_device(born.vecs, self.device):
+                raise ValueError(
+                    f"ShardedCorpus lives on {born.vecs.device}; the session "
+                    f"runs on {self.device}")
+            cfg = dataclasses.replace(cfg, sharded=True, streamed=True,
+                                      mesh=born.mesh)
+        if cfg.sharded and cfg.mesh is None:
+            raise ValueError("sharded search needs a mesh; pass "
+                             "SearchConfig(mesh=...) (launch.mesh helpers)")
+        if cfg.sharded and cfg.backend == "int8" and born is None:
+            # lifted on the born path (per-shard scales + float rerank);
+            # the global-partition path keeps the rejection
+            raise ValueError(
+                "sharded search does not support the 'int8' backend (the "
+                "row-shard padding sentinel would destroy the quantization "
+                "scale); use backend='torch' or 'cuda'")
         if cfg.engine_opts:
             engine = dataclasses.replace(engine, **dict(cfg.engine_opts))
         self.config = cfg
         self.engine = dataclasses.replace(engine, backend=cfg.backend)
-        vecs = torch.as_tensor(corpus_vecs).to(self.device)
-        self.corpus_size = int(vecs.shape[0])
+        if born is not None:
+            self.corpus_size = born.n
+        else:
+            vecs = torch.as_tensor(corpus_vecs).to(self.device)
+            self.corpus_size = int(vecs.shape[0])
         self.ids_map = None if ids_map is None else np.asarray(ids_map)
         if self.ids_map is not None and self.ids_map.size != self.corpus_size:
             raise ValueError(
@@ -87,9 +131,13 @@ class SearchSession:
                 "search.build",
                 compile_key=f"search.build/{cfg.engine}/{cfg.backend}",
                 engine=cfg.engine, backend=cfg.backend,
-                n=self.corpus_size) as sp:
+                n=self.corpus_size, streamed=born is not None,
+                shards=born.num_shards if born is not None else 1) as sp:
             bkey = key if key is not None else prng.prng_key(0)
-            self.index = self.engine.build(bkey, vecs)
+            if born is not None:
+                self.index = sharded_build(self.engine, born, bkey)
+            else:
+                self.index = self.engine.build(bkey, vecs)
             sp.declare(self.index)
         obs_memory.record_build_peak()
 
@@ -101,8 +149,14 @@ class SearchSession:
                 compile_key=(f"search.chunk/{cfg.engine}/{cfg.backend}/"
                              f"{self.corpus_size}/{queries.shape[0]}/{k}"),
                 engine=cfg.engine, backend=cfg.backend,
-                n=self.corpus_size, q=int(queries.shape[0]), k=k) as sp:
-            scores, ids = self.engine.search_scored(self.index, queries, k=k)
+                n=self.corpus_size, q=int(queries.shape[0]), k=k,
+                sharded=cfg.sharded) as sp:
+            if cfg.sharded:
+                scores, ids = sharded_search(self.engine, self.index,
+                                             queries, k=k, mesh=cfg.mesh)
+            else:
+                scores, ids = self.engine.search_scored(self.index, queries,
+                                                        k=k)
             sp.declare(ids)
             blocks = tuning.resolutions_since(mark)
             if blocks:

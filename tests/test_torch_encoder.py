@@ -258,9 +258,9 @@ def test_configs_the_port_leaves_out_raise():
                 n_kv_heads=2, d_ff=8)
     for extra, match in ((dict(moe=ttf.MoEConfig(4, 1)), "item 15"),
                          (dict(remat="full"), "remat"),
-                         (dict(act_batch_axes=("data",)), "item 12"),
-                         (dict(attn_shard="dh"), "item 12"),
-                         (dict(seq_parallel=True), "item 12"),
+                         (dict(act_batch_axes=("data",)), "item 15"),
+                         (dict(attn_shard="dh"), "item 15"),
+                         (dict(seq_parallel=True), "item 15"),
                          (dict(vocab_chunks=4), "vocab_chunks")):
         with pytest.raises(NotImplementedError, match=match):
             ttf.init_transformer(prng.prng_key(0),

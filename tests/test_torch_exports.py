@@ -30,14 +30,15 @@ from repro_torch.core import yule_simon as tys
 # names of the reference's __all__ that the port has not yet, each with the
 # ROADMAP.md queue 1 item that ports it
 NOT_YET_PORTED = {
-    "retrieval": {"sharded_search": 12},
+    "retrieval": {},
     "data": {"NeighborSampler": 15},
     "models": {"lm_loss": 15, "decode_step": 15, "init_kv_cache": 15},
     "train": {"save_checkpoint": 15, "restore_checkpoint": 15,
               "latest_step": 15, "AsyncCheckpointer": 15},
-    "core": {"run_windtunnel_sharded": 12, "sharded_graph_and_labels": 12},
+    "core": {},
     "obs": {},
     "eval": {},
+    "distributed": {},
 }
 
 

@@ -123,12 +123,18 @@ def test_naming_the_cuda_engine_or_backend_on_cpu_raises():
 
 
 def test_sharded_paths_raise_naming_the_roadmap_item():
+    """The sharded paths are ported (ROADMAP queue 1 item 12): asked for
+    without a mesh, each session names what is missing."""
     c = generate_corpus(num_queries=64, qrels_per_query=4, num_topics=4,
                         seed=0)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="sharded sampling needs a mesh"):
         SamplerSession(c.qrels, num_queries=c.num_queries,
                        num_entities=c.num_entities,
-                       spec=SamplerSpec(sharded=True), device="cpu")
+                       spec=SamplerSpec(engine="ell", sharded=True),
+                       device="cpu")
+    with pytest.raises(ValueError, match="sharded search needs a mesh"):
+        SearchSession(np.eye(4, dtype=np.float32),
+                      SearchConfig(sharded=True), device="cpu")
 
 
 def test_kernel_wrappers_take_the_plain_path_only_on_cpu_tensors():

@@ -84,6 +84,28 @@ def test_lp_round_kernel_scattered_padding(cuda, n, k, quarter):
     assert torch.equal(got, ell_round(lt, nt, wt))
 
 
+@pytest.mark.parametrize("n,k,row0", [(37, 5, 0), (1000, 32, 400),
+                                      (513, 33, 256), (300, 70, 150),
+                                      (4096, 0, 2048), (100_003, 32, 50_001)])
+def test_lp_round_kernel_row_block(cuda, n, k, row0):
+    """A block of rows of a larger graph (the sharded pipeline's rounds):
+    rows row0 .. row0 + rows of the table with -1 padding in any slot, the
+    replicated labels, against ``ell_round`` on the same block."""
+    rng = np.random.default_rng(n + k + row0)
+    labels, nbr, wgt = _ell(rng, n, k, quarter_weights=bool(row0 % 2))
+    perm = np.argsort(rng.random((n, k)), axis=1)
+    nbr = np.take_along_axis(nbr, perm, axis=1)
+    wgt = np.take_along_axis(wgt, perm, axis=1)
+    rows = (n - row0 + 1) // 2
+    lt = torch.from_numpy(labels).to(cuda)
+    nt, wt = (torch.from_numpy(x[row0:row0 + rows].copy()).to(cuda)
+              for x in (nbr, wgt))
+    got = lp_round_cuda(lt, nt, wt, row0)
+    torch.cuda.synchronize()
+    assert got.shape == (rows,)
+    assert torch.equal(got, ell_round(lt, nt, wt, row0))
+
+
 # the dense kernels' tile edges: Q around the 128-query tile, N off the
 # 128-row tile, D off the MMA depth (8 floats, 32 int8 codes) and the
 # 16-byte copy, k across the lists of one, two and three registers a lane
