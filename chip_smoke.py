@@ -10,7 +10,7 @@ From the root of a checkout, with one card. In order:
    started together; prints each build's ``-Xptxas -v`` report. The
    recompile sentinel (``obs/recompile``) is on from here: it must count
    one build for each source whose library was not built yet, and none in
-   phases 5-11.
+   phases 5-15.
 3. Kernel vs plain: each kernel's wrapper (lp_round, the f32 top-k, the
    int8 top-k, the gathered top-k, the Hamming top-k, flash attention)
    against its plain PyTorch version on the card, at the main path's
@@ -43,7 +43,9 @@ From the root of a checkout, with one card. In order:
    least an f32-accurate one takes there; a Hamming distance W popcounts
    at the rate ``tools/mma_rate.popc_rate`` measures in this run); the
    f32 top-k also at a grid search's shape (256 queries over the rows of
-   the evaluation grid's uniform sample), the gathered kernel also at
+   the evaluation grid's uniform sample) and at the serving tick's (a full
+   bucket of 32 queries over a 1,048,576 x 768 tenant at k 16, checked in
+   phase 3 too), the gathered kernel also at
    Table I's probe, the Hamming kernel's three kernels and the flash
    kernel and ``scaled_dot_product_attention`` also by the profiler's
    device time a call; ``topk_merge`` alone on the f32 kernel's partial
@@ -80,7 +82,9 @@ From the root of a checkout, with one card. In order:
    stated rtol (cuBLAS and the CPU sum in other orders). The
    encoder: 5 training steps give losses within a stated rtol, the CPU's
    parameters embed within a stated tolerance on both, and
-   ``evaluate_sample`` on the CPU's embeddings gives equal results.
+   ``evaluate_sample`` on the CPU's embeddings gives equal results. The
+   serve CLI at its defaults (4096 x 64 a tenant): equal ``--single`` ids,
+   and equal completed, rejected, ticks and mean batch over a load of 256.
 9. Pipeline: ``core.run_windtunnel`` with a default ``WindTunnelConfig``
    on phase 5's corpus (its engine left to the card: the LP kernel, one
    launch a round), labels and entity mask equal bit for bit to a
@@ -124,9 +128,28 @@ From the root of a checkout, with one card. In order:
     changes and mask equal; exact, tfidf and lsh top-k set-equal; ivfflat
     recall against exact within ``SHARDED_RECALL_TOL`` of the 1-rank
     index's (distributed Lloyd sums in another order); int8 recall logged.
+15. Serving tier at full width: ``repro_torch.launch.serve``'s ``main`` in
+    process, tenants of 1,048,576 x 768 f32 (each drawn once on the host
+    and shared by the runs), buckets up to 32, k_max 16. 15a: 2 tenants,
+    4096 requests at rate inf, 256 rows appended to tenant-0 every 512
+    requests, compaction at 1024 pending (in the background): every
+    request completed or rejected, a compaction landed; then 64 fixed
+    queries on tenant-0 (256 rows more pending) through the scheduler equal
+    to ``LiveIndex.search_scored`` on the same batches, and held to an
+    exact plain f32 search over its frozen + pending rows (phase 3's bound,
+    ids equal away from near-ties). 15b: ``--single --k 5``, held the same
+    way. 15c: ``--recompile-check 64`` with no appends: no build, no launch
+    at a shape the warm-up did not launch, one ``topk_partial`` shape a
+    bucket in the warm-up. 15d: one tenant, 1024 requests with appends, on
+    ``--backend int8``, ``--engine ivfflat`` and ``--engine lsh`` (rerank
+    64): each launches its kernel. 15e: 15a's arguments at 1024 requests,
+    unsharded and ``--streamed --mesh host`` (a 1-rank NCCL group): the 64
+    queries give equal results bit for bit. Each run logs its ``--out`` row
+    (throughput, p50, p99), trace table, launches by shape, device ms and
+    allocator peak.
 
 Launch counts are set to 0 just before each main-path run (5, 6, 7, 9, 12,
-13) and
+13, 15's) and
 read just after; a kernel the run did not launch is a failure. No tuned
 table is active outside phase 10, whatever ``REPRO_TORCH_TUNED_KERNELS``
 names: a launch that resolves through one is a failure, so every other
@@ -175,6 +198,16 @@ TWO_RANK_QUERIES = 8192         # phase 14's corpora
 TWO_RANK_TIMEOUT = 600          # s, phase 14's two processes together
 SHARDED_RECALL_TOL = 0.01       # ivfflat recall@10 vs exact: 2 ranks vs 1
 PROFILE_TOP = 15                # functions listed per cProfile ordering
+SERVE_DOCS = 1_048_576          # a tenant's rows (MS MARCO's 8.8M passages,
+                                # cut for the host's corpus draw)
+SERVE_DIM = 768                 # BERT-base dense retrievers' width
+SERVE_BATCH = 32                # the serve CLI's --max-batch: its top bucket
+SERVE_KMAX = 16                 # --k-max: every tick's k
+SERVE_K = 10                    # --k: what each request asks for
+SERVE_REQUESTS = 4096           # phase 15a's load
+SERVE_SIDE_REQUESTS = 1024      # phases 15d and 15e
+SERVE_QUERIES = 64              # the fixed queries held to the direct and
+                                # the plain search
 
 
 # phase 14's child: one rank of two in a gloo group on the one card;
@@ -477,7 +510,18 @@ def check_topk(qs, cs, k: int):
     if k > k_eff and not (bool((i[:, k_eff:] == -1).all())
                           and bool(torch.isneginf(s[:, k_eff:]).all())):
         fail(f"topk misses are not -inf/-1 for {shape}")
-    s, i = s[:, :k_eff], i[:, :k_eff]
+    return compare_topk(qs, cs, s[:, :k_eff], i[:, :k_eff], s_ref, i_ref,
+                        shape)
+
+
+def compare_topk(qs, cs, s, i, s_ref, i_ref, shape: str):
+    """Hold top-k (scores, ids) to a plain f32 search's: scores within the
+    summation bound D * 2**-24 * sum_d |q_d c_d|, ids equal except where
+    an id differs at a near-tie (its exact score within twice that bound
+    of the plain one's). Returns the largest score error and its largest
+    ratio to the bound."""
+    import torch
+    d = cs.shape[1]
     mag = torch.einsum("qd,qkd->qk", qs.abs().double(),
                        cs[i_ref.long()].abs().double())
     tol = d * 2.0 ** -24 * mag + 1e-30
@@ -975,7 +1019,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/14] device: {name}; nvidia-smi: {smi}; "
+    log(f"[1/15] device: {name}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build -------------------------------------------------------------
@@ -993,7 +1037,7 @@ def main() -> None:
 
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_counted, sources))
-    log(f"[2/14] built {', '.join(sources)} in "
+    log(f"[2/15] built {', '.join(sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     if recompile.counts() != ({"phase 2": len(uncached)} if uncached
                               else {}):
@@ -1012,7 +1056,7 @@ def main() -> None:
     tuning.set_table(None)
     untuned_hits = REGISTRY.counter("tuning.resolve.hit").value
     main_shapes: dict = {}      # phases 5-7's launches by shape, for phase 10
-    log("[3/14] kernel vs plain")
+    log("[3/15] kernel vs plain")
     for n, k, quarter in [(1, 1, True), (37, 5, True), (513, 33, True),
                           (300, 70, False), (4096, 0, True),
                           (100_003, 32, True), (100_003, 32, False)]:
@@ -1065,11 +1109,18 @@ def main() -> None:
     for k in (3, 10):
         err, ratio = check_topk(tq, tc, k)
         topk_err, topk_ratio = max(topk_err, err), max(topk_ratio, ratio)
+    # the serving tick's shape (phase 15): a full bucket over a tenant
+    sq, sc = topk_inputs(SERVE_BATCH, SERVE_DOCS, SERVE_DIM, seed=17,
+                         negative=False, device=dev)
+    err, ratio = check_topk(sq, sc, SERVE_KMAX)
+    topk_err, topk_ratio = max(topk_err, err), max(topk_ratio, ratio)
     log(f"    topk_scores: within the summation bound at "
-        f"{len(topk_cases) + 8} shapes incl. two of magnitudes 2**-20..2**20, "
-        f"four with one operand's rows near 2**-120 (D=64, 2048) and "
-        f"Q=128 N=524288 D=2048 k=3,10; max |err| {topk_err:.3e} (unit "
-        f"magnitudes), at most {topk_ratio:.3f} of the bound")
+        f"{len(topk_cases) + 9} shapes incl. two of magnitudes 2**-20..2**20, "
+        f"four with one operand's rows near 2**-120 (D=64, 2048), "
+        f"Q=128 N=524288 D=2048 k=3,10 and the serving tick's Q={SERVE_BATCH} "
+        f"N={SERVE_DOCS} D={SERVE_DIM} k={SERVE_KMAX}; max |err| "
+        f"{topk_err:.3e} (unit magnitudes), at most {topk_ratio:.3f} of the "
+        f"bound")
     int8_cases = [(1, 1, 4, 1, False), (7, 513, 16, 5, True),
                   (33, 1000, 37, 8, False), (3, 5, 20, 9, True),
                   (5, 40, 8, 60, False), (9, 1000, 64, 100, True),
@@ -1235,7 +1286,7 @@ def main() -> None:
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
-    log("[4/14] times (CUDA events, after warm-up)")
+    log("[4/15] times (CUDA events, after warm-up)")
     labels, nbr, wgt, deg_sq = lp_main
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
@@ -1303,6 +1354,25 @@ def main() -> None:
         f"matmul+stable sort {gs_lib_ms:.4f} ms, bound {gs_bound:.4f} ms "
         f"({gs_by})")
     del grid_search, gq, gr
+    # and at the serving tick's shape (phase 15's exact ticks): a full
+    # bucket of 32 queries over a tenant's corpus at k_max; the kernel's
+    # 128-query block pads it, so this is where that waste shows
+    sv_n = SERVE_BATCH, SERVE_DOCS, SERVE_DIM
+    sv_ms = cuda_ms(lambda: topk_scores(sq, sc, k=SERVE_KMAX), 20)
+    sv_plain_ms = cuda_ms(lambda: topk_scores_ref(sq, sc, k=SERVE_KMAX), 5)
+    sv_lib_ms = cuda_ms(lambda: torch.sort(sq @ sc.T, dim=1, descending=True,
+                                           stable=True), 5)
+    sv_bytes = (sv_n[0] + sv_n[1]) * sv_n[2] * 4 + sv_n[0] * SERVE_KMAX * 8
+    sv_ops = 3 * 2.0 * sv_n[0] * sv_n[1] * sv_n[2]
+    sv_bound, sv_by = bound(sv_bytes, sv_ops, H100_TF32_FLOPS)
+    sv_terms = tuning.roofline(sv_bytes, sv_ops, H100_TF32_FLOPS)
+    log(f"    topk_scores at the serving tick Q={sv_n[0]} N={sv_n[1]} "
+        f"D={sv_n[2]} k={SERVE_KMAX}: kernel {sv_ms:.4f} ms, plain "
+        f"{sv_plain_ms:.4f} ms, matmul+stable sort {sv_lib_ms:.4f} ms, "
+        f"bound {sv_bound:.4f} ms ({sv_by}; bytes term "
+        f"{sv_terms['memory_ms']:.4f}, operations term "
+        f"{sv_terms['compute_ms']:.4f} ms)")
+    del sq, sc
     log(f"    topk_scores_int8 Q={qn} N={n_c} D={d} k={k_i}: kernel "
         f"{i8_ms:.4f} ms, plain {i8_plain_ms:.4f} ms, _int_mm+stable sort "
         f"{i8_lib_ms:.4f} ms, bound {i8_bound:.4f} ms ({i8_by})")
@@ -1482,7 +1552,7 @@ def main() -> None:
     sample_corpus = corpus_seen.results["corpus"]
     sample_stats, sample_wall = stats, wall
     del corpus_seen
-    log(f"[5/14] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
+    log(f"[5/15] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
         f"{stats['communities']} communities, changes/round "
         f"{stats['changes_per_round']}, {stats['entities']} entities "
         f"sampled")
@@ -1526,7 +1596,7 @@ def main() -> None:
             "--json", os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     cells = out["grid"]["cells"]
     eval_out, eval_wall = out, wall
-    log(f"[6/14] evaluation: {wall:.2f} s wall, {len(cells)} cells")
+    log(f"[6/15] evaluation: {wall:.2f} s wall, {len(cells)} cells")
     eval_launches = read_counts(kernels, "evaluation", main_shapes)
     trace.disable()
     # the Hamming kernel at each shape the grid launched it at
@@ -1561,7 +1631,7 @@ def main() -> None:
     from repro_torch.retrieval.experiment import run_table1_experiment
     t0 = time.perf_counter()
     t1_corpus = eval_corpus(EVAL_QUERIES, 2048, embed=False)
-    log(f"[7/14] Table I corpus: {t1_corpus.num_entities} entities, "
+    log(f"[7/15] Table I corpus: {t1_corpus.num_entities} entities, "
         f"{t1_corpus.num_queries} queries, passages "
         f"{t1_corpus.passage_tokens.shape[1]} tokens, queries "
         f"{t1_corpus.query_tokens.shape[1]}, vocab {t1_corpus.vocab_size} "
@@ -1760,8 +1830,35 @@ def main() -> None:
         f"{float(np.abs(loss_g / loss_c - 1).max()):.2e}), embeddings "
         f"within rtol {rtol} atol {atol} (max |diff| {emb_err:.3e}), "
         f"evaluate_sample equal on 3 samples, on cuda and cpu")
-    log("[8/14] small inputs: sample.npz, grid cells and the encoder's "
-        "results equal (or within the stated tolerance) on cuda and cpu")
+    # the serve CLI at the reference's defaults (4096 x 64 a tenant): one
+    # query, then a load of 256 requests, on the card and on the CPU
+    from repro_torch.launch import serve as serve_cli
+    small_serve = {}
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        for where in ("cuda", "cpu"):
+            outs = [os.path.join(tmp, f"{where}_{run}.json")
+                    for run in ("single", "load")]
+            for argv, out in ((["--single"], outs[0]), ([], outs[1])):
+                if serve_cli.main(argv + ["--device", where, "--quiet",
+                                          "--out", out]) != 0:
+                    fail(f"small serve CLI {argv} on {where} exited nonzero")
+            small_serve[where] = [json.load(open(out)) for out in outs]
+    (g_single, g_load), (c_single, c_load) = (small_serve["cuda"],
+                                              small_serve["cpu"])
+    if g_single["ids"] != c_single["ids"]:
+        fail(f"small serve --single: ids {g_single['ids']} on cuda, "
+             f"{c_single['ids']} on cpu")
+    for key in ("completed", "rejected", "ticks", "mean_batch"):
+        if g_load[key] != c_load[key]:
+            fail(f"small serve load: {key} {g_load[key]} on cuda, "
+                 f"{c_load[key]} on cpu")
+    log(f"    serve CLI at its defaults: --single ids {g_single['ids']} on "
+        f"both; load of 256: completed {g_load['completed']}, rejected "
+        f"{g_load['rejected']}, ticks {g_load['ticks']}, mean batch "
+        f"{g_load['mean_batch']} on both")
+    log("[8/15] small inputs: sample.npz, grid cells, the encoder's and the "
+        "serve CLI's results equal (or within the stated tolerance) on cuda "
+        "and cpu")
 
     # 9. the legacy pipeline at full width -----------------------------------
     # run_windtunnel with a default WindTunnelConfig (engine None: the
@@ -1803,7 +1900,7 @@ def main() -> None:
             sample_corpus.num_entities, prng.prng_key(0), rate=0.15,
             device="cuda")):
         fail("run_uniform_baseline's mask != uniform_sample's")
-    log(f"[9/14] run_windtunnel (engine {session.spec.engine}, "
+    log(f"[9/15] run_windtunnel (engine {session.spec.engine}, "
         f"{sample_corpus.num_entities} entities): {wt_wall:.2f} s wall, "
         f"{int(wt.sample.entity_mask.sum())} entities sampled; labels and "
         f"entity_mask equal to the session's bit for bit; "
@@ -1828,7 +1925,7 @@ def main() -> None:
                      for kernel, dt in traffic
                      for bucket in ("le65536", "gt65536")
                      if (kernel, bucket, dt) not in table.entries)
-    log(f"[10/14] autotune (topk float32/int8, hamming_topk; le65536, "
+    log(f"[10/15] autotune (topk float32/int8, hamming_topk; le65536, "
         f"gt65536) over phases 5-7's launches in "
         f"{time.perf_counter() - t0:.1f} s; {smi}; cells the main path "
         f"never launched, so left untuned: {', '.join(untuned) or 'none'}; "
@@ -1908,7 +2005,7 @@ def main() -> None:
     # 11. where the host time goes ----------------------------------------
     # the two CLIs once more at the timed runs' sizes, under cProfile (the
     # timed runs above stay unprofiled)
-    log("[11/14] host time: the sampling and evaluation CLIs under cProfile")
+    log("[11/15] host time: the sampling and evaluation CLIs under cProfile")
     with tempfile.TemporaryDirectory(dir=OUT) as tmp, \
             recompile.region("phase 11"):
         profile_top("sampling", lambda: run_sample(
@@ -1937,7 +2034,7 @@ def main() -> None:
             "--streamed", "--mesh", "host", "--out",
             os.path.join(OUT, "sample_streamed"), "--trace", streamed_trace])
     trace.disable()
-    log(f"[12/14] streamed sampling (1-rank NCCL mesh, "
+    log(f"[12/15] streamed sampling (1-rank NCCL mesh, "
         f"{dist.get_backend()}): {sh_wall:.2f} s wall (phase 5: "
         f"{sample_wall:.2f} s), changes/round "
         f"{sh_stats['changes_per_round']}")
@@ -2003,7 +2100,7 @@ def main() -> None:
             os.path.join(OUT, "eval_streamed.json"), "--trace",
             streamed_eval_trace])
     trace.disable()
-    log(f"[13/14] streamed evaluation (1-rank NCCL mesh): "
+    log(f"[13/15] streamed evaluation (1-rank NCCL mesh): "
         f"{sh_eval_wall:.2f} s wall (phase 6: {eval_wall:.2f} s), "
         f"{len(sh_out['grid']['cells'])} cells")
     sh_eval_launches = read_counts(kernels, "streamed evaluation")
@@ -2052,7 +2149,7 @@ def main() -> None:
                 p.kill()
                 p.wait()
     two_wall = time.perf_counter() - t0
-    log(f"[14/14] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
+    log(f"[14/15] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
         f"{two_wall:.2f} s wall, both processes")
     reports = []
     for r, (p, text) in enumerate(zip(procs, outs)):
@@ -2080,12 +2177,231 @@ def main() -> None:
                reports[1]["sampling"]["lp_round"]["shapes"]):
         fail("phase 14: rank 1's lp_round launches ran at row0 0")
 
+    # 15. the retrieval serving tier at full width ---------------------------
+    # every run through the serve CLI's main(argv) in-process, tenants of
+    # 1,048,576 x 768 f32 (3.2 GB a tenant on the card); each tenant's
+    # corpus is drawn once on the host and shared by the runs (about 8 s of
+    # numpy a tenant), the draw the CLI's provider makes
+    from repro_torch.launch import serve as serve_cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    drawn: dict = {}
+    draw_corpus = serve_cli._tenant_corpus
+
+    def shared_corpus(tenant, **kw):
+        key = (tenant, tuple(sorted(kw.items())))
+        if key not in drawn:
+            drawn[key] = draw_corpus(tenant, **kw)
+        return drawn[key]
+
+    serve_cli._tenant_corpus = shared_corpus
+    serve_base = ["--docs", str(SERVE_DOCS), "--dim", str(SERVE_DIM),
+                  "--k", str(SERVE_K), "--k-max", str(SERVE_KMAX), "--max-batch",
+                  str(SERVE_BATCH), "--rate", "inf", "--device", "cuda"]
+    ingest_args = ["--append-every", "512", "--append-rows", "256",
+                   "--append-cap", "256", "--compact-threshold", "1024"]
+    load_15a = serve_base + ["--engine", "exact", "--backend", "cuda",
+                             "--tenants", "2", "--max-tenants", "2"] \
+        + ingest_args
+    serve_launches = collections.Counter()
+    serve_rows: dict = {}
+
+    def run_serve(label: str, argv: list):
+        """One serve CLI run: its --out row, launches by shape and device ms,
+        trace table and allocator peak; returns (row, launches, server)."""
+        out = os.path.join(OUT, f"serve_{label}.json")
+        path = os.path.join(OUT, f"serve_{label}_trace.jsonl")
+        for f in (out, path):
+            if os.path.exists(f):
+                os.remove(f)
+        compactions0 = REGISTRY.counter("serve.ingest.compactions").value
+        reset_counts(kernels)
+        reset_memory()
+        t0 = time.perf_counter()
+        with Capture(serve_cli, "build_server", lambda args: "server") \
+                as built, recompile.region("phase 15"):
+            rc = serve_cli.main(argv + ["--out", out, "--trace", path])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trace.disable()
+        if rc != 0:
+            fail(f"phase 15{label}: the serve CLI exited {rc}")
+        row = json.load(open(out))
+        row["compactions"] = int(
+            REGISTRY.counter("serve.ingest.compactions").value - compactions0)
+        serve_rows[label] = row
+        log(f"    15{label}: {wall:.2f} s wall; row {json.dumps(row)}")
+        launched = read_counts(kernels, f"15{label}")
+        serve_launches.update(launched)
+        log_trace(path, wall)
+        check_no_build("phase 15")
+        check_untuned("phase 15", untuned_hits)
+        return row, launched, built.results["server"]
+
+    def need(label: str, launched: dict, names) -> None:
+        for kname in names:
+            if launched[kname] == 0:
+                fail(f"phase 15{label} launched no {kname} kernel")
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:     # numpy draws without the GIL
+        list(pool.map(lambda t: shared_corpus(t, docs=SERVE_DOCS,
+                                              dim=SERVE_DIM, seed=0),
+                      ("tenant-0", "tenant-1")))
+    log(f"[15/15] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
+        f"(two drawn on the host in {time.perf_counter() - t0:.2f} s, "
+        f"two threads, before the runs), buckets up to {SERVE_BATCH}, "
+        f"k_max {SERVE_KMAX}; {smi}")
+    # 15a: the load with live ingest and background compactions
+    row, launched, server = run_serve(
+        "a", load_15a + ["--requests", str(SERVE_REQUESTS)])
+    if row["completed"] + row["rejected"] != SERVE_REQUESTS:
+        fail(f"15a: completed + rejected = "
+             f"{row['completed'] + row['rejected']} of {SERVE_REQUESTS}")
+    if row["compactions"] < 1:
+        fail("15a: no compaction landed (serve.ingest.compactions 0)")
+    need("a", launched, ("topk_partial", "topk_merge"))
+    # 64 fixed queries on tenant-0 after its appends (and 256 rows more,
+    # so the append buffer takes part): the scheduler's results equal a
+    # direct LiveIndex search of the same batch of 32, and an exact search
+    # in plain f32 over its frozen + pending rows
+    live = server.tenants.get("tenant-0")
+    server.append("tenant-0", np.random.default_rng(2023).normal(
+        size=(256, SERVE_DIM)).astype(np.float32))     # pending: the buffer
+    qs = np.random.default_rng(2024).normal(
+        size=(SERVE_QUERIES, SERVE_DIM)).astype(np.float32)
+
+    def served(srv):
+        got = []
+        for b0 in range(0, SERVE_QUERIES, SERVE_BATCH):
+            reqs = [srv.submit(q, k=SERVE_K, tenant="tenant-0")
+                    for q in qs[b0:b0 + SERVE_BATCH]]
+            srv.drain()
+            got += [r.result(timeout=0) for r in reqs]
+        return (np.stack([s for s, _ in got]), np.stack([i for _, i in got]))
+
+    s_srv, i_srv = served(server)
+    for b0 in range(0, SERVE_QUERIES, SERVE_BATCH):
+        ds, di = live.search_scored(qs[b0:b0 + SERVE_BATCH], k=SERVE_KMAX)
+        if not (np.array_equal(ds[:, :SERVE_K], s_srv[b0:b0 + SERVE_BATCH])
+                and np.array_equal(di[:, :SERVE_K], i_srv[b0:b0 + SERVE_BATCH])):
+            fail("15a: the scheduler's results != LiveIndex.search_scored")
+    rows_t = torch.from_numpy(np.concatenate([live._host, live._pending]))
+    rows_t = rows_t.to(dev)
+    qs_t = torch.from_numpy(qs).to(dev)
+    plain_s = qs_t @ rows_t.T
+    plain_i = torch.sort(plain_s, dim=1, descending=True,
+                         stable=True).indices[:, :SERVE_K]
+    plain_s = torch.gather(plain_s, 1, plain_i)
+    err, ratio = compare_topk(qs_t, rows_t, torch.from_numpy(s_srv).to(dev),
+                              torch.from_numpy(i_srv).to(dev), plain_s,
+                              plain_i.to(torch.int32), "15a served")
+    log(f"    15a: {SERVE_QUERIES} queries on tenant-0 ({live.frozen_n} "
+        f"frozen + {live.pending_rows} pending rows): equal to "
+        f"LiveIndex.search_scored; ids equal to a plain f32 search away "
+        f"from near-ties, scores within the bound (max |err| {err:.3e}, "
+        f"{ratio:.3f} of it)")
+    del server, live, rows_t, qs_t, plain_s, plain_i
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15b: one query against a warm single-tenant server
+    row, launched, server = run_serve(
+        "b", serve_base + ["--engine", "exact", "--backend", "cuda",
+                           "--single", "--k", "5"])
+    need("b", launched, ("topk_partial", "topk_merge"))
+    q1 = np.random.default_rng(1).normal(size=(SERVE_DIM,)).astype(
+        np.float32)
+    c0 = torch.from_numpy(shared_corpus("tenant-0", docs=SERVE_DOCS,
+                                        dim=SERVE_DIM, seed=0)).to(dev)
+    q1_t = torch.from_numpy(q1)[None].to(dev)
+    p1 = q1_t @ c0.T
+    p1_i = torch.sort(p1, dim=1, descending=True, stable=True).indices[:, :5]
+    compare_topk(q1_t, c0, torch.tensor([row["scores"]], device=dev),
+                 torch.tensor([row["ids"]], dtype=torch.int32, device=dev),
+                 torch.gather(p1, 1, p1_i), p1_i.to(torch.int32),
+                 "15b --single")
+    log(f"    15b --single --k 5: ids {row['ids']}, scores "
+        f"{[round(x, 4) for x in row['scores']]}; held to a plain f32 "
+        f"search")
+    del server, c0, q1_t, p1, p1_i
+    gc.collect()
+
+    # 15c: steady state launches no new shape and builds no kernel
+    row, launched, server = run_serve(
+        "c", serve_base + ["--engine", "exact", "--backend", "cuda",
+                           "--requests", "256", "--recompile-check", "64"])
+    buckets = server.scheduler.config.bucket_set()
+    if row["steady_recompiles"] or row["steady_new_shapes"]:
+        fail(f"15c: {row['steady_recompiles']} builds and "
+             f"{row['steady_new_shapes']} launches at a new shape in "
+             f"steady state")
+    if row["warmup_shapes"].get("topk_partial") != len(buckets):
+        fail(f"15c: the warm-up launched topk_partial at "
+             f"{row['warmup_shapes'].get('topk_partial')} shapes, one a "
+             f"bucket is {len(buckets)}")
+    log(f"    15c: {row['steady_ticks']} steady ticks, 0 builds, 0 launches "
+        f"at a new shape; warm-up shapes {row['warmup_shapes']} over "
+        f"buckets {buckets}")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15d: one tenant with live ingest through each other kernel
+    side = serve_base + ["--requests", str(SERVE_SIDE_REQUESTS),
+                         "--tenants", "1"] + ingest_args
+    for label, extra, kname in (
+            ("d-int8", ["--engine", "exact", "--backend", "int8"],
+             "topk_int8_partial"),
+            ("d-ivfflat", ["--engine", "ivfflat"], "gathered_tiles"),
+            ("d-lsh", ["--engine", "lsh", "--engine-opts",
+                       '{"rerank": 64}'], "hamming_topk")):
+        row, launched, server = run_serve(label, side + extra)
+        if row["completed"] + row["rejected"] != SERVE_SIDE_REQUESTS:
+            fail(f"15{label}: completed + rejected != "
+                 f"{SERVE_SIDE_REQUESTS}")
+        need(label, launched, (kname,))
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 15e: 15a's arguments at 1024 requests, unsharded and then streamed on
+    # a 1-rank NCCL mesh: 15a's 64 queries give equal results bit for bit
+    load_15e = load_15a + ["--requests", str(SERVE_SIDE_REQUESTS)]
+    row, launched, unsharded = run_serve("e-single", load_15e)
+    need("e-single", launched, ("topk_partial", "topk_merge"))
+    row, launched, streamed = run_serve(
+        "e-streamed", load_15e + ["--streamed", "--mesh", "host"])
+    need("e-streamed", launched, ("topk_partial", "topk_merge"))
+    live_s = streamed.tenants.get("tenant-0")
+    if not (live_s.config.streamed and live_s._groups is not None):
+        fail("15e: tenant-0 is not a streamed LiveIndex")
+    a, b = served(unsharded), served(streamed)
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        fail("15e: the streamed server's results != the unsharded one's")
+    log(f"    15e: {SERVE_QUERIES} queries on tenant-0 ({live_s.frozen_n} "
+        f"frozen + {live_s.pending_rows} pending rows): streamed equal to "
+        f"unsharded bit for bit ({dist.get_backend()} group)")
+    del unsharded, streamed, live_s, a, b
+    dist.destroy_process_group()
+    serve_cli._tenant_corpus = draw_corpus
+    drawn.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, r in serve_rows.items():
+        if "throughput_rps" in r:
+            log(f"    15{label}: throughput {r['throughput_rps']} req/s, p50 "
+                f"{r['p50_s'] * 1e3:.3f} ms, p99 {r['p99_s'] * 1e3:.3f} ms, "
+                f"mean batch {r['mean_batch']}, {r['compactions']} "
+                f"compaction(s); {smi}")
+
     def launches(kname: str) -> int:
         """A kernel's launches over the main-path runs (phases 5-7, 12,
-        13)."""
+        13, 15)."""
         return (sample_launches[kname] + eval_launches[kname]
                 + t1_launches[kname] + sh_launches[kname]
-                + leg_launches[kname] + sh_eval_launches[kname])
+                + leg_launches[kname] + sh_eval_launches[kname]
+                + serve_launches[kname])
 
     table = {"kernels": [
         {"name": "lp_round", "route": "cuda",

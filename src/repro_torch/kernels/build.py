@@ -34,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_KERNELS: list = []     # every Kernel made, in the order the ops modules
+                        # made them at import
 
 
 def nvcc_path() -> str:
@@ -107,6 +109,9 @@ class Kernel:
     _fn: object = dataclasses.field(default=None, repr=False)
     timed: ClassVar[Optional[list]] = None
 
+    def __post_init__(self) -> None:
+        _KERNELS.append(self)
+
     def __call__(self, *args) -> None:
         """Launch on the current CUDA stream; raise on a launch error."""
         import torch
@@ -135,3 +140,9 @@ class Kernel:
         self.launches += 1
         self.shapes[tuple(a for a, t in zip(args, self.argtypes)
                           if t is ctypes.c_int)] += 1
+
+
+def kernels() -> tuple:
+    """Every :class:`Kernel` made so far: those of each ops module that
+    has been imported (``launch/serve.py`` reads their launch shapes)."""
+    return tuple(_KERNELS)

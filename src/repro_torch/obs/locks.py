@@ -2,8 +2,8 @@
 §15): runtime complement to the ``conc-lock-order`` static rule.
 
 :func:`make_lock` / :func:`make_rlock` are what the serving tier uses to
-create its locks (``serve/`` in the reference; in the port it waits for
-ROADMAP queue 1 item 13).  In production they return plain
+create its locks (``repro_torch/serve/``: the scheduler's queue, the
+tenant cache, the live index).  In production they return plain
 ``threading`` primitives — zero overhead.  With ``REPRO_DEBUG_LOCKS=1``
 (or after :func:`enable`) they return :class:`DebugLock` wrappers that
 record, per acquisition:

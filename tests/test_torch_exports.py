@@ -39,6 +39,7 @@ NOT_YET_PORTED = {
     "obs": {},
     "eval": {},
     "distributed": {},
+    "serve": {"ServeEngine": 15, "ServeConfig": 15, "RagEngine": 15},
 }
 
 
@@ -58,9 +59,14 @@ def test_package_all_is_the_references_less_the_named_rest(pkg):
 
 def test_reexports_are_the_modules_objects():
     from repro_torch.retrieval import SearchSession, search_core
+    from repro_torch.serve import (LiveIndex, MicrobatchScheduler,
+                                   SearchServer, engine, ingest, scheduler)
     from repro_torch.train import AdamWConfig, optimizer
     assert SearchSession is search_core.SearchSession
     assert AdamWConfig is optimizer.AdamWConfig
+    assert SearchServer is engine.SearchServer
+    assert LiveIndex is ingest.LiveIndex
+    assert MicrobatchScheduler is scheduler.MicrobatchScheduler
 
 
 # -- label propagation ---------------------------------------------------------

@@ -588,3 +588,49 @@ def test_flash_kernel_counts_launches_and_raises_on_launch_error(cuda):
                                       cuda))
     with pytest.raises(RuntimeError, match="no gradient"):
         flash_attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.parametrize("engine,backend", [("exact", "cuda"),
+                                            ("exact", "int8"),
+                                            ("tfidf", "cuda")])
+def test_live_index_on_card_matches_cpu_plain_path(cuda, engine, backend):
+    """The serving tier's live index on the card (the frozen side through
+    the dense kernels, the append buffer a full-f32 matmul) against the
+    same appends on the CPU's plain path, before and after a background
+    compaction: scores within the summation tolerance, ids equal away from
+    near-ties."""
+    from repro_torch.retrieval.search_core import SearchConfig
+    from repro_torch.serve import IngestConfig, LiveIndex
+    rng = np.random.default_rng(11)
+    rows = rng.standard_normal((3300, 64)).astype(np.float32)
+    if engine == "tfidf":
+        rows = np.where(rows > 0.8, rows, 0.0).astype(np.float32)
+    base, extra, q = rows[:3000], rows[3000:], rows[:37] + 0.05
+    ingest = IngestConfig(append_cap=64, compact_threshold=10 ** 9)
+    cfg = SearchConfig(engine=engine, backend=backend)
+    card = LiveIndex(base, cfg, ingest=ingest, device=cuda)
+    plain = LiveIndex(base, SearchConfig(
+        engine=engine, backend="int8" if backend == "int8" else "torch"),
+        ingest=ingest, device="cpu")
+    launches0 = TOPK_PARTIAL.launches + TOPK_INT8_PARTIAL.launches
+    for li in (card, plain):
+        li.append(extra[:100])
+        li.append(extra[100:])
+    tol = 1e-4 * 64 ** 0.5
+
+    def check():
+        (cs, ci), (ps, pi) = (li.search_scored(q, k=16)
+                              for li in (card, plain))
+        np.testing.assert_allclose(cs, ps, rtol=1e-5, atol=tol)
+        diff = ci != pi
+        if diff.any():
+            gaps = np.abs(np.diff(ps, axis=1)).min(axis=1)
+            assert (gaps[diff.any(axis=1)] <= 2 * tol).all()
+
+    check()
+    assert card.compact(background=True, wait=True)
+    assert plain.compact(background=False)
+    assert card.pending_rows == plain.pending_rows == 0
+    assert card.frozen_n == plain.frozen_n == 3300
+    check()
+    assert TOPK_PARTIAL.launches + TOPK_INT8_PARTIAL.launches > launches0

@@ -492,6 +492,39 @@ got = coll.all_gather(torch.tensor([rank, rank]), mesh, ("data", "model"))
 assert got.tolist() == [0, 0, 1, 1]
 piece = coll.psum_scatter_then_gather(torch.arange(4.0), mesh, "data")
 assert piece.tolist() == ([0.0, 2.0] if rank == 0 else [4.0, 6.0])
+
+# live ingest: a streamed LiveIndex with appends and background compactions
+# (their collectives on the index's own group, each landed once both ranks
+# built it) answers set-equal to a single-device one after every append
+from repro_torch.obs.metrics import Registry
+from repro_torch.serve import IngestConfig, LiveIndex
+for engine in ("exact", "tfidf"):
+    rows = np.abs(rng.standard_normal((97 + 60, 16))).astype(np.float32)
+    if engine == "tfidf":
+        rows[rows < 0.8] = 0.0
+    else:
+        rows -= 0.7
+    base, extra, q = rows[:97], rows[97:], rows[:5] + 0.01
+    reg = Registry()
+    born = LiveIndex(base, SearchConfig(engine=engine, streamed=True,
+                                        mesh=mesh),
+                     ingest=IngestConfig(append_cap=8, compact_threshold=18),
+                     registry=reg, **cpu)
+    one = LiveIndex(base, SearchConfig(engine=engine),
+                    ingest=IngestConfig(append_cap=8, compact_threshold=18,
+                                        background=False), **cpu)
+    for i in range(0, 60, 6):
+        for li in (born, one):
+            li.append(extra[i:i + 6])
+        for _ in range(2):
+            a = np.sort(born.search(q, k=7), 1)
+            b = np.sort(one.search(q, k=7), 1)
+            assert np.array_equal(a, b), (engine, i, a, b)
+    born.flush()
+    assert born.n == one.n == 157
+    assert reg.counter("serve.ingest.compactions").value >= 1
+    assert np.array_equal(np.sort(born.search(q, k=7), 1),
+                          np.sort(one.search(q, k=7), 1))
 print("TWO-RANK-OK", rank)
 """
 
@@ -500,7 +533,8 @@ def test_two_ranks_gloo(tmp_path):
     """Two processes in one gloo group: labels bit-equal to one rank, every
     engine's top-k set-equal at the reference's options (int8 on the born
     plan), uneven / tiny / all-negative padding, the compressed
-    all-reduce's mean."""
+    all-reduce's mean, and a streamed live index with appends and
+    background compactions set-equal to a single-device one."""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH",
