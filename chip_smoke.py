@@ -134,7 +134,8 @@ From the root of a checkout, with one card. In order:
     4096 requests at rate inf, 256 rows appended to tenant-0 every 512
     requests, compaction at 1024 pending (in the background): every
     request completed or rejected, a compaction landed; then 64 fixed
-    queries on tenant-0 (256 rows more pending) through the scheduler equal
+    queries on tenant-0 (256 rows more pending, no compaction in flight:
+    one state on both sides) through the scheduler equal
     to ``LiveIndex.search_scored`` on the same batches, and held to an
     exact plain f32 search over its frozen + pending rows (phase 3's bound,
     ids equal away from near-ties). 15b: ``--single --k 5``, held the same
@@ -142,7 +143,12 @@ From the root of a checkout, with one card. In order:
     at a shape the warm-up did not launch, one ``topk_partial`` shape a
     bucket in the warm-up. 15d: one tenant, 1024 requests with appends, on
     ``--backend int8``, ``--engine ivfflat`` and ``--engine lsh`` (rerank
-    64): each launches its kernel. 15e: 15a's arguments at 1024 requests,
+    64): each launches its kernel, which is held to its plain version on
+    the run's own inputs at every shape the run called its wrapper at; the
+    64 queries (256 rows more pending) through the scheduler equal
+    ``LiveIndex.search_scored``, and equal (int8, Hamming) or agree within
+    phase 3's bound away from near-ties (gathered) with the same
+    ``LiveIndex`` search through the plain versions. 15e: 15a's arguments at 1024 requests,
     unsharded and ``--streamed --mesh host`` (a 1-rank NCCL group): the 64
     queries give equal results bit for bit. Each run logs its ``--out`` row
     (throughput, p50, p99), trace table, launches by shape, device ms and
@@ -165,6 +171,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import re
@@ -948,6 +955,47 @@ class Capture:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class PlainKernels:
+    """Within ``with``, the int8, gathered and Hamming wrappers that the
+    retrieval engines call run their plain versions, on the card's tensors
+    (what the wrappers run on the CPU's)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.lsh_hamming import ops as lsh_ops
+        from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
+        from repro_torch.kernels.topk_scoring import ops as topk_ops
+        from repro_torch.kernels.topk_scoring import ref as topk_ref
+        pad = topk_ref.pad_topk
+
+        def int8(q, c, *, k, split_blocks=None):
+            return pad(*topk_ref.topk_scores_int8_ref(
+                q, c, k=min(k, c.shape[0])), k)
+
+        def gathered(q, table, rows, ids, *, k):
+            return pad(*topk_ref.gathered_topk_ref(
+                q, table, rows, ids, k=min(k, ids.shape[1])), k)
+
+        def hamming(q, c, *, k, split_blocks=None):
+            return pad(*hamming_topk_ref(q, c, k=min(k, c.shape[0])), k)
+
+        self.swaps = [(topk_ops, "topk_scores_int8", int8),
+                      (topk_ops, "gathered_topk", gathered),
+                      (lsh_ops, "hamming_topk", hamming)]
+        self.orig = [getattr(m, n) for m, n, _ in self.swaps]
+        for m, n, fn in self.swaps:
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), fn in zip(self.swaps, self.orig):
+            setattr(m, n, fn)
+
+
+def shapes_key(*args, **kwargs):
+    """A call's key for :class:`Capture`: its tensors' shapes and its k."""
+    return (tuple(tuple(a.shape) for a in args), kwargs.get("k"))
 
 
 def run_sample(argv):
@@ -2262,16 +2310,44 @@ def main() -> None:
         fail("15a: no compaction landed (serve.ingest.compactions 0)")
     need("a", launched, ("topk_partial", "topk_merge"))
     # 64 fixed queries on tenant-0 after its appends (and 256 rows more,
-    # so the append buffer takes part): the scheduler's results equal a
-    # direct LiveIndex search of the same batch of 32, and an exact search
-    # in plain f32 over its frozen + pending rows
-    live = server.tenants.get("tenant-0")
-    server.append("tenant-0", np.random.default_rng(2023).normal(
-        size=(256, SERVE_DIM)).astype(np.float32))     # pending: the buffer
+    # so the append buffer takes part, with no compaction in flight): the
+    # scheduler's results equal a direct LiveIndex search of the same batch
+    # of 32, and an exact search in plain f32 over its frozen + pending rows
     qs = np.random.default_rng(2024).normal(
         size=(SERVE_QUERIES, SERVE_DIM)).astype(np.float32)
 
+    def with_buffer(srv):
+        """tenant-0 after its appends, with 256 rows more pending in its
+        append buffer and no compaction in flight, so that one state is
+        searched by every side of a comparison: an in-flight compaction is
+        landed first, and pending rows that 256 more would carry past the
+        threshold are folded in the foreground."""
+        live = srv.tenants.get("tenant-0")
+        srv.flush()
+        if live.pending_rows + 256 >= live.ingest.compact_threshold:
+            live.compact(background=False)
+        srv.append("tenant-0", np.random.default_rng(2023).normal(
+            size=(256, SERVE_DIM)).astype(np.float32))
+        if live._compactor is not None or live.pending_rows < 256:
+            fail("tenant-0: a compaction is in flight or its 256 appended "
+                 "rows are not pending")
+        return live
+
+    def direct(live, plain: bool = False):
+        """LiveIndex.search_scored of the fixed queries in batches of a full
+        bucket at k_max, cut to k; with the plain int8, gathered and
+        Hamming versions in place of their kernels when ``plain``."""
+        got = []
+        with PlainKernels() if plain else contextlib.nullcontext():
+            for b0 in range(0, SERVE_QUERIES, SERVE_BATCH):
+                s_, i_ = live.search_scored(qs[b0:b0 + SERVE_BATCH],
+                                            k=SERVE_KMAX)
+                got.append((s_[:, :SERVE_K], i_[:, :SERVE_K]))
+        return (np.concatenate([s_ for s_, _ in got]),
+                np.concatenate([i_ for _, i_ in got]))
+
     def served(srv):
+        srv.flush()
         got = []
         for b0 in range(0, SERVE_QUERIES, SERVE_BATCH):
             reqs = [srv.submit(q, k=SERVE_K, tenant="tenant-0")
@@ -2280,12 +2356,11 @@ def main() -> None:
             got += [r.result(timeout=0) for r in reqs]
         return (np.stack([s for s, _ in got]), np.stack([i for _, i in got]))
 
+    live = with_buffer(server)
     s_srv, i_srv = served(server)
-    for b0 in range(0, SERVE_QUERIES, SERVE_BATCH):
-        ds, di = live.search_scored(qs[b0:b0 + SERVE_BATCH], k=SERVE_KMAX)
-        if not (np.array_equal(ds[:, :SERVE_K], s_srv[b0:b0 + SERVE_BATCH])
-                and np.array_equal(di[:, :SERVE_K], i_srv[b0:b0 + SERVE_BATCH])):
-            fail("15a: the scheduler's results != LiveIndex.search_scored")
+    ds, di = direct(live)
+    if not (np.array_equal(ds, s_srv) and np.array_equal(di, i_srv)):
+        fail("15a: the scheduler's results != LiveIndex.search_scored")
     rows_t = torch.from_numpy(np.concatenate([live._host, live._pending]))
     rows_t = rows_t.to(dev)
     qs_t = torch.from_numpy(qs).to(dev)
@@ -2347,21 +2422,75 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 15d: one tenant with live ingest through each other kernel
+    # 15d: one tenant with live ingest through each other kernel. Each
+    # kernel is held to its plain version on the run's own inputs, at every
+    # shape the run called its wrapper at; then the fixed queries, with 256
+    # rows more in the append buffer: the scheduler's results equal
+    # LiveIndex.search_scored, and equal (int8, Hamming: exact integer
+    # scans) or agree within the summation bound away from near-ties
+    # (gathered) with the same search run through the plain versions
+    from repro_torch.kernels.lsh_hamming import ops as lsh_ops
+    from repro_torch.kernels.topk_scoring import ops as topk_ops
     side = serve_base + ["--requests", str(SERVE_SIDE_REQUESTS),
                          "--tenants", "1"] + ingest_args
-    for label, extra, kname in (
+
+    def hold_to_plain(kname: str, calls, id_vecs) -> None:
+        """Each captured wrapper call (args, kwargs) against its plain
+        version (a function, so no reference to its inputs outlives it)."""
+        for args, kw in calls:
+            if kname == "topk_int8_partial":
+                check_topk_int8(*args, **kw)
+            elif kname == "gathered_tiles":
+                check_gathered(*args, kw["k"], id_vecs)
+            else:
+                check_hamming(*args, **kw)
+
+    for label, extra, kname, wrapper in (
             ("d-int8", ["--engine", "exact", "--backend", "int8"],
-             "topk_int8_partial"),
-            ("d-ivfflat", ["--engine", "ivfflat"], "gathered_tiles"),
+             "topk_int8_partial", (topk_ops, "topk_scores_int8")),
+            ("d-ivfflat", ["--engine", "ivfflat"], "gathered_tiles",
+             (topk_ops, "gathered_topk")),
             ("d-lsh", ["--engine", "lsh", "--engine-opts",
-                       '{"rerank": 64}'], "hamming_topk")):
-        row, launched, server = run_serve(label, side + extra)
+                       '{"rerank": 64}'], "hamming_topk",
+             (lsh_ops, "hamming_topk"))):
+        with Capture(*wrapper, shapes_key) as seen:
+            row, launched, server = run_serve(label, side + extra)
         if row["completed"] + row["rejected"] != SERVE_SIDE_REQUESTS:
             fail(f"15{label}: completed + rejected != "
                  f"{SERVE_SIDE_REQUESTS}")
         need(label, launched, (kname,))
-        del server
+        live = with_buffer(server)
+        id_vecs = torch.from_numpy(
+            np.concatenate([live._host, live._pending])).to(dev)
+        hold_to_plain(kname, seen.calls.values(), id_vecs[:live.frozen_n])
+        shapes = sorted(key[0] for key in seen.calls)
+        del seen
+        s_srv, i_srv = served(server)
+        ds, di = direct(live)
+        if not (np.array_equal(ds, s_srv) and np.array_equal(di, i_srv)):
+            fail(f"15{label}: the scheduler's results != "
+                 f"LiveIndex.search_scored")
+        ps, pi = direct(live, plain=True)
+        if kname == "gathered_tiles":
+            if (pi < 0).any():
+                fail(f"15{label}: the plain search missed a row")
+            on_card = lambda x: torch.from_numpy(x).to(dev)
+            compare_topk(on_card(qs), id_vecs, on_card(s_srv),
+                         on_card(i_srv), on_card(ps), on_card(pi),
+                         f"15{label} served")
+            held = "within the summation bound of"
+        elif not (np.array_equal(ps, s_srv) and np.array_equal(pi, i_srv)):
+            fail(f"15{label}: the served results != the same search through "
+                 f"the plain versions")
+        else:
+            held = "equal to"
+        log(f"    15{label}: {kname}'s wrapper held to its plain version on "
+            f"the run's inputs at {len(shapes)} shape(s) {shapes}; "
+            f"{SERVE_QUERIES} queries on tenant-0 ({live.frozen_n} frozen + "
+            f"{live.pending_rows} pending rows): equal to "
+            f"LiveIndex.search_scored and {held} the search through the "
+            f"plain versions")
+        del server, live, id_vecs
         gc.collect()
         torch.cuda.empty_cache()
 

@@ -23,19 +23,15 @@ an NCCL group reads the card's tensors in place (and refuses CPU ones).
   ``unvary_compat`` collapses equal per-rank values with an all-reduce MAX;
 * ``microbatch_grads`` — gradient accumulation over leading-dim
   microbatches;
-* ``new_axis_group`` / ``thread_groups`` — a second communicator for a
-  tuple of axes, and a ``with`` block inside which one thread's
-  collectives over a mesh run on it: a worker thread that runs
-  collectives while the main thread runs its own (the serving tier's
-  background compaction, serve/ingest.py) never shares a communicator
-  with it, so the two threads' collectives cannot interleave in another
-  order on another rank.
+* ``new_axis_group`` — a second communicator for a tuple of axes, for a
+  worker thread that runs collectives while the main thread runs its own
+  (the serving tier's background compaction, serve/ingest.py), so the two
+  threads' collectives cannot interleave in another order on another
+  rank.
 """
 from __future__ import annotations
 
-import contextlib
-import threading
-from typing import Dict, Iterator, Sequence, Union
+from typing import Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -73,24 +69,6 @@ def flat_axis_index(mesh, axis_names: AxisNames) -> int:
     return idx
 
 
-_THREAD = threading.local()     # .groups: (mesh, {axes: group}) or None
-
-
-@contextlib.contextmanager
-def thread_groups(mesh, groups: Dict[tuple, object]) -> Iterator[None]:
-    """Within ``with``, this thread's collectives over ``mesh`` run on
-    ``groups`` ({axes tuple: process group}, each made by
-    :func:`new_axis_group`) in place of the mesh's own groups; other
-    threads are unaffected. A collective over axes not in ``groups``
-    raises rather than fall back to the mesh's communicator."""
-    prev = getattr(_THREAD, "groups", None)
-    _THREAD.groups = (mesh, dict(groups))
-    try:
-        yield
-    finally:
-        _THREAD.groups = prev
-
-
 def new_axis_group(mesh, axis_names: AxisNames):
     """A new process group over this rank's ``axis_names`` of ``mesh``
     (flattened, first name most significant), separate from the mesh's
@@ -116,18 +94,9 @@ def new_axis_group(mesh, axis_names: AxisNames):
 
 def axis_group(mesh, axis_names: AxisNames):
     """The process group of ``axis_names`` flattened into one dimension
-    (cached on the mesh), or the group :func:`thread_groups` gives it on
-    this thread. Its ranks run in :func:`flat_axis_index` order, which is
-    checked."""
+    (cached on the mesh). Its ranks run in :func:`flat_axis_index` order,
+    which is checked."""
     axes = _as_tuple(axis_names)
-    override = getattr(_THREAD, "groups", None)
-    if override is not None and override[0] is mesh:
-        if axes not in override[1]:
-            raise RuntimeError(
-                f"a collective over {axes} on a thread whose collectives "
-                f"over this mesh run on private groups for "
-                f"{sorted(override[1])} only")
-        return override[1][axes]
     cache = mesh.__dict__.setdefault("_axis_groups", {})
     group = cache.get(axes)
     if group is None:

@@ -62,19 +62,32 @@ keeps serving the old snapshot.
 
 Several ranks (the sharded path): every rank runs the same calls in the
 same order, each a collective, and two rules keep the compactor's
-collectives apart from the searches'. (1) On the streamed path the
-build's collectives run on process groups of the index's own, made
-collectively at construction (``collectives.new_axis_group``,
-``collectives.thread_groups``), so the worker's collectives never share a
-communicator with the main thread's, whose relative order differs from
-rank to rank. (2) A finished build lands only once every rank's has: each
-call while a compaction is in flight all-reduces two flags (a build still
-running, a build failed) over the search mesh, so every rank swaps (or
-raises) at the same call.
+collectives apart from the searches'. (1) On the streamed path a
+background build's collectives run on process groups of the index's own
+(``collectives.new_axis_group``): the build gets a copy of the mesh whose
+cache of groups (``collectives.axis_group``) holds them for the corpus
+axes, the only axes a build's collectives run over, and the landed
+session goes back to the mesh itself. So the worker's collectives never
+share a communicator with the main thread's, whose relative order differs
+from rank to rank, nor with another index's worker. (2) A finished build
+lands only once every rank's has: each call while a compaction is in
+flight all-reduces two flags (a build still running, a build failed) over
+the search mesh, so every rank swaps (or raises) at the same call.
+
+An index takes its groups when it is built and gives them back at
+:meth:`LiveIndex.close` (a tenant's eviction, serve/tenants.py) to a free
+list kept on the mesh, from which the next index built there takes them;
+only when that list is empty are new groups made, collectively. Every
+rank builds and closes its indexes at the same calls, so every rank takes
+the same groups, and a server whose tenants churn holds at most one set a
+resident index (and one for the index built before an eviction). A
+closed index still answers searches and takes appends but compacts no
+more, since its groups may already serve another index.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import threading
 from typing import Optional, Tuple
@@ -88,7 +101,7 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharded_corpus import (resolve_corpus_axes,
                                                     sharded_row_buffer)
 from repro_torch.obs import REGISTRY, trace
-from repro_torch.obs.locks import make_rlock
+from repro_torch.obs.locks import make_lock, make_rlock
 from repro_torch.obs.metrics import Registry
 from repro_torch.retrieval.search_core import SearchConfig, SearchSession
 from repro_torch.retrieval.sharded import _top, sharded_buffer_topk
@@ -122,6 +135,27 @@ def _buffer_topk(queries: torch.Tensor, buf: torch.Tensor, n_valid: int, *,
     top_s, top_p = _top(s, k)
     top_i = torch.where(torch.isfinite(top_s), id_base + top_p, -1)
     return top_s, top_i.to(torch.int32)
+
+
+_FREE_GROUPS = make_lock("compactor-groups")
+
+
+def _take_groups(mesh, axes: tuple) -> dict:
+    """A compaction worker's process groups over ``axes`` of ``mesh``,
+    {axes: group}: a set a closed index gave back (the mesh's free list),
+    else a new one (collective)."""
+    with _FREE_GROUPS:
+        free = mesh.__dict__.setdefault("_compactor_groups", {})
+        if free.get(axes):
+            return free[axes].pop()
+    return {axes: coll.new_axis_group(mesh, axes)}
+
+
+def _give_groups(mesh, groups: dict) -> None:
+    with _FREE_GROUPS:
+        free = mesh.__dict__.setdefault("_compactor_groups", {})
+        for axes in groups:
+            free.setdefault(axes, []).append(groups)
 
 
 def _df_counts(rows: np.ndarray) -> np.ndarray:
@@ -186,12 +220,13 @@ class LiveIndex:
         self._compacting = False
         self._compactor: Optional[threading.Thread] = None
         self._built = None
+        self._closed = False
         self._ranks, self._groups = 1, None
         if cfg.sharded:
             axes = resolve_corpus_axes(cfg.mesh, None)
             self._ranks = coll.axis_size(cfg.mesh, axes)
             if cfg.streamed:
-                self._groups = {axes: coll.new_axis_group(cfg.mesh, axes)}
+                self._groups = _take_groups(cfg.mesh, axes)
 
     # -- geometry ----------------------------------------------------------
     # Every property below reads state a landing swaps under the lock; the
@@ -354,24 +389,31 @@ class LiveIndex:
     # -- compaction --------------------------------------------------------
 
     def _build(self, host: np.ndarray, folded: np.ndarray,
-               cfg: SearchConfig):
+               cfg: SearchConfig, groups: Optional[dict] = None):
         """The compacted frozen side, (rows, session, df), for the frozen
         ``host`` rows then the ``folded`` pending ones: the host copy and
-        the build both run on the calling (worker) thread, on the index's
-        device and, on the streamed path, with the build's collectives on
-        the index's own process groups."""
+        the build both run on the calling thread, on the index's device
+        and, given ``groups`` (a worker thread on the streamed path), with
+        the build's collectives on them: the build sees a copy of the mesh
+        whose group cache holds them, and the session it returns searches
+        on the mesh itself."""
+        build_cfg = cfg
+        if groups is not None:
+            alias = copy.copy(cfg.mesh)
+            alias.__dict__["_axis_groups"] = dict(groups)
+            build_cfg = dataclasses.replace(cfg, mesh=alias)
         with contextlib.ExitStack() as stack:
             if self.device.type == "cuda":
                 stack.enter_context(torch.cuda.device(self.device))
-            if self._groups is not None:
-                stack.enter_context(coll.thread_groups(cfg.mesh,
-                                                       self._groups))
             stack.enter_context(trace.span(
                 "serve.compact", rows=int(host.shape[0] + folded.shape[0]),
                 folded=int(folded.shape[0])))
             host_new = np.concatenate([host, folded], axis=0)
-            session = SearchSession(host_new, cfg, key=self._key,
+            session = SearchSession(host_new, build_cfg, key=self._key,
                                     device=self.device)
+        if groups is not None:
+            session.config = dataclasses.replace(session.config,
+                                                 mesh=cfg.mesh)
         return (host_new, session,
                 _df_counts(host_new) if self._tfidf else None)
 
@@ -428,11 +470,25 @@ class LiveIndex:
         The rebuild runs on a worker thread (``background=True``) while
         searches keep hitting the old snapshot; rows appended mid-build
         stay pending and remain searchable throughout. Returns False when
-        a compaction is already in flight (or nothing is pending)."""
+        a compaction is already in flight, nothing is pending or the index
+        is closed."""
         background = (self.ingest.background if background is None
                       else background)
         self._land()
+
+        def worker():
+            out = RuntimeError("the compaction worker stopped early")
+            try:
+                out = (m, *self._build(host, folded, cfg, groups))
+            except Exception as e:   # raised by the call that lands it
+                out = e
+            finally:
+                with self._lock:
+                    self._built = out
+
         with self._lock:
+            if self._closed:
+                return False
             in_flight = self._compacting
             if not in_flight:
                 m = self.pending_rows
@@ -440,8 +496,14 @@ class LiveIndex:
                     return False
                 # both arrays are replaced, never written, by later calls
                 host, folded = self._host, self._pending[:m]
-                cfg = self._session.config
+                cfg, groups = self._session.config, self._groups
                 self._compacting = True
+                if background:
+                    # started under the lock, so close() finds it to join
+                    self._compactor = threading.Thread(
+                        target=worker, name="live-index-compact",
+                        daemon=True)
+                    self._compactor.start()
         if in_flight:
             if wait:
                 self.flush()
@@ -454,22 +516,6 @@ class LiveIndex:
                     self._compacting = False
             self._swap(m, *built)
             return True
-
-        def worker():
-            out = RuntimeError("the compaction worker stopped early")
-            try:
-                out = (m, *self._build(host, folded, cfg))
-            except Exception as e:   # raised by the call that lands it
-                out = e
-            finally:
-                with self._lock:
-                    self._built = out
-
-        t = threading.Thread(target=worker, name="live-index-compact",
-                             daemon=True)
-        with self._lock:
-            self._compactor = t
-        t.start()
         if wait:
             self.flush()
         return True
@@ -482,3 +528,16 @@ class LiveIndex:
         if t is not None:
             t.join()
         self._land()
+
+    def close(self) -> None:
+        """Let any in-flight compaction land, then give this index's
+        compaction groups back to its mesh for the next index built there
+        (a tenant's eviction). The index still answers searches and takes
+        appends, but compacts no more."""
+        with self._lock:
+            self._closed = True
+        self.flush()
+        with self._lock:
+            groups, self._groups = self._groups, None
+        if groups is not None:
+            _give_groups(self.config.mesh, groups)

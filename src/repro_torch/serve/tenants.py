@@ -107,9 +107,12 @@ class TenantCache:
 
     def _evicted(self, tenant: Hashable, session: Any) -> None:
         self._registry.counter("serve.tenant.evict").inc()
-        flush = getattr(session, "flush", None)
-        if callable(flush):
-            flush()    # let an in-flight compaction land before the drop
+        # let an in-flight compaction land before the drop; a LiveIndex's
+        # close also hands its compaction groups to the next build
+        done = getattr(session, "close", None) or getattr(session, "flush",
+                                                            None)
+        if callable(done):
+            done()
         self._sample_resident()
 
     def get(self, tenant: str) -> Any:

@@ -644,3 +644,42 @@ def test_streamed_live_index_matches_reference_one_device(mesh):
     t.append(extra)
     j.append(extra)
     _assert_topk_close(*t.search_scored(q, k=10), *j.search_scored(q, k=10))
+
+
+def test_streamed_tenant_churn_reuses_compaction_groups(mesh):
+    """Evicting a streamed tenant closes its LiveIndex, whose compaction
+    groups go to the next index built on the mesh: the count of process
+    groups stays bounded however often tenants are evicted and rebuilt,
+    and every background compaction still lands, its session searching on
+    the mesh itself."""
+    def n_groups():
+        return len(torch.distributed.distributed_c10d._world.pg_map)
+
+    reg = Registry()
+    cfg = tsc.SearchConfig(streamed=True, mesh=mesh)
+    ingest = IngestConfig(append_cap=16, compact_threshold=8)
+    corpora = {t: _corpus(64, seed=20 + i) for i, t in enumerate("abc")}
+    cache = TenantCache(lambda t: LiveIndex(corpora[t], cfg, ingest=ingest,
+                                            registry=reg, **CPU),
+                        capacity=1, registry=reg)
+    counts, built = [], []
+    for step, tenant in enumerate("abcabcabc"):
+        live = cache.get(tenant)
+        built.append(live)
+        live.append(_corpus(9, seed=40 + step))    # a background compaction
+        counts.append(n_groups())
+    cache.flush()
+    assert len(set(counts[1:])) == 1, counts
+    assert reg.counter("serve.tenant.evict").value == 8
+    assert reg.counter("serve.ingest.compactions").value == 9
+    for live in built:
+        assert live.frozen_n == 73 and live.pending_rows == 0
+        assert live.config.mesh is mesh
+    assert all(live._groups is None for live in built[:-1])
+    # a closed index still searches and appends, but compacts no more
+    closed = built[0]
+    closed.append(_corpus(9, seed=60))
+    assert not closed.compact(background=True, wait=True)
+    assert closed.pending_rows == 9
+    ids = closed.search(_corpus(3, seed=61), k=82)
+    assert {int(i) for i in ids[0]} == set(range(82))

@@ -525,6 +525,28 @@ for engine in ("exact", "tfidf"):
     assert reg.counter("serve.ingest.compactions").value >= 1
     assert np.array_equal(np.sort(born.search(q, k=7), 1),
                           np.sort(one.search(q, k=7), 1))
+
+# tenant churn: each eviction closes its streamed index, whose compaction
+# groups the next build takes (the same on both ranks, so no new groups
+# past the second build), and each index's compaction lands on both ranks
+from repro_torch.serve import TenantCache
+cfg = SearchConfig(streamed=True, mesh=mesh)
+cache = TenantCache(
+    lambda t: LiveIndex(base + t, cfg, registry=reg, ingest=IngestConfig(
+        append_cap=8, compact_threshold=6), **cpu), capacity=1,
+    registry=reg)
+n_groups = []
+for t in (0, 1, 2, 0, 1):
+    born = cache.get(t)
+    one = LiveIndex(base + t, SearchConfig(), **cpu)
+    for li in (born, one):
+        li.append(extra[:6])
+    assert np.array_equal(np.sort(born.search(q, k=7), 1),
+                          np.sort(one.search(q, k=7), 1)), t
+    n_groups.append(len(dist.distributed_c10d._world.pg_map))
+cache.flush()
+assert born.frozen_n == 103 and born.config.mesh is mesh
+assert len(set(n_groups[1:])) == 1, n_groups
 print("TWO-RANK-OK", rank)
 """
 
@@ -534,7 +556,8 @@ def test_two_ranks_gloo(tmp_path):
     engine's top-k set-equal at the reference's options (int8 on the born
     plan), uneven / tiny / all-negative padding, the compressed
     all-reduce's mean, and a streamed live index with appends and
-    background compactions set-equal to a single-device one."""
+    background compactions set-equal to a single-device one, also across
+    tenant evictions that hand its compaction groups to the next build."""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH",
