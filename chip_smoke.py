@@ -133,8 +133,11 @@ From the root of a checkout, with one card. In order:
     and shared by the runs), buckets up to 32, k_max 16. 15a: 2 tenants,
     4096 requests at rate inf, 256 rows appended to tenant-0 every 512
     requests, compaction at 1024 pending (in the background): every
-    request completed or rejected, a compaction landed; then 64 fixed
-    queries on tenant-0 (256 rows more pending, no compaction in flight:
+    request completed or rejected, a compaction landed; then a background
+    compaction of tenant-0's pending rows whose worker is joined with no
+    further call of the index: ``frozen_n``, ``pending_rows``, the pending
+    gauge and the compactions counter read the state after it; then 64
+    fixed queries on tenant-0 (256 rows more pending, no compaction in flight:
     one state on both sides) through the scheduler equal
     to ``LiveIndex.search_scored`` on the same batches, and held to an
     exact plain f32 search over its frozen + pending rows (phase 3's bound,
@@ -148,11 +151,21 @@ From the root of a checkout, with one card. In order:
     64 queries (256 rows more pending) through the scheduler equal
     ``LiveIndex.search_scored``, and equal (int8, Hamming) or agree within
     phase 3's bound away from near-ties (gathered) with the same
-    ``LiveIndex`` search through the plain versions. 15e: 15a's arguments at 1024 requests,
-    unsharded and ``--streamed --mesh host`` (a 1-rank NCCL group): the 64
-    queries give equal results bit for bit. Each run logs its ``--out`` row
-    (throughput, p50, p99), trace table, launches by shape, device ms and
-    allocator peak.
+    ``LiveIndex`` search through the plain versions. 15e: 15a's arguments
+    at 1024 requests with compaction at 256 pending, unsharded and
+    ``--streamed --mesh host`` (a 1-rank NCCL group): each run compacts in
+    the background, every landing on the ``live-index-compact`` worker
+    (its ``serve.ingest.land`` spans), build and landing seconds logged;
+    after the leftover pending rows are folded and 128 rows appended on
+    both, the 64 queries give equal results bit for bit; the process
+    groups are counted before and after the streamed run and after every
+    tenant's eviction and tenant-0's rebuild, which must make no group.
+    Each run logs its ``--out`` row (throughput, p50, p99), trace table,
+    launches by shape, device ms and allocator peak.
+16. Analyzer: ``python -m repro_torch.launch.lint --json src/repro_torch``
+    on this machine's Python against ``lint_baseline_torch.json``: any
+    finding the baseline does not hold fails the run; counts by severity
+    and seconds logged.
 
 Launch counts are set to 0 just before each main-path run (5, 6, 7, 9, 12,
 13, 15's) and
@@ -213,6 +226,8 @@ SERVE_KMAX = 16                 # --k-max: every tick's k
 SERVE_K = 10                    # --k: what each request asks for
 SERVE_REQUESTS = 4096           # phase 15a's load
 SERVE_SIDE_REQUESTS = 1024      # phases 15d and 15e
+SERVE_E_THRESHOLD = 256         # 15e's compaction threshold: its appends
+                                # of 256 rows each reach it
 SERVE_QUERIES = 64              # the fixed queries held to the direct and
                                 # the plain search
 
@@ -1067,7 +1082,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/15] device: {name}; nvidia-smi: {smi}; "
+    log(f"[1/16] device: {name}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build -------------------------------------------------------------
@@ -1085,7 +1100,7 @@ def main() -> None:
 
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_counted, sources))
-    log(f"[2/15] built {', '.join(sources)} in "
+    log(f"[2/16] built {', '.join(sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     if recompile.counts() != ({"phase 2": len(uncached)} if uncached
                               else {}):
@@ -1104,7 +1119,7 @@ def main() -> None:
     tuning.set_table(None)
     untuned_hits = REGISTRY.counter("tuning.resolve.hit").value
     main_shapes: dict = {}      # phases 5-7's launches by shape, for phase 10
-    log("[3/15] kernel vs plain")
+    log("[3/16] kernel vs plain")
     for n, k, quarter in [(1, 1, True), (37, 5, True), (513, 33, True),
                           (300, 70, False), (4096, 0, True),
                           (100_003, 32, True), (100_003, 32, False)]:
@@ -1334,7 +1349,7 @@ def main() -> None:
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
-    log("[4/15] times (CUDA events, after warm-up)")
+    log("[4/16] times (CUDA events, after warm-up)")
     labels, nbr, wgt, deg_sq = lp_main
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
@@ -1600,7 +1615,7 @@ def main() -> None:
     sample_corpus = corpus_seen.results["corpus"]
     sample_stats, sample_wall = stats, wall
     del corpus_seen
-    log(f"[5/15] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
+    log(f"[5/16] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
         f"{stats['communities']} communities, changes/round "
         f"{stats['changes_per_round']}, {stats['entities']} entities "
         f"sampled")
@@ -1644,7 +1659,7 @@ def main() -> None:
             "--json", os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     cells = out["grid"]["cells"]
     eval_out, eval_wall = out, wall
-    log(f"[6/15] evaluation: {wall:.2f} s wall, {len(cells)} cells")
+    log(f"[6/16] evaluation: {wall:.2f} s wall, {len(cells)} cells")
     eval_launches = read_counts(kernels, "evaluation", main_shapes)
     trace.disable()
     # the Hamming kernel at each shape the grid launched it at
@@ -1679,7 +1694,7 @@ def main() -> None:
     from repro_torch.retrieval.experiment import run_table1_experiment
     t0 = time.perf_counter()
     t1_corpus = eval_corpus(EVAL_QUERIES, 2048, embed=False)
-    log(f"[7/15] Table I corpus: {t1_corpus.num_entities} entities, "
+    log(f"[7/16] Table I corpus: {t1_corpus.num_entities} entities, "
         f"{t1_corpus.num_queries} queries, passages "
         f"{t1_corpus.passage_tokens.shape[1]} tokens, queries "
         f"{t1_corpus.query_tokens.shape[1]}, vocab {t1_corpus.vocab_size} "
@@ -1904,7 +1919,7 @@ def main() -> None:
         f"both; load of 256: completed {g_load['completed']}, rejected "
         f"{g_load['rejected']}, ticks {g_load['ticks']}, mean batch "
         f"{g_load['mean_batch']} on both")
-    log("[8/15] small inputs: sample.npz, grid cells, the encoder's and the "
+    log("[8/16] small inputs: sample.npz, grid cells, the encoder's and the "
         "serve CLI's results equal (or within the stated tolerance) on cuda "
         "and cpu")
 
@@ -1948,7 +1963,7 @@ def main() -> None:
             sample_corpus.num_entities, prng.prng_key(0), rate=0.15,
             device="cuda")):
         fail("run_uniform_baseline's mask != uniform_sample's")
-    log(f"[9/15] run_windtunnel (engine {session.spec.engine}, "
+    log(f"[9/16] run_windtunnel (engine {session.spec.engine}, "
         f"{sample_corpus.num_entities} entities): {wt_wall:.2f} s wall, "
         f"{int(wt.sample.entity_mask.sum())} entities sampled; labels and "
         f"entity_mask equal to the session's bit for bit; "
@@ -1973,7 +1988,7 @@ def main() -> None:
                      for kernel, dt in traffic
                      for bucket in ("le65536", "gt65536")
                      if (kernel, bucket, dt) not in table.entries)
-    log(f"[10/15] autotune (topk float32/int8, hamming_topk; le65536, "
+    log(f"[10/16] autotune (topk float32/int8, hamming_topk; le65536, "
         f"gt65536) over phases 5-7's launches in "
         f"{time.perf_counter() - t0:.1f} s; {smi}; cells the main path "
         f"never launched, so left untuned: {', '.join(untuned) or 'none'}; "
@@ -2053,7 +2068,7 @@ def main() -> None:
     # 11. where the host time goes ----------------------------------------
     # the two CLIs once more at the timed runs' sizes, under cProfile (the
     # timed runs above stay unprofiled)
-    log("[11/15] host time: the sampling and evaluation CLIs under cProfile")
+    log("[11/16] host time: the sampling and evaluation CLIs under cProfile")
     with tempfile.TemporaryDirectory(dir=OUT) as tmp, \
             recompile.region("phase 11"):
         profile_top("sampling", lambda: run_sample(
@@ -2082,7 +2097,7 @@ def main() -> None:
             "--streamed", "--mesh", "host", "--out",
             os.path.join(OUT, "sample_streamed"), "--trace", streamed_trace])
     trace.disable()
-    log(f"[12/15] streamed sampling (1-rank NCCL mesh, "
+    log(f"[12/16] streamed sampling (1-rank NCCL mesh, "
         f"{dist.get_backend()}): {sh_wall:.2f} s wall (phase 5: "
         f"{sample_wall:.2f} s), changes/round "
         f"{sh_stats['changes_per_round']}")
@@ -2148,7 +2163,7 @@ def main() -> None:
             os.path.join(OUT, "eval_streamed.json"), "--trace",
             streamed_eval_trace])
     trace.disable()
-    log(f"[13/15] streamed evaluation (1-rank NCCL mesh): "
+    log(f"[13/16] streamed evaluation (1-rank NCCL mesh): "
         f"{sh_eval_wall:.2f} s wall (phase 6: {eval_wall:.2f} s), "
         f"{len(sh_out['grid']['cells'])} cells")
     sh_eval_launches = read_counts(kernels, "streamed evaluation")
@@ -2197,7 +2212,7 @@ def main() -> None:
                 p.kill()
                 p.wait()
     two_wall = time.perf_counter() - t0
-    log(f"[14/15] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
+    log(f"[14/16] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
         f"{two_wall:.2f} s wall, both processes")
     reports = []
     for r, (p, text) in enumerate(zip(procs, outs)):
@@ -2296,7 +2311,7 @@ def main() -> None:
         list(pool.map(lambda t: shared_corpus(t, docs=SERVE_DOCS,
                                               dim=SERVE_DIM, seed=0),
                       ("tenant-0", "tenant-1")))
-    log(f"[15/15] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
+    log(f"[15/16] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
         f"(two drawn on the host in {time.perf_counter() - t0:.2f} s, "
         f"two threads, before the runs), buckets up to {SERVE_BATCH}, "
         f"k_max {SERVE_KMAX}; {smi}")
@@ -2309,6 +2324,35 @@ def main() -> None:
     if row["compactions"] < 1:
         fail("15a: no compaction landed (serve.ingest.compactions 0)")
     need("a", launched, ("topk_partial", "topk_merge"))
+    # the worker lands its own compaction: joined with no further call of
+    # the index, frozen_n, pending_rows, the pending gauge and the
+    # compactions counter read the state after it
+    live = server.tenants.get("tenant-0")
+    server.flush()
+    if live.pending_rows + 256 >= live.ingest.compact_threshold:
+        live.compact(background=False)
+    live.append(np.random.default_rng(2022).normal(
+        size=(256, SERVE_DIM)).astype(np.float32))
+    f0, p0 = live.frozen_n, live.pending_rows
+    c0 = REGISTRY.counter("serve.ingest.compactions").value
+    t0 = time.perf_counter()
+    if not live.compact(background=True):
+        fail("15a: no background compaction started")
+    worker = live._compactor
+    worker.join()
+    f5_wall = time.perf_counter() - t0
+    got = (live.frozen_n, live.pending_rows,
+           REGISTRY.counter("serve.ingest.compactions").value - c0,
+           REGISTRY.gauge("serve.ingest.pending").value)
+    if got != (f0 + p0, 0, 1, 0):
+        fail(f"15a: after the joined worker (no call of the index) "
+             f"(frozen_n, pending_rows, compactions, pending gauge) = {got}, "
+             f"expected {(f0 + p0, 0, 1, 0)}")
+    log(f"    15a F5: a background compaction of {p0} pending rows over "
+        f"{f0} frozen, joined without a call of the index after "
+        f"{f5_wall:.3f} s on thread {worker.name}: frozen_n {got[0]}, "
+        f"pending_rows {got[1]}, compactions +{got[2]}, pending gauge "
+        f"{got[3]}; {smi}")
     # 64 fixed queries on tenant-0 after its appends (and 256 rows more,
     # so the append buffer takes part, with no compaction in flight): the
     # scheduler's results equal a direct LiveIndex search of the same batch
@@ -2494,24 +2538,111 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # 15e: 15a's arguments at 1024 requests, unsharded and then streamed on
-    # a 1-rank NCCL mesh: 15a's 64 queries give equal results bit for bit
-    load_15e = load_15a + ["--requests", str(SERVE_SIDE_REQUESTS)]
+    # 15e: 15a's arguments at 1024 requests, compactions at 256 pending rows
+    # (each of the run's two appends reaches it), unsharded and then
+    # streamed on a 1-rank NCCL mesh. Every landing of either run must have
+    # come from the compaction worker (the serve.ingest.land spans' thread).
+    # Then leftover pending rows are folded in the foreground and 128 rows
+    # appended on both, so both hold one state (a background compaction's
+    # timing against the second append varies): 15a's 64 queries give equal
+    # results bit for bit. The streamed run's process groups are counted
+    # before and after it, and after every tenant's eviction and tenant-0's
+    # rebuild, which takes a set its eviction gave back
+    load_15e = load_15a + ["--requests", str(SERVE_SIDE_REQUESTS),
+                           "--compact-threshold", str(SERVE_E_THRESHOLD)]
+
+    def check_landings(label: str, row: dict) -> None:
+        """Every compaction the run's trace holds landed on the worker;
+        logs the builds' and the landings' seconds."""
+        threads, build_s, land_s = [], [], []
+        with open(os.path.join(OUT, f"serve_{label}_trace.jsonl")) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec.get("name") == "serve.ingest.land":
+                    threads.append(rec["attrs"]["thread"])
+                    land_s.append(rec["dur_s"])
+                elif rec.get("name") == "serve.compact":
+                    build_s.append(rec["dur_s"])
+        if row["compactions"] < 1 or len(threads) != row["compactions"]:
+            fail(f"15{label}: {row['compactions']} compaction(s), "
+                 f"{len(threads)} landing span(s)")
+        if set(threads) != {"live-index-compact"}:
+            fail(f"15{label}: a compaction landed on {sorted(set(threads))}, "
+                 f"not only on the live-index-compact worker")
+        log(f"    15{label}: {len(threads)} compaction(s), each landed by "
+            f"the live-index-compact worker; build {sum(build_s):.3f} s in "
+            f"all (max {max(build_s):.3f} s), landing {sum(land_s):.4f} s "
+            f"in all (max {max(land_s):.4f} s); {smi}")
+
+    def one_state(srv):
+        """tenant-0 with every earlier row frozen and 128 new rows
+        pending."""
+        live = srv.tenants.get("tenant-0")
+        srv.flush()
+        if live.pending_rows:
+            live.compact(background=False)
+        live.append(np.random.default_rng(2025).normal(
+            size=(128, SERVE_DIM)).astype(np.float32))
+        return live
+
+    def n_groups() -> int:
+        return len(dist.distributed_c10d._world.pg_map) \
+            if dist.is_initialized() else 0
+
     row, launched, unsharded = run_serve("e-single", load_15e)
     need("e-single", launched, ("topk_partial", "topk_merge"))
+    check_landings("e-single", row)
+    g_before = n_groups()
     row, launched, streamed = run_serve(
         "e-streamed", load_15e + ["--streamed", "--mesh", "host"])
     need("e-streamed", launched, ("topk_partial", "topk_merge"))
+    check_landings("e-streamed", row)
+    g_after = n_groups()
     live_s = streamed.tenants.get("tenant-0")
     if not (live_s.config.streamed and live_s._groups is not None):
         fail("15e: tenant-0 is not a streamed LiveIndex")
+    live_u = one_state(unsharded)
+    live_s = one_state(streamed)
+    if (live_u.frozen_n, live_u.pending_rows) != \
+            (live_s.frozen_n, live_s.pending_rows):
+        fail(f"15e: the two runs hold other rows: "
+             f"{(live_u.frozen_n, live_u.pending_rows)} vs "
+             f"{(live_s.frozen_n, live_s.pending_rows)}")
     a, b = served(unsharded), served(streamed)
     if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
         fail("15e: the streamed server's results != the unsharded one's")
     log(f"    15e: {SERVE_QUERIES} queries on tenant-0 ({live_s.frozen_n} "
         f"frozen + {live_s.pending_rows} pending rows): streamed equal to "
         f"unsharded bit for bit ({dist.get_backend()} group)")
-    del unsharded, streamed, live_s, a, b
+    # process groups: each resident streamed index holds one set of
+    # compaction groups (one group, over the corpus axes); an evicted
+    # index gives its set to the mesh's free list, and the next index
+    # built on the mesh takes it there
+    mesh = live_s.config.mesh
+    resident = streamed.tenants.resident
+    held = sum(streamed.tenants.get(t)._groups is not None
+               for t in resident)
+    g_search = g_after - held - sum(
+        len(sets) for sets in mesh.__dict__.get("_compactor_groups",
+                                                {}).values())
+    for t in resident:
+        streamed.tenants.evict(t)
+    g_evicted = n_groups()
+    del live_s
+    live_s = streamed.tenants.get("tenant-0")
+    g_rebuilt = n_groups()
+    if not (g_evicted == g_rebuilt == g_after
+            and g_after <= g_search + len(resident)):
+        fail(f"15e: process groups {g_before} before the streamed run, "
+             f"{g_after} after it, {g_evicted} after evicting "
+             f"{len(resident)} tenant(s), {g_rebuilt} after tenant-0's "
+             f"rebuild; the searches' own {g_search}")
+    log(f"    15e: process groups {g_before} before the streamed run, "
+        f"{g_after} after it (the searches' own {g_search} + one "
+        f"compaction set for each of {len(resident)} resident tenants), "
+        f"{g_evicted} after evicting them, {g_rebuilt} after tenant-0's "
+        f"rebuild (it took a set an eviction gave back)")
+    del unsharded, streamed, live_s, live_u, a, b
     dist.destroy_process_group()
     serve_cli._tenant_corpus = draw_corpus
     drawn.clear()
@@ -2523,6 +2654,34 @@ def main() -> None:
                 f"{r['p50_s'] * 1e3:.3f} ms, p99 {r['p99_s'] * 1e3:.3f} ms, "
                 f"mean batch {r['mean_batch']}, {r['compactions']} "
                 f"compaction(s); {smi}")
+
+    # 16. the contract analyzer on this machine's Python -------------------
+    # its CLI over the port against the committed baseline: any finding the
+    # baseline does not hold fails the run
+    t0 = time.perf_counter()
+    lint = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.lint", "--json",
+         os.path.join(SRC, "repro_torch"), "--baseline",
+         os.path.join(ROOT, "lint_baseline_torch.json")],
+        env=dict(os.environ, PYTHONPATH=SRC + os.pathsep
+                 + os.environ.get("PYTHONPATH", "")),
+        capture_output=True, text=True, timeout=600)
+    lint_s = time.perf_counter() - t0
+    if lint.returncode not in (0, 1) or not lint.stdout.strip():
+        fail(f"phase 16: the analyzer exited {lint.returncode}: "
+             f"{lint.stderr[-2000:]}")
+    report = json.loads(lint.stdout)
+    fresh = [f for f in report["findings"] if f["new"]]
+    for f in fresh:
+        log(f"    NEW {f['path']}:{f['line']}: {f['severity']}: "
+            f"{f['rule']}: {f['message']}")
+    if fresh or lint.returncode != 0:
+        fail(f"phase 16: {len(fresh)} finding(s) not in "
+             f"lint_baseline_torch.json (exit {lint.returncode})")
+    log(f"[16/16] analyzer: python -m repro_torch.launch.lint over "
+        f"src/repro_torch on Python {sys.version.split()[0]}: "
+        f"{len(report['findings'])} findings ({report['counts']}), all in "
+        f"the baseline, {len(report['rules'])} rules, {lint_s:.2f} s; {smi}")
 
     def launches(kname: str) -> int:
         """A kernel's launches over the main-path runs (phases 5-7, 12,

@@ -11,7 +11,8 @@ Paper semantics (Raghavan et al. [9], weighted variant):
 Ties are broken toward the smaller label id. ``sort_round`` is one round as
 reduce-by-(dst, label) + reduce-by-dst argmax over a sorted edge list;
 ``ell_round`` is the dense degree-capped formulation and the plain version
-of the CUDA kernel (kernels/label_prop). The multi-round loops (the
+of the CUDA kernel, kept beside it (kernels/label_prop/ref.py) and
+re-exported here. The multi-round loops (the
 reference's ``lax.scan``) are Python loops: ``propagate`` and
 ``propagate_ell`` here, and ``engines.run_engine`` behind the engine
 registry.
@@ -23,6 +24,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import segment_utils as su
+# the LP kernel's plain version lives beside the kernel; core re-exports it
+from repro_torch.kernels.label_prop.ref import ell_round
 
 
 class LabelPropResult(NamedTuple):
@@ -100,40 +103,6 @@ def edges_to_ell(src, dst, w, valid, *, num_nodes: int, max_degree: int):
                       device=dev)
     wgt[row, col] = ws[ok]
     return nbr, wgt
-
-
-def ell_round(labels, nbr, wgt, row0: int = 0):
-    """One LP round over ELL adjacency — the plain version of the CUDA
-    kernel ``lp_round`` (csrc/lp_round.cu).
-
-    For node n with neighbour labels l_k and weights w_k:
-      S(l_j) = sum_k w_k [l_k == l_j];  L* = argmax_j (S, -l_j).
-    Nodes with no neighbours keep their label. The table may be the rows
-    row0 .. row0 + N of a larger graph (neighbour ids global): row n is
-    node row0 + n, and the result has the table's N rows.
-
-    S is accumulated over k = 0..K-1 in order, adding exactly w_k or 0 per
-    term, as the kernel does, so the two agree bit for bit. Memory stays
-    O(N K): the reference's (N, K, K) same-label tensor is never built.
-    """
-    own = labels[row0:row0 + nbr.shape[0]]
-    if nbr.shape[1] == 0:
-        return own.clone()
-    mask = nbr >= 0                                             # (N, K)
-    lab = torch.where(mask, labels[nbr.clamp(min=0).to(torch.int64)], -1)
-    w = torch.where(mask, wgt, 0.0)
-    scores = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-    zero = torch.zeros((), dtype=torch.float32, device=w.device)
-    for k in range(nbr.shape[1]):
-        scores = scores + torch.where(lab == lab[:, k:k + 1], w[:, k:k + 1],
-                                      zero)
-    scores = torch.where(mask, scores, -torch.inf)
-    # argmax with tie -> smaller label: exact two-pass (max score, min label)
-    smax = scores.amax(dim=1, keepdim=True)
-    cand = torch.where((scores == smax) & mask, lab, su.I32_MAX)
-    new = cand.amin(dim=1)
-    return torch.where(mask.any(dim=1), new, own).to(labels.dtype)
-
 
 
 def propagate_ell(nbr, wgt, *, rounds: int) -> LabelPropResult:

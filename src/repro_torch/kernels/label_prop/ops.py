@@ -7,7 +7,7 @@ happens inside the CUDA kernel (csrc/lp_round.cu). ``row0`` makes the
 table a block of rows of a larger graph (the sharded pipeline's rounds,
 core/sharded_pipeline.py): row n is node ``row0 + n``, its own label
 ``labels[row0 + n]``, and the output has the block's rows. On a CPU tensor
-the wrapper runs the plain version, ``core/label_prop.py::ell_round``; on
+the wrapper runs the plain version, ``ref.py::ell_round``; on
 a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
@@ -16,9 +16,9 @@ import ctypes
 
 import torch
 
-from repro_torch.core.label_prop import ell_round
 from repro_torch.kernels import tuning
 from repro_torch.kernels.build import Kernel
+from repro_torch.kernels.label_prop.ref import ell_round
 
 LP_ROUND = Kernel("lp_round", "lp_round.cu",
                   (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3)

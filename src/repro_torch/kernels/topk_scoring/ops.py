@@ -208,6 +208,8 @@ def gathered_pieces(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
     torch.bitwise_xor(valid[:, :-1], cont, out=end[:, :-1])
     per_query = start.sum(1)
     most = per_query.max() if qn else per_query.sum()
+    # the one host read (it sizes the outputs)
+    # lint: disable=torch-host-sync
     n, any_stray, most = torch.stack([per_query.sum(), stray.long(),
                                       most]).tolist()
     if any_stray:

@@ -165,6 +165,8 @@ class SearchSession:
                 sp.set(tuned_blocks=[
                     {"kernel": b["kernel"], "params": b["params"],
                      "tuned": b["tuned"]} for b in blocks])
+        # the session answers in host arrays: one read of each chunk's
+        # lint: disable=torch-host-sync
         return scores.cpu().numpy(), ids.cpu().numpy()
 
     def search_scored(self, queries, *, k: int):

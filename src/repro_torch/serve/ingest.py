@@ -53,12 +53,18 @@ worker thread with ``background=True``, which also makes the host copy of
 the grown corpus, on the session's device (the
 worker sets it; on one card both threads enqueue on the legacy default
 stream, so their device work is ordered) — while searches keep hitting
-the old (session, buffer) snapshot. The worker only builds; the swap
-lands at the next call of the index (``search_scored``, ``append``,
-``compact``, ``flush``), under the lock: rows appended mid-build stay
+the old (session, buffer) snapshot. On one rank the worker swaps its
+build in itself, under the lock, as soon as it is done (as the
+reference's does), so ``frozen_n``, ``pending_rows`` and the
+``serve.ingest`` metrics read the new state, and the old frozen index is
+freed, without a further call of the index: rows appended mid-build stay
 pending, and ids are stable across compactions (append order is the
-global id order). A failed build is raised by that call, and the index
-keeps serving the old snapshot.
+global id order). A failed build is kept and raised by the next call
+(``search_scored``, ``append``, ``compact``, ``flush``), and the index
+keeps serving the old snapshot. The landing swaps host arrays and makes
+a new append buffer on the device; on a 1-rank streamed mesh that buffer
+is the rank's own block (``sharded_row_buffer``), which reads the mesh's
+groups but runs no collective on them.
 
 Several ranks (the sharded path): every rank runs the same calls in the
 same order, each a collective, and two rules keep the compactor's
@@ -70,9 +76,10 @@ axes, the only axes a build's collectives run over, and the landed
 session goes back to the mesh itself. So the worker's collectives never
 share a communicator with the main thread's, whose relative order differs
 from rank to rank, nor with another index's worker. (2) A finished build
-lands only once every rank's has: each call while a compaction is in
-flight all-reduces two flags (a build still running, a build failed) over
-the search mesh, so every rank swaps (or raises) at the same call.
+lands not from the worker but at a call point, once every rank's has:
+each call while a compaction is in flight all-reduces two flags (a build
+still running, a build failed) over the search mesh, so every rank swaps
+(or raises) at the same call.
 
 An index takes its groups when it is built and gives them back at
 :meth:`LiveIndex.close` (a tenant's eviction, serve/tenants.py) to a free
@@ -214,12 +221,15 @@ class LiveIndex:
         self._pending = np.zeros((0, self.dim), np.float32)
         self._cap = 0
         self._buf = None
-        # compaction state: _compacting from the trigger to the landing
-        # (both at call points, so every rank agrees on it); the worker
-        # thread leaves its build, or its failure, in _built
+        # compaction state: _compacting from the trigger to the landing.
+        # One rank: the worker lands its build and leaves a failure in
+        # _compact_error. Several: the worker leaves its build, or its
+        # failure, in _built, and both trigger and landing are call
+        # points, so every rank agrees on _compacting
         self._compacting = False
         self._compactor: Optional[threading.Thread] = None
         self._built = None
+        self._compact_error: Optional[BaseException] = None
         self._closed = False
         self._ranks, self._groups = 1, None
         if cfg.sharded:
@@ -366,8 +376,12 @@ class LiveIndex:
                                          mesh=cfg.mesh, id_base=frozen_n)
         else:
             bs, bi = _buffer_topk(qb, buf, n_pend, k=k_buf, id_base=frozen_n)
-        scores = np.concatenate([fs, bs.cpu().numpy()], axis=1)
-        ids = np.concatenate([fi, bi.cpu().numpy()], axis=1)
+        # the frozen side comes back as host arrays and the merge runs on
+        # the host, as the reference's: one read of the buffer's top-k
+        # lint: disable=torch-host-sync
+        bs, bi = bs.cpu().numpy(), bi.cpu().numpy()
+        scores = np.concatenate([fs, bs], axis=1)
+        ids = np.concatenate([fi, bi], axis=1)
         # stable descending merge: ties break toward the frozen side (the
         # backend tie policy's lower-id-first, since pending ids are >=
         # frozen ids)
@@ -419,7 +433,9 @@ class LiveIndex:
 
     def _swap(self, folded: int, host_new: np.ndarray, session,
               df_new) -> None:
-        with self._lock:
+        with self._lock, trace.span(
+                "serve.ingest.land", folded=folded,
+                thread=threading.current_thread().name):
             self._host = host_new
             self._session = session
             self._frozen_df = df_new
@@ -430,29 +446,35 @@ class LiveIndex:
         self._registry.counter("serve.ingest.compactions").inc()
 
     def _land(self) -> None:
-        """Swap in a finished background compaction, or raise its failure
-        (then the old snapshot keeps serving). With several ranks this
-        waits for no build but lands only once every rank's has finished,
-        agreed by one all-reduce over the search mesh."""
+        """Raise a failed background compaction (then the old snapshot
+        keeps serving); with several ranks, also swap in a finished one.
+        On one rank the worker has landed its own build. With several
+        this waits for no build but lands only once every rank's has
+        finished, agreed by one all-reduce over the search mesh."""
         with self._lock:
-            if self._compactor is None:
+            if self._ranks == 1:
+                err, self._compact_error = self._compact_error, None
+                if not self._compacting:
+                    self._compactor = None
+            elif self._compactor is None:
                 return
-            built = self._built
-        if self._ranks > 1:
-            cfg = self.config
-            flags = torch.tensor(
-                [built is None, isinstance(built, BaseException)],
-                dtype=torch.int32, device=self.device)
-            running, failed = coll.all_reduce(
-                flags, cfg.mesh, resolve_corpus_axes(cfg.mesh, None),
-                op="max").tolist()
-            if running:
-                return
-        elif built is None:
+            built, worker = self._built, self._compactor
+        if self._ranks == 1:
+            if err is not None:
+                raise RuntimeError("background compaction failed") from err
             return
-        else:
-            failed = isinstance(built, BaseException)
-        self._compactor.join()
+        cfg = self.config
+        flags = torch.tensor(
+            [built is None, isinstance(built, BaseException)],
+            dtype=torch.int32, device=self.device)
+        # every rank reads the agreed flags to land (or raise) at this call
+        # lint: disable=torch-host-sync
+        running, failed = coll.all_reduce(
+            flags, cfg.mesh, resolve_corpus_axes(cfg.mesh, None),
+            op="max").tolist()
+        if running:
+            return
+        worker.join()
         with self._lock:
             self._compactor, self._built = None, None
             self._compacting = False
@@ -475,17 +497,6 @@ class LiveIndex:
         background = (self.ingest.background if background is None
                       else background)
         self._land()
-
-        def worker():
-            out = RuntimeError("the compaction worker stopped early")
-            try:
-                out = (m, *self._build(host, folded, cfg, groups))
-            except Exception as e:   # raised by the call that lands it
-                out = e
-            finally:
-                with self._lock:
-                    self._built = out
-
         with self._lock:
             if self._closed:
                 return False
@@ -501,8 +512,9 @@ class LiveIndex:
                 if background:
                     # started under the lock, so close() finds it to join
                     self._compactor = threading.Thread(
-                        target=worker, name="live-index-compact",
-                        daemon=True)
+                        target=self._compact_worker,
+                        args=(m, host, folded, cfg, groups),
+                        name="live-index-compact", daemon=True)
                     self._compactor.start()
         if in_flight:
             if wait:
@@ -519,6 +531,27 @@ class LiveIndex:
         if wait:
             self.flush()
         return True
+
+    def _compact_worker(self, m: int, host: np.ndarray, folded: np.ndarray,
+                        cfg: SearchConfig, groups: Optional[dict]) -> None:
+        """The background compaction: build, then on one rank land the
+        build (or keep its failure for the next call); with several ranks
+        leave it in ``_built`` for the call that all of them land it at."""
+        out = RuntimeError("the compaction worker stopped early")
+        try:
+            out = (m, *self._build(host, folded, cfg, groups))
+            if self._ranks == 1:
+                self._swap(*out)
+        except Exception as e:   # raised by the next call
+            out = e
+        finally:
+            with self._lock:
+                if self._ranks > 1:
+                    self._built = out
+                else:
+                    self._compacting = False
+                    if isinstance(out, BaseException):
+                        self._compact_error = out
 
     def flush(self) -> None:
         """Block until any in-flight compaction lands (tests, shutdown, a

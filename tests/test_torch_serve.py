@@ -29,6 +29,7 @@ from repro.obs.metrics import Registry as JRegistry
 from repro.retrieval import search_core as jsc
 from repro.serve import scheduler as jsched
 from repro.serve import tenants as jtenants
+from repro.serve import ingest as jingest_mod
 from repro.serve import (IngestConfig as JIngest, LiveIndex as JLive,
                          LoadSpec as JLoadSpec, RetrievalFrontend as JFront,
                          SearchServer as JServer, run_load as jrun_load)
@@ -175,9 +176,9 @@ def test_compaction_threshold_triggers_and_preserves_ids():
     assert li.append(_corpus(3, seed=3)) == (62, 65)
 
 
-def _blocking_session(monkeypatch):
+def _blocking_session(monkeypatch, module=ingest_mod):
     started, release = threading.Event(), threading.Event()
-    real = ingest_mod.SearchSession
+    real = module.SearchSession
 
     class BlockingSession(real):
         def __init__(self, *a, **kw):
@@ -185,8 +186,85 @@ def _blocking_session(monkeypatch):
             assert release.wait(timeout=30)
             super().__init__(*a, **kw)
 
-    monkeypatch.setattr(ingest_mod, "SearchSession", BlockingSession)
+    monkeypatch.setattr(module, "SearchSession", BlockingSession)
     return started, release, real
+
+
+def _join_worker(li):
+    """Join a background compaction's thread without calling the index."""
+    t = li._compactor
+    assert t is not None and t.name == "live-index-compact"
+    t.join(timeout=30)
+    assert not t.is_alive()
+
+
+def _ingest_state(li, reg):
+    return dict(frozen_n=li.frozen_n, pending=li.pending_rows, n=li.n,
+                compactions=reg.counter("serve.ingest.compactions").value,
+                gauge=reg.gauge("serve.ingest.pending").value)
+
+
+def test_worker_lands_its_compaction_as_the_reference_does(monkeypatch):
+    """On one rank the compaction worker swaps its build in itself: after
+    the worker is joined, with no further call of the index, frozen_n,
+    pending_rows, n, the pending gauge and the compactions counter read the
+    state after the compaction, equal to the reference's after the same
+    steps (rows appended mid-build stay pending)."""
+    base, extra, late = _corpus(60, seed=0), _corpus(12, seed=1), \
+        _corpus(5, seed=2)
+    ingest = dict(append_cap=8, compact_threshold=10)
+    regs, states = (Registry(), JRegistry()), []
+    t = LiveIndex(base, tsc.SearchConfig(), ingest=IngestConfig(**ingest),
+                  registry=regs[0], **CPU)
+    j = JLive(base, jsc.SearchConfig(), ingest=JIngest(**ingest),
+              registry=regs[1])
+    for li, reg, module in ((t, regs[0], ingest_mod),
+                            (j, regs[1], jingest_mod)):
+        started, release, _ = _blocking_session(monkeypatch, module)
+        li.append(extra)                     # reaches the threshold
+        assert started.wait(timeout=30)
+        li.append(late)                      # mid-build: stays pending
+        assert li.frozen_n == 60 and li.pending_rows == 17
+        release.set()
+        _join_worker(li)
+        states.append(_ingest_state(li, reg))
+    assert states[0] == states[1] == dict(frozen_n=72, pending=5, n=77,
+                                          compactions=1, gauge=5)
+    q = _corpus(3, seed=3)
+    _assert_topk_close(*t.search_scored(q, k=9), *j.search_scored(q, k=9))
+
+
+@pytest.mark.parametrize("call", ["search_scored", "append", "compact",
+                                  "flush"])
+def test_worker_failure_is_raised_by_the_next_call(monkeypatch, call):
+    """A failed background build changes no state: joined with no further
+    call, the index reads its old snapshot; the next call of any kind
+    raises the failure once, and the old snapshot keeps answering."""
+    reg = Registry()
+    li = LiveIndex(_corpus(40), tsc.SearchConfig(), ingest=IngestConfig(
+        append_cap=8, compact_threshold=NO_COMPACT), registry=reg, **CPU)
+    li.append(_corpus(4, seed=1))
+    q = _corpus(2, seed=2)
+    before = li.search_scored(q, k=5)
+    state = _ingest_state(li, reg)
+
+    def boom(*a, **kw):
+        raise RuntimeError("injected build failure")
+
+    monkeypatch.setattr(ingest_mod, "SearchSession", boom)
+    assert li.compact(background=True)
+    _join_worker(li)
+    assert _ingest_state(li, reg) == state
+    args = {"search_scored": (q,), "append": (_corpus(1, seed=3),),
+            "compact": (), "flush": ()}[call]
+    kwargs = {"k": 5} if call == "search_scored" else {}
+    with pytest.raises(RuntimeError, match="compaction failed") as err:
+        getattr(li, call)(*args, **kwargs)
+    assert "injected" in str(err.value.__cause__)
+    assert li._compactor is None and not li._compacting
+    li.flush()                                     # nothing left to raise
+    got = li.search_scored(q, k=5)
+    assert np.array_equal(got[1], before[1]) and li.frozen_n == 40
 
 
 def test_searches_succeed_during_background_compaction(monkeypatch):
@@ -644,6 +722,43 @@ def test_streamed_live_index_matches_reference_one_device(mesh):
     t.append(extra)
     j.append(extra)
     _assert_topk_close(*t.search_scored(q, k=10), *j.search_scored(q, k=10))
+
+
+@pytest.mark.parametrize("in_flight", [False, True])
+def test_closed_streamed_index_gives_its_groups_back(mesh, monkeypatch,
+                                                     in_flight):
+    """A 1-rank streamed index lands its compaction from the worker (the
+    new append buffer is the rank's block, made with no collective); close()
+    joins a worker still in flight, lets it land, and gives the index's
+    groups to the mesh's free list, from which the next index takes
+    them."""
+    reg = Registry()
+    cfg = tsc.SearchConfig(streamed=True, mesh=mesh)
+    li = LiveIndex(_corpus(64, seed=30), cfg, registry=reg,
+                   ingest=IngestConfig(append_cap=16, compact_threshold=8),
+                   **CPU)
+    groups = li._groups
+    assert groups is not None
+    started, release, _ = _blocking_session(monkeypatch)
+    li.append(_corpus(9, seed=31))
+    assert started.wait(timeout=30)
+    if in_flight:
+        threading.Timer(0.2, release.set).start()
+        li.close()                          # joins the worker
+    else:
+        release.set()
+        _join_worker(li)
+        assert li.frozen_n == 73 and li.pending_rows == 0
+        li.close()
+    assert li._groups is None and li.config.mesh is mesh
+    assert li.frozen_n == 73 and li.pending_rows == 0
+    assert reg.counter("serve.ingest.compactions").value == 1
+    free = mesh.__dict__["_compactor_groups"]
+    assert any(g is groups for sets in free.values() for g in sets)
+    monkeypatch.undo()
+    nxt = LiveIndex(_corpus(64, seed=32), cfg, **CPU)
+    assert nxt._groups is groups
+    nxt.close()
 
 
 def test_streamed_tenant_churn_reuses_compaction_groups(mesh):

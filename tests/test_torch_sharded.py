@@ -526,6 +526,18 @@ for engine in ("exact", "tfidf"):
     assert np.array_equal(np.sort(born.search(q, k=7), 1),
                           np.sort(one.search(q, k=7), 1))
 
+# on several ranks a finished build lands at a call point, never from the
+# worker: joined, it waits in _built until the next call lands it on both
+born = LiveIndex(base, SearchConfig(streamed=True, mesh=mesh),
+                 ingest=IngestConfig(append_cap=8, compact_threshold=6),
+                 **cpu)
+born.append(extra[:6])
+born._compactor.join(timeout=60)
+assert born._built is not None and born.frozen_n == 97
+born.flush()
+assert born._built is None and born.frozen_n == 103
+born.close()
+
 # tenant churn: each eviction closes its streamed index, whose compaction
 # groups the next build takes (the same on both ranks, so no new groups
 # past the second build), and each index's compaction lands on both ranks
