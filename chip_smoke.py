@@ -10,7 +10,7 @@ From the root of a checkout, with one card. In order:
    started together; prints each build's ``-Xptxas -v`` report. The
    recompile sentinel (``obs/recompile``) is on from here: it must count
    one build for each source whose library was not built yet, and none in
-   phases 5-15.
+   phases 5-17.
 3. Kernel vs plain: each kernel's wrapper (lp_round, the f32 top-k, the
    int8 top-k, the gathered top-k, the Hamming top-k, flash attention)
    against its plain PyTorch version on the card, at the main path's
@@ -166,9 +166,34 @@ From the root of a checkout, with one card. In order:
     on this machine's Python against ``lint_baseline_torch.json``: any
     finding the baseline does not hold fails the run; counts by severity
     and seconds logged.
+17. The LM decoder and RAG serving. 17a: the reduced configs of the five
+    LM archs (f32, TF32 off) on the card against the CPU's plain path from
+    the same seed: ``init_transformer`` bit for bit; ``prefill``'s logits
+    and caches (mixtral's window and llama4's chunk roll a 24-token
+    prompt), ``lm_loss`` at vocab_chunks 1 and 4 within ``LM_F32_TOL``; a
+    ``ServeEngine`` drain of 4 requests over 3 slots (one reused) the
+    same greedy tokens. 17b: gemma-2b at its published config (bf16,
+    remat "full"), its f32 tree drawn on the card from a seed: as many
+    elements as ``count_params`` (2,506,172,416); ``prefill`` of 8 x 512
+    tokens against 512 ``decode_step``s of the same tokens, last-token
+    logits and caches within ``LM_BF16_TOL``, argmax equal wherever the
+    top-two gap exceeds it; decode step times. 17c: the RAG stack of
+    ``examples/serve_rag.py`` at full width: a WindTunnel sample (the LP
+    kernel) of a synthetic corpus of 8192 queries, tf-idf vectors, a
+    ``RetrievalFrontend`` on ivfflat (the gathered top-k and merge
+    kernels) and a ``RagEngine`` over a gemma-2b ``ServeEngine`` (8 slots,
+    512 positions, 32 new tokens, 24 context tokens); 64 queries, the
+    engine stepped whenever its batch is full, then drained: every
+    request 32 tokens, the retrieved ids equal to ``session.search``
+    called directly, and 16 requests re-run alone with ``decode_step``
+    fed the engine's tokens, each engine token's logit within
+    ``LM_BF16_TOL`` of its step's largest. Logged: steps, tokens/s,
+    ``serve.step`` p50/p99, request latency p50/p99, the allocator peak,
+    the kernels' device ms, and a step's bytes bound (the layer and tied
+    head parameters in bf16 over the rate a 2 GiB copy shows).
 
 Launch counts are set to 0 just before each main-path run (5, 6, 7, 9, 12,
-13, 15's) and
+13, 15's, 17c) and
 read just after; a kernel the run did not launch is a failure. No tuned
 table is active outside phase 10, whatever ``REPRO_TORCH_TUNED_KERNELS``
 names: a launch that resolves through one is a failure, so every other
@@ -230,6 +255,17 @@ SERVE_E_THRESHOLD = 256         # 15e's compaction threshold: its appends
                                 # of 256 rows each reach it
 SERVE_QUERIES = 64              # the fixed queries held to the direct and
                                 # the plain search
+LM_F32_TOL = (1e-4, 1e-5)       # rtol, atol: reduced LMs in f32, card vs
+                                # CPU (other summation orders, TF32 off)
+LM_BF16_TOL = 0.25              # |logit| and |k|, |v| of gemma-2b in bf16:
+                                # prefill vs decode, values of order 1 (2**-8
+                                # relative a rounding, 18 layers deep)
+GEMMA_BATCH, GEMMA_SEQ = 8, 512  # 17b's prompts
+RAG_CORPUS_QUERIES = 8192       # 17c's synthetic corpus
+RAG_REQUESTS = 64               # RAG queries served in 17c
+RAG_NEW_TOKENS = 32             # tokens each request generates
+RAG_CTX_TOKENS = 24             # passage tokens prepended to a prompt
+RAG_FORCED = 16                 # requests re-run alone, teacher-forced
 
 
 # phase 14's child: one rank of two in a gloo group on the one card;
@@ -1031,6 +1067,305 @@ def run_evaluate(argv):
     return out, time.perf_counter() - t0
 
 
+def lm_small_parity(arch: str) -> str:
+    """17a: one LM arch's reduced config (f32) on the card against the
+    CPU's plain path from the same seed: the init bit for bit; prefill's
+    logits and caches, lm_loss at vocab_chunks 1 and 4 within LM_F32_TOL;
+    a ServeEngine drain of 4 requests over 3 slots (one reused) the same
+    greedy tokens. Returns a log line."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = configs.get_arch(arch).make_reduced()
+    params = {d: tf.init_transformer(prng.prng_key(0), cfg, device=d)
+              for d in ("cuda", "cpu")}
+    for got, want in zip(tree_leaves(params["cuda"]),
+                         tree_leaves(params["cpu"])):
+        if not torch.equal(got.cpu(), want):
+            fail(f"17a {arch}: init on the card != the CPU's draw")
+    rng = np.random.default_rng(17)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24))
+                            .astype(np.int32))
+    err = 0.0
+
+    def agree(what, got, want):
+        nonlocal err
+        got, want = got.float().cpu(), want.float()
+        if not torch.allclose(got, want, rtol=LM_F32_TOL[0],
+                              atol=LM_F32_TOL[1]):
+            fail(f"17a {arch}: {what} differs by "
+                 f"{(got - want).abs().max().item():.3g}, card vs CPU")
+        err = max(err, (got - want).abs().max().item())
+
+    with torch.no_grad():
+        out = {d: tf.prefill(params[d], toks.to(d), cfg)
+               for d in ("cuda", "cpu")}
+        agree("prefill logits", out["cuda"][0], out["cpu"][0])
+        for name in ("k", "v"):
+            agree(f"prefill cache {name}", out["cuda"][1][name],
+                  out["cpu"][1][name])
+        for chunks in (1, 4):
+            c = dataclasses.replace(cfg, vocab_chunks=chunks)
+            agree(f"lm_loss at vocab_chunks {chunks}",
+                  tf.lm_loss(params["cuda"], toks.cuda(), c),
+                  tf.lm_loss(params["cpu"], toks, c))
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 3, 7, 4)]
+    outs = {}
+    for d in ("cuda", "cpu"):
+        eng = ServeEngine(params[d], cfg, ServeConfig(
+            max_batch=3, max_seq=32, max_new_tokens=6))
+        reqs = [eng.submit(p) for p in prompts[:3]]
+        while None not in reqs and all(s is not None for s in eng.slots):
+            eng.step()
+        reqs.append(eng.submit(prompts[3]))     # a freed slot, reused
+        eng.drain()
+        if eng.cache["k"].device.type != d:
+            fail(f"17a {arch}: the engine's cache left {d}")
+        outs[d] = [r.out for r in reqs]
+    if outs["cuda"] != outs["cpu"]:
+        fail(f"17a {arch}: greedy tokens differ, card {outs['cuda']} vs "
+             f"CPU {outs['cpu']}")
+    return (f"{arch}: init bit-equal; prefill logits and caches, lm_loss "
+            f"(chunks 1, 4) within {err:.3g}; 4 requests over 3 slots: "
+            f"the same {sum(map(len, outs['cuda']))} greedy tokens")
+
+
+def copy_bandwidth() -> float:
+    """The card's memory rate as a device-to-device copy of 2 GiB shows it
+    (bytes read + written over the best of 5 CUDA-event times), B/s."""
+    import torch
+    src = torch.empty(1 << 31, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    best = float("inf")
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        dst.copy_(src)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    return 2 * src.numel() / best
+
+
+def gemma_full_width():
+    """17b: gemma-2b at its published config, drawn from a seed on the
+    card: the tree's size, then prefill of GEMMA_BATCH x GEMMA_SEQ tokens
+    against GEMMA_SEQ decode_steps of the same tokens (last-token logits
+    and caches within LM_BF16_TOL; argmax equal wherever the prefill's
+    top-two gap exceeds it). Returns (cfg, the f32 tree, the bf16 tree,
+    the decode step's ms list)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = configs.get_arch("gemma-2b").make_config()
+    t0 = time.perf_counter()
+    params = tf.init_transformer(prng.prng_key(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in tree_leaves(params))
+    if n != tf.count_params(cfg) or n != 2_506_172_416:
+        fail(f"17b: gemma-2b's tree holds {n} elements, count_params "
+             f"{tf.count_params(cfg)}")
+    pb = tf.tree_to(params, cfg.dtype)
+    toks = torch.from_numpy(np.random.default_rng(172).integers(
+        0, cfg.vocab_size, (GEMMA_BATCH, GEMMA_SEQ)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        prefill_s = []
+        for _ in range(2):      # the first call's and a warm one's wall
+            t0 = time.perf_counter()
+            logits, cache = tf.prefill(pb, toks, cfg)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        dcache = tf.init_kv_cache(cfg, GEMMA_BATCH, GEMMA_SEQ)
+        step_ms = []
+        for t in range(GEMMA_SEQ):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            start.record()
+            dlogits, dcache = tf.decode_step(pb, dcache, toks[:, t:t + 1],
+                                             cfg)
+            end.record()
+            step_ms.append((start, end))
+        torch.cuda.synchronize()
+        # 8 more steps under the profiler: the device's busy share and
+        # launches a step (the position wraps the cache; timing only)
+        last = toks[:, -1:]
+        prof = device_profile(lambda: [tf.decode_step(pb, dcache, last, cfg)
+                                       for _ in range(8)])
+    step_ms = [a.elapsed_time(b) for a, b in step_ms]
+    lp, ld = logits.float(), dlogits[:, 0].float()
+    errs = {"logits": (ld - lp).abs().max().item()}
+    for name in ("k", "v"):
+        errs[name] = (dcache[name].float() - cache[name].float()).abs() \
+            .max().item()
+    if (dcache["pos"] != GEMMA_SEQ).any() or (cache["pos"] != GEMMA_SEQ).any():
+        fail("17b: a cache's pos is not the prompt length")
+    top2 = lp.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > LM_BF16_TOL
+    same = (lp.argmax(-1) == ld.argmax(-1))
+    log(f"    17b gemma-2b ({n} parameters, f32 tree drawn on the card in "
+        f"{init_s:.2f} s): prefill {GEMMA_BATCH} x {GEMMA_SEQ} "
+        f"{prefill_s[0] * 1e3:.1f} ms (first call), {prefill_s[1] * 1e3:.1f} "
+        f"ms (warm); {GEMMA_SEQ} decode_steps at batch "
+        f"{GEMMA_BATCH}: p50 {np.percentile(step_ms, 50):.3f} ms, p99 "
+        f"{np.percentile(step_ms, 99):.3f} ms a step (CUDA events); prefill "
+        f"vs decode max |d| logits {errs['logits']:.4f} (|logits| <= "
+        f"{lp.abs().max().item():.2f}), k {errs['k']:.4f}, v "
+        f"{errs['v']:.4f}, tolerance {LM_BF16_TOL}; argmax equal on "
+        f"{int((same & clear).sum())} of the {int(clear.sum())} rows whose "
+        f"top-two gap exceeds it ({int(same.sum())} of {GEMMA_BATCH} in all)")
+    log_profile("17b: 8 decode steps", prof)
+    log(f"    17b: {sum(n for n, _ in prof[2].values()) / 8:.0f} device "
+        f"launches a decode step (the profiler's count over 8)")
+    if max(errs.values()) > LM_BF16_TOL:
+        fail(f"17b: prefill vs decode differ beyond {LM_BF16_TOL}: {errs}")
+    if not bool(same[clear].all()):
+        fail("17b: prefill and decode pick different tokens where the "
+             "top-two gap exceeds the tolerance")
+    del logits, cache, dcache, dlogits
+    return cfg, params, pb, step_ms
+
+
+def rag_full_width(cfg, params, pb, kernels, smi: str) -> dict:
+    """17c: the RAG stack of examples/serve_rag.py at full width: a
+    WindTunnel sample of a synthetic corpus (the LP kernel), tf-idf
+    vectors, a RetrievalFrontend on ivfflat (the gathered top-k and merge
+    kernels), and a RagEngine over a gemma-2b ServeEngine. Returns the
+    kernels' launches in the serving run."""
+    import torch
+    from repro_torch.core import WindTunnelConfig, prng, run_windtunnel
+    from repro_torch.data.synthetic import generate_corpus
+    from repro_torch.launch import trace as trace_cli
+    from repro_torch.models import transformer as tf
+    from repro_torch.obs import trace
+    from repro_torch.retrieval.search_core import SearchConfig
+    from repro_torch.retrieval.tfidf import tfidf_vectors
+    from repro_torch.serve import (RagEngine, RetrievalFrontend, ServeConfig,
+                                   ServeEngine)
+    t0 = time.perf_counter()
+    corpus = generate_corpus(num_queries=RAG_CORPUS_QUERIES,
+                             qrels_per_query=16, num_topics=48,
+                             aux_fraction=1.0, vocab_size=2048,
+                             query_len=24, seed=0)
+    gen_s = time.perf_counter() - t0
+    reset_counts(kernels)
+    reset_memory()
+    path = os.path.join(OUT, "rag_trace.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    trace.enable(path)
+    t0 = time.perf_counter()
+    wt_cfg = WindTunnelConfig(tau_quantile=0.5, fanout=16, lp_rounds=4,
+                              target_size=0.3 * corpus.num_primary, seed=0)
+    res = run_windtunnel(corpus.qrels, num_queries=corpus.num_queries,
+                         num_entities=corpus.num_entities, config=wt_cfg,
+                         device="cuda")
+    kept = torch.nonzero(res.sample.entity_mask)[:, 0].cpu().numpy()
+    vecs, df = tfidf_vectors(corpus.passage_tokens[kept], corpus.vocab_size)
+
+    def embed(toks):
+        return tfidf_vectors(np.asarray(toks), corpus.vocab_size, df)[0]
+
+    frontend = RetrievalFrontend(
+        vecs, embed, config=SearchConfig(engine="ivfflat"),
+        key=prng.prng_key(0), ids_map=kept, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine = ServeEngine(params, cfg, ServeConfig(
+        max_batch=8, max_seq=512, max_new_tokens=RAG_NEW_TOKENS))
+    del params
+    if engine.cache["k"].device.type != "cuda":
+        fail("17c: the engine's KV cache is not on the card")
+    rag = RagEngine(frontend, engine,
+                    lambda gid: corpus.passage_tokens[gid],
+                    ctx_tokens=RAG_CTX_TOKENS)
+    reqs, ids = [], []
+    t0 = time.perf_counter()
+    steps = 0
+    for qi in range(RAG_REQUESTS):
+        while all(s is not None for s in engine.slots):
+            steps += bool(engine.step())
+        q = corpus.query_tokens[qi]
+        req, got = rag.submit_query(q, q, k=3)
+        if req is None:
+            fail(f"17c: request {qi} was rejected with a free slot")
+        reqs.append(req)
+        ids.append(got)
+    steps += engine.drain()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    trace.disable()
+    launched = read_counts(kernels, "17c RAG")
+    for kname in ("lp_round", "gathered_tiles", "topk_merge"):
+        if not launched[kname]:
+            fail(f"17c launched no {kname} kernel")
+    peak = torch.cuda.max_memory_allocated()
+    if any(len(r.out) != RAG_NEW_TOKENS or not r.done for r in reqs):
+        fail(f"17c: a request did not get {RAG_NEW_TOKENS} tokens")
+    direct = [frontend.session.search(embed(corpus.query_tokens[qi:qi + 1]),
+                                      k=3)[0]
+              for qi in range(RAG_REQUESTS)]
+    if not all(np.array_equal(a, b) for a, b in zip(ids, direct)):
+        fail("17c: the RAG path's retrieved ids != session.search's")
+    # teacher forcing: each of RAG_FORCED requests alone, fed its prompt
+    # and the engine's own tokens; each engine token's logit within the
+    # tolerance of that step's largest
+    gap = 0.0
+    with torch.no_grad():
+        for req in reqs[:RAG_FORCED]:
+            feed = list(req.prompt) + req.out[:-1]
+            cache = tf.init_kv_cache(cfg, 1, 512)
+            for t, tok in enumerate(feed):
+                logits, cache = tf.decode_step(
+                    engine.params, cache,
+                    torch.tensor([[tok]], dtype=torch.int32, device="cuda"),
+                    cfg)
+                j = t - (len(req.prompt) - 1)
+                if j >= 0:
+                    row = logits[0, 0].float()
+                    gap = max(gap, (row.max() - row[req.out[j]]).item())
+    if gap > LM_BF16_TOL:
+        fail(f"17c: an engine token's logit is {gap:.4f} below its step's "
+             f"largest when re-run alone (tolerance {LM_BF16_TOL})")
+    spans = trace_cli.aggregate(trace_cli.load_spans(path))
+    step = spans["serve.step"]
+    lat = np.array([r.t_done - r.t_submit for r in reqs]) * 1e3
+    tokens = sum(len(r.out) for r in reqs)
+    n_layer = tf.count_params(cfg) - cfg.vocab_size * cfg.d_model
+    step_bytes = 2 * (n_layer + cfg.vocab_size * cfg.d_model)
+    bw = copy_bandwidth()
+    hits = sum(bool(i.size and i[0] >= 0) for i in ids)
+    log(f"    17c RAG: corpus of {corpus.num_entities} passages "
+        f"({RAG_CORPUS_QUERIES} queries) drawn in {gen_s:.2f} s on the host; "
+        f"WindTunnel sample of {kept.size}, tf-idf (D {vecs.shape[1]}) and "
+        f"the ivfflat frontend in {build_s:.2f} s")
+    log(f"    17c RAG: {RAG_REQUESTS} requests ({hits} with a retrieved "
+        f"passage), {steps} engine steps, {tokens} tokens in {serve_s:.2f} s "
+        f"({tokens / serve_s:.1f} tokens/s); serve.step p50 "
+        f"{step['p50_s'] * 1e3:.3f} ms, p99 {step['p99_s'] * 1e3:.3f} ms "
+        f"over {step['count']}; request latency p50 "
+        f"{np.percentile(lat, 50):.1f} ms, p99 {np.percentile(lat, 99):.1f} "
+        f"ms; allocator peak {peak} B; every request got {RAG_NEW_TOKENS} "
+        f"tokens, retrieved ids equal to session.search's")
+    log(f"    17c RAG: a step's bytes bound {step_bytes / 1e9:.3f} GB "
+        f"({n_layer} layer and {cfg.vocab_size * cfg.d_model} head "
+        f"parameters in bf16) over {bw / 1e12:.3f} TB/s (a 2 GiB copy on "
+        f"this card) = {step_bytes / bw * 1e3:.3f} ms; {RAG_FORCED} requests "
+        f"re-run alone, teacher-forced: every engine token within "
+        f"{gap:.4f} of its step's largest logit (tolerance {LM_BF16_TOL}); "
+        f"{smi}")
+    del engine, rag, frontend, pb, res
+    return launched
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1082,7 +1417,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/16] device: {name}; nvidia-smi: {smi}; "
+    log(f"[1/17] device: {name}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build -------------------------------------------------------------
@@ -1100,7 +1435,7 @@ def main() -> None:
 
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_counted, sources))
-    log(f"[2/16] built {', '.join(sources)} in "
+    log(f"[2/17] built {', '.join(sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     if recompile.counts() != ({"phase 2": len(uncached)} if uncached
                               else {}):
@@ -1119,7 +1454,7 @@ def main() -> None:
     tuning.set_table(None)
     untuned_hits = REGISTRY.counter("tuning.resolve.hit").value
     main_shapes: dict = {}      # phases 5-7's launches by shape, for phase 10
-    log("[3/16] kernel vs plain")
+    log("[3/17] kernel vs plain")
     for n, k, quarter in [(1, 1, True), (37, 5, True), (513, 33, True),
                           (300, 70, False), (4096, 0, True),
                           (100_003, 32, True), (100_003, 32, False)]:
@@ -1349,7 +1684,7 @@ def main() -> None:
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
-    log("[4/16] times (CUDA events, after warm-up)")
+    log("[4/17] times (CUDA events, after warm-up)")
     labels, nbr, wgt, deg_sq = lp_main
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
@@ -1615,7 +1950,7 @@ def main() -> None:
     sample_corpus = corpus_seen.results["corpus"]
     sample_stats, sample_wall = stats, wall
     del corpus_seen
-    log(f"[5/16] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
+    log(f"[5/17] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
         f"{stats['communities']} communities, changes/round "
         f"{stats['changes_per_round']}, {stats['entities']} entities "
         f"sampled")
@@ -1659,7 +1994,7 @@ def main() -> None:
             "--json", os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     cells = out["grid"]["cells"]
     eval_out, eval_wall = out, wall
-    log(f"[6/16] evaluation: {wall:.2f} s wall, {len(cells)} cells")
+    log(f"[6/17] evaluation: {wall:.2f} s wall, {len(cells)} cells")
     eval_launches = read_counts(kernels, "evaluation", main_shapes)
     trace.disable()
     # the Hamming kernel at each shape the grid launched it at
@@ -1694,7 +2029,7 @@ def main() -> None:
     from repro_torch.retrieval.experiment import run_table1_experiment
     t0 = time.perf_counter()
     t1_corpus = eval_corpus(EVAL_QUERIES, 2048, embed=False)
-    log(f"[7/16] Table I corpus: {t1_corpus.num_entities} entities, "
+    log(f"[7/17] Table I corpus: {t1_corpus.num_entities} entities, "
         f"{t1_corpus.num_queries} queries, passages "
         f"{t1_corpus.passage_tokens.shape[1]} tokens, queries "
         f"{t1_corpus.query_tokens.shape[1]}, vocab {t1_corpus.vocab_size} "
@@ -1919,7 +2254,7 @@ def main() -> None:
         f"both; load of 256: completed {g_load['completed']}, rejected "
         f"{g_load['rejected']}, ticks {g_load['ticks']}, mean batch "
         f"{g_load['mean_batch']} on both")
-    log("[8/16] small inputs: sample.npz, grid cells, the encoder's and the "
+    log("[8/17] small inputs: sample.npz, grid cells, the encoder's and the "
         "serve CLI's results equal (or within the stated tolerance) on cuda "
         "and cpu")
 
@@ -1963,7 +2298,7 @@ def main() -> None:
             sample_corpus.num_entities, prng.prng_key(0), rate=0.15,
             device="cuda")):
         fail("run_uniform_baseline's mask != uniform_sample's")
-    log(f"[9/16] run_windtunnel (engine {session.spec.engine}, "
+    log(f"[9/17] run_windtunnel (engine {session.spec.engine}, "
         f"{sample_corpus.num_entities} entities): {wt_wall:.2f} s wall, "
         f"{int(wt.sample.entity_mask.sum())} entities sampled; labels and "
         f"entity_mask equal to the session's bit for bit; "
@@ -1988,7 +2323,7 @@ def main() -> None:
                      for kernel, dt in traffic
                      for bucket in ("le65536", "gt65536")
                      if (kernel, bucket, dt) not in table.entries)
-    log(f"[10/16] autotune (topk float32/int8, hamming_topk; le65536, "
+    log(f"[10/17] autotune (topk float32/int8, hamming_topk; le65536, "
         f"gt65536) over phases 5-7's launches in "
         f"{time.perf_counter() - t0:.1f} s; {smi}; cells the main path "
         f"never launched, so left untuned: {', '.join(untuned) or 'none'}; "
@@ -2068,7 +2403,7 @@ def main() -> None:
     # 11. where the host time goes ----------------------------------------
     # the two CLIs once more at the timed runs' sizes, under cProfile (the
     # timed runs above stay unprofiled)
-    log("[11/16] host time: the sampling and evaluation CLIs under cProfile")
+    log("[11/17] host time: the sampling and evaluation CLIs under cProfile")
     with tempfile.TemporaryDirectory(dir=OUT) as tmp, \
             recompile.region("phase 11"):
         profile_top("sampling", lambda: run_sample(
@@ -2097,7 +2432,7 @@ def main() -> None:
             "--streamed", "--mesh", "host", "--out",
             os.path.join(OUT, "sample_streamed"), "--trace", streamed_trace])
     trace.disable()
-    log(f"[12/16] streamed sampling (1-rank NCCL mesh, "
+    log(f"[12/17] streamed sampling (1-rank NCCL mesh, "
         f"{dist.get_backend()}): {sh_wall:.2f} s wall (phase 5: "
         f"{sample_wall:.2f} s), changes/round "
         f"{sh_stats['changes_per_round']}")
@@ -2163,7 +2498,7 @@ def main() -> None:
             os.path.join(OUT, "eval_streamed.json"), "--trace",
             streamed_eval_trace])
     trace.disable()
-    log(f"[13/16] streamed evaluation (1-rank NCCL mesh): "
+    log(f"[13/17] streamed evaluation (1-rank NCCL mesh): "
         f"{sh_eval_wall:.2f} s wall (phase 6: {eval_wall:.2f} s), "
         f"{len(sh_out['grid']['cells'])} cells")
     sh_eval_launches = read_counts(kernels, "streamed evaluation")
@@ -2212,7 +2547,7 @@ def main() -> None:
                 p.kill()
                 p.wait()
     two_wall = time.perf_counter() - t0
-    log(f"[14/16] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
+    log(f"[14/17] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
         f"{two_wall:.2f} s wall, both processes")
     reports = []
     for r, (p, text) in enumerate(zip(procs, outs)):
@@ -2311,7 +2646,7 @@ def main() -> None:
         list(pool.map(lambda t: shared_corpus(t, docs=SERVE_DOCS,
                                               dim=SERVE_DIM, seed=0),
                       ("tenant-0", "tenant-1")))
-    log(f"[15/16] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
+    log(f"[15/17] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
         f"(two drawn on the host in {time.perf_counter() - t0:.2f} s, "
         f"two threads, before the runs), buckets up to {SERVE_BATCH}, "
         f"k_max {SERVE_KMAX}; {smi}")
@@ -2678,18 +3013,39 @@ def main() -> None:
     if fresh or lint.returncode != 0:
         fail(f"phase 16: {len(fresh)} finding(s) not in "
              f"lint_baseline_torch.json (exit {lint.returncode})")
-    log(f"[16/16] analyzer: python -m repro_torch.launch.lint over "
+    log(f"[16/17] analyzer: python -m repro_torch.launch.lint over "
         f"src/repro_torch on Python {sys.version.split()[0]}: "
         f"{len(report['findings'])} findings ({report['counts']}), all in "
         f"the baseline, {len(report['rules'])} rules, {lint_s:.2f} s; {smi}")
 
+    # 17. the LM decoder and RAG serving -----------------------------------
+    # a: the five LM archs' reduced configs, card vs the CPU's plain path;
+    # b: gemma-2b at its published config; c: RAG over it at full width
+    t17 = time.perf_counter()
+    with recompile.region("phase 17"):
+        for arch in ("llama4-scout-17b-a16e", "mixtral-8x22b",
+                     "starcoder2-7b", "gemma-2b", "yi-9b"):
+            log(f"    17a {lm_small_parity(arch)}")
+        reset_memory()
+        lm_cfg, lm_params, lm_pb, _ = gemma_full_width()
+        log(f"    17b allocator peak {torch.cuda.max_memory_allocated()} B")
+        rag_launches = rag_full_width(lm_cfg, lm_params, lm_pb, kernels, smi)
+        del lm_params, lm_pb
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_no_build("phase 17")
+    check_untuned("phase 17", untuned_hits)
+    log(f"[17/17] LM decoder and RAG serving: 5 reduced archs card vs CPU, "
+        f"gemma-2b prefill vs decode, RAG at full width in "
+        f"{time.perf_counter() - t17:.1f} s; {smi}")
+
     def launches(kname: str) -> int:
         """A kernel's launches over the main-path runs (phases 5-7, 12,
-        13, 15)."""
+        13, 15, 17)."""
         return (sample_launches[kname] + eval_launches[kname]
                 + t1_launches[kname] + sh_launches[kname]
                 + leg_launches[kname] + sh_eval_launches[kname]
-                + serve_launches[kname])
+                + serve_launches[kname] + rag_launches[kname])
 
     table = {"kernels": [
         {"name": "lp_round", "route": "cuda",

@@ -48,6 +48,7 @@ LAYERS: Dict[str, int] = {
     "eval": 6,
     "serve": 6,
     "interop": 6,
+    "configs": 7,
     "analysis": 7,
     "launch": 8,
 }

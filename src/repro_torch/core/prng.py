@@ -14,7 +14,9 @@ mantissa trick of ``jax/_src/random.py::_uniform``:
 * ``PRNGKey(seed)`` with 32-bit ints is ``(0, seed mod 2**32)``;
 * ``fold_in(key, data)`` hashes the counter pair ``(0, data)``;
 * ``random_bits(key, shape)`` hashes the 64-bit iota over the flattened
-  shape, split into ``(hi, lo)`` words, and xors the two output words;
+  shape, split into ``(hi, lo)`` words, and xors the two output words; so
+  any run of flat positions can be hashed on its own (``start``), and a
+  large draw made in bounded pieces equals the whole draw;
 * ``uniform`` keeps the top 23 bits as the mantissa of a float in [1, 2)
   and subtracts 1;
 * ``split(key, num)`` hashes the counter pairs ``(0, i)``, i < num;
@@ -78,20 +80,25 @@ def fold_in(key: Key, data: int) -> Key:
     return threefry2x32(key[0], key[1], 0, int(data) & _M32)
 
 
-def random_bits(key: Key, shape, device="cpu") -> torch.Tensor:
-    """32 random bits per element (int64 holding [0, 2**32))."""
+def random_bits(key: Key, shape, device="cpu", start: int = 0
+                ) -> torch.Tensor:
+    """32 random bits per element (int64 holding [0, 2**32)): those of the
+    flat positions ``start .. start + numel`` of a draw of any shape that
+    holds them (``start`` 0: the draw of ``shape`` itself)."""
     shape = tuple(int(s) for s in shape)
     numel = 1
     for s in shape:
         numel *= s
-    iota = torch.arange(numel, dtype=torch.int64, device=device)
+    iota = torch.arange(start, start + numel, dtype=torch.int64,
+                        device=device)
     b1, b2 = threefry2x32(key[0], key[1], iota >> 32, iota & _M32)
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: float32 in [0, 1)."""
-    bits = random_bits(key, shape, device)
+def uniform(key: Key, shape, device="cpu", start: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1) (``start`` as
+    in :func:`random_bits`)."""
+    bits = random_bits(key, shape, device, start)
     one = 0x3F800000
     fbits = ((bits >> 9) | one).to(torch.int32)
     return fbits.view(torch.float32) - 1.0
@@ -122,9 +129,40 @@ def choice(key: Key, n: int, size: int, device="cpu") -> torch.Tensor:
     return permutation(key, n, device)[:size]
 
 
-def normal(key: Key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.normal(key, shape)``: float32 standard normals."""
+def normal(key: Key, shape, device="cpu", start: int = 0) -> torch.Tensor:
+    """``jax.random.normal(key, shape)``: float32 standard normals
+    (``start`` as in :func:`random_bits`: a draw too large to hold its
+    intermediates at once is made piece by piece, bit-equal)."""
     lo = torch.tensor(-1.0).nextafter(torch.tensor(0.0)).item()
-    u = uniform(key, shape, device) * 2.0 + lo
+    u = uniform(key, shape, device, start) * 2.0 + lo
     u = torch.clamp(u, min=lo)
     return torch.tensor(math.sqrt(2), device=device) * xla_f32.erf_inv(u)
+
+
+# jax.random's uniform draws bits of a width from its dtype: the width of
+# the random bits (8 where the mantissa is narrower than 8 bits) and the
+# mantissa bits of a float in [1, 2) they fill. float16 is left out: XLA
+# keeps its intermediates in another precision, so its bits are not
+# reproduced.
+_FLOAT_BITS = {torch.float32: (32, 23), torch.bfloat16: (8, 7)}
+_INT_OF = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def gumbel(key: Key, shape, dtype=torch.float32, device="cpu"
+           ) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, dtype)`` in its default mode
+    ("low"): ``-log(-log(u))`` for ``u`` uniform on ``[tiny, 1)`` in
+    ``dtype``, each operation rounded to ``dtype``, each log XLA:CPU's f32
+    ``log`` (``jax.random.categorical`` is the argmax of logits plus
+    these). ``dtype`` float32 or bfloat16."""
+    if dtype not in _FLOAT_BITS:
+        raise ValueError(f"gumbel draws float32 or bfloat16, not {dtype}")
+    rng_bits, nmant = _FLOAT_BITS[dtype]
+    bits = random_bits(key, shape, device) & ((1 << rng_bits) - 1)
+    one = torch.tensor(1.0, dtype=dtype).view(_INT_OF[dtype]).item()
+    fbits = ((bits >> (rng_bits - nmant)) | one).to(_INT_OF[dtype])
+    floats = fbits.view(dtype) - torch.tensor(1.0, dtype=dtype)
+    tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=device)
+    u = torch.maximum(floats * (1.0 - tiny) + tiny, tiny)
+    inner = (-xla_f32.logf(u.float())).to(dtype)
+    return (-xla_f32.logf(inner.float())).to(dtype)

@@ -3,7 +3,7 @@
 Plain functions that build the port's structures from any array-likes —
 the reference's ``QRelTable`` / ``EdgeList`` / ``IVFFlatIndex`` /
 ``LSHIndex`` fields, labels, entity and query vectors, transformer
-parameter trees and AdamW state — via ``np.asarray``, so the port never
+parameter trees (MoE ones too), KV caches and AdamW state — via ``np.asarray``, so the port never
 imports the reference. The parity tests use them to feed both packages
 the same state; the synthetic corpus needs none of this, being numpy in
 both packages and identical from the same seed.
@@ -74,7 +74,20 @@ def transformer_params(tree, device="cpu"):
     ``lm_head``) as the port's tree of tensors, leaf for leaf."""
     if isinstance(tree, dict):
         return {k: transformer_params(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(device)
+    leaf = np.array(tree)
+    if leaf.dtype.name == "bfloat16":     # ml_dtypes': torch reads its bits
+        return torch.from_numpy(leaf.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(leaf).to(device)
+
+
+def kv_cache(cache, device="cpu"):
+    """The reference's KV cache ``{"k", "v": (L, B, S, Hkv, Dh), "pos":
+    (B,)}`` as the port's (``k``/``v`` in their own dtype, ``pos``
+    int32)."""
+    return {"k": transformer_params(cache["k"], device),
+            "v": transformer_params(cache["v"], device),
+            "pos": tensor(cache["pos"], torch.int32, device)}
 
 
 def adamw_state(state, device="cpu"):

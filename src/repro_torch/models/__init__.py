@@ -1,10 +1,12 @@
-"""Models on PyTorch (port of ``repro.models``): the dense transformer's
-forward path, which the retrieval encoder runs. ``lm_loss``,
-``decode_step`` and ``init_kv_cache`` wait for ROADMAP.md queue 1 item
-15."""
+"""Models on PyTorch (port of ``repro.models``): the composable transformer
+covering the five LM architectures (dense + MoE, GQA/MQA, RoPE,
+sliding-window / chunked attention, GeGLU/SwiGLU, KV-cache serving), which
+the retrieval encoder and the serving engine run. The recsys rankers and
+MACE wait for ROADMAP.md queue 1 item 15(c)."""
 from repro_torch.models.transformer import (MoEConfig, TransformerConfig,
-                                            init_transformer,
+                                            decode_step, init_kv_cache,
+                                            init_transformer, lm_loss,
                                             transformer_forward)
 
 __all__ = ["TransformerConfig", "MoEConfig", "init_transformer",
-           "transformer_forward"]
+           "transformer_forward", "lm_loss", "decode_step", "init_kv_cache"]

@@ -254,17 +254,21 @@ def test_causal_window_gqa_forward_matches_reference(route):
 
 
 def test_configs_the_port_leaves_out_raise():
+    """The activation-sharding options wait for item 15(b) and raise; MoE,
+    remat and the blocked loss are ported and build."""
     base = dict(vocab_size=8, d_model=8, n_layers=1, n_heads=2,
                 n_kv_heads=2, d_ff=8)
-    for extra, match in ((dict(moe=ttf.MoEConfig(4, 1)), "item 15"),
-                         (dict(remat="full"), "remat"),
-                         (dict(act_batch_axes=("data",)), "item 15"),
-                         (dict(attn_shard="dh"), "item 15"),
-                         (dict(seq_parallel=True), "item 15"),
-                         (dict(vocab_chunks=4), "vocab_chunks")):
-        with pytest.raises(NotImplementedError, match=match):
+    for extra in (dict(act_batch_axes=("data",)), dict(attn_shard="dh"),
+                  dict(seq_parallel=True)):
+        with pytest.raises(NotImplementedError, match=r"item 15\(b\)"):
             ttf.init_transformer(prng.prng_key(0),
                                  ttf.TransformerConfig(**base, **extra))
+    for extra in (dict(moe=ttf.MoEConfig(4, 1)), dict(remat="full"),
+                  dict(vocab_chunks=4)):
+        params = ttf.init_transformer(
+            prng.prng_key(0), ttf.TransformerConfig(**base, **extra),
+            device="cpu")
+        assert ("router" in params["layers"]) == ("moe" in extra)
 
 
 # --------------------------------------------------------------------------

@@ -32,14 +32,14 @@ from repro_torch.core import yule_simon as tys
 NOT_YET_PORTED = {
     "retrieval": {},
     "data": {"NeighborSampler": 15},
-    "models": {"lm_loss": 15, "decode_step": 15, "init_kv_cache": 15},
+    "models": {},
     "train": {"save_checkpoint": 15, "restore_checkpoint": 15,
               "latest_step": 15, "AsyncCheckpointer": 15},
     "core": {},
     "obs": {},
     "eval": {},
     "distributed": {},
-    "serve": {"ServeEngine": 15, "ServeConfig": 15, "RagEngine": 15},
+    "serve": {},
 }
 
 

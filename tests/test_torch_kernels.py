@@ -634,3 +634,43 @@ def test_live_index_on_card_matches_cpu_plain_path(cuda, engine, backend):
     assert card.frozen_n == plain.frozen_n == 3300
     check()
     assert TOPK_PARTIAL.launches + TOPK_INT8_PARTIAL.launches > launches0
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mixtral-8x22b",
+                                  "starcoder2-7b", "gemma-2b", "yi-9b"])
+def test_decoder_on_card_matches_cpu_plain_path(cuda, arch):
+    """The LM decoder at an arch's reduced config (f32, TF32 off) on the
+    card against the CPU: the init bit for bit, prefill's logits within
+    rtol 1e-4 / atol 1e-5 (other summation orders), and a ServeEngine's
+    greedy tokens over 2 slots equal, its cache on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.train.optimizer import tree_leaves
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_arch(arch).make_reduced()
+        params = {d: tf.init_transformer(prng.prng_key(1), cfg, device=d)
+                  for d in (cuda, "cpu")}
+        for g, w in zip(tree_leaves(params[cuda]), tree_leaves(params["cpu"])):
+            assert torch.equal(g.cpu(), w)
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (2, 20)).astype(np.int32))
+        with torch.no_grad():
+            got = tf.prefill(params[cuda], toks.to(cuda), cfg)[0]
+            want = tf.prefill(params["cpu"], toks, cfg)[0]
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+        outs = []
+        for d in (cuda, "cpu"):
+            eng = ServeEngine(params[d], cfg, ServeConfig(
+                max_batch=2, max_seq=32, max_new_tokens=5))
+            reqs = [eng.submit(toks[i, :n].numpy()) for i, n in
+                    ((0, 6), (1, 3))]
+            eng.drain()
+            assert eng.cache["k"].device.type == torch.device(d).type
+            outs.append([r.out for r in reqs])
+        assert outs[0] == outs[1]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
