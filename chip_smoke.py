@@ -10,7 +10,7 @@ From the root of a checkout, with one card. In order:
    started together; prints each build's ``-Xptxas -v`` report. The
    recompile sentinel (``obs/recompile``) is on from here: it must count
    one build for each source whose library was not built yet, and none in
-   phases 5-17.
+   phases 5-18.
 3. Kernel vs plain: each kernel's wrapper (lp_round, the f32 top-k, the
    int8 top-k, the gathered top-k, the Hamming top-k, flash attention)
    against its plain PyTorch version on the card, at the main path's
@@ -191,10 +191,35 @@ From the root of a checkout, with one card. In order:
     ``serve.step`` p50/p99, request latency p50/p99, the allocator peak,
     the kernels' device ms, and a step's bytes bound (the layer and tied
     head parameters in bf16 over the rate a 2 GiB copy shows).
+18. LM training (no kernel lies on it: the reference trains with the plain
+    attention, and every launch count must stay 0). 18a: the reduced
+    configs of the five LM archs (f32, TF32 off): 3 steps of
+    ``launch/cells.build_lm_cell``'s train step from ``launch/train``'s
+    initial draw on the card against the CPU's plain path, losses within
+    ``LM_F32_TOL`` and parameters and moments within 2 lr(step) a step; the
+    donated update (``adamw_update_``) bit-equal to ``adamw_update`` on the
+    card with no leaf moved; ``launch/train`` for 12 steps, then resumed
+    to 20, bit-equal to 20 uninterrupted (losses and step-20 checkpoint).
+    18b: gemma-2b at its published config (bf16 compute, f32 parameters,
+    remat "full") drawn on the card, ``build_lm_cell("gemma-2b",
+    "train_4k", ...)``'s step on ``TRAIN_BATCH`` x 4097 tokens (the global
+    batch cut from 256 for memory, the reckoning logged): ``train_loop``
+    for 2 steps, then an ``AsyncCheckpointer`` save of the 30.1 GB state
+    at step 2, written while step 3 runs (one full-width save: the card's
+    machine caps what a run writes to its disk at 45 GiB, and
+    ``train_loop``'s final save would be a second); every loss finite,
+    every leaf's pointer kept through each step, the allocator peak under
+    the reckoning plus 10 %; the step-2 checkpoint restored into a fresh
+    tree equal to the saved state (two 64-bit checksums a leaf), and step
+    3 from it the run's loss and final state bit for bit. Logged: step
+    times (CUDA events) against the flop bound, a profiled step's busy
+    share and launches, the save's bytes and seconds with the disk's free
+    space before it, the restore's seconds, the allocator peak.
 
 Launch counts are set to 0 just before each main-path run (5, 6, 7, 9, 12,
-13, 15's, 17c) and
-read just after; a kernel the run did not launch is a failure. No tuned
+13, 15's, 17c, 18) and
+read just after; a kernel the run did not launch is a failure (in 18, a
+kernel it did launch). No tuned
 table is active outside phase 10, whatever ``REPRO_TORCH_TUNED_KERNELS``
 names: a launch that resolves through one is a failure, so every other
 phase runs today's split plans. Each run
@@ -266,6 +291,8 @@ RAG_REQUESTS = 64               # RAG queries served in 17c
 RAG_NEW_TOKENS = 32             # tokens each request generates
 RAG_CTX_TOKENS = 24             # passage tokens prepended to a prompt
 RAG_FORCED = 16                 # requests re-run alone, teacher-forced
+TRAIN_BATCH = 2                 # 18b's sequences a step: train_4k's 256 cut
+                                # for one card's memory (logits of 256000)
 
 
 # phase 14's child: one rank of two in a gloo group on the one card;
@@ -1366,6 +1393,303 @@ def rag_full_width(cfg, params, pb, kernels, smi: str) -> dict:
     return launched
 
 
+def adam_atol(steps: int) -> float:
+    """The parameters' bound after ``steps`` AdamW steps from equal
+    states: 2 lr(step) a step (where |g| is near its own error, m/sqrt(v)
+    may take either sign, a full update either way)."""
+    import torch
+    from repro_torch.train.optimizer import AdamWConfig, _schedule
+    return sum(2 * _schedule(torch.tensor(s), AdamWConfig()).item()
+               for s in range(1, steps + 1))
+
+
+def tree_ptrs(*trees) -> list:
+    from repro_torch.train.optimizer import tree_leaves
+    return [t.data_ptr() for tree in trees for t in tree_leaves(tree)]
+
+
+def bytes_written() -> int:
+    """Bytes this process has passed to write calls so far (``wchar`` of
+    ``/proc/self/io``): the card's machine caps what a run writes to its
+    disk at 45 GiB."""
+    with open("/proc/self/io") as f:
+        return int(dict(line.split(": ") for line in f.read().splitlines())
+                   ["wchar"])
+
+
+def leaf_sums(trees) -> "torch.Tensor":
+    """Two 64-bit checksums of each leaf's 32-bit words, in exact integer
+    arithmetic (wrapping) on the leaf's device: their sum and their sum
+    weighted by position (1-based). (n leaves, 2) int64 on the host."""
+    import torch
+    from repro_torch.train.optimizer import tree_leaves
+    chunk = 1 << 24
+    out = []
+    for t in (t for tree in trees for t in tree_leaves(tree)):
+        words = t.reshape(-1).view(torch.int32)
+        sums = torch.zeros(2, dtype=torch.int64, device=t.device)
+        for a in range(0, words.numel(), chunk):
+            c = words[a:a + chunk].to(torch.int64)
+            sums[0] += c.sum()
+            sums[1] += (c * torch.arange(a + 1, a + 1 + c.numel(),
+                                         device=t.device)).sum()
+        out.append(sums)
+    return torch.stack(out).cpu()
+
+
+def same_leaves(trees, host_trees) -> bool:
+    """The leaves of ``trees`` (on the card) equal to those of
+    ``host_trees`` (on the host) bit for bit, in the same order."""
+    import torch
+    from repro_torch.train.optimizer import tree_leaves
+    got = [t for tree in trees for t in tree_leaves(tree)]
+    want = [h for tree in host_trees for h in tree_leaves(tree)]
+    return len(got) == len(want) and all(
+        t.dtype == h.dtype and torch.equal(t, h.to(t.device))
+        for t, h in zip(got, want))
+
+
+def train_small_parity(arch: str, mesh, ckdir: str) -> str:
+    """18a: one LM arch's reduced train cell (f32) on the card against the
+    CPU's plain path from launch/train's initial draw: 3 steps' losses
+    within LM_F32_TOL, parameters and moments within adam_atol; the
+    donated update bit-equal to the functional adamw_update on the card;
+    launch/train for 12 steps, then resumed to 20, equal to 20 steps
+    uninterrupted: losses and final checkpoints bit for bit. Returns a
+    log line."""
+    import io
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import cells
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             adamw_update, adamw_update_,
+                                             tree_leaves, tree_map)
+    cell = cells.build_lm_cell(arch, "train_4k", mesh, reduced=True)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        params = train_cli.initial_params(cell, 0, d)
+        opt = adamw_init(params)
+        losses = []
+        for step in range(3):
+            params, opt, loss = cell.fn(params, opt,
+                                        train_cli.step_batch(cell, step, d))
+            losses.append(loss.item())
+        runs[d] = (params, opt, losses)
+    if not np.allclose(runs["cuda"][2], runs["cpu"][2], rtol=LM_F32_TOL[0],
+                       atol=LM_F32_TOL[1]):
+        fail(f"18a {arch}: losses card {runs['cuda'][2]} vs CPU "
+             f"{runs['cpu'][2]}")
+    atol = adam_atol(3)
+    err = max((a.cpu() - b).abs().max().item() for a, b in zip(
+        tree_leaves(runs["cuda"][0]) + tree_leaves(runs["cuda"][1]["m"]),
+        tree_leaves(runs["cpu"][0]) + tree_leaves(runs["cpu"][1]["m"])))
+    if err > atol:
+        fail(f"18a {arch}: parameters or moments after 3 steps differ by "
+             f"{err:.3g}, card vs CPU (bound {atol:.3g})")
+    # the donated update against the functional one on the card
+    params, opt, _ = runs["cuda"]
+    cfg = configs.get_arch(arch).make_reduced()
+    _, grads = cells.lm_grads(params, train_cli.step_batch(cell, 3, "cuda"),
+                              cfg)
+    want = adamw_update(grads, opt, params, AdamWConfig())
+    got = tree_map(torch.clone, params), tree_map(torch.clone, opt)
+    ptrs = tree_ptrs(*got)
+    adamw_update_(grads, got[1], got[0], AdamWConfig())
+    if tree_ptrs(*got) != ptrs:
+        fail(f"18a {arch}: the donated update moved a leaf")
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(got[0]) + tree_leaves(got[1]),
+            tree_leaves(want[0]) + tree_leaves(want[1]))):
+        fail(f"18a {arch}: the donated update != adamw_update on the card")
+    # launch/train: 12 steps, resumed to 20, against 20 uninterrupted
+    dirs = [os.path.join(ckdir, arch, name) for name in ("resumed", "whole")]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        first = train_cli.main(["--arch", arch, "--steps", "12",
+                                "--checkpoint-dir", dirs[0]])
+        second = train_cli.main(["--arch", arch, "--steps", "20",
+                                 "--checkpoint-dir", dirs[0]])
+        whole = train_cli.main(["--arch", arch, "--steps", "20",
+                                "--checkpoint-dir", dirs[1]])
+    if "resumed from step 12" not in out.getvalue() or len(second) != 8:
+        fail(f"18a {arch}: launch/train did not resume at step 12")
+    if first + second != whole:
+        fail(f"18a {arch}: resumed losses {second} != uninterrupted "
+             f"{whole[12:]}")
+    saved = [np.load(os.path.join(d, "step_0000000020", "leaves.npz"))
+             for d in dirs]
+    if saved[0].files != saved[1].files or not all(
+            np.array_equal(saved[0][f], saved[1][f]) for f in saved[0].files):
+        fail(f"18a {arch}: the resumed run's step-20 checkpoint != the "
+             f"uninterrupted run's")
+    return (f"{arch}: 3 train steps, losses {runs['cuda'][2][0]:.6f}.."
+            f"{runs['cuda'][2][-1]:.6f} within {LM_F32_TOL} of the CPU's, "
+            f"parameters and moments within {err:.3g} (bound {atol:.3g}); "
+            f"donated update bit-equal to adamw_update, no leaf moved; "
+            f"launch/train 12 + 8 resumed steps bit-equal to 20 (losses and "
+            f"the step-20 checkpoint, {len(saved[0].files)} leaves)")
+
+
+def gemma_train_full_width(smi: str) -> None:
+    """18b: gemma-2b's train step at its published config (bf16 compute,
+    f32 parameters, remat full) on TRAIN_BATCH x 4097 tokens: train_loop
+    for 2 steps, an AsyncCheckpointer save of the state at step 2 written
+    while step 3 runs, then the step-2 checkpoint restored into a fresh
+    tree (equal to the saved state by leaf_sums) and step 3 from it equal
+    to the run's loss and final state bit for bit; donation (no leaf
+    moves), the allocator peak under the reckoning plus 10 %. One save of
+    the 30.1 GB tree, not train_loop's two: the card's machine caps what a
+    run writes to its disk at 45 GiB."""
+    import shutil
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.kernels.tuning import H100_BF16_FLOPS
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.optimizer import adamw_init, tree_leaves, tree_map
+    cell = cells.build_lm_cell("gemma-2b", "train_4k", make_host_mesh(),
+                               reduced=False)
+    cfg = configs.get_arch("gemma-2b").make_config()
+    pub_batch, s1 = cell.args[2].shape
+    ckdir = os.path.join(OUT, "train_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    reset_memory()
+    t0 = time.perf_counter()
+    params = tf.init_transformer(prng.prng_key(0), cfg, device="cuda")
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in tree_leaves(params))
+    if n != tf.count_params(cfg):
+        fail(f"18b: gemma-2b's tree holds {n} elements, count_params "
+             f"{tf.count_params(cfg)}")
+    state_gb = 16 * n / 1e9             # f32 parameters, m, v, gradients
+    tokens = TRAIN_BATCH * (s1 - 1)
+    logits_gb = 14 * tokens * cfg.vocab_size / 1e9
+    reckoning = (state_gb + logits_gb) * 1e9
+    log(f"    18b: gemma-2b ({n} parameters, f32 tree and AdamW state on the "
+        f"card in {init_s:.2f} s); global batch cut from {pub_batch} to "
+        f"{TRAIN_BATCH} sequences of {s1 - 1} tokens for memory: the "
+        f"reckoning is {state_gb:.1f} GB of f32 parameters, m, v and "
+        f"gradients plus {logits_gb:.1f} GB of logits (bf16, f32, their "
+        f"gradient and logsumexp temporaries: 14 B a token a vocab entry) = "
+        f"{reckoning / 1e9:.1f} GB; 4 sequences would need "
+        f"{state_gb + 2 * logits_gb:.1f}")
+
+    def batch_fn(step):
+        return torch.from_numpy(np.random.default_rng(180 + step).integers(
+            0, cfg.vocab_size, (TRAIN_BATCH, s1)).astype(np.int32)).cuda()
+
+    events, starts = [], []
+
+    def step_fn(p, o, t):
+        ptrs = tree_ptrs(p, o)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        starts.append(time.perf_counter())
+        start.record()
+        out = cell.fn(p, o, t)
+        end.record()
+        events.append((start, end))
+        if tree_ptrs(out[0], out[1]) != ptrs:
+            fail("18b: a parameter or AdamW leaf moved in a step (donation)")
+        return out
+
+    t0 = time.perf_counter()
+    params, opt, losses = train_loop(step_fn, params, opt, batch_fn,
+                                     LoopConfig(total_steps=2, log_every=1))
+    loop_s = time.perf_counter() - t0
+    # the save of step 2, written on the worker while step 3 runs
+    saves = []
+    orig_save = ck.save_checkpoint
+
+    def timed_save(directory, step, tree):
+        free = shutil.disk_usage(OUT).free
+        t0 = time.perf_counter()
+        path = orig_save(directory, step, tree)
+        saves.append((t0, time.perf_counter(), os.path.getsize(
+            os.path.join(path, "leaves.npz")), free))
+        return path
+
+    ck.save_checkpoint = timed_save
+    try:
+        writer = ck.AsyncCheckpointer(ckdir, keep=1)
+        sums2 = leaf_sums((params, opt))
+        t0 = time.perf_counter()
+        writer.save(2, (params, opt))
+        copy_s = time.perf_counter() - t0
+        params, opt, loss = step_fn(params, opt, batch_fn(2))
+        losses.append(loss.item())
+        step3_end = time.perf_counter()
+        final = tuple(tree_map(lambda t: t.to("cpu", copy=True), x)
+                      for x in (params, opt))
+        writer.close()
+    finally:
+        ck.save_checkpoint = orig_save
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    if not all(np.isfinite(losses)):
+        fail(f"18b: a loss is not finite: {losses}")
+    if peak > 1.1 * reckoning:
+        fail(f"18b: allocator peak {peak} B over the reckoning "
+             f"{reckoning:.4g} B plus 10 %")
+    flops = (8 * n * tokens + 4 * 4 * TRAIN_BATCH * cfg.n_layers
+             * cfg.n_heads * (s1 - 1) ** 2 * cfg.head_dim)
+    bound_ms = flops / H100_BF16_FLOPS * 1e3
+    p50 = float(np.median(step_ms[1:]))
+    log(f"    18b: train_loop 2 steps in {loop_s:.2f} s, then step 3 beside "
+        f"the save; losses {', '.join(f'{x:.6f}' for x in losses)}; step "
+        f"times {', '.join(f'{x:.1f}' for x in step_ms)} ms (CUDA events), "
+        f"p50 after the first {p50:.1f} ms against the bound "
+        f"{bound_ms:.1f} ms ({flops:.4g} flop: 8 N T with remat's second "
+        f"forward, plus the blocked attention's, at "
+        f"{H100_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16); "
+        f"{flops / p50 / 1e9:.1f} TFLOP/s; allocator peak {peak} B "
+        f"({peak / reckoning:.3f} of the reckoning); every leaf kept its "
+        f"pointer through each step")
+    (a, b, nbytes, free), = saves
+    log(f"    18b: save of step 2: {nbytes} B; host copy in the caller "
+        f"{copy_s:.2f} s, written on the worker in {b - a:.2f} s "
+        f"({nbytes / (b - a) / 1e9:.2f} GB/s, from {a - starts[2]:+.2f} to "
+        f"{b - starts[2]:+.2f} s of step 3's start, which ended at "
+        f"{step3_end - starts[2]:+.2f}); disk free before {free} B")
+    prof = device_profile(lambda: cell.fn(params, opt, batch_fn(3)))
+    log_profile("18b: one train step", prof)
+    log(f"    18b: {sum(k for k, _ in prof[2].values())} device launches in "
+        f"a step (the profiler's count)")
+    del params, opt, prof
+    torch.cuda.empty_cache()
+    # the step-2 checkpoint into a fresh tree: equal to what was saved
+    like = tuple(tree_map(lambda s: torch.empty(0, dtype=s.dtype,
+                                                 device="cuda"), spec)
+                 for spec in cell.args[:2])
+    t0 = time.perf_counter()
+    (rp, ro), step = ck.restore_checkpoint(ckdir, like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != 2 or not torch.equal(leaf_sums((rp, ro)), sums2):
+        fail("18b: the step-2 checkpoint restored != the state saved")
+    p3, o3, loss3 = cell.fn(rp, ro, batch_fn(2))
+    if loss3.item() != losses[2]:
+        fail(f"18b: step 3 from the restored state: loss {loss3.item()!r} "
+             f"!= the run's {losses[2]!r}")
+    if not same_leaves((p3, o3), final):
+        fail("18b: step 3 from the restored state != the run's final state")
+    log(f"    18b: the step-2 checkpoint restored into a fresh tree in "
+        f"{restore_s:.2f} s, equal to the state saved by two 64-bit "
+        f"checksums a leaf; step 3 from it gave the run's loss "
+        f"{loss3.item():.6f} and final state bit for bit (every element "
+        f"against a host copy); {smi}")
+    del rp, ro, p3, o3, final
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1417,7 +1741,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/17] device: {name}; nvidia-smi: {smi}; "
+    log(f"[1/18] device: {name}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build -------------------------------------------------------------
@@ -1435,7 +1759,7 @@ def main() -> None:
 
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_counted, sources))
-    log(f"[2/17] built {', '.join(sources)} in "
+    log(f"[2/18] built {', '.join(sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     if recompile.counts() != ({"phase 2": len(uncached)} if uncached
                               else {}):
@@ -1454,7 +1778,7 @@ def main() -> None:
     tuning.set_table(None)
     untuned_hits = REGISTRY.counter("tuning.resolve.hit").value
     main_shapes: dict = {}      # phases 5-7's launches by shape, for phase 10
-    log("[3/17] kernel vs plain")
+    log("[3/18] kernel vs plain")
     for n, k, quarter in [(1, 1, True), (37, 5, True), (513, 33, True),
                           (300, 70, False), (4096, 0, True),
                           (100_003, 32, True), (100_003, 32, False)]:
@@ -1684,7 +2008,7 @@ def main() -> None:
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
-    log("[4/17] times (CUDA events, after warm-up)")
+    log("[4/18] times (CUDA events, after warm-up)")
     labels, nbr, wgt, deg_sq = lp_main
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
@@ -1950,7 +2274,7 @@ def main() -> None:
     sample_corpus = corpus_seen.results["corpus"]
     sample_stats, sample_wall = stats, wall
     del corpus_seen
-    log(f"[5/17] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
+    log(f"[5/18] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
         f"{stats['communities']} communities, changes/round "
         f"{stats['changes_per_round']}, {stats['entities']} entities "
         f"sampled")
@@ -1994,7 +2318,7 @@ def main() -> None:
             "--json", os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     cells = out["grid"]["cells"]
     eval_out, eval_wall = out, wall
-    log(f"[6/17] evaluation: {wall:.2f} s wall, {len(cells)} cells")
+    log(f"[6/18] evaluation: {wall:.2f} s wall, {len(cells)} cells")
     eval_launches = read_counts(kernels, "evaluation", main_shapes)
     trace.disable()
     # the Hamming kernel at each shape the grid launched it at
@@ -2029,7 +2353,7 @@ def main() -> None:
     from repro_torch.retrieval.experiment import run_table1_experiment
     t0 = time.perf_counter()
     t1_corpus = eval_corpus(EVAL_QUERIES, 2048, embed=False)
-    log(f"[7/17] Table I corpus: {t1_corpus.num_entities} entities, "
+    log(f"[7/18] Table I corpus: {t1_corpus.num_entities} entities, "
         f"{t1_corpus.num_queries} queries, passages "
         f"{t1_corpus.passage_tokens.shape[1]} tokens, queries "
         f"{t1_corpus.query_tokens.shape[1]}, vocab {t1_corpus.vocab_size} "
@@ -2254,7 +2578,7 @@ def main() -> None:
         f"both; load of 256: completed {g_load['completed']}, rejected "
         f"{g_load['rejected']}, ticks {g_load['ticks']}, mean batch "
         f"{g_load['mean_batch']} on both")
-    log("[8/17] small inputs: sample.npz, grid cells, the encoder's and the "
+    log("[8/18] small inputs: sample.npz, grid cells, the encoder's and the "
         "serve CLI's results equal (or within the stated tolerance) on cuda "
         "and cpu")
 
@@ -2298,7 +2622,7 @@ def main() -> None:
             sample_corpus.num_entities, prng.prng_key(0), rate=0.15,
             device="cuda")):
         fail("run_uniform_baseline's mask != uniform_sample's")
-    log(f"[9/17] run_windtunnel (engine {session.spec.engine}, "
+    log(f"[9/18] run_windtunnel (engine {session.spec.engine}, "
         f"{sample_corpus.num_entities} entities): {wt_wall:.2f} s wall, "
         f"{int(wt.sample.entity_mask.sum())} entities sampled; labels and "
         f"entity_mask equal to the session's bit for bit; "
@@ -2323,7 +2647,7 @@ def main() -> None:
                      for kernel, dt in traffic
                      for bucket in ("le65536", "gt65536")
                      if (kernel, bucket, dt) not in table.entries)
-    log(f"[10/17] autotune (topk float32/int8, hamming_topk; le65536, "
+    log(f"[10/18] autotune (topk float32/int8, hamming_topk; le65536, "
         f"gt65536) over phases 5-7's launches in "
         f"{time.perf_counter() - t0:.1f} s; {smi}; cells the main path "
         f"never launched, so left untuned: {', '.join(untuned) or 'none'}; "
@@ -2403,7 +2727,7 @@ def main() -> None:
     # 11. where the host time goes ----------------------------------------
     # the two CLIs once more at the timed runs' sizes, under cProfile (the
     # timed runs above stay unprofiled)
-    log("[11/17] host time: the sampling and evaluation CLIs under cProfile")
+    log("[11/18] host time: the sampling and evaluation CLIs under cProfile")
     with tempfile.TemporaryDirectory(dir=OUT) as tmp, \
             recompile.region("phase 11"):
         profile_top("sampling", lambda: run_sample(
@@ -2432,7 +2756,7 @@ def main() -> None:
             "--streamed", "--mesh", "host", "--out",
             os.path.join(OUT, "sample_streamed"), "--trace", streamed_trace])
     trace.disable()
-    log(f"[12/17] streamed sampling (1-rank NCCL mesh, "
+    log(f"[12/18] streamed sampling (1-rank NCCL mesh, "
         f"{dist.get_backend()}): {sh_wall:.2f} s wall (phase 5: "
         f"{sample_wall:.2f} s), changes/round "
         f"{sh_stats['changes_per_round']}")
@@ -2498,7 +2822,7 @@ def main() -> None:
             os.path.join(OUT, "eval_streamed.json"), "--trace",
             streamed_eval_trace])
     trace.disable()
-    log(f"[13/17] streamed evaluation (1-rank NCCL mesh): "
+    log(f"[13/18] streamed evaluation (1-rank NCCL mesh): "
         f"{sh_eval_wall:.2f} s wall (phase 6: {eval_wall:.2f} s), "
         f"{len(sh_out['grid']['cells'])} cells")
     sh_eval_launches = read_counts(kernels, "streamed evaluation")
@@ -2547,7 +2871,7 @@ def main() -> None:
                 p.kill()
                 p.wait()
     two_wall = time.perf_counter() - t0
-    log(f"[14/17] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
+    log(f"[14/18] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
         f"{two_wall:.2f} s wall, both processes")
     reports = []
     for r, (p, text) in enumerate(zip(procs, outs)):
@@ -2646,7 +2970,7 @@ def main() -> None:
         list(pool.map(lambda t: shared_corpus(t, docs=SERVE_DOCS,
                                               dim=SERVE_DIM, seed=0),
                       ("tenant-0", "tenant-1")))
-    log(f"[15/17] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
+    log(f"[15/18] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
         f"(two drawn on the host in {time.perf_counter() - t0:.2f} s, "
         f"two threads, before the runs), buckets up to {SERVE_BATCH}, "
         f"k_max {SERVE_KMAX}; {smi}")
@@ -3013,7 +3337,7 @@ def main() -> None:
     if fresh or lint.returncode != 0:
         fail(f"phase 16: {len(fresh)} finding(s) not in "
              f"lint_baseline_torch.json (exit {lint.returncode})")
-    log(f"[16/17] analyzer: python -m repro_torch.launch.lint over "
+    log(f"[16/18] analyzer: python -m repro_torch.launch.lint over "
         f"src/repro_torch on Python {sys.version.split()[0]}: "
         f"{len(report['findings'])} findings ({report['counts']}), all in "
         f"the baseline, {len(report['rules'])} rules, {lint_s:.2f} s; {smi}")
@@ -3035,9 +3359,39 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_no_build("phase 17")
     check_untuned("phase 17", untuned_hits)
-    log(f"[17/17] LM decoder and RAG serving: 5 reduced archs card vs CPU, "
+    log(f"[17/18] LM decoder and RAG serving: 5 reduced archs card vs CPU, "
         f"gemma-2b prefill vs decode, RAG at full width in "
         f"{time.perf_counter() - t17:.1f} s; {smi}")
+
+    # 18. LM training ------------------------------------------------------
+    # a: the five LM archs' reduced train cells, card vs the CPU's plain
+    # path, and launch/train's resume; b: gemma-2b at its published config.
+    # No kernel lies on this path (the reference trains with plain
+    # attention): every launch count must stay 0
+    import shutil
+    from repro_torch.launch.mesh import make_host_mesh
+    t18 = time.perf_counter()
+    reset_counts(kernels)
+    with recompile.region("phase 18"):
+        mesh = make_host_mesh()
+        ckdir = os.path.join(OUT, "train_small")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        for arch in ("llama4-scout-17b-a16e", "mixtral-8x22b",
+                     "starcoder2-7b", "gemma-2b", "yi-9b"):
+            log(f"    18a {train_small_parity(arch, mesh, ckdir)}")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        gemma_train_full_width(smi)
+    train_launches = read_counts(kernels, "phase 18")
+    if any(train_launches.values()):
+        fail(f"phase 18 launched kernels: {train_launches}")
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_no_build("phase 18")
+    check_untuned("phase 18", untuned_hits)
+    log(f"[18/18] LM training: 5 reduced archs card vs CPU and resumed, "
+        f"gemma-2b trained at full width with an async save and a restore, "
+        f"no kernel launched, in {time.perf_counter() - t18:.1f} s; {smi}")
 
     def launches(kname: str) -> int:
         """A kernel's launches over the main-path runs (phases 5-7, 12,
@@ -3091,7 +3445,8 @@ def main() -> None:
          "max_abs_err": attn_err, "ms": a_ms, "plain_ms": a_plain_ms,
          "bound_ms": a_bound, "bound_by": a_by, "library_ms": a_lib_ms},
     ]}
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s; this process passed "
+        f"{bytes_written()} B to write calls")
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -26,13 +26,13 @@ any fixture tree handed to the rules directly. ``grep threading`` and
 ``make_lock`` over ``src/repro_torch`` settle the list: ``serve`` (the
 scheduler's queue, the tenant cache, the live index and its compaction
 worker), ``obs`` (the metrics registry, tracer, recompile sentinel and
-debug locks, which any thread may call) and ``kernels`` (``build.py``
-compiles sources on several threads, one lock a source). ``distributed``
-is not among them: the mesh's cache of process groups
-(``collectives.axis_group``) takes no lock, and a compaction worker reads
-a copy of it of its own (``serve/ingest.LiveIndex._build``). The port has
-no checkpoint worker yet, so ``train`` (the reference's third package)
-holds no thread.
+debug locks, which any thread may call), ``kernels`` (``build.py``
+compiles sources on several threads, one lock a source) and ``train``
+(``checkpoint.AsyncCheckpointer``'s writer thread, whose failed write
+reaches the caller under a lock). ``distributed`` is not among them: the
+mesh's cache of process groups (``collectives.axis_group``) takes no
+lock, and a compaction worker reads a copy of it of its own
+(``serve/ingest.LiveIndex._build``).
 
 What the rules cannot see: they follow ``self.<lock>`` attributes of a
 class. A module-level lock (``serve/ingest._FREE_GROUPS``, which guards
@@ -54,7 +54,7 @@ from repro_torch.analysis.core import (ROOT_PACKAGE, Finding, Module,
 __all__ = ["ClassLocks", "class_locks", "lock_order_graph", "graph_cycle"]
 
 #: packages whose classes are subject to the concurrency rules
-_CONCURRENT_PACKAGES = frozenset({"serve", "obs", "kernels"})
+_CONCURRENT_PACKAGES = frozenset({"serve", "obs", "kernels", "train"})
 
 #: self-attribute names treated as locks when used as context managers
 _LOCK_HINT = "lock"

@@ -27,10 +27,17 @@ encoder takes it when it embeds a corpus on the card, and trains on the
 plain routes under autograd, as the reference does. ``decode_step``
 attends through the naive route, as the reference does.
 
-Not ported here: the activation sharding constraints (``act_batch_axes``,
-``act_model_axis``, ``attn_shard="dh"``, ``seq_parallel``), which come
-with model-parallel training (ROADMAP queue 1 item 15(b)). A config that
-sets one raises.
+The activation sharding options (``act_batch_axes``, ``act_model_axis``,
+``attn_shard="dh"``, ``seq_parallel``) are accepted and leave every value
+as it is: in the reference they are ``with_sharding_constraint``s, which
+change where a value lives, never the value, and the port runs a model on
+one rank (``launch/cells.build_lm_cell`` refuses a mesh of more, ROADMAP
+queue 1 item 15(d)).
+
+The layer loop takes each stacked ``(L, ...)`` leaf apart with one
+``unbind``, so under autograd a leaf's gradient is stacked once from the
+layers' slices (a slice by index would add a zeroed full-size gradient a
+layer).
 """
 from __future__ import annotations
 
@@ -80,9 +87,9 @@ class TransformerConfig:
     block_kv: int = 1024
     vocab_chunks: int = 1                 # >1 -> blocked cross-entropy
     use_flash_kernel: bool = False        # route attention to the kernel
-    act_batch_axes: Optional[tuple] = None  # sharding constraints: raise
-    act_model_axis: Optional[str] = None    # unless left at their defaults
-    attn_shard: str = "heads"
+    act_batch_axes: Optional[tuple] = None  # sharding constraints: where
+    act_model_axis: Optional[str] = None    # a value lives (on one rank,
+    attn_shard: str = "heads"               # no value changes)
     seq_parallel: bool = False
 
     @property
@@ -90,17 +97,6 @@ class TransformerConfig:
         if self.d_head is not None:
             return self.d_head
         return self.d_model // self.n_heads
-
-
-def check_ported(cfg: TransformerConfig) -> None:
-    """Raise if ``cfg`` needs what this port leaves out."""
-    if (cfg.act_batch_axes is not None or cfg.act_model_axis is not None
-            or cfg.attn_shard != "heads" or cfg.seq_parallel):
-        raise NotImplementedError(
-            "activation sharding constraints are not ported to PyTorch yet "
-            "(ROADMAP.md queue 1 item 15(b), with model-parallel "
-            "training); leave act_batch_axes and act_model_axis None, "
-            "attn_shard 'heads' and seq_parallel False")
 
 
 # ---------------------------------------------------------------------------
@@ -127,45 +123,58 @@ def _dense_init(key, shape, in_axis, dtype, device):
     return out
 
 
+def _param_layout(cfg: TransformerConfig):
+    """Each parameter's shape and draw: ``None`` for ones, else ``(key
+    index, fan-in axis)`` of its ``normal / sqrt(fan_in)`` draw."""
+    dh, h, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    L, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    glu = cfg.activation in ("swiglu", "geglu")
+    wi_cols = 2 * F_ if glu else F_
+    layers = {
+        "ln1": ((L, D), None),
+        "ln2": ((L, D), None),
+        "wq": ((L, D, h * dh), (0, 1)),
+        "wk": ((L, D, hkv * dh), (1, 1)),
+        "wv": ((L, D, hkv * dh), (2, 1)),
+        "wo": ((L, h * dh, D), (3, 1)),
+    }
+    if cfg.moe is None:
+        layers["wi"] = ((L, D, wi_cols), (4, 1))
+        layers["wo_ff"] = ((L, F_, D), (5, 1))
+    else:
+        E = cfg.moe.num_experts
+        layers["router"] = ((L, D, E), (6, 1))
+        layers["wi"] = ((L, E, D, wi_cols), (7, 2))
+        layers["wo_ff"] = ((L, E, F_, D), (8, 2))
+    out = {"embed": ((V, D), (9, 1)), "layers": layers, "ln_f": ((D,), None)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ((D, V), (10, 0))
+    return out
+
+
+def _map_layout(fn, layout):
+    if isinstance(layout, dict):
+        return {k: _map_layout(fn, v) for k, v in layout.items()}
+    return fn(*layout)
+
+
+def param_shapes(cfg: TransformerConfig):
+    """The parameter tree's shapes (tuples), with nothing allocated."""
+    return _map_layout(lambda shape, draw: shape, _param_layout(cfg))
+
+
 def init_transformer(key: prng.Key, cfg: TransformerConfig, device="cuda"):
     """The reference's parameter tree from the same key, bit for bit,
     drawn on ``device`` (the card unless ``device="cpu"``)."""
-    check_ported(cfg)
     device = resolve_device(device)
-    dh, h, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    L, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
-    pd = cfg.param_dtype
     keys = prng.split(key, 12)
-    glu = cfg.activation in ("swiglu", "geglu")
-    wi_cols = 2 * F_ if glu else F_
 
-    def dense(i, shape, in_axis):
-        return _dense_init(keys[i], shape, in_axis, pd, device)
-
-    layers = {
-        "ln1": torch.ones((L, D), dtype=pd, device=device),
-        "ln2": torch.ones((L, D), dtype=pd, device=device),
-        "wq": dense(0, (L, D, h * dh), 1),
-        "wk": dense(1, (L, D, hkv * dh), 1),
-        "wv": dense(2, (L, D, hkv * dh), 1),
-        "wo": dense(3, (L, h * dh, D), 1),
-    }
-    if cfg.moe is None:
-        layers["wi"] = dense(4, (L, D, wi_cols), 1)
-        layers["wo_ff"] = dense(5, (L, F_, D), 1)
-    else:
-        E = cfg.moe.num_experts
-        layers["router"] = dense(6, (L, D, E), 1)
-        layers["wi"] = dense(7, (L, E, D, wi_cols), 2)
-        layers["wo_ff"] = dense(8, (L, E, F_, D), 2)
-    params = {
-        "embed": dense(9, (V, D), 1),
-        "layers": layers,
-        "ln_f": torch.ones((D,), dtype=pd, device=device),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = dense(10, (D, V), 0)
-    return params
+    def leaf(shape, draw):
+        if draw is None:
+            return torch.ones(shape, dtype=cfg.param_dtype, device=device)
+        i, in_axis = draw
+        return _dense_init(keys[i], shape, in_axis, cfg.param_dtype, device)
+    return _map_layout(leaf, _param_layout(cfg))
 
 
 def param_logical_axes(cfg: TransformerConfig):
@@ -476,15 +485,18 @@ def _layer(x, lp, cfg, q_pos, k_pos, k_valid, tables):
     return x + y, aux
 
 
-def _layer_params(params, i):
-    return {name: w[i] for name, w in params["layers"].items()}
+def _layer_views(params) -> list:
+    """Layer i's parameters as views of the stacked leaves, for every i
+    (one ``unbind`` a leaf)."""
+    names = list(params["layers"])
+    per_leaf = [params["layers"][n].unbind(0) for n in names]
+    return [dict(zip(names, ws)) for ws in zip(*per_leaf)]
 
 
 def transformer_forward(params, tokens, cfg: TransformerConfig, *,
                         positions=None, k_valid=None, return_hidden=False):
     """tokens (B, S) -> logits (B, S, V) [or hidden (B, S, D)], plus the
     summed auxiliary loss (0 for the dense FFN)."""
-    check_ported(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     if positions is None:
@@ -493,8 +505,7 @@ def transformer_forward(params, tokens, cfg: TransformerConfig, *,
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     tables = _rope_tables(cfg, positions)
-    for i in range(cfg.n_layers):
-        lp = _layer_params(params, i)
+    for lp in _layer_views(params):
         if _remat(cfg):
             x, a = checkpoint(_layer, x, lp, cfg, positions, positions,
                               k_valid, tables, use_reentrant=False)
@@ -545,7 +556,6 @@ def prefill(params, tokens, cfg: TransformerConfig):
     """Prefill pass for serving: tokens (B, S) -> (last-token logits (B, V),
     cache {k, v: (L, B, S_cache, Hkv, Dh), pos}). Windowed archs emit only
     the rolling tail of the KV stream (cache_length)."""
-    check_ported(cfg)
     b, s = tokens.shape
     dt = cfg.dtype
     s_cache = cache_length(cfg, s)
@@ -554,8 +564,7 @@ def prefill(params, tokens, cfg: TransformerConfig):
                              device=x.device)[None].expand(b, s)
     ks, vs = [], []
     tables = _rope_tables(cfg, positions)
-    for i in range(cfg.n_layers):
-        lp = _layer_params(params, i)
+    for lp in _layer_views(params):
         q, kk, vv = _qkv(x, lp, cfg, tables)
         att = attention(q, expand_kv(kk, cfg.n_heads),
                         expand_kv(vv, cfg.n_heads), positions, positions,
@@ -608,7 +617,6 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig):
     The given cache is left as it was (the new one is a copy with this
     step's keys and values written), and every row's ``pos`` advances,
     idle rows included, as the reference's does."""
-    check_ported(cfg)
     b = tokens.shape[0]
     s_cache = cache["k"].shape[2]
     dt = cfg.dtype
@@ -628,8 +636,7 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig):
     mask = _naive_mask(q_pos, k_pos, cfg, k_valid)
 
     new_k, new_v = cache["k"].clone(), cache["v"].clone()
-    for i in range(cfg.n_layers):
-        lp = _layer_params(params, i)
+    for i, lp in enumerate(_layer_views(params)):
         q, kk, vv = _qkv(x, lp, cfg, tables)
         new_k[i, rows, slot] = kk[:, 0]
         new_v[i, rows, slot] = vv[:, 0]

@@ -11,7 +11,13 @@ matrices into row and column statistics.
 Parameters, gradients and optimizer state are trees of nested dicts of
 tensors, as in the reference; leaves are visited in sorted key order, the
 order in which JAX flattens a dict, so the global norm sums in the same
-order. The update returns new tensors and changes nothing in place.
+order. ``adamw_update`` returns new tensors and changes nothing in place.
+``adamw_update_`` is the same step on donated state (the reference's
+``donate_argnums``): it writes the new parameters, moments and step into
+the tensors it was given, and clips the gradients in place, one leaf at a
+time, with the same operations in the same order, so its values are
+``adamw_update``'s bit for bit; it needs one leaf-sized temporary where
+the functional step holds a second copy of the whole state.
 """
 from __future__ import annotations
 
@@ -115,6 +121,41 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
     return (_pick(out, 0), {"m": _pick(out, 1), "v": _pick(out, 2),
                             "step": step},
             {"grad_norm": gn, "lr": lr})
+
+
+def adamw_update_(grads, state, params, cfg: AdamWConfig):
+    """``adamw_update`` on donated ``state`` and ``params``, written in
+    place (``grads`` are consumed: clipped in place, then used as
+    scratch). Returns ``{"grad_norm", "lr"}``."""
+    step = state["step"].add_(1)
+    gn = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
+    lr = _schedule(step, cfg)
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.to(torch.float32)
+    bc1, bc2 = 1 - b1 ** stepf, 1 - b2 ** stepf
+    with torch.no_grad():
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                              tree_leaves(state["m"]),
+                              tree_leaves(state["v"])):
+            g.mul_(scale.to(g.dtype))
+            g32 = g.to(torch.float32)
+            p32 = p.to(torch.float32)
+            tmp = (1 - b1) * g32
+            m.mul_(b1).add_(tmp)                    # b1 m + (1 - b1) g
+            torch.mul(g32, 1 - b2, out=tmp)
+            v.mul_(b2).add_(tmp.mul_(g32))          # b2 v + (1 - b2) g g
+            torch.div(v, bc2, out=tmp)              # vhat
+            tmp.sqrt_().add_(cfg.eps)
+            torch.div(m, bc1, out=g32)              # mhat
+            g32.div_(tmp)
+            g32.add_(torch.mul(p32, cfg.weight_decay, out=tmp))  # delta
+            update = g32.mul_(lr)
+            if p32 is p:
+                p.sub_(update)
+            else:
+                p.copy_(p32.sub_(update))
+    return {"grad_norm": gn, "lr": lr}
 
 
 def _pick(tree, i: int):

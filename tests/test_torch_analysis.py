@@ -426,10 +426,11 @@ def test_unguarded_write_and_read(tmp_path):
 def test_concurrency_rules_cover_the_ports_threaded_packages(tmp_path):
     project = _port_tree(tmp_path, {"kernels/build.py": GUARDED_BAD,
                                     "serve/box.py": GUARDED_BAD,
+                                    "train/box.py": GUARDED_BAD,
                                     "core/box.py": GUARDED_BAD})
     hits = _rules_hit(analyze(project), "conc-unguarded-write")
     assert sorted(os.path.basename(os.path.dirname(f.path))
-                  for f in hits) == ["kernels", "serve"]
+                  for f in hits) == ["kernels", "serve", "train"]
 
 
 LOCK_CYCLE = """

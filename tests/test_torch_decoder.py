@@ -222,6 +222,10 @@ def test_chunked_draw_equals_the_whole_draw(monkeypatch):
 
 
 def test_kv_cache_interop_and_sharding_options_raise():
+    """The reference's KV cache carried across, and the port's empty one
+    shaped alike. (The activation-sharding options no longer raise: each
+    is held to leave every value as it is by
+    ``test_sharding_option_leaves_values_as_they_are``.)"""
     jcfg, tcfg = _reduced("gemma-2b")
     jc = jtf.init_kv_cache(jcfg, 2, 8, dtype=jnp.bfloat16)
     jc = dict(jc, k=jc["k"] + 1.5, pos=jnp.asarray([3, 5], jnp.int32))
@@ -234,11 +238,32 @@ def test_kv_cache_interop_and_sharding_options_raise():
         "k": (tuple(jc["k"].shape), torch.float32),
         "v": (tuple(jc["k"].shape), torch.float32),
         "pos": ((2,), torch.int32)}
-    for opt in (dict(act_batch_axes=("data",)), dict(attn_shard="dh"),
-                dict(seq_parallel=True)):
-        with pytest.raises(NotImplementedError, match=r"item 15\(b\)"):
-            ttf.init_transformer(prng.prng_key(0),
-                                 dataclasses.replace(tcfg, **opt), **CPU)
+
+
+@pytest.mark.parametrize("opt", [
+    dict(act_batch_axes=("data",)), dict(act_model_axis="model"),
+    dict(attn_shard="dh"), dict(seq_parallel=True)],
+    ids=["act_batch_axes", "act_model_axis", "attn_shard_dh",
+         "seq_parallel"])
+def test_sharding_option_leaves_values_as_they_are(opt):
+    """In the reference these are sharding constraints (where a value
+    lives); on one rank ``init_transformer``, ``lm_loss`` and ``prefill``
+    with the option set are bit-equal to the same calls without it."""
+    _, tcfg = _reduced("gemma-2b")
+    cfg = dataclasses.replace(tcfg, **opt)
+    params = ttf.init_transformer(prng.prng_key(0), cfg, **CPU)
+    base = ttf.init_transformer(prng.prng_key(0), tcfg, **CPU)
+    for got, want in zip(topt.tree_leaves(params), topt.tree_leaves(base)):
+        assert torch.equal(got, want)
+    toks = torch.from_numpy(_tokens(tcfg.vocab_size, (2, 12), seed=4))
+    with torch.no_grad():
+        assert torch.equal(ttf.lm_loss(params, toks, cfg),
+                           ttf.lm_loss(base, toks, tcfg))
+        (lg, cg), (lb, cb) = (ttf.prefill(params, toks, cfg),
+                              ttf.prefill(base, toks, tcfg))
+    assert torch.equal(lg, lb)
+    for name in ("k", "v", "pos"):
+        assert torch.equal(cg[name], cb[name])
 
 
 # --------------------------------------------------------------------------

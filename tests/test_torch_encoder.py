@@ -254,15 +254,21 @@ def test_causal_window_gqa_forward_matches_reference(route):
 
 
 def test_configs_the_port_leaves_out_raise():
-    """The activation-sharding options wait for item 15(b) and raise; MoE,
-    remat and the blocked loss are ported and build."""
+    """Nothing is left out now: the activation-sharding options (where a
+    value lives, in the reference) build the same tree as without them;
+    MoE, remat and the blocked loss build."""
     base = dict(vocab_size=8, d_model=8, n_layers=1, n_heads=2,
                 n_kv_heads=2, d_ff=8)
+    plain = ttf.init_transformer(
+        prng.prng_key(0), ttf.TransformerConfig(**base), device="cpu")
     for extra in (dict(act_batch_axes=("data",)), dict(attn_shard="dh"),
                   dict(seq_parallel=True)):
-        with pytest.raises(NotImplementedError, match=r"item 15\(b\)"):
-            ttf.init_transformer(prng.prng_key(0),
-                                 ttf.TransformerConfig(**base, **extra))
+        params = ttf.init_transformer(
+            prng.prng_key(0), ttf.TransformerConfig(**base, **extra),
+            device="cpu")
+        for got, want in zip(topt.tree_leaves(params),
+                             topt.tree_leaves(plain)):
+            assert torch.equal(got, want)
     for extra in (dict(moe=ttf.MoEConfig(4, 1)), dict(remat="full"),
                   dict(vocab_chunks=4)):
         params = ttf.init_transformer(

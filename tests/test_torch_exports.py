@@ -33,8 +33,7 @@ NOT_YET_PORTED = {
     "retrieval": {},
     "data": {"NeighborSampler": 15},
     "models": {},
-    "train": {"save_checkpoint": 15, "restore_checkpoint": 15,
-              "latest_step": 15, "AsyncCheckpointer": 15},
+    "train": {},
     "core": {},
     "obs": {},
     "eval": {},

@@ -559,6 +559,15 @@ for t in (0, 1, 2, 0, 1):
 cache.flush()
 assert born.frozen_n == 103 and born.config.mesh is mesh
 assert len(set(n_groups[1:])) == 1, n_groups
+
+# LM training across ranks is item 15(d): an LM cell on this mesh raises
+from repro_torch.launch.cells import build_lm_cell
+try:
+    build_lm_cell("gemma-2b", "train_4k", mesh, reduced=True)
+except NotImplementedError as e:
+    assert "item 15(d)" in str(e), e
+else:
+    raise AssertionError("an LM cell on 2 ranks was built")
 print("TWO-RANK-OK", rank)
 """
 
@@ -569,7 +578,8 @@ def test_two_ranks_gloo(tmp_path):
     plan), uneven / tiny / all-negative padding, the compressed
     all-reduce's mean, and a streamed live index with appends and
     background compactions set-equal to a single-device one, also across
-    tenant evictions that hand its compaction groups to the next build."""
+    tenant evictions that hand its compaction groups to the next build;
+    an LM cell on the two ranks raises, naming item 15(d)."""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH",
