@@ -216,10 +216,39 @@ From the root of a checkout, with one card. In order:
     share and launches, the save's bytes and seconds with the disk's free
     space before it, the restore's seconds, the allocator peak.
 
+19. The recsys rankers and MACE (the dense top-k kernel and its merge on
+    the retrieval cell's path; no kernel lies on the train and serve
+    steps, whose launch counts must stay 0). 19a: the reduced configs of
+    DCN-v2, AutoInt, DIEN and DLRM (train_batch, serve_p99,
+    retrieval_cand) and MACE (molecule, full_graph_sm, minibatch_lg) on
+    the card against the CPU's plain path from ``launch/train``'s draws:
+    3 train steps' losses within ``SMALL_TOL``, parameters and moments
+    within 2 lr(step) a step; serve outputs within ``SMALL_TOL``;
+    retrieval ids equal and scores within phase 3's bound;
+    ``launch/train --arch dcn-v2`` and ``--arch mace`` resumed at 12
+    bit-equal to 20 uninterrupted. 19b: DCN-v2 at its published config
+    (26 Criteo Kaggle tables, 2.16 GB, drawn on the card): train_batch
+    (65,536 rows) step times by CUDA events over ``RECSYS_STEPS`` steps,
+    the allocator peak and a profiled step; serve_p99 and serve_bulk
+    forward times; retrieval_cand (1 x 1,000,000 candidates of its largest
+    table, k 100) through the kernels, ids equal to the plain path's on
+    the card away from near-ties, timed against matmul + stable sort;
+    then one AutoInt and one DIEN train_batch step at their published
+    configs. 19c: MACE at its published config: molecule (128 graphs)
+    energies and forces card vs CPU within ``MACE_TOL``, second-order
+    train step times and peak; minibatch_lg: a ``NeighborSampler`` over a
+    Reddit-sized graph drawn from a seed (232,965 nodes, 114,615,892
+    edges; host times for the draw, the CSR build and the sample), 1024
+    nodes at fanouts (15, 10) laid into the cell's padded 180,224-node,
+    179,200-edge block, and its train step's times, peak and rate against
+    ``mace_flops``. dlrm-mlperf's published tables (91.1 GB) and MACE's
+    ogb_products (285 GB a message set) do not fit one card and wait for
+    ROADMAP.md item 15(d).
+
 Launch counts are set to 0 just before each main-path run (5, 6, 7, 9, 12,
-13, 15's, 17c, 18) and
-read just after; a kernel the run did not launch is a failure (in 18, a
-kernel it did launch). No tuned
+13, 15's, 17c, 18, 19b's retrieval and its train and serve steps) and
+read just after; a kernel the run did not launch is a failure (in 18 and
+19b's train and serve steps, a kernel it did launch). No tuned
 table is active outside phase 10, whatever ``REPRO_TORCH_TUNED_KERNELS``
 names: a launch that resolves through one is a failure, so every other
 phase runs today's split plans. Each run
@@ -293,6 +322,11 @@ RAG_CTX_TOKENS = 24             # passage tokens prepended to a prompt
 RAG_FORCED = 16                 # requests re-run alone, teacher-forced
 TRAIN_BATCH = 2                 # 18b's sequences a step: train_4k's 256 cut
                                 # for one card's memory (logits of 256000)
+SMALL_TOL = (1e-4, 1e-5)        # rtol, atol: 19a's reduced recsys and MACE
+                                # cells in f32, card vs CPU
+RECSYS_STEPS = 6                # 19b's timed dcn-v2 train steps
+MACE_TOL = 1e-4                 # 19c: molecule energies and forces, card vs
+                                # CPU, relative to their largest magnitude
 
 
 # phase 14's child: one rank of two in a gloo group on the one card;
@@ -1457,8 +1491,6 @@ def train_small_parity(arch: str, mesh, ckdir: str) -> str:
     launch/train for 12 steps, then resumed to 20, equal to 20 steps
     uninterrupted: losses and final checkpoints bit for bit. Returns a
     log line."""
-    import io
-
     import torch
     from repro_torch import configs
     from repro_torch.launch import cells
@@ -1504,6 +1536,21 @@ def train_small_parity(arch: str, mesh, ckdir: str) -> str:
             tree_leaves(want[0]) + tree_leaves(want[1]))):
         fail(f"18a {arch}: the donated update != adamw_update on the card")
     # launch/train: 12 steps, resumed to 20, against 20 uninterrupted
+    n_leaves = check_cli_resume(arch, ckdir, "18a")
+    return (f"{arch}: 3 train steps, losses {runs['cuda'][2][0]:.6f}.."
+            f"{runs['cuda'][2][-1]:.6f} within {LM_F32_TOL} of the CPU's, "
+            f"parameters and moments within {err:.3g} (bound {atol:.3g}); "
+            f"donated update bit-equal to adamw_update, no leaf moved; "
+            f"launch/train 12 + 8 resumed steps bit-equal to 20 (losses and "
+            f"the step-20 checkpoint, {n_leaves} leaves)")
+
+
+def check_cli_resume(arch: str, ckdir: str, tag: str) -> int:
+    """launch/train for 12 steps, then resumed to 20, against 20 steps
+    uninterrupted: losses and the step-20 checkpoints bit for bit. Returns
+    the checkpoint's leaf count."""
+    import io
+    from repro_torch.launch import train as train_cli
     dirs = [os.path.join(ckdir, arch, name) for name in ("resumed", "whole")]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -1514,22 +1561,498 @@ def train_small_parity(arch: str, mesh, ckdir: str) -> str:
         whole = train_cli.main(["--arch", arch, "--steps", "20",
                                 "--checkpoint-dir", dirs[1]])
     if "resumed from step 12" not in out.getvalue() or len(second) != 8:
-        fail(f"18a {arch}: launch/train did not resume at step 12")
+        fail(f"{tag} {arch}: launch/train did not resume at step 12")
     if first + second != whole:
-        fail(f"18a {arch}: resumed losses {second} != uninterrupted "
+        fail(f"{tag} {arch}: resumed losses {second} != uninterrupted "
              f"{whole[12:]}")
     saved = [np.load(os.path.join(d, "step_0000000020", "leaves.npz"))
              for d in dirs]
     if saved[0].files != saved[1].files or not all(
             np.array_equal(saved[0][f], saved[1][f]) for f in saved[0].files):
-        fail(f"18a {arch}: the resumed run's step-20 checkpoint != the "
+        fail(f"{tag} {arch}: the resumed run's step-20 checkpoint != the "
              f"uninterrupted run's")
-    return (f"{arch}: 3 train steps, losses {runs['cuda'][2][0]:.6f}.."
-            f"{runs['cuda'][2][-1]:.6f} within {LM_F32_TOL} of the CPU's, "
-            f"parameters and moments within {err:.3g} (bound {atol:.3g}); "
-            f"donated update bit-equal to adamw_update, no leaf moved; "
-            f"launch/train 12 + 8 resumed steps bit-equal to 20 (losses and "
-            f"the step-20 checkpoint, {len(saved[0].files)} leaves)")
+    return len(saved[0].files)
+
+
+def train_cell_parity(arch: str, shape: str, mesh) -> str:
+    """19a: 3 steps of a reduced train cell from launch/train's initial
+    draw and batches, on the card and on the CPU: losses within
+    SMALL_TOL, parameters and moments within adam_atol(3)."""
+    from repro_torch.launch import cells
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.optimizer import adamw_init, tree_leaves
+    cell = cells.build_cell(arch, shape, mesh, reduced=True)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        params = train_cli.initial_params(cell, 0, d)
+        opt = adamw_init(params)
+        losses = []
+        for step in range(3):
+            params, opt, loss = cell.fn(params, opt,
+                                        train_cli.step_batch(cell, step, d))
+            losses.append(loss.item())
+        runs[d] = (params, opt, losses)
+    if not np.allclose(runs["cuda"][2], runs["cpu"][2], rtol=SMALL_TOL[0],
+                       atol=SMALL_TOL[1]):
+        fail(f"19a {arch} {shape}: losses card {runs['cuda'][2]} vs CPU "
+             f"{runs['cpu'][2]}")
+    atol = adam_atol(3)
+    err = max((a.cpu() - b).abs().max().item() for a, b in zip(
+        tree_leaves(runs["cuda"][0]) + tree_leaves(runs["cuda"][1]["m"]),
+        tree_leaves(runs["cpu"][0]) + tree_leaves(runs["cpu"][1]["m"])))
+    if err > atol:
+        fail(f"19a {arch} {shape}: parameters or moments after 3 steps "
+             f"differ by {err:.3g}, card vs CPU (bound {atol:.3g})")
+    return (f"{arch} {shape}: 3 train steps, losses "
+            f"{runs['cuda'][2][0]:.6f}..{runs['cuda'][2][-1]:.6f} within "
+            f"{SMALL_TOL} of the CPU's, parameters and moments within "
+            f"{err:.3g} (bound {atol:.3g})")
+
+
+def recsys_small_parity(arch: str, mesh) -> str:
+    """19a: a reduced recsys arch's serve and retrieval cells on the card
+    against the CPU's plain path on the same draws: serve outputs within
+    SMALL_TOL; retrieval over candidates covering the item rows in a
+    shuffled order (rows drawn twice tie exactly), ids equal and scores
+    within phase 3's bound (compare_topk)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import cells
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import recsys as rs
+    from repro_torch.train.optimizer import tree_map
+    cfg = configs.get_arch(arch).make_reduced()
+    to_cuda = lambda tree: tree_map(lambda t: t.cuda(), tree)
+    cell = cells.build_cell(arch, "serve_p99", mesh, reduced=True)
+    params = train_cli.initial_params(cell, 0, "cpu")
+    batch = train_cli._batch_like(cell.args[1], np.random.default_rng(1),
+                                  "cpu")
+    want = cell.fn(params, batch)
+    got = cell.fn(to_cuda(params), to_cuda(batch)).cpu()
+    if not torch.allclose(got, want, rtol=SMALL_TOL[0], atol=SMALL_TOL[1]):
+        fail(f"19a {arch}: serve outputs differ by "
+             f"{(got - want).abs().max().item():.3g}, card vs CPU")
+    serve_err = (got - want).abs().max().item()
+    cell = cells.build_cell(arch, "retrieval_cand", mesh, reduced=True)
+    batch = train_cli._batch_like(cell.args[1], np.random.default_rng(2),
+                                  "cpu")
+    rows = rs.item_matrix(params, cfg).shape[0]
+    nc = cell.args[2].shape[0]
+    cand = torch.from_numpy(np.random.default_rng(3).permutation(
+        np.arange(nc) % rows).astype(np.int32))
+    s_ref, i_ref = cell.fn(params, batch, cand)
+    pc, bc, cc = to_cuda(params), to_cuda(batch), cand.cuda()
+    s, i = cell.fn(pc, bc, cc)
+    torch.cuda.synchronize()
+    err, ratio = compare_topk(rs.user_vector(pc, bc, cfg),
+                              rs.candidate_rows(pc, cfg, cc), s, i,
+                              s_ref.cuda(), i_ref.cuda(),
+                              f"19a {arch} retrieval Q=1 N={nc}")
+    if not torch.equal(i.cpu(), i_ref):
+        fail(f"19a {arch}: retrieval ids differ, card vs CPU")
+    return (f"{arch}: serve_p99 outputs within {serve_err:.3g} of the "
+            f"CPU's; retrieval over {nc} "
+            f"candidates of {rows} item rows, k {i.shape[1]}: ids equal, "
+            f"scores within {err:.3g} ({ratio:.3f} of phase 3's bound)")
+
+
+def recsys_batch(cfg, b: int, seed: int, device, label=True) -> dict:
+    """A recsys batch of ``b`` rows drawn from ``seed``: every id within
+    its table (uniform), dense features normal, labels 0/1; DIEN's
+    histories 80 % present."""
+    import torch
+    from repro_torch.models import recsys as rs
+    rng = np.random.default_rng(seed)
+    if cfg.arch == "dien":
+        t = cfg.seq_len
+        out = {"target_item": rng.integers(0, cfg.item_vocab, b),
+               "target_cat": rng.integers(0, cfg.cat_vocab, b),
+               "hist_items": rng.integers(0, cfg.item_vocab, (b, t)),
+               "hist_cats": rng.integers(0, cfg.cat_vocab, (b, t)),
+               "hist_mask": (rng.random((b, t)) < 0.8).astype(np.float32)}
+    else:
+        cards = (rs._autoint_cards(cfg) if cfg.arch == "autoint"
+                 else cfg.vocab_sizes)
+        out = {"sparse": np.stack([rng.integers(0, v, b) for v in cards],
+                                  1)}
+        if cfg.n_dense:
+            out["dense"] = rng.standard_normal((b, cfg.n_dense)).astype(
+                np.float32)
+    if label:
+        out["label"] = rng.integers(0, 2, b).astype(np.float32)
+    return {k: torch.from_numpy(v.astype(np.int32) if v.dtype.kind == "i"
+                                else v).to(device) for k, v in out.items()}
+
+
+def timed_steps(step, n: int, warmup: int = 1) -> list:
+    """Device ms of each of ``n`` calls of ``step()`` after ``warmup``
+    (CUDA events around each call)."""
+    import torch
+    for _ in range(warmup):
+        step()
+    times = []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        step()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in times]
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def recsys_full_width(kernels, smi: str) -> dict:
+    """19b: DCN-v2 at its published config, its tables drawn on the card:
+    train_batch step times (CUDA events), allocator peak and a profiled
+    step; serve_p99 and serve_bulk forward times; retrieval_cand through
+    the dense top-k kernel against the plain path on the card (ids equal
+    away from near-ties), with its time against matmul + stable sort;
+    then one train_batch step each of AutoInt and DIEN. Returns the
+    retrieval run's launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.kernels.topk_scoring.ops import topk_scores
+    from repro_torch.kernels.topk_scoring.ref import topk_scores_ref
+    from repro_torch.kernels.tuning import H100_F32_FLOPS, H100_TF32_FLOPS
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import recsys as rs
+    from repro_torch.obs.timing import cuda_ms
+    from repro_torch.train.optimizer import adamw_init, tree_leaves
+    mesh = make_host_mesh()
+    cfg = configs.get_arch("dcn-v2").make_config()
+    reset_memory()
+    t0 = time.perf_counter()
+    params = rs.init_recsys(prng.prng_key(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    n_table = sum(t.numel() for t in params["tables"].values())
+    log(f"    19b: dcn-v2 ({n} parameters, {n_table} of them in 26 tables "
+        f"of {sum(rs._pad_rows(v) for v in cfg.vocab_sizes)} padded rows "
+        f"x {cfg.embed_dim}) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; {smi}")
+    # train_batch: launch counts zeroed, none of the port's kernels lies
+    # on the train and serve steps
+    reset_counts(kernels)
+    cell = cells.build_cell("dcn-v2", "train_batch", mesh)
+    b = cell.args[2]["label"].shape[0]
+    opt = adamw_init(params)
+    batches = [recsys_batch(cfg, b, 190 + i, "cuda") for i in range(2)]
+    ptrs = tree_ptrs(params, opt)
+    losses = []
+
+    def train_step():
+        nonlocal params, opt
+        params, opt, loss = cell.fn(params, opt, batches[len(losses) % 2])
+        losses.append(loss)
+
+    step_ms = timed_steps(train_step, RECSYS_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    if not np.all(np.isfinite(losses)) or tree_ptrs(params, opt) != ptrs:
+        fail(f"19b dcn-v2: losses {losses}, or a leaf moved in a step")
+    p50 = float(np.median(step_ms))
+    flops = cell.model_flops_per_step
+    adam_bytes = 8 * 4 * n       # read p, g, m, v; write p, m, v, g
+    f_ms, b_ms = flops / H100_F32_FLOPS * 1e3, adam_bytes / 3.35e12 * 1e3
+    log(f"    19b: dcn-v2 train_batch ({b} rows): step times "
+        f"{', '.join(f'{x:.2f}' for x in step_ms)} ms (CUDA events, after "
+        f"one warm-up), p50 {p50:.3f} ms; {flops:.4g} flop (3 x "
+        f"_recsys_flops) at {H100_F32_FLOPS / 1e12:.0f} TFLOP/s f32 = "
+        f"{f_ms:.3f} ms, plus AdamW's {adam_bytes:.4g} B (8 f32 passes over "
+        f"the parameters) at 3.35 TB/s = {b_ms:.3f} ms: {f_ms + b_ms:.3f} ms "
+        f"summed, {p50 / (f_ms + b_ms):.2f} x that; {flops / p50 / 1e9:.1f} "
+        f"TFLOP/s; losses {losses[0]:.6f}..{losses[-1]:.6f}; allocator peak "
+        f"{peak} B; every leaf kept its pointer; {smi}")
+    prof = device_profile(train_step)
+    log_profile("19b: one dcn-v2 train step", prof)
+    log(f"    19b: {sum(k for k, _ in prof[2].values())} device launches in "
+        f"a step (the profiler's count); {smi}")
+    del opt, batches, prof
+    free_card()
+    for shape in ("serve_p99", "serve_bulk"):
+        cell = cells.build_cell("dcn-v2", shape, mesh)
+        b = cell.args[1]["sparse"].shape[0]
+        batch = recsys_batch(cfg, b, 191, "cuda", label=False)
+        reset_memory()
+        out = []
+        fwd_ms = timed_steps(lambda: out.append(cell.fn(params, batch)), 10)
+        if out[-1].shape != (b,) or not bool(torch.isfinite(out[-1]).all()):
+            fail(f"19b dcn-v2 {shape}: output {tuple(out[-1].shape)} or not "
+                 f"finite")
+        log(f"    19b: dcn-v2 {shape} ({b} rows): forward p50 "
+            f"{float(np.median(fwd_ms)):.4f} ms over 10 calls (CUDA events; "
+            f"min {min(fwd_ms):.4f}, max {max(fwd_ms):.4f}), "
+            f"{cell.model_flops_per_step / np.median(fwd_ms) / 1e9:.2f} "
+            f"TFLOP/s; allocator peak {torch.cuda.max_memory_allocated()} B; "
+            f"{smi}")
+        del out, batch
+    serve_launches = read_counts(kernels, "phase 19b train and serve")
+    if any(serve_launches.values()):
+        fail(f"19b: the train and serve steps launched kernels: "
+             f"{serve_launches}")
+    # retrieval_cand: the main path of this slice's kernels
+    cell = cells.build_cell("dcn-v2", "retrieval_cand", mesh)
+    nc = cell.args[2].shape[0]
+    batch = recsys_batch(cfg, 1, 192, "cuda", label=False)
+    rows_n = rs.item_matrix(params, cfg).shape[0]
+    big = max(cfg.vocab_sizes)
+    cand = torch.from_numpy(np.random.default_rng(193).permutation(big)[
+        :nc].astype(np.int32)).cuda()
+    reset_counts(kernels)
+    s, i = cell.fn(params, batch, cand)
+    launched = read_counts(kernels, "phase 19b retrieval")
+    for kname in ("topk_partial", "topk_merge"):
+        if not launched[kname]:
+            fail(f"19b: the retrieval step launched no {kname}")
+    u = rs.user_vector(params, batch, cfg)
+    rows = rs.candidate_rows(params, cfg, cand)
+    k = i.shape[1]
+    s_ref, i_ref = topk_scores_ref(u, rows, k=k)
+    err, ratio = compare_topk(u, rows, s, i, s_ref, i_ref,
+                              f"19b retrieval Q=1 N={nc} D={cfg.embed_dim}")
+    kern_ms = cuda_ms(lambda: topk_scores(u, rows, k=k), 20)
+    plain_ms = cuda_ms(lambda: topk_scores_ref(u, rows, k=k), 5)
+    lib_ms = cuda_ms(lambda: torch.sort(u @ rows.T, dim=1, descending=True,
+                                        stable=True), 5)
+    step_ms = cuda_ms(lambda: cell.fn(params, batch, cand), 10)
+    d = cfg.embed_dim
+    r_bound, r_by = bound((1 + nc) * d * 4 + k * 8, 3 * 2.0 * nc * d,
+                          H100_TF32_FLOPS)
+    log(f"    19b: dcn-v2 retrieval_cand (1 x {nc} candidates of table 2's "
+        f"{rows_n} rows, D {d}, k {k}): kernel ids equal to the plain path's "
+        f"on the card (a stable sort of the product) away from near-ties, "
+        f"scores within {err:.3g} ({ratio:.3f} of phase 3's bound); "
+        f"topk_scores {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, matmul + "
+        f"stable sort {lib_ms:.4f} ms, bound {r_bound:.4f} ms ({r_by}); the "
+        f"whole step (user vector, candidate gather, kernel) {step_ms:.4f} "
+        f"ms; launches {launched}; {smi}")
+    del params, cell, u, rows, s, i, s_ref, i_ref
+    free_card()
+    for arch in ("autoint", "dien"):
+        acfg = configs.get_arch(arch).make_config()
+        reset_memory()
+        t0 = time.perf_counter()
+        params = rs.init_recsys(prng.prng_key(1), acfg, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cell = cells.build_cell(arch, "train_batch", mesh)
+        b = cell.args[2]["label"].shape[0]
+        opt = adamw_init(params)
+        batch = recsys_batch(acfg, b, 194, "cuda")
+        losses = []
+
+        def one():
+            nonlocal params, opt
+            params, opt, loss = cell.fn(params, opt, batch)
+            losses.append(loss.item())
+
+        ms = timed_steps(one, 2, warmup=0)
+        if not np.all(np.isfinite(losses)):
+            fail(f"19b {arch}: losses {losses}")
+        log(f"    19b: {arch} train_batch ({b} rows, "
+            f"{sum(t.numel() for t in tree_leaves(params))} parameters drawn "
+            f"on the card in {init_s:.2f} s): first step {ms[0]:.2f} ms, "
+            f"second {ms[1]:.2f} ms (CUDA events), "
+            f"{cell.model_flops_per_step / ms[1] / 1e9:.1f} TFLOP/s at "
+            f"{cell.model_flops_per_step:.4g} flop; losses "
+            f"{losses[0]:.6f}, {losses[1]:.6f}; allocator peak "
+            f"{torch.cuda.max_memory_allocated()} B; {smi}")
+        del params, opt, batch, cell
+        free_card()
+    return launched
+
+
+def sampled_block_batch(blocks, cell_batch: dict, seed: int, device) -> dict:
+    """The two ``SubgraphBlock``s of a 2-hop sample laid into the
+    train_sampled cell's padded arrays: the outer block's ``src_nodes``
+    are the nodes (the batch's own first, then the first hop's), whose
+    local ids both blocks' edges already use (the inner block's src nodes
+    are the outer block's dst nodes, in order); padding is node 0
+    self-loops, masked. Positions, features and targets of a node are
+    drawn from ``seed`` by its global id; the batch's nodes are the
+    labelled ones."""
+    import torch
+    inner, outer = blocks[1], blocks[0]
+    n_nodes = cell_batch["positions"].shape[0]
+    n_edges = cell_batch["edge_src"].shape[0]
+    nodes = outer.src_nodes
+    if not np.array_equal(outer.src_nodes[:outer.n_dst], inner.src_nodes):
+        fail("19c: the outer block's dst nodes are not the inner block's "
+             "src nodes")
+    src = np.concatenate([inner.edge_src, outer.edge_src])
+    dst = np.concatenate([inner.edge_dst, outer.edge_dst])
+    mask = np.concatenate([inner.edge_mask, outer.edge_mask])
+    if nodes.shape[0] > n_nodes or src.shape[0] > n_edges:
+        fail(f"19c: the sample ({nodes.shape[0]} nodes, {src.shape[0]} "
+             f"edges) exceeds the cell's padded block ({n_nodes}, {n_edges})")
+    pad_e = n_edges - src.shape[0]
+    rng = np.random.default_rng(seed)
+    n_feat = cell_batch["node_feats"].shape[1]
+    total = int(nodes.max()) + 1
+    pos = rng.standard_normal((total, 3)).astype(np.float32)[nodes]
+    feats = rng.standard_normal((total, n_feat)).astype(np.float32)[nodes]
+    target = rng.standard_normal(total).astype(np.float32)[nodes]
+    pad_n = n_nodes - nodes.shape[0]
+    node_mask = np.zeros(n_nodes, np.float32)
+    node_mask[:inner.n_dst] = 1.0
+    out = {
+        "positions": np.concatenate([pos, np.zeros((pad_n, 3), np.float32)]),
+        "node_feats": np.concatenate(
+            [feats, np.zeros((pad_n, n_feat), np.float32)]),
+        "edge_src": np.concatenate([src, np.zeros(pad_e, np.int32)]),
+        "edge_dst": np.concatenate([dst, np.zeros(pad_e, np.int32)]),
+        "edge_mask": np.concatenate([mask, np.zeros(pad_e, bool)]),
+        "graph_ids": np.zeros(n_nodes, np.int32),
+        "node_target": np.concatenate([target, np.zeros(pad_n, np.float32)]),
+        "node_mask": node_mask,
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def mace_full_width(smi: str) -> None:
+    """19c: MACE at its published config (2 layers, 128 channels, l_max 2,
+    correlation 3). molecule: energies and forces on the card against the
+    CPU on the same batch, then the second-order train step's times and
+    peak. minibatch_lg: a NeighborSampler over a Reddit-sized graph drawn
+    from a seed (host times), 1024 nodes at fanouts (15, 10) laid into the
+    cell's padded arrays, and its train step's time, peak and achieved
+    rate against mace_flops."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.data import NeighborSampler
+    from repro_torch.kernels.tuning import H100_F32_FLOPS
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import mace as mc
+    from repro_torch.train.optimizer import adamw_init, tree_map
+    mesh = make_host_mesh()
+    cfg = configs.get_arch("mace").make_config()
+    cell = cells.build_cell("mace", "molecule", mesh)
+    spec = cell.args[2]
+    n_nodes, n_edges = spec["positions"].shape[0], spec["edge_src"].shape[0]
+    n_graphs = spec["energy_target"].shape[0]
+    reset_memory()
+    params = mc.init_mace(prng.prng_key(0), cfg, device="cuda")
+    batch = mc.random_graph_batch(prng.prng_key(1), n_nodes=n_nodes,
+                                  n_edges=n_edges, d_feat=cfg.d_feat,
+                                  n_graphs=n_graphs, device="cuda")
+    with torch.no_grad():
+        e, f = mc.mace_energy_forces(params, batch, cfg)
+        host = lambda tree: tree_map(lambda t: t.cpu() if isinstance(
+            t, torch.Tensor) else t, tree)
+        e_ref, f_ref = mc.mace_energy_forces(host(params), host(batch), cfg)
+    e_err = (e.cpu() - e_ref).abs().max().item()
+    f_err = (f.cpu() - f_ref).abs().max().item()
+    scale = max(e_ref.abs().max().item(), f_ref.abs().max().item(), 1.0)
+    if not (bool(torch.isfinite(e).all()) and bool(torch.isfinite(f).all())
+            and max(e_err, f_err) <= MACE_TOL * scale):
+        fail(f"19c molecule: energies differ by {e_err:.3g}, forces by "
+             f"{f_err:.3g}, card vs CPU (bound {MACE_TOL} x {scale:.3g})")
+    with torch.no_grad():
+        ef_ms = timed_steps(lambda: mc.mace_energy_forces(params, batch, cfg),
+                            5)
+    batch.pop("n_graphs")
+    opt = adamw_init(params)
+    losses = []
+
+    def step():
+        nonlocal params, opt
+        params, opt, loss = cell.fn(params, opt, batch)
+        losses.append(loss)
+
+    step_ms = timed_steps(step, 5)
+    losses = [x.item() for x in losses]
+    if not np.all(np.isfinite(losses)):
+        fail(f"19c molecule: losses {losses}")
+    p50 = float(np.median(step_ms))
+    log(f"    19c: mace molecule ({n_graphs} graphs, {n_nodes} nodes, "
+        f"{n_edges} edges, {cfg.channels} channels): energies and forces on the card "
+        f"within {e_err:.3g} and {f_err:.3g} of the CPU's (bound "
+        f"{MACE_TOL} x {scale:.3g}); energy+forces p50 "
+        f"{float(np.median(ef_ms)):.3f} ms; second-order train step times "
+        f"{', '.join(f'{x:.2f}' for x in step_ms)} ms, p50 {p50:.3f} ms "
+        f"(CUDA events, after one warm-up), "
+        f"{cell.model_flops_per_step / p50 / 1e9:.2f} TFLOP/s at "
+        f"{cell.model_flops_per_step:.4g} flop (7 x mace_flops); losses "
+        f"{losses[0]:.6f}..{losses[-1]:.6f}; allocator peak "
+        f"{torch.cuda.max_memory_allocated()} B; {smi}")
+    prof = device_profile(step)
+    log_profile("19c: one molecule train step", prof)
+    log(f"    19c: {sum(k for k, _ in prof[2].values())} device launches in "
+        f"a molecule step (the profiler's count); {smi}")
+    del params, opt, batch, e, f, prof
+    free_card()
+    # minibatch_lg: the sampler on the host, then one step on the card
+    shape = configs.get_arch("mace").shapes["minibatch_lg"]
+    total, n_e = shape["n_nodes"], shape["n_edges"]
+    rng = np.random.default_rng(195)
+    t0 = time.perf_counter()
+    src = rng.integers(0, total, n_e, dtype=np.int32)
+    dst = rng.integers(0, total, n_e, dtype=np.int32)
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(src, dst, total, seed=0)
+    build_s = time.perf_counter() - t0
+    del src, dst
+    nodes = rng.choice(total, shape["batch_nodes"], replace=False)
+    t0 = time.perf_counter()
+    blocks = sampler.sample(nodes, shape["fanouts"])
+    sample_s = time.perf_counter() - t0
+    del sampler
+    cell = cells.build_cell("mace", "minibatch_lg", mesh)
+    t0 = time.perf_counter()
+    batch = sampled_block_batch(blocks, cell.args[2], 196, "cuda")
+    torch.cuda.synchronize()
+    lay_s = time.perf_counter() - t0
+    log(f"    19c: Reddit-sized graph ({total} nodes, {n_e} edges) drawn "
+        f"on the host in {draw_s:.2f} s; NeighborSampler built (argsort, "
+        f"CSR) in {build_s:.2f} s; {shape['batch_nodes']} nodes sampled at "
+        f"fanouts {shape['fanouts']} in {sample_s:.3f} s: blocks of "
+        f"{blocks[1].n_dst} -> {blocks[1].src_nodes.shape[0]} -> "
+        f"{blocks[0].src_nodes.shape[0]} nodes, "
+        f"{int(blocks[1].edge_mask.sum()) + int(blocks[0].edge_mask.sum())} "
+        f"live edges, laid into the cell's {cell.args[2]['positions'].shape[0]}"
+        f" x {cell.args[2]['edge_src'].shape[0]} padded block and moved to "
+        f"the card in {lay_s:.2f} s (host times)")
+    reset_memory()
+    params = mc.init_mace(prng.prng_key(2), cfg, device="cuda")
+    opt = adamw_init(params)
+    losses = []
+
+    def sampled_step():
+        nonlocal params, opt
+        params, opt, loss = cell.fn(params, opt, batch)
+        losses.append(loss)
+
+    step_ms = timed_steps(sampled_step, 3)
+    losses = [x.item() for x in losses]
+    if not np.all(np.isfinite(losses)):
+        fail(f"19c minibatch_lg: losses {losses}")
+    p50 = float(np.median(step_ms))
+    log(f"    19c: mace minibatch_lg train step times "
+        f"{', '.join(f'{x:.2f}' for x in step_ms)} ms, p50 {p50:.3f} ms "
+        f"(CUDA events, after one warm-up); {cell.model_flops_per_step:.4g} "
+        f"flop (3 x mace_flops) = {cell.model_flops_per_step / p50 / 1e9:.2f}"
+        f" TFLOP/s, {cell.model_flops_per_step / H100_F32_FLOPS / p50 * 1e3:.4f} "
+        f"of the f32 peak; losses {losses[0]:.6f}..{losses[-1]:.6f}; "
+        f"allocator peak {torch.cuda.max_memory_allocated()} B; {smi}")
+    prof = device_profile(sampled_step)
+    log_profile("19c: one minibatch_lg train step", prof)
+    log(f"    19c: {sum(k for k, _ in prof[2].values())} device launches in "
+        f"a minibatch_lg step (the profiler's count); {smi}")
+    del params, opt, batch, prof
+    free_card()
 
 
 def gemma_train_full_width(smi: str) -> None:
@@ -1741,7 +2264,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/18] device: {name}; nvidia-smi: {smi}; "
+    log(f"[1/19] device: {name}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build -------------------------------------------------------------
@@ -1759,7 +2282,7 @@ def main() -> None:
 
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_counted, sources))
-    log(f"[2/18] built {', '.join(sources)} in "
+    log(f"[2/19] built {', '.join(sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     if recompile.counts() != ({"phase 2": len(uncached)} if uncached
                               else {}):
@@ -1778,7 +2301,7 @@ def main() -> None:
     tuning.set_table(None)
     untuned_hits = REGISTRY.counter("tuning.resolve.hit").value
     main_shapes: dict = {}      # phases 5-7's launches by shape, for phase 10
-    log("[3/18] kernel vs plain")
+    log("[3/19] kernel vs plain")
     for n, k, quarter in [(1, 1, True), (37, 5, True), (513, 33, True),
                           (300, 70, False), (4096, 0, True),
                           (100_003, 32, True), (100_003, 32, False)]:
@@ -2008,7 +2531,7 @@ def main() -> None:
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
-    log("[4/18] times (CUDA events, after warm-up)")
+    log("[4/19] times (CUDA events, after warm-up)")
     labels, nbr, wgt, deg_sq = lp_main
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
@@ -2274,7 +2797,7 @@ def main() -> None:
     sample_corpus = corpus_seen.results["corpus"]
     sample_stats, sample_wall = stats, wall
     del corpus_seen
-    log(f"[5/18] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
+    log(f"[5/19] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
         f"{stats['communities']} communities, changes/round "
         f"{stats['changes_per_round']}, {stats['entities']} entities "
         f"sampled")
@@ -2318,7 +2841,7 @@ def main() -> None:
             "--json", os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     cells = out["grid"]["cells"]
     eval_out, eval_wall = out, wall
-    log(f"[6/18] evaluation: {wall:.2f} s wall, {len(cells)} cells")
+    log(f"[6/19] evaluation: {wall:.2f} s wall, {len(cells)} cells")
     eval_launches = read_counts(kernels, "evaluation", main_shapes)
     trace.disable()
     # the Hamming kernel at each shape the grid launched it at
@@ -2353,7 +2876,7 @@ def main() -> None:
     from repro_torch.retrieval.experiment import run_table1_experiment
     t0 = time.perf_counter()
     t1_corpus = eval_corpus(EVAL_QUERIES, 2048, embed=False)
-    log(f"[7/18] Table I corpus: {t1_corpus.num_entities} entities, "
+    log(f"[7/19] Table I corpus: {t1_corpus.num_entities} entities, "
         f"{t1_corpus.num_queries} queries, passages "
         f"{t1_corpus.passage_tokens.shape[1]} tokens, queries "
         f"{t1_corpus.query_tokens.shape[1]}, vocab {t1_corpus.vocab_size} "
@@ -2578,7 +3101,7 @@ def main() -> None:
         f"both; load of 256: completed {g_load['completed']}, rejected "
         f"{g_load['rejected']}, ticks {g_load['ticks']}, mean batch "
         f"{g_load['mean_batch']} on both")
-    log("[8/18] small inputs: sample.npz, grid cells, the encoder's and the "
+    log("[8/19] small inputs: sample.npz, grid cells, the encoder's and the "
         "serve CLI's results equal (or within the stated tolerance) on cuda "
         "and cpu")
 
@@ -2622,7 +3145,7 @@ def main() -> None:
             sample_corpus.num_entities, prng.prng_key(0), rate=0.15,
             device="cuda")):
         fail("run_uniform_baseline's mask != uniform_sample's")
-    log(f"[9/18] run_windtunnel (engine {session.spec.engine}, "
+    log(f"[9/19] run_windtunnel (engine {session.spec.engine}, "
         f"{sample_corpus.num_entities} entities): {wt_wall:.2f} s wall, "
         f"{int(wt.sample.entity_mask.sum())} entities sampled; labels and "
         f"entity_mask equal to the session's bit for bit; "
@@ -2647,7 +3170,7 @@ def main() -> None:
                      for kernel, dt in traffic
                      for bucket in ("le65536", "gt65536")
                      if (kernel, bucket, dt) not in table.entries)
-    log(f"[10/18] autotune (topk float32/int8, hamming_topk; le65536, "
+    log(f"[10/19] autotune (topk float32/int8, hamming_topk; le65536, "
         f"gt65536) over phases 5-7's launches in "
         f"{time.perf_counter() - t0:.1f} s; {smi}; cells the main path "
         f"never launched, so left untuned: {', '.join(untuned) or 'none'}; "
@@ -2727,7 +3250,7 @@ def main() -> None:
     # 11. where the host time goes ----------------------------------------
     # the two CLIs once more at the timed runs' sizes, under cProfile (the
     # timed runs above stay unprofiled)
-    log("[11/18] host time: the sampling and evaluation CLIs under cProfile")
+    log("[11/19] host time: the sampling and evaluation CLIs under cProfile")
     with tempfile.TemporaryDirectory(dir=OUT) as tmp, \
             recompile.region("phase 11"):
         profile_top("sampling", lambda: run_sample(
@@ -2756,7 +3279,7 @@ def main() -> None:
             "--streamed", "--mesh", "host", "--out",
             os.path.join(OUT, "sample_streamed"), "--trace", streamed_trace])
     trace.disable()
-    log(f"[12/18] streamed sampling (1-rank NCCL mesh, "
+    log(f"[12/19] streamed sampling (1-rank NCCL mesh, "
         f"{dist.get_backend()}): {sh_wall:.2f} s wall (phase 5: "
         f"{sample_wall:.2f} s), changes/round "
         f"{sh_stats['changes_per_round']}")
@@ -2822,7 +3345,7 @@ def main() -> None:
             os.path.join(OUT, "eval_streamed.json"), "--trace",
             streamed_eval_trace])
     trace.disable()
-    log(f"[13/18] streamed evaluation (1-rank NCCL mesh): "
+    log(f"[13/19] streamed evaluation (1-rank NCCL mesh): "
         f"{sh_eval_wall:.2f} s wall (phase 6: {eval_wall:.2f} s), "
         f"{len(sh_out['grid']['cells'])} cells")
     sh_eval_launches = read_counts(kernels, "streamed evaluation")
@@ -2871,7 +3394,7 @@ def main() -> None:
                 p.kill()
                 p.wait()
     two_wall = time.perf_counter() - t0
-    log(f"[14/18] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
+    log(f"[14/19] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
         f"{two_wall:.2f} s wall, both processes")
     reports = []
     for r, (p, text) in enumerate(zip(procs, outs)):
@@ -2970,7 +3493,7 @@ def main() -> None:
         list(pool.map(lambda t: shared_corpus(t, docs=SERVE_DOCS,
                                               dim=SERVE_DIM, seed=0),
                       ("tenant-0", "tenant-1")))
-    log(f"[15/18] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
+    log(f"[15/19] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
         f"(two drawn on the host in {time.perf_counter() - t0:.2f} s, "
         f"two threads, before the runs), buckets up to {SERVE_BATCH}, "
         f"k_max {SERVE_KMAX}; {smi}")
@@ -3337,7 +3860,7 @@ def main() -> None:
     if fresh or lint.returncode != 0:
         fail(f"phase 16: {len(fresh)} finding(s) not in "
              f"lint_baseline_torch.json (exit {lint.returncode})")
-    log(f"[16/18] analyzer: python -m repro_torch.launch.lint over "
+    log(f"[16/19] analyzer: python -m repro_torch.launch.lint over "
         f"src/repro_torch on Python {sys.version.split()[0]}: "
         f"{len(report['findings'])} findings ({report['counts']}), all in "
         f"the baseline, {len(report['rules'])} rules, {lint_s:.2f} s; {smi}")
@@ -3359,7 +3882,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_no_build("phase 17")
     check_untuned("phase 17", untuned_hits)
-    log(f"[17/18] LM decoder and RAG serving: 5 reduced archs card vs CPU, "
+    log(f"[17/19] LM decoder and RAG serving: 5 reduced archs card vs CPU, "
         f"gemma-2b prefill vs decode, RAG at full width in "
         f"{time.perf_counter() - t17:.1f} s; {smi}")
 
@@ -3389,17 +3912,54 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_no_build("phase 18")
     check_untuned("phase 18", untuned_hits)
-    log(f"[18/18] LM training: 5 reduced archs card vs CPU and resumed, "
+    log(f"[18/19] LM training: 5 reduced archs card vs CPU and resumed, "
         f"gemma-2b trained at full width with an async save and a restore, "
         f"no kernel launched, in {time.perf_counter() - t18:.1f} s; {smi}")
 
+    # 19. the recsys rankers and MACE --------------------------------------
+    # a: the four recsys archs' and MACE's reduced cells, card vs the CPU's
+    # plain path, and launch/train's resume; b: DCN-v2 at its published
+    # config (its retrieval step is this slice's path through the dense
+    # top-k kernel), one AutoInt and one DIEN step; c: MACE at its
+    # published config, molecule and a sampled Reddit-sized graph
+    t19 = time.perf_counter()
+    with recompile.region("phase 19"):
+        mesh = make_host_mesh()
+        for arch in ("dcn-v2", "autoint", "dien", "dlrm-mlperf"):
+            log(f"    19a {train_cell_parity(arch, 'train_batch', mesh)}")
+            log(f"    19a {recsys_small_parity(arch, mesh)}")
+        for shape in ("molecule", "full_graph_sm", "minibatch_lg"):
+            log(f"    19a {train_cell_parity('mace', shape, mesh)}")
+        ckdir = os.path.join(OUT, "train_small")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        for arch in ("dcn-v2", "mace"):
+            n_leaves = check_cli_resume(arch, ckdir, "19a")
+            log(f"    19a {arch}: launch/train 12 + 8 resumed steps "
+                f"bit-equal to 20 (losses and the step-20 checkpoint, "
+                f"{n_leaves} leaves)")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        log(f"    19a in {time.perf_counter() - t19:.1f} s; {smi}")
+        recsys_launches = recsys_full_width(kernels, smi)
+        mace_full_width(smi)
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_no_build("phase 19")
+    check_untuned("phase 19", untuned_hits)
+    log(f"[19/19] recsys and MACE: 4 recsys archs and 3 MACE cells card vs "
+        f"CPU and resumed, DCN-v2 trained, served and retrieved at full "
+        f"width, AutoInt and DIEN stepped, MACE trained on molecules and a "
+        f"sampled Reddit-sized graph, in {time.perf_counter() - t19:.1f} s; "
+        f"{smi}")
+
     def launches(kname: str) -> int:
         """A kernel's launches over the main-path runs (phases 5-7, 12,
-        13, 15, 17)."""
+        13, 15, 17, 19)."""
         return (sample_launches[kname] + eval_launches[kname]
                 + t1_launches[kname] + sh_launches[kname]
                 + leg_launches[kname] + sh_eval_launches[kname]
-                + serve_launches[kname] + rag_launches[kname])
+                + serve_launches[kname] + rag_launches[kname]
+                + recsys_launches[kname])
 
     table = {"kernels": [
         {"name": "lp_round", "route": "cuda",

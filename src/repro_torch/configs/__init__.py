@@ -2,11 +2,9 @@
 assigned architecture (exact public-literature configs) + the paper's own
 experiment config.
 
-``get_arch(arch_id)`` returns the ArchSpec. The five LM architectures are
-ported (their configs build the port's ``TransformerConfig`` with torch
-dtypes); the GNN and recsys ids are registered but raise until their models
-are ported (ROADMAP.md queue 1 item 15(c)), so ``iter_cells`` yields the LM
-cells and then raises at the first of them.
+``get_arch(arch_id)`` returns the ArchSpec; each config module builds the
+port's config class (``TransformerConfig``, ``MACEConfig``,
+``RecsysConfig``) with torch dtypes, field for field the reference's.
 """
 from __future__ import annotations
 
@@ -40,10 +38,6 @@ _MODULES = {
     "dlrm-mlperf": "dlrm_mlperf",
 }
 
-#: the ids whose models are not ported yet (ROADMAP.md queue 1 item 15(c))
-NOT_YET_PORTED = ("mace", "autoint", "dcn-v2", "dien", "dlrm-mlperf")
-
-
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
@@ -57,10 +51,6 @@ class ArchSpec:
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r}: its model is not ported to PyTorch yet (ROADMAP.md "
-            f"queue 1 item 15(c)); the LM ids are")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.SPEC
 

@@ -20,6 +20,7 @@ mantissa trick of ``jax/_src/random.py::_uniform``:
 * ``uniform`` keeps the top 23 bits as the mantissa of a float in [1, 2)
   and subtracts 1;
 * ``split(key, num)`` hashes the counter pairs ``(0, i)``, i < num;
+* ``randint`` combines two 32-bit draws modulo the span (``_randint``);
 * ``permutation(key, n)`` is ``jax.random._shuffle``: ``ceil(3 ln n /
   ln(2**32 - 1))`` rounds, each splitting the key and stably sorting the
   values by 32 fresh random bits; ``choice(..., replace=False)`` is its
@@ -127,6 +128,32 @@ def choice(key: Key, n: int, size: int, device="cpu") -> torch.Tensor:
     if not 0 <= size <= n:
         raise ValueError(f"cannot draw {size} of {n} without replacement")
     return permutation(key, n, device)[:size]
+
+
+def randint(key: Key, shape, minval: int, maxval: int, device="cpu"
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): two
+    draws of 32 random bits from ``split(key)``, the high one times
+    ``2**32 mod span`` plus the low one, in uint32 arithmetic (wrapping),
+    modulo ``span = maxval - minval`` (1 where ``maxval <= minval``)."""
+    lo32, hi32 = -2 ** 31, 2 ** 31 - 1
+    minval = min(max(int(minval), lo32), hi32)
+    maxval_c = min(max(int(maxval), lo32), hi32)
+    span = (maxval_c - minval) & _M32 if maxval_c > minval else 1
+    if int(maxval) > hi32 and maxval_c > minval:
+        span = (span + 1) & _M32
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape, device), random_bits(k2, shape,
+                                                                 device)
+    if span == 0:                       # the whole uint32 range
+        offset = lower
+    else:
+        m = 2 ** 16 % span
+        mult = ((m * m) & _M32) % span    # uint32: 2**32 wraps to 0
+        offset = (((higher % span) * mult) & _M32) + lower % span
+        offset = (offset & _M32) % span
+    out = (offset + minval) & _M32               # int32 wrap, as uint32
+    return torch.where(out < 2 ** 31, out, out - 2 ** 32).to(torch.int32)
 
 
 def normal(key: Key, shape, device="cpu", start: int = 0) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 Plain functions that build the port's structures from any array-likes —
 the reference's ``QRelTable`` / ``EdgeList`` / ``IVFFlatIndex`` /
-``LSHIndex`` fields, labels, entity and query vectors, transformer
-parameter trees (MoE ones too), KV caches and AdamW state — via ``np.asarray``, so the port never
+``LSHIndex`` fields, labels, entity and query vectors, model parameter
+trees (transformer, recsys, MACE), KV caches and AdamW state — via
+``np.asarray``, so the port never
 imports the reference. The parity tests use them to feed both packages
 the same state; the synthetic corpus needs none of this, being numpy in
 both packages and identical from the same seed.
@@ -68,12 +69,14 @@ def lsh_index(index, device="cpu") -> LSHIndex:
                     tensor(vecs, torch.float32, device))
 
 
-def transformer_params(tree, device="cpu"):
-    """The reference's transformer parameter pytree (nested dicts of
-    arrays: ``embed``, ``layers`` stacked ``(L, ...)``, ``ln_f``, maybe
-    ``lm_head``) as the port's tree of tensors, leaf for leaf."""
+def model_params(tree, device="cpu"):
+    """The reference's parameter tree (nested dicts with str or int keys,
+    lists, array leaves: a transformer's, a recsys ranker's, MACE's) as
+    the port's tree of tensors, leaf for leaf."""
     if isinstance(tree, dict):
-        return {k: transformer_params(v, device) for k, v in tree.items()}
+        return {k: model_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [model_params(v, device) for v in tree]
     leaf = np.array(tree)
     if leaf.dtype.name == "bfloat16":     # ml_dtypes': torch reads its bits
         return torch.from_numpy(leaf.view(np.int16)).view(
@@ -81,19 +84,24 @@ def transformer_params(tree, device="cpu"):
     return torch.from_numpy(leaf).to(device)
 
 
+#: the transformer's tree (``embed``, ``layers`` stacked ``(L, ...)``,
+#: ``ln_f``, maybe ``lm_head``) is one such tree
+transformer_params = model_params
+
+
 def kv_cache(cache, device="cpu"):
     """The reference's KV cache ``{"k", "v": (L, B, S, Hkv, Dh), "pos":
     (B,)}`` as the port's (``k``/``v`` in their own dtype, ``pos``
     int32)."""
-    return {"k": transformer_params(cache["k"], device),
-            "v": transformer_params(cache["v"], device),
+    return {"k": model_params(cache["k"], device),
+            "v": model_params(cache["v"], device),
             "pos": tensor(cache["pos"], torch.int32, device)}
 
 
 def adamw_state(state, device="cpu"):
     """The reference's AdamW state ``{"m", "v", "step"}`` as the port's."""
-    return {"m": transformer_params(state["m"], device),
-            "v": transformer_params(state["v"], device),
+    return {"m": model_params(state["m"], device),
+            "v": model_params(state["v"], device),
             "step": tensor(state["step"], torch.int32, device)}
 
 

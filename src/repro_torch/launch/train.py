@@ -1,17 +1,23 @@
 """Training launcher (port of ``repro/launch/train.py``): ``--arch <id>``
-trains an LM architecture at its REDUCED config on a 1-rank host mesh,
-with async checkpoints and resume, on the card unless ``--device cpu``.
-The full-width step is ``launch/cells.build_lm_cell(..., reduced=False)``'s
-(``chip_smoke.py`` phase 18b trains gemma-2b with it).
+trains any registry architecture (LM, recsys or MACE) at its REDUCED
+config on a 1-rank host mesh, with async checkpoints and resume, on the
+card unless ``--device cpu``. The full-width steps are
+``launch/cells.build_cell(..., reduced=False)``'s (``chip_smoke.py``
+phases 18b and 19b-c train gemma-2b, DCN-v2 and MACE with them).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --steps 20
-  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \
+      --steps 50 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mace \
       --steps 20 --checkpoint-dir /tmp/ck --device cpu
 
 The initial parameters are the reference's draw, bit for bit: a normal
-draw of each leaf from ``np.random.default_rng(seed)`` in sorted key
-order, times 0.02 in f32; step ``i``'s batch is ``integers(0, 2)`` from
-``np.random.default_rng(i)``, so a resumed run sees the same batches.
+draw of each leaf from ``np.random.default_rng(seed)`` in JAX's flatten
+order (sorted dict keys, list index order), times 0.02 in f32; step
+``i``'s batch comes from ``np.random.default_rng(i)`` (int32 leaves
+``integers(0, 2)``, bool leaves ones, float leaves normal), so a resumed
+run sees the same batches. The default shape is the arch's first train
+shape (``train_4k``, ``train_batch``, MACE's ``full_graph_sm``).
 """
 from __future__ import annotations
 
@@ -31,16 +37,17 @@ from repro_torch.train.optimizer import (adamw_init, tree_leaves, tree_map,
 
 def _batch_like(specs, rng, device):
     """A tree of host draws shaped like ``specs`` (``Shaped`` leaves, drawn
-    in sorted key order, JAX's), on ``device``: int32 leaves ``integers(0,
-    2)``, float leaves normal in f32 (the reference's ``_batch_like``)."""
+    in JAX's flatten order), on ``device``: int32 leaves ``integers(0,
+    2)``, bool leaves ones (no draw), float leaves normal in f32 (the
+    reference's ``_batch_like``)."""
     def one(s):
         if s.dtype == torch.int32:
             arr = rng.integers(0, 2, size=s.shape).astype(np.int32)
+        elif s.dtype == torch.bool:
+            arr = np.ones(s.shape, bool)
         else:
             arr = rng.normal(size=s.shape).astype(np.float32)
         return torch.from_numpy(arr).to(device)
-    if not isinstance(specs, dict):
-        return one(specs)
     return tree_unflatten(specs, [one(s) for s in tree_leaves(specs)])
 
 
@@ -51,7 +58,7 @@ def initial_params(cell, seed: int, device):
 
 
 def step_batch(cell, step: int, device):
-    """Step ``step``'s tokens: a pure function of the step index."""
+    """Step ``step``'s batch: a pure function of the step index."""
     return _batch_like(cell.args[2], np.random.default_rng(step), device)
 
 

@@ -111,10 +111,13 @@ DRAW_CHUNK = 1 << 23
 def _dense_init(key, shape, in_axis, dtype, device):
     """``normal(key, shape) / sqrt(fan_in)`` in ``dtype`` on ``device``,
     drawn ``DRAW_CHUNK`` flat positions at a time (bit-equal to the whole
-    draw); the division correctly rounded on any device, as XLA's is."""
+    draw); the division correctly rounded on any device, as XLA's is. On
+    the ``meta`` device: the shape alone, nothing drawn."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
     fan_in = np.prod([shape[a] for a in np.atleast_1d(in_axis)])
     scale = torch.tensor(np.float32(np.sqrt(fan_in)), device=device)
-    out = torch.empty(shape, dtype=dtype, device=device)
     flat = out.view(-1)
     for start in range(0, flat.numel(), DRAW_CHUNK):
         n = min(DRAW_CHUNK, flat.numel() - start)

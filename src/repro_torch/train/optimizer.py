@@ -8,10 +8,10 @@ learning rate warms up linearly and then decays on a cosine to
 inside the step ``delta``. Adafactor factors the second moment of
 matrices into row and column statistics.
 
-Parameters, gradients and optimizer state are trees of nested dicts of
-tensors, as in the reference; leaves are visited in sorted key order, the
-order in which JAX flattens a dict, so the global norm sums in the same
-order. ``adamw_update`` returns new tensors and changes nothing in place.
+Parameters, gradients and optimizer state are trees of nested dicts (str
+or int keys) and lists of tensors, as in the reference; leaves are visited
+in sorted key order and list index order, the order in which JAX flattens
+them, so the global norm sums in the same order. ``adamw_update`` returns new tensors and changes nothing in place.
 ``adamw_update_`` is the same step on donated state (the reference's
 ``donate_argnums``): it writes the new parameters, moments and step into
 the tensors it was given, and clips the gradients in place, one leaf at a
@@ -28,19 +28,25 @@ import torch
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of a nested dict, in sorted key order."""
+    """The leaves of a tree of dicts and lists: dict keys (str or int) in
+    sorted order, list elements in index order (JAX's flatten order)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for node in tree for x in tree_leaves(node)]
     return [tree]
 
 
-def tree_unflatten(like, leaves) -> dict:
-    """A tree shaped like ``like`` holding ``leaves`` (sorted key order)."""
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` (in
+    :func:`tree_leaves` order)."""
     it = iter(leaves)
 
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(x) for x in node]
         return next(it)
     return build(like)
 
@@ -52,6 +58,9 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, x, *(r[i] for r in rest))
+                for i, x in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -162,6 +171,8 @@ def _pick(tree, i: int):
     """Element ``i`` of each tuple leaf of ``tree``."""
     if isinstance(tree, dict):
         return {k: _pick(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_pick(v, i) for v in tree]
     return tree[i]
 
 

@@ -53,7 +53,8 @@ from repro_torch.train import optimizer as topt
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
-LM_ARCHS = [a for a in jconfigs.ARCH_IDS if a not in tconfigs.NOT_YET_PORTED]
+LM_ARCHS = [a for a in jconfigs.ARCH_IDS
+            if jconfigs.get_arch(a).family == "lm"]
 CPU = dict(device="cpu")
 
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -153,21 +154,21 @@ def test_accounting_matches_reference(arch):
 
 
 def test_registry_matches_reference():
+    """Every id resolves, in the reference's family, and ``iter_cells``
+    yields the reference's cells, the non-LM archs' included."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     assert tconfigs.list_archs() == jconfigs.list_archs()
     for table in ("LM_SHAPES", "RECSYS_SHAPES", "GNN_SHAPES"):
         assert getattr(tconfigs, table) == getattr(jconfigs, table)
-    for arch in tconfigs.NOT_YET_PORTED:
-        assert jconfigs.get_arch(arch).family != "lm"
-        with pytest.raises(NotImplementedError, match=r"item 15\(c\)"):
-            tconfigs.get_arch(arch)
-    # the LM cells come first, then the first non-LM arch raises
-    got, cells = [], tconfigs.iter_cells(include_skipped=True)
-    with pytest.raises(NotImplementedError, match=r"item 15\(c\)"):
-        for cell in cells:
-            got.append(cell)
-    want = list(jconfigs.iter_cells(include_skipped=True))
-    assert got == want[:len(got)] and len(got) == 4 * len(LM_ARCHS)
+    for arch in tconfigs.ARCH_IDS:
+        got, want = tconfigs.get_arch(arch), jconfigs.get_arch(arch)
+        assert (got.arch_id, got.family, got.shapes, got.skip_shapes,
+                got.notes) == (want.arch_id, want.family, want.shapes,
+                               want.skip_shapes, want.notes)
+    for skipped in (False, True):
+        assert list(tconfigs.iter_cells(include_skipped=skipped)) == \
+            list(jconfigs.iter_cells(include_skipped=skipped))
+    assert len(LM_ARCHS) == 5
 
 
 def test_msmarco_config_matches_reference():

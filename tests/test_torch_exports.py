@@ -31,7 +31,7 @@ from repro_torch.core import yule_simon as tys
 # ROADMAP.md queue 1 item that ports it
 NOT_YET_PORTED = {
     "retrieval": {},
-    "data": {"NeighborSampler": 15},
+    "data": {},
     "models": {},
     "train": {},
     "core": {},

@@ -89,7 +89,9 @@ def test_cuda_device_without_card_raises(no_card):
 @pytest.mark.parametrize("argv", [
     ["repro_torch.launch.sample", "--queries", "32"],
     ["repro_torch.launch.evaluate", "--grid", "smoke", "--queries", "32"],
-    ["repro_torch.launch.train", "--arch", "gemma-2b", "--steps", "1"]])
+    ["repro_torch.launch.train", "--arch", "gemma-2b", "--steps", "1"],
+    ["repro_torch.launch.train", "--arch", "dcn-v2", "--steps", "1"],
+    ["repro_torch.launch.train", "--arch", "mace", "--steps", "1"]])
 def test_clis_default_to_the_card(no_card, argv):
     mod = importlib.import_module(argv[0])
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):

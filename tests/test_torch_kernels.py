@@ -179,6 +179,54 @@ def _check_topk(qs, cs, k):
     assert bool(torch.isneginf(s[:, k_eff:]).all())
 
 
+@pytest.mark.parametrize("d", [16, 36, 128])
+def test_topk_kernel_at_the_retrieval_cells_shapes(cuda, d):
+    """The recsys retrieval cells' top-k: one user vector over 1,000,000
+    candidate rows of an embedding table (D 16 for DCN-v2 and AutoInt, 36
+    for DIEN's item matrix, whose upper half is zero, 128 for DLRM), k
+    100. D 16 and 36 fill part of the kernel's 128-byte staged chunk."""
+    g = torch.Generator().manual_seed(d)
+    half = d // 2 if d == 36 else d
+    cs = torch.zeros(1_000_000, d)
+    cs[:, :half] = torch.randn(1_000_000, half, generator=g) / half ** 0.5
+    qs = cs[torch.randint(0, 1_000_000, (26,), generator=g)].mean(
+        0, keepdim=True)
+    _check_topk(qs.to(cuda), cs.to(cuda), 100)
+
+
+@pytest.mark.parametrize("arch", ["dcn-v2", "dien"])
+def test_recsys_retrieval_cell_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced retrieval cell's step on the card (the dense kernel)
+    against the same step on the CPU (the plain path), one draw."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng
+    from repro_torch.launch.cells import build_recsys_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import recsys as rs
+    from repro_torch.train.optimizer import tree_map
+    cell = build_recsys_cell(arch, "retrieval_cand", make_host_mesh(
+        device="cpu"), reduced=True)
+    cfg = get_arch(arch).make_reduced()
+    params = rs.init_recsys(prng.prng_key(0), cfg, device="cpu")
+    rng = np.random.default_rng(1)
+    batch = {name: torch.from_numpy(
+        rng.integers(0, 16, s.shape).astype(np.int32) if s.dtype
+        == torch.int32 else rng.random(s.shape).astype(np.float32))
+        for name, s in cell.args[1].items()}
+    rows = rs.item_matrix(params, cfg).shape[0]
+    cand = torch.from_numpy(rng.permutation(rows).astype(np.int32))
+    s_ref, i_ref = cell.fn(params, batch, cand)
+    s, i = cell.fn(tree_map(lambda t: t.to(cuda), params),
+                   {k: v.to(cuda) for k, v in batch.items()}, cand.to(cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s.cpu(), s_ref, rtol=1e-5, atol=1e-5)
+    # ids agree except between neighbours within the tolerance
+    gaps = (s_ref[0, :-1] - s_ref[0, 1:]).abs()
+    near = torch.cat([gaps <= 2e-5, torch.tensor([False])])
+    near = near | torch.cat([torch.tensor([False]), gaps <= 2e-5])
+    assert bool(((i.cpu() == i_ref)[0] | near).all())
+
+
 def test_topk_kernel_ties_go_to_lowest_id(cuda):
     cs = torch.zeros(700, 8, device=cuda)
     cs[::3, 0] = 1.0                       # many exact ties

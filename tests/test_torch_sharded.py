@@ -560,14 +560,17 @@ cache.flush()
 assert born.frozen_n == 103 and born.config.mesh is mesh
 assert len(set(n_groups[1:])) == 1, n_groups
 
-# LM training across ranks is item 15(d): an LM cell on this mesh raises
-from repro_torch.launch.cells import build_lm_cell
-try:
-    build_lm_cell("gemma-2b", "train_4k", mesh, reduced=True)
-except NotImplementedError as e:
-    assert "item 15(d)" in str(e), e
-else:
-    raise AssertionError("an LM cell on 2 ranks was built")
+# training and serving across ranks is item 15(d): a cell of each family
+# on this mesh raises
+from repro_torch.launch.cells import build_cell
+for arch, shape in (("gemma-2b", "train_4k"), ("dcn-v2", "retrieval_cand"),
+                    ("mace", "molecule")):
+    try:
+        build_cell(arch, shape, mesh, reduced=True)
+    except NotImplementedError as e:
+        assert "item 15(d)" in str(e), e
+    else:
+        raise AssertionError(f"a {arch} cell on 2 ranks was built")
 print("TWO-RANK-OK", rank)
 """
 
@@ -579,7 +582,8 @@ def test_two_ranks_gloo(tmp_path):
     all-reduce's mean, and a streamed live index with appends and
     background compactions set-equal to a single-device one, also across
     tenant evictions that hand its compaction groups to the next build;
-    an LM cell on the two ranks raises, naming item 15(d)."""
+    an LM, a recsys and a GNN cell on the two ranks raise, naming item
+    15(d)."""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH",

@@ -52,7 +52,8 @@ from repro_torch.train import loop as tloop
 from repro_torch.train import optimizer as topt
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
-LM_ARCHS = [a for a in jconfigs.ARCH_IDS if a not in tconfigs.NOT_YET_PORTED]
+LM_ARCHS = [a for a in jconfigs.ARCH_IDS
+            if jconfigs.get_arch(a).family == "lm"]
 SHAPES = {"train": "train_4k", "prefill": "prefill_32k",
           "decode": "decode_32k"}
 _DTYPES = {jnp.dtype(jnp.float32): torch.float32,
@@ -480,5 +481,11 @@ def test_lm_model_flops_equal_the_references():
 
 @pytest.mark.parametrize("arch", ["dlrm-mlperf", "mace"])
 def test_build_cell_raises_for_the_other_families(mesh, arch):
-    with pytest.raises(NotImplementedError, match=r"item 15\(c\)"):
-        cells.build_cell(arch, "train_batch", mesh, reduced=True)
+    """The recsys and GNN families build on one rank and raise on a mesh
+    of more than one (the production layout's 256 ranks), naming item
+    15(d)."""
+    from repro_torch.launch.dryrun import PRODUCTION
+    shape = "train_batch" if arch == "dlrm-mlperf" else "molecule"
+    assert cells.build_cell(arch, shape, mesh, reduced=True).kind == "train"
+    with pytest.raises(NotImplementedError, match=r"item 15\(d\)"):
+        cells.build_cell(arch, shape, PRODUCTION["single"][1], reduced=True)
