@@ -10,7 +10,7 @@ From the root of a checkout, with one card. In order:
    started together; prints each build's ``-Xptxas -v`` report. The
    recompile sentinel (``obs/recompile``) is on from here: it must count
    one build for each source whose library was not built yet, and none in
-   phases 5-18.
+   phases 5-20.
 3. Kernel vs plain: each kernel's wrapper (lp_round, the f32 top-k, the
    int8 top-k, the gathered top-k, the Hamming top-k, flash attention)
    against its plain PyTorch version on the card, at the main path's
@@ -243,12 +243,33 @@ From the root of a checkout, with one card. In order:
     179,200-edge block, and its train step's times, peak and rate against
     ``mace_flops``. dlrm-mlperf's published tables (91.1 GB) and MACE's
     ogb_products (285 GB a message set) do not fit one card and wait for
-    ROADMAP.md item 15(d).
+    ROADMAP.md item 15(d)(ii).
+20. The LM cells across ranks (no kernel lies on them; every launch count
+    must stay 0, in this process and in each rank's): four processes in
+    one gloo group on the one card as a (data 2, model 2) mesh (NCCL
+    refuses two ranks on one card: the collectives cross the host, so
+    this shows agreement, not scaling), running ``build_lm_cell``'s steps
+    on placed ``DTensor``s; rank 0 runs each check on one rank on the card
+    too and holds the mesh to it. gemma-2b at its published width with
+    its depth cut from 18 to ``LM_RANKS_LAYERS`` layers (bf16 compute, f32
+    parameters and AdamW state, sequence parallel): 20a 3 train steps at
+    ``LM_RANKS_BATCH`` x ``LM_RANKS_SEQ`` tokens, losses within
+    ``LM_RANKS_LOSS_TOL`` and the gathered parameters within 2 lr(step) a
+    step; 20b (bf16 weights) prefill of the same size, then
+    ``LM_RANKS_DECODE`` decode steps (the 512-slot cache rolls), logits
+    within ``LM_BF16_TOL`` and greedy ids equal wherever the one-rank
+    top-two gap exceeds it; 20c mixtral-8x22b's reduced MoE config (f32),
+    2 steps, losses within ``LM_F32_TOL`` and parameters within the
+    bound; 20d the mesh's parameters saved there and restored on one rank,
+    and the one-rank ones saved there and restored on the mesh, both
+    bit-equal; 20e each rank's bytes of parameters and moments equal to
+    the rules' share of each leaf, its allocator peak, and the step times
+    beside one rank's.
 
 Launch counts are set to 0 just before each main-path run (5, 6, 7, 9, 12,
-13, 15's, 17c, 18, 19b's retrieval and its train and serve steps) and
-read just after; a kernel the run did not launch is a failure (in 18 and
-19b's train and serve steps, a kernel it did launch). No tuned
+13, 15's, 17c, 18, 19b's retrieval and its train and serve steps, 20) and
+read just after; a kernel the run did not launch is a failure (in 18,
+19b's train and serve steps and 20, a kernel it did launch). No tuned
 table is active outside phase 10, whatever ``REPRO_TORCH_TUNED_KERNELS``
 names: a launch that resolves through one is a failure, so every other
 phase runs today's split plans. Each run
@@ -327,6 +348,15 @@ SMALL_TOL = (1e-4, 1e-5)        # rtol, atol: 19a's reduced recsys and MACE
 RECSYS_STEPS = 6                # 19b's timed dcn-v2 train steps
 MACE_TOL = 1e-4                 # 19c: molecule energies and forces, card vs
                                 # CPU, relative to their largest magnitude
+LM_RANKS_LAYERS = 2             # phase 20: gemma-2b's 18 layers cut to 2
+LM_RANKS_BATCH, LM_RANKS_SEQ = 4, 512   # 20's tokens a step and prompts
+LM_RANKS_TRAIN_STEPS = 3        # 20a
+LM_RANKS_DECODE = 8             # 20b's decode steps after the prefill
+LM_RANKS_MOE_STEPS = 2          # 20c
+LM_RANKS_LOSS_TOL = 0.02        # 20a: |loss| of order 12 in bf16, mesh vs one
+                                # rank: each block's output summed from two
+                                # bf16 halves (2**-8 relative a rounding)
+LM_RANKS_TIMEOUT = 420          # s, phase 20's four processes together
 
 
 # phase 14's child: one rank of two in a gloo group on the one card;
@@ -461,6 +491,294 @@ if rank == 0:
         f"ivfflat {r2:.4f} (1 rank {r1:.4f}, tolerance {tol}), int8 "
         f"{i2:.4f} (1 rank {i1:.4f})")
 report["builds"] = recompile.total()
+dist.destroy_process_group()
+print(json.dumps(report), flush=True)
+"""
+
+
+# phase 20's child: one rank of four in a gloo group on the one card, a
+# (data 2, model 2) mesh; argv: rank, FileStore path, output directory.
+# It prints "    rank r: ..." lines, then one JSON report as its last line.
+# Rank 0 also runs every check on one rank on the card and holds the
+# mesh's results to it, raising on a difference.
+LM_RANKS_CHILD = r"""
+import json, math, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+(layers, batch, seq, decode_steps, train_steps, moe_steps, loss_tol,
+ bf16_tol, f32_tol) = json.loads(sys.argv[4])
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", store=dist.FileStore(store, 4), rank=rank,
+                        world_size=4)
+from repro_torch.core import prng
+from repro_torch.distributed import sharding as sh
+from repro_torch.kernels.flash_attention.ops import FLASH_ATTENTION
+from repro_torch.kernels.label_prop.ops import LP_ROUND
+from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK
+from repro_torch.kernels.topk_scoring.ops import (
+    GATHERED_TILES, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_PARTIAL)
+from repro_torch.launch import cells
+from repro_torch.launch.dryrun import MeshShape
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.train import initial_params, step_batch
+from repro_torch.models import transformer as tf
+from repro_torch.train import checkpoint as ck
+from repro_torch.train.optimizer import adamw_init, tree_leaves, tree_map
+
+torch.backends.cuda.matmul.allow_tf32 = False
+KERNELS = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
+           HAMMING_TOPK, TOPK_MERGE, FLASH_ATTENTION)
+for kern in KERNELS:
+    kern.launches = 0
+mesh = make_host_mesh(model_axis=2, device="cuda")
+ONE = MeshShape(("data", "model"), (1, 1))
+report = {"rank": rank, "mesh": [list(mesh.mesh_dim_names),
+                                 list(mesh.shape)]}
+
+
+def log(msg):
+    print(f"    rank {rank}: {msg}", flush=True)
+
+
+def check(ok, msg):
+    if not ok:
+        raise AssertionError(msg)
+
+
+def cuda_tokens(seed, shape, vocab):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, shape).astype(np.int32)).cuda()
+
+
+def placed(cell, params):
+    pl = tree_map(lambda s: s.placements, cell.args[0])
+    return sh.place_tree(params, mesh, pl)
+
+
+def placed_opt(cell, params):
+    opt = adamw_init(params)
+    pl = tree_map(lambda s: s.placements, cell.args[0])
+    return {"m": sh.place_tree(opt["m"], mesh, pl),
+            "v": sh.place_tree(opt["v"], mesh, pl),
+            "step": sh.place(opt["step"], mesh,
+                             cell.args[1]["step"].placements)}
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    a.record()
+    res = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return res, a.elapsed_time(b), (time.perf_counter() - t0) * 1e3
+
+
+def adam_atol(steps):
+    from repro_torch.train.optimizer import AdamWConfig, _schedule
+    return sum(2 * _schedule(torch.tensor(s), AdamWConfig()).item()
+               for s in range(1, steps + 1))
+
+
+def local_bytes(tree):
+    return sum(sh.to_local(x).numel() * x.dtype.itemsize
+               for x in tree_leaves(tree))
+
+
+def rules_bytes(cell_args):
+    # the rules' share: each spec's bytes over its placements' shard counts
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    total = 0
+    for s in tree_leaves(cell_args):
+        n = math.prod(sizes[name] for name, p in zip(mesh.mesh_dim_names,
+                                                     s.placements)
+                      if p.is_shard())
+        total += math.prod(s.shape) * s.dtype.itemsize // n
+    return total
+
+
+over = {"n_layers": layers}
+# (a) training: gemma-2b at its published width, cut to `layers` layers
+train = cells.build_lm_cell("gemma-2b", "train_4k", mesh, overrides=over)
+cfg = train.cfg
+full = tf.init_transformer(prng.prng_key(0), cfg, device="cuda")
+report["n_params"] = sum(x.numel() for x in tree_leaves(full))
+params = placed(train, full)
+opt = placed_opt(train, full)
+report["state_bytes"] = local_bytes([params, opt["m"], opt["v"]])
+report["rules_bytes"] = rules_bytes([train.args[0], train.args[1]["m"],
+                                     train.args[1]["v"]])
+tokens = [cuda_tokens(200 + s, (batch, seq + 1), cfg.vocab_size)
+          for s in range(train_steps)]
+one = None
+if rank == 0:
+    one_cell = cells.build_lm_cell("gemma-2b", "train_4k", ONE,
+                                   overrides=over)
+    p1, o1 = full, adamw_init(full)
+    one_losses, one_ms = [], []
+    for t in tokens:
+        (p1, o1, l1), ms, _ = timed(lambda: one_cell.fn(p1, o1, t))
+        one_losses.append(float(l1))
+        one_ms.append(ms)
+    report["one_rank_step_ms"] = one_ms
+    log(f"(a) one rank: losses {one_losses}, step ms {one_ms}")
+del full
+torch.cuda.synchronize()
+dist.barrier()
+torch.cuda.reset_peak_memory_stats()
+losses, ms, wall = [], [], []
+for t in tokens:
+    tp = sh.place(t, mesh, train.args[2].placements)
+    (params, opt, loss), m_, w_ = timed(lambda: train.fn(params, opt, tp))
+    losses.append(float(loss))
+    ms.append(m_)
+    wall.append(w_)
+report.update(losses=losses, step_ms=ms, step_wall_ms=wall,
+              peak_bytes=torch.cuda.max_memory_allocated())
+errs = []
+for leaf, ref in zip(tree_leaves(params), tree_leaves(p1) if rank == 0
+                     else [None] * len(tree_leaves(params))):
+    whole = sh.full_tensor(leaf)
+    if rank == 0:
+        errs.append(float((whole - ref).abs().max()))
+    del whole
+if rank == 0:
+    d = [abs(a - b) for a, b in zip(losses, one_losses)]
+    report["train"] = {"loss_err": d, "param_err": max(errs),
+                       "param_tol": adam_atol(train_steps)}
+    check(max(d) <= loss_tol, f"(a) losses {losses} vs one rank "
+          f"{one_losses}: beyond {loss_tol}")
+    check(max(errs) <= adam_atol(train_steps),
+          f"(a) parameters after {train_steps} steps differ by {max(errs)}")
+    log(f"(a) 2 x 2 mesh: losses {losses} (one rank within {max(d):.3g}, "
+        f"tolerance {loss_tol}); parameters after step {train_steps} within "
+        f"{max(errs):.3g} (bound 2 lr a step: {adam_atol(train_steps):.3g}); "
+        f"step ms {ms}")
+
+# (d) checkpoints across meshes: the mesh's parameters after the steps,
+# saved here and restored on one rank; the one-rank ones saved there and
+# restored on the mesh; both bit-equal
+ckdir = os.path.join(out, "mesh_to_one")
+t0 = time.perf_counter()
+ck.save_checkpoint(ckdir, train_steps, params)
+save_s = time.perf_counter() - t0
+if rank == 0:
+    like = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="cuda"), params)
+    got, _ = ck.restore_checkpoint(ckdir, like)
+    eq = []
+for leaf in tree_leaves(params):
+    whole = sh.full_tensor(leaf)
+    if rank == 0:
+        eq.append(torch.equal(whole, tree_leaves(got)[len(eq)]))
+    del whole
+if rank == 0:
+    check(all(eq), "(d) the mesh's checkpoint restored on one rank differs")
+    del got
+    ck.save_checkpoint(os.path.join(out, "one_to_mesh"), train_steps, p1)
+else:
+    dist.barrier()      # the one-rank save's barrier
+t0 = time.perf_counter()
+back, _ = ck.restore_checkpoint(os.path.join(out, "one_to_mesh"), params)
+restore_s = time.perf_counter() - t0
+same = [x.placements == y.placements for x, y in
+        zip(tree_leaves(back), tree_leaves(params))]
+eq = []
+for i, leaf in enumerate(tree_leaves(back)):
+    whole = sh.full_tensor(leaf)
+    if rank == 0:
+        eq.append(torch.equal(whole, tree_leaves(p1)[i]))
+    del whole
+check(all(same), "(d) restored leaves placed otherwise")
+if rank == 0:
+    check(all(eq), "(d) the one-rank checkpoint restored on the mesh "
+          "differs")
+    report["checkpoint"] = {"save_s": save_s, "restore_s": restore_s,
+                            "leaves": len(eq)}
+    log(f"(d) {len(eq)} parameter leaves: saved on the mesh and restored on "
+        f"one rank bit-equal, saved on one rank and restored on the mesh "
+        f"bit-equal (save {save_s:.2f} s, restore {restore_s:.2f} s)")
+    del p1, o1
+del back, params, opt
+torch.cuda.empty_cache()
+
+# (b) serving: prefill of batch x seq, then decode steps, bf16
+pre = cells.build_lm_cell("gemma-2b", "prefill_32k", mesh, overrides=over)
+dec = cells.build_lm_cell("gemma-2b", "decode_32k", mesh, overrides=over)
+full = tf.tree_to(tf.init_transformer(prng.prng_key(1), cfg,
+                                      device="cuda"), cfg.dtype)
+sp = placed(pre, full)
+prompt = cuda_tokens(300, (batch, seq), cfg.vocab_size)
+steps_in = [cuda_tokens(310 + i, (batch, 1), cfg.vocab_size)
+            for i in range(decode_steps)]
+if rank == 0:
+    pre1 = cells.build_lm_cell("gemma-2b", "prefill_32k", ONE,
+                               overrides=over)
+    dec1 = cells.build_lm_cell("gemma-2b", "decode_32k", ONE,
+                               overrides=over)
+    l1, c1 = pre1.fn(full, prompt)
+    want = [l1]
+    for t in steps_in:
+        l1, c1 = dec1.fn(full, c1, t)
+        want.append(l1[:, 0])
+del full
+(logits, cache), pre_ms, _ = timed(lambda: pre.fn(sp, sh.place(
+    prompt, mesh, pre.args[1].placements)))
+got = [sh.full_tensor(logits)]
+dec_ms = []
+for t in steps_in:
+    (logits, cache), m_, _ = timed(lambda: dec.fn(sp, cache, sh.place(
+        t, mesh, dec.args[2].placements)))
+    got.append(sh.full_tensor(logits)[:, 0])
+    dec_ms.append(m_)
+report["prefill_ms"], report["decode_ms"] = pre_ms, dec_ms
+if rank == 0:
+    err, clear, same = 0.0, 0, 0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        err = max(err, float((g - w).abs().max()))
+        top2 = torch.topk(w, 2, dim=-1).values
+        ok = (top2[:, 0] - top2[:, 1]) > bf16_tol
+        clear += int(ok.sum())
+        same += int((g.argmax(-1) == w.argmax(-1))[ok].sum())
+    report["serve"] = {"logit_err": err, "clear": clear, "same": same}
+    check(err <= bf16_tol, f"(b) logits differ from one rank by {err}")
+    check(same == clear, f"(b) greedy ids differ away from near-ties: "
+          f"{same} of {clear}")
+    log(f"(b) prefill {batch} x {seq} then {decode_steps} decode steps: "
+        f"logits within {err:.4f} of one rank (tolerance {bf16_tol}); greedy "
+        f"ids equal at all {clear} clear positions; prefill {pre_ms:.1f} ms, "
+        f"decode ms {[round(x, 2) for x in dec_ms]}")
+del sp, cache, logits, got
+torch.cuda.empty_cache()
+
+# (c) MoE: mixtral-8x22b's reduced config, f32, on the same mesh
+moe = cells.build_lm_cell("mixtral-8x22b", "train_4k", mesh, reduced=True)
+moe1 = cells.build_lm_cell("mixtral-8x22b", "train_4k", ONE, reduced=True)
+mp = initial_params(moe, 0, "cuda")
+p, o = placed(moe, mp), placed_opt(moe, mp)
+p1, o1 = mp, adamw_init(mp)
+md = []
+for s in range(moe_steps):
+    t = step_batch(moe, s, "cuda")
+    p, o, l = moe.fn(p, o, sh.place(t, mesh, moe.args[2].placements))
+    p1, o1, l_ = moe1.fn(p1, o1, t)
+    md.append(abs(float(l) - float(l_)) / max(abs(float(l_)), 1e-30))
+perr = max(float((sh.full_tensor(a) - b).abs().max())
+           for a, b in zip(tree_leaves(p), tree_leaves(p1)))
+report["moe"] = {"loss_rel_err": md, "param_err": perr}
+check(max(md) <= f32_tol, f"(c) MoE losses differ by {md}")
+check(perr <= adam_atol(moe_steps), f"(c) MoE parameters differ by {perr}")
+if rank == 0:
+    log(f"(c) mixtral-8x22b reduced (MoE, 4 experts top-2): {moe_steps} "
+        f"steps, losses within {max(md):.3g} relative (tolerance "
+        f"{f32_tol}), parameters within {perr:.3g}")
+report["launches"] = {k.name: k.launches for k in KERNELS}
+report["peak_bytes_all"] = torch.cuda.max_memory_allocated()
 dist.destroy_process_group()
 print(json.dumps(report), flush=True)
 """
@@ -2130,17 +2448,17 @@ def gemma_train_full_width(smi: str) -> None:
     loop_s = time.perf_counter() - t0
     # the save of step 2, written on the worker while step 3 runs
     saves = []
-    orig_save = ck.save_checkpoint
+    orig_write = ck._write
 
-    def timed_save(directory, step, tree):
+    def timed_write(directory, step, pairs, arrays):
         free = shutil.disk_usage(OUT).free
         t0 = time.perf_counter()
-        path = orig_save(directory, step, tree)
+        path = orig_write(directory, step, pairs, arrays)
         saves.append((t0, time.perf_counter(), os.path.getsize(
             os.path.join(path, "leaves.npz")), free))
         return path
 
-    ck.save_checkpoint = timed_save
+    ck._write = timed_write
     try:
         writer = ck.AsyncCheckpointer(ckdir, keep=1)
         sums2 = leaf_sums((params, opt))
@@ -2154,7 +2472,7 @@ def gemma_train_full_width(smi: str) -> None:
                       for x in (params, opt))
         writer.close()
     finally:
-        ck.save_checkpoint = orig_save
+        ck._write = orig_write
     peak = torch.cuda.max_memory_allocated()
     step_ms = [a.elapsed_time(b) for a, b in events]
     if not all(np.isfinite(losses)):
@@ -2213,6 +2531,82 @@ def gemma_train_full_width(smi: str) -> None:
     shutil.rmtree(ckdir, ignore_errors=True)
 
 
+def lm_ranks_on_card(smi: str) -> dict:
+    """20: the LM cells on a (data 2, model 2) mesh of four processes in
+    one gloo group on the one card (NCCL refuses two ranks on a card, so
+    the collectives go through the host: agreement, not scaling); rank 0
+    holds each check to one rank on the card (``LM_RANKS_CHILD``). Returns
+    the ranks' reports. A failed or hung child fails the run."""
+    import shutil
+    work = os.path.join(OUT, "lm_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="2")
+    argv = json.dumps([LM_RANKS_LAYERS, LM_RANKS_BATCH, LM_RANKS_SEQ,
+                       LM_RANKS_DECODE, LM_RANKS_TRAIN_STEPS,
+                       LM_RANKS_MOE_STEPS, LM_RANKS_LOSS_TOL, LM_BF16_TOL,
+                       LM_F32_TOL[0]])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", LM_RANKS_CHILD, str(r),
+         os.path.join(work, "store"), work, argv], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    outs = []
+    try:
+        for p in procs:
+            left = LM_RANKS_TIMEOUT - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(left, 1.0))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 20: the four ranks did not finish in "
+             f"{LM_RANKS_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    reports = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        with open(os.path.join(OUT, f"phase20_rank{r}.log"), "w") as f:
+            f.write(text)
+        lines = text.strip().splitlines()
+        for line in lines[:-1]:
+            if f"rank {r}: " in line:
+                log("    20" + line[line.index(f"rank {r}: ") + 6 + len(
+                    str(r)):])
+        if p.returncode != 0 or not lines:
+            log("\n".join(lines[-30:]))
+            fail(f"phase 20: rank {r} exited {p.returncode}")
+        reports.append(json.loads(lines[-1]))
+    shutil.rmtree(work, ignore_errors=True)
+    for rep in reports:
+        r = rep["rank"]
+        if any(rep["launches"].values()):
+            fail(f"phase 20: rank {r} launched kernels: {rep['launches']}")
+        if rep["state_bytes"] != rep["rules_bytes"]:
+            fail(f"phase 20: rank {r} holds {rep['state_bytes']} B of "
+                 f"parameters and AdamW moments, the rules' share is "
+                 f"{rep['rules_bytes']}")
+        if rep["losses"] != reports[0]["losses"]:
+            fail(f"phase 20: rank {r}'s losses differ from rank 0's")
+    whole = 3 * 4 * reports[0]["n_params"]
+    log(f"    20e per rank (parameters and AdamW m, v in f32; the rules' "
+        f"share, each rank's exactly): "
+        + ", ".join(f"rank {rep['rank']} {rep['state_bytes'] / 1e9:.3f} GB "
+                    f"({rep['state_bytes'] / whole:.4f} of the whole "
+                    f"{whole / 1e9:.3f})" for rep in reports)
+        + "; allocator peak in the mesh steps "
+        + ", ".join(f"{rep['peak_bytes'] / 1e9:.2f}" for rep in reports)
+        + " GB, over the phase "
+        + ", ".join(f"{rep['peak_bytes_all'] / 1e9:.2f}" for rep in reports)
+        + f" GB; mesh step ms {reports[0]['step_ms']} (wall "
+        f"{[round(x, 1) for x in reports[0]['step_wall_ms']]}), one rank "
+        f"{reports[0]['one_rank_step_ms']}; {smi}")
+    log(f"    20 in {wall:.1f} s (four processes)")
+    return reports
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2264,7 +2658,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/19] device: {name}; nvidia-smi: {smi}; "
+    log(f"[1/20] device: {name}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build -------------------------------------------------------------
@@ -2282,7 +2676,7 @@ def main() -> None:
 
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_counted, sources))
-    log(f"[2/19] built {', '.join(sources)} in "
+    log(f"[2/20] built {', '.join(sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     if recompile.counts() != ({"phase 2": len(uncached)} if uncached
                               else {}):
@@ -2301,7 +2695,7 @@ def main() -> None:
     tuning.set_table(None)
     untuned_hits = REGISTRY.counter("tuning.resolve.hit").value
     main_shapes: dict = {}      # phases 5-7's launches by shape, for phase 10
-    log("[3/19] kernel vs plain")
+    log("[3/20] kernel vs plain")
     for n, k, quarter in [(1, 1, True), (37, 5, True), (513, 33, True),
                           (300, 70, False), (4096, 0, True),
                           (100_003, 32, True), (100_003, 32, False)]:
@@ -2531,7 +2925,7 @@ def main() -> None:
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
-    log("[4/19] times (CUDA events, after warm-up)")
+    log("[4/20] times (CUDA events, after warm-up)")
     labels, nbr, wgt, deg_sq = lp_main
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
@@ -2797,7 +3191,7 @@ def main() -> None:
     sample_corpus = corpus_seen.results["corpus"]
     sample_stats, sample_wall = stats, wall
     del corpus_seen
-    log(f"[5/19] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
+    log(f"[5/20] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
         f"{stats['communities']} communities, changes/round "
         f"{stats['changes_per_round']}, {stats['entities']} entities "
         f"sampled")
@@ -2841,7 +3235,7 @@ def main() -> None:
             "--json", os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     cells = out["grid"]["cells"]
     eval_out, eval_wall = out, wall
-    log(f"[6/19] evaluation: {wall:.2f} s wall, {len(cells)} cells")
+    log(f"[6/20] evaluation: {wall:.2f} s wall, {len(cells)} cells")
     eval_launches = read_counts(kernels, "evaluation", main_shapes)
     trace.disable()
     # the Hamming kernel at each shape the grid launched it at
@@ -2876,7 +3270,7 @@ def main() -> None:
     from repro_torch.retrieval.experiment import run_table1_experiment
     t0 = time.perf_counter()
     t1_corpus = eval_corpus(EVAL_QUERIES, 2048, embed=False)
-    log(f"[7/19] Table I corpus: {t1_corpus.num_entities} entities, "
+    log(f"[7/20] Table I corpus: {t1_corpus.num_entities} entities, "
         f"{t1_corpus.num_queries} queries, passages "
         f"{t1_corpus.passage_tokens.shape[1]} tokens, queries "
         f"{t1_corpus.query_tokens.shape[1]}, vocab {t1_corpus.vocab_size} "
@@ -3101,7 +3495,7 @@ def main() -> None:
         f"both; load of 256: completed {g_load['completed']}, rejected "
         f"{g_load['rejected']}, ticks {g_load['ticks']}, mean batch "
         f"{g_load['mean_batch']} on both")
-    log("[8/19] small inputs: sample.npz, grid cells, the encoder's and the "
+    log("[8/20] small inputs: sample.npz, grid cells, the encoder's and the "
         "serve CLI's results equal (or within the stated tolerance) on cuda "
         "and cpu")
 
@@ -3145,7 +3539,7 @@ def main() -> None:
             sample_corpus.num_entities, prng.prng_key(0), rate=0.15,
             device="cuda")):
         fail("run_uniform_baseline's mask != uniform_sample's")
-    log(f"[9/19] run_windtunnel (engine {session.spec.engine}, "
+    log(f"[9/20] run_windtunnel (engine {session.spec.engine}, "
         f"{sample_corpus.num_entities} entities): {wt_wall:.2f} s wall, "
         f"{int(wt.sample.entity_mask.sum())} entities sampled; labels and "
         f"entity_mask equal to the session's bit for bit; "
@@ -3170,7 +3564,7 @@ def main() -> None:
                      for kernel, dt in traffic
                      for bucket in ("le65536", "gt65536")
                      if (kernel, bucket, dt) not in table.entries)
-    log(f"[10/19] autotune (topk float32/int8, hamming_topk; le65536, "
+    log(f"[10/20] autotune (topk float32/int8, hamming_topk; le65536, "
         f"gt65536) over phases 5-7's launches in "
         f"{time.perf_counter() - t0:.1f} s; {smi}; cells the main path "
         f"never launched, so left untuned: {', '.join(untuned) or 'none'}; "
@@ -3250,7 +3644,7 @@ def main() -> None:
     # 11. where the host time goes ----------------------------------------
     # the two CLIs once more at the timed runs' sizes, under cProfile (the
     # timed runs above stay unprofiled)
-    log("[11/19] host time: the sampling and evaluation CLIs under cProfile")
+    log("[11/20] host time: the sampling and evaluation CLIs under cProfile")
     with tempfile.TemporaryDirectory(dir=OUT) as tmp, \
             recompile.region("phase 11"):
         profile_top("sampling", lambda: run_sample(
@@ -3279,7 +3673,7 @@ def main() -> None:
             "--streamed", "--mesh", "host", "--out",
             os.path.join(OUT, "sample_streamed"), "--trace", streamed_trace])
     trace.disable()
-    log(f"[12/19] streamed sampling (1-rank NCCL mesh, "
+    log(f"[12/20] streamed sampling (1-rank NCCL mesh, "
         f"{dist.get_backend()}): {sh_wall:.2f} s wall (phase 5: "
         f"{sample_wall:.2f} s), changes/round "
         f"{sh_stats['changes_per_round']}")
@@ -3345,7 +3739,7 @@ def main() -> None:
             os.path.join(OUT, "eval_streamed.json"), "--trace",
             streamed_eval_trace])
     trace.disable()
-    log(f"[13/19] streamed evaluation (1-rank NCCL mesh): "
+    log(f"[13/20] streamed evaluation (1-rank NCCL mesh): "
         f"{sh_eval_wall:.2f} s wall (phase 6: {eval_wall:.2f} s), "
         f"{len(sh_out['grid']['cells'])} cells")
     sh_eval_launches = read_counts(kernels, "streamed evaluation")
@@ -3394,7 +3788,7 @@ def main() -> None:
                 p.kill()
                 p.wait()
     two_wall = time.perf_counter() - t0
-    log(f"[14/19] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
+    log(f"[14/20] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
         f"{two_wall:.2f} s wall, both processes")
     reports = []
     for r, (p, text) in enumerate(zip(procs, outs)):
@@ -3493,7 +3887,7 @@ def main() -> None:
         list(pool.map(lambda t: shared_corpus(t, docs=SERVE_DOCS,
                                               dim=SERVE_DIM, seed=0),
                       ("tenant-0", "tenant-1")))
-    log(f"[15/19] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
+    log(f"[15/20] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
         f"(two drawn on the host in {time.perf_counter() - t0:.2f} s, "
         f"two threads, before the runs), buckets up to {SERVE_BATCH}, "
         f"k_max {SERVE_KMAX}; {smi}")
@@ -3860,7 +4254,7 @@ def main() -> None:
     if fresh or lint.returncode != 0:
         fail(f"phase 16: {len(fresh)} finding(s) not in "
              f"lint_baseline_torch.json (exit {lint.returncode})")
-    log(f"[16/19] analyzer: python -m repro_torch.launch.lint over "
+    log(f"[16/20] analyzer: python -m repro_torch.launch.lint over "
         f"src/repro_torch on Python {sys.version.split()[0]}: "
         f"{len(report['findings'])} findings ({report['counts']}), all in "
         f"the baseline, {len(report['rules'])} rules, {lint_s:.2f} s; {smi}")
@@ -3882,7 +4276,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_no_build("phase 17")
     check_untuned("phase 17", untuned_hits)
-    log(f"[17/19] LM decoder and RAG serving: 5 reduced archs card vs CPU, "
+    log(f"[17/20] LM decoder and RAG serving: 5 reduced archs card vs CPU, "
         f"gemma-2b prefill vs decode, RAG at full width in "
         f"{time.perf_counter() - t17:.1f} s; {smi}")
 
@@ -3912,7 +4306,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_no_build("phase 18")
     check_untuned("phase 18", untuned_hits)
-    log(f"[18/19] LM training: 5 reduced archs card vs CPU and resumed, "
+    log(f"[18/20] LM training: 5 reduced archs card vs CPU and resumed, "
         f"gemma-2b trained at full width with an async save and a restore, "
         f"no kernel launched, in {time.perf_counter() - t18:.1f} s; {smi}")
 
@@ -3946,11 +4340,27 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_no_build("phase 19")
     check_untuned("phase 19", untuned_hits)
-    log(f"[19/19] recsys and MACE: 4 recsys archs and 3 MACE cells card vs "
+    log(f"[19/20] recsys and MACE: 4 recsys archs and 3 MACE cells card vs "
         f"CPU and resumed, DCN-v2 trained, served and retrieved at full "
         f"width, AutoInt and DIEN stepped, MACE trained on molecules and a "
         f"sampled Reddit-sized graph, in {time.perf_counter() - t19:.1f} s; "
         f"{smi}")
+
+    # 20. the LM cells across ranks ----------------------------------------
+    # gemma-2b at its published width (2 layers) on a (data 2, model 2)
+    # mesh of four processes sharing the card, each check held to one rank
+    # on the card; no kernel lies on this path
+    t20 = time.perf_counter()
+    reset_counts(kernels)
+    lm_ranks_on_card(smi)
+    if any(read_counts(kernels, "phase 20").values()):
+        fail("phase 20 launched kernels in this process")
+    check_no_build("phase 20")
+    log(f"[20/20] LM cells across ranks: gemma-2b (published width, "
+        f"{LM_RANKS_LAYERS} layers) trained, checkpointed across meshes "
+        f"and served on a 2 x 2 mesh of 4 gloo processes on the card, "
+        f"mixtral's reduced MoE trained there, all held to one rank, in "
+        f"{time.perf_counter() - t20:.1f} s; {smi}")
 
     def launches(kname: str) -> int:
         """A kernel's launches over the main-path runs (phases 5-7, 12,

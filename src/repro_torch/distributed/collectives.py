@@ -27,7 +27,18 @@ an NCCL group reads the card's tensors in place (and refuses CPU ones).
   worker thread that runs collectives while the main thread runs its own
   (the serving tier's background compaction, serve/ingest.py), so the two
   threads' collectives cannot interleave in another order on another
-  rank.
+  rank;
+* ``all_to_all`` — tiled all-to-all along the leading dim, even or by
+  split sizes (the MoE's expert exchange, the GLU columns' regrouping);
+* ``grad_all_reduce`` / ``grad_all_gather`` / ``grad_reduce_scatter`` /
+  ``grad_all_to_all`` — the same collectives under autograd, for the code
+  each rank runs of a model split over the mesh (``models/transformer.py``
+  with ``ranks=``). Their backward is the adjoint of the forward (an
+  all-reduce's is an all-reduce, an all-gather's a reduce-scatter, an
+  all-to-all's the reverse all-to-all), which is exact when the objective
+  is the SUM of the ranks' losses: a rank's loss is its share of the
+  global one, and a value every rank holds alike is a sum of per-rank
+  copies whose gradients add.
 """
 from __future__ import annotations
 
@@ -180,21 +191,119 @@ def psum_scatter_then_gather(x: torch.Tensor, mesh, axis_name: str,
     (x)): this rank's 1/axis_size piece of the summed ``x`` along
     ``scatter_dim``; the caller updates it, then :func:`gather_after_update`
     reassembles the whole."""
-    group = axis_group(mesh, axis_name)
+    return _reduce_scatter(x, mesh, axis_name, scatter_dim)
+
+
+def gather_after_update(pieces: torch.Tensor, mesh, axis_name: str,
+                        gather_dim: int = 0) -> torch.Tensor:
+    return all_gather(pieces, mesh, axis_name, dim=gather_dim)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis_names: AxisNames,
+               in_splits=None, out_splits=None) -> torch.Tensor:
+    """All-to-all along dim 0: piece ``j`` of ``x`` (``in_splits[j]``
+    rows, or an even share) goes to the ``j``-th rank of the group, and
+    the result stacks the pieces received, in rank order (``out_splits``
+    rows from each, or an even share)."""
+    group = axis_group(mesh, axis_names)
+    src = x.contiguous()
+    staged = _staged(group, src)
+    send = src.cpu() if staged else src
+    rows = (sum(out_splits) if out_splits is not None else send.shape[0])
+    out = torch.empty((rows,) + tuple(send.shape[1:]), dtype=send.dtype,
+                      device=send.device)
+    dist.all_to_all_single(out, send, output_split_sizes=out_splits,
+                           input_split_sizes=in_splits, group=group)
+    return out.to(x.device) if staged else out
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather(x, mesh, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None,
+                None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _reduce_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, ctx.axes, dim=ctx.dim), None, None, \
+            None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, in_splits, out_splits):
+        ctx.mesh, ctx.axes = mesh, axes
+        ctx.splits = (in_splits, out_splits)
+        return all_to_all(x, mesh, axes, in_splits, out_splits)
+
+    @staticmethod
+    def backward(ctx, g):
+        in_splits, out_splits = ctx.splits
+        return (all_to_all(g, ctx.mesh, ctx.axes, out_splits, in_splits),
+                None, None, None, None)
+
+
+def _reduce_scatter(x: torch.Tensor, mesh, axis_names: AxisNames,
+                    dim: int) -> torch.Tensor:
+    """This rank's piece along ``dim`` of ``x`` summed over the group."""
+    group = axis_group(mesh, axis_names)
     d = dist.get_world_size(group)
-    src = x.movedim(scatter_dim, 0).contiguous()
+    src = x.movedim(dim, 0).contiguous()
     staged = _staged(group, src)
     send = src.cpu() if staged else src
     out = torch.empty((send.shape[0] // d,) + tuple(send.shape[1:]),
                       dtype=send.dtype, device=send.device)
     _REDUCE_SCATTER(out, send, group=group)
     out = out.to(x.device) if staged else out
-    return out.movedim(0, scatter_dim)
+    return out.movedim(0, dim)
 
 
-def gather_after_update(pieces: torch.Tensor, mesh, axis_name: str,
-                        gather_dim: int = 0) -> torch.Tensor:
-    return all_gather(pieces, mesh, axis_name, dim=gather_dim)
+def grad_all_reduce(x: torch.Tensor, mesh, axis_names: AxisNames):
+    """Sum over the group; the gradient is summed over it too."""
+    return _AllReduce.apply(x, mesh, _as_tuple(axis_names))
+
+
+def grad_all_gather(x: torch.Tensor, mesh, axis_names: AxisNames,
+                    dim: int = 0):
+    """Tiled all-gather along ``dim``; the gradient is reduce-scattered."""
+    return _AllGather.apply(x, mesh, _as_tuple(axis_names), dim % x.dim())
+
+
+def grad_reduce_scatter(x: torch.Tensor, mesh, axis_names: AxisNames,
+                        dim: int = 0):
+    """This rank's piece along ``dim`` of the group's sum; the gradient is
+    all-gathered."""
+    return _ReduceScatter.apply(x, mesh, _as_tuple(axis_names), dim % x.dim())
+
+
+def grad_all_to_all(x: torch.Tensor, mesh, axis_names: AxisNames,
+                    in_splits=None, out_splits=None):
+    """:func:`all_to_all`; the gradient goes back by the reverse one."""
+    return _AllToAll.apply(x, mesh, _as_tuple(axis_names), in_splits,
+                           out_splits)
 
 
 def microbatch_grads(loss_fn, params, batches, *,

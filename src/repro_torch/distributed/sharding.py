@@ -11,14 +11,24 @@ returns the reference's ``PartitionSpec`` entries as a plain tuple (one
 entry per tensor dim: a mesh axis name, a tuple of them, or ``None``);
 :func:`tree_shardings` turns each entry into the DTensor placements of the
 mesh's dims (``Shard(tensor_dim)`` or ``Replicate()``).
+
+A tree placed on a mesh (:func:`place_tree`) holds ``DTensor`` leaves,
+each rank only its shard, cut from the whole leaf every rank holds alike
+(no collective: on a gloo group shared by ranks on one card, a
+collective on a CUDA tensor goes through the host). Two mesh dims that
+shard one tensor dim nest, the first the outer (the reference's
+``PartitionSpec(("pod", "data"))``). :func:`full_tensor` gathers a leaf
+whole on every rank through ``collectives.all_gather``.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
 import torch
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils import _pytree as pytree
+
+from repro_torch.distributed import collectives as coll
 
 # logical axis -> mesh axis (None = replicate). Tuples shard one logical
 # axis over multiple mesh axes.
@@ -134,3 +144,83 @@ class Shaped(NamedTuple):
 def shaped(shape, dtype, mesh, logical_axes, rules) -> Shaped:
     return Shaped(tuple(shape), dtype,
                   placements(mesh, logical_to_spec(mesh, logical_axes, rules)))
+
+
+# ---------------------------------------------------------------------------
+# trees placed on a mesh
+# ---------------------------------------------------------------------------
+
+def _shards(mesh, placements_: tuple):
+    """(mesh dim name, tensor dim) of each ``Shard`` placement, mesh dims
+    in order (outer first)."""
+    return [(name, p.dim) for name, p in zip(mesh.mesh_dim_names,
+                                             placements_)
+            if isinstance(p, Shard)]
+
+
+def local_slices(shape, mesh, placements_: tuple) -> tuple:
+    """This rank's shard of a ``shape``-shaped leaf as one slice a dim.
+    Every sharded dim must divide by its mesh dims (the reference's
+    layouts do; an uneven shard raises)."""
+    bounds = [[0, n] for n in shape]
+    for name, d in _shards(mesh, placements_):
+        n = coll.axis_size(mesh, name)
+        lo, hi = bounds[d]
+        if (hi - lo) % n:
+            raise ValueError(
+                f"dim {d} of a {tuple(shape)} leaf ({hi - lo} here) does not "
+                f"divide over mesh axis {name!r} of {n}")
+        step = (hi - lo) // n
+        lo += coll.flat_axis_index(mesh, name) * step
+        bounds[d] = [lo, lo + step]
+    return tuple(slice(lo, hi) for lo, hi in bounds)
+
+
+def local_shape(shape, mesh, placements_: tuple) -> tuple:
+    return tuple(s.stop - s.start
+                 for s in local_slices(shape, mesh, placements_))
+
+
+def as_placed(local: torch.Tensor, mesh, placements_: tuple,
+              shape=None) -> DTensor:
+    """``local`` as this rank's shard of a DTensor of ``shape`` (no
+    collective, no copy)."""
+    shape = torch.Size(shape if shape is not None else local.shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, placements_, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def place(full: torch.Tensor, mesh, placements_: tuple) -> DTensor:
+    """The whole leaf ``full`` (the same on every rank) placed: this
+    rank keeps a copy of its shard only."""
+    local = full[local_slices(full.shape, mesh, placements_)]
+    return as_placed(local.clone(), mesh, placements_, full.shape)
+
+
+def place_tree(tree, mesh, shardings):
+    """:func:`place` over a tree and its placements (``tree_shardings``'),
+    dicts and lists as ``train/optimizer.tree_map`` walks them."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, mesh, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [place_tree(v, mesh, s) for v, s in zip(tree, shardings)]
+    return place(tree, mesh, shardings)
+
+
+def full_tensor(x) -> torch.Tensor:
+    """A placed leaf gathered whole on every rank (collective over its
+    sharded mesh dims, inner first); a plain tensor, or a leaf replicated
+    on every mesh dim, as it is (its own storage, not a copy)."""
+    if not isinstance(x, DTensor):
+        return x
+    out = x.to_local()
+    for name, d in reversed(_shards(x.device_mesh, x.placements)):
+        out = coll.all_gather(out, x.device_mesh, name, dim=d)
+    return out
+
+
+def to_local(x):
+    """A placed leaf's own shard (its storage: in-place writes reach the
+    DTensor); a plain tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x

@@ -22,13 +22,20 @@ through the dense top-k kernel (``kernels/topk_scoring/ops.topk_scores``:
 the plain path on the CPU), ties to the lowest candidate position as the
 reference's ``lax.top_k`` gives them.
 
-The activation-sharding options (the LM's ``act_*``, MACE's
+On one rank the activation-sharding options (the LM's ``act_*``, MACE's
 ``act_grid_axes``, the retrieval step's ``sharded_topk``) are set as the
-reference sets them; on one rank they change no value. A mesh of more
-than one rank raises: training and serving across ranks (the gradient
-all-reduce over ``pod``/``data``, ZeRO ``embed`` over ``data``, Megatron
-TP over ``model``, DLRM's row-sharded tables, shard-local top-k, MACE's
-node and edge tensors over the grid) is ROADMAP.md queue 1 item 15(d).
+reference sets them and change no value. The LM cells run on a mesh of
+any number of ranks whose axes divide their shapes: the step takes its
+arguments placed on the mesh (``DTensor``s with the specs' placements,
+``distributed/sharding.place_tree``) and runs each rank's part of the
+model (``models/transformer.Ranks``: ZeRO ``embed`` over ``data``,
+Megatron TP over ``model``, the batch over ``pod``/``data``); the
+gradients of what a rank holds alike with others are summed over those
+ranks (the data-parallel reduction), and AdamW updates each rank's
+shards, clipped by the whole tree's norm. The recsys and GNN cells raise
+on more than one rank: DLRM's row-sharded tables, shard-local top-k and
+MACE's node and edge tensors over the grid are ROADMAP.md queue 1 item
+15(d)(ii).
 """
 from __future__ import annotations
 
@@ -40,7 +47,9 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core import prng
-from repro_torch.distributed.sharding import (LM_RULES, Shaped, placements,
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import (LM_RULES, Shaped, as_placed,
+                                              placements, to_local,
                                               tree_shardings)
 from repro_torch.kernels.topk_scoring.ops import topk_scores
 from repro_torch.models import mace as mc
@@ -61,6 +70,7 @@ class Cell:
     kind: str               # train | prefill | decode | serve | retrieval
     model_flops_per_step: float  # 6*N*D style estimate (§Roofline)
     donate: tuple = ()      # arguments the step may write its results into
+    cfg: object = None      # the LM's config as the step runs it
 
 
 def _mesh_sizes(mesh) -> dict:
@@ -82,16 +92,15 @@ def _axes_or_none(axes: tuple):
 
 
 def _one_rank(mesh, what: str) -> None:
-    """Raise unless ``mesh`` is one rank (the multi-rank cells are
-    ROADMAP.md queue 1 item 15(d))."""
+    """Raise unless ``mesh`` is one rank (the recsys and GNN cells across
+    ranks are ROADMAP.md queue 1 item 15(d)(ii))."""
     if mesh.size() > 1:
         raise NotImplementedError(
-            f"{what} on a mesh of {mesh.size()} ranks: training and serving "
-            f"across ranks (the gradient all-reduce over pod/data, ZeRO "
-            f"embed over data, Megatron TP over model, DLRM's row-sharded "
-            f"tables, shard-local top-k, MACE's node and edge tensors over "
-            f"the grid) are not ported to PyTorch yet (ROADMAP.md queue 1 "
-            f"item 15(d)); use a 1-rank mesh")
+            f"{what} on a mesh of {mesh.size()} ranks: the recsys and GNN "
+            f"cells across ranks (DLRM's row-sharded tables, shard-local "
+            f"top-k, MACE's node and edge tensors over the grid) are not "
+            f"ported to PyTorch yet (ROADMAP.md queue 1 item 15(d)(ii)); "
+            f"use a 1-rank mesh")
 
 
 def value_and_grad(loss_fn, params, *args):
@@ -143,21 +152,42 @@ def _cache_specs(mesh, cfg, batch, max_seq):
             for k, t in shapes.items()}
 
 
+def _placed_logits(local, mesh, b_ax):
+    """A rank's logits (its rows, its vocab slice) as the DTensor they are
+    a shard of: batch over the batch's axes, vocab over ``model``."""
+    spec = (b_ax,) + (None,) * (local.dim() - 2) + ("model",)
+    pl = placements(mesh, spec)
+    shape = [n * _shard_count(mesh, pl, d) for d, n in enumerate(local.shape)]
+    return as_placed(local, mesh, pl, shape)
+
+
+def _shard_count(mesh, pl, dim) -> int:
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return math.prod(sizes[n] for n, p in zip(mesh.mesh_dim_names, pl)
+                     if p.is_shard(dim))
+
+
 def lm_model_flops(cfg, n_tokens, kind):
     n_active = tf.active_params(cfg)
     mult = 6.0 if kind == "train" else 2.0
     return mult * n_active * n_tokens
 
 
-def lm_grads(params, tokens, cfg, microbatches: int = 1):
+def lm_grads(params, tokens, cfg, microbatches: int = 1, ranks=None):
     """The train step's loss and gradients: over the whole batch, or the
     mean over ``microbatches`` row slices, the gradients summed in f32 in
-    slice order (the reference's scan)."""
+    slice order (the reference's scan). Under ``ranks`` (``params`` and
+    ``tokens`` placed on its mesh): each rank's gradients of its shards
+    (placed as the parameters), summed over the ranks that hold a leaf
+    alike, and the loss on every rank; microbatch i holds the reference's
+    rows of slice i, split over the batch's ranks."""
+    if ranks is not None:
+        return _lm_grads_ranks(params, tokens, cfg, microbatches, ranks)
     if microbatches == 1:
         return value_and_grad(tf.lm_loss, params, tokens, cfg)
     b, s1 = tokens.shape
-    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     losses = []
     for t in tokens.reshape(microbatches, b // microbatches, s1):
         loss, g = value_and_grad(tf.lm_loss, params, t, cfg)
@@ -167,9 +197,98 @@ def lm_grads(params, tokens, cfg, microbatches: int = 1):
     return torch.stack(losses).mean(), grads
 
 
+def _microbatch_rows(tokens, microbatches: int, ranks) -> list:
+    """This rank's rows of each of the reference's ``microbatches`` row
+    slices of the global batch (its share of slice i, in batch-rank
+    order): the token ids gathered over the batch's ranks, then picked."""
+    if microbatches == 1:
+        return [tokens]
+    whole = tokens
+    if ranks.batch:
+        whole = coll.all_gather(tokens, ranks.mesh, ranks.batch)
+    per = whole.shape[0] // microbatches
+    if per % ranks.nb:
+        raise ValueError(f"a microbatch of {per} rows does not split over "
+                         f"the batch's {ranks.nb} ranks")
+    mine = per // ranks.nb
+    j = coll.flat_axis_index(ranks.mesh, ranks.batch) if ranks.batch else 0
+    return [whole[i * per + j * mine:i * per + (j + 1) * mine]
+            for i in range(microbatches)]
+
+
+def reduce_replicated(grads, mesh):
+    """Each gradient leaf (a DTensor's shard, placed as its parameter)
+    summed over the mesh axes its parameter is replicated on: the
+    data-parallel reduction over ``pod``/``data`` and the sum over
+    ``model`` of what every model rank holds alike. Leaves that share
+    axes go in one flat all-reduce."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    buckets: dict = {}
+    for g in tree_leaves(grads):
+        axes = tuple(n for n, p in zip(mesh.mesh_dim_names, g.placements)
+                     if not p.is_shard() and sizes[n] > 1)
+        if axes:
+            buckets.setdefault((axes, g.dtype), []).append(g.to_local())
+    for (axes, _), locs in buckets.items():
+        flat = coll.all_reduce(torch.cat([t.reshape(-1) for t in locs]),
+                               mesh, axes)
+        for t, piece in zip(locs, flat.split([t.numel() for t in locs])):
+            t.copy_(piece.view_as(t))
+    return grads
+
+
+def _lm_grads_ranks(params, tokens, cfg, microbatches, ranks):
+    local = tree_map(to_local, params)
+    blocks = _microbatch_rows(to_local(tokens), microbatches, ranks)
+    loss_fn = lambda p, t: tf.lm_loss(p, t, cfg, ranks=ranks)
+    if microbatches == 1:
+        share, grads = value_and_grad(loss_fn, local, blocks[0])
+    else:
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         local)
+        shares = []
+        for t in blocks:
+            share, g = value_and_grad(loss_fn, local, t)
+            for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
+                acc.add_(gi.to(torch.float32) / microbatches)
+            shares.append(share)
+        share = torch.stack(shares).mean()
+    grads = reduce_replicated(tree_map(
+        lambda g, p: as_placed(g, p.device_mesh, p.placements, p.shape),
+        grads, params), ranks.mesh)
+    loss = coll.all_reduce(share, ranks.mesh, ranks.mesh.mesh_dim_names)
+    return loss, grads
+
+
+def lm_ranks(cell: Cell, mesh):
+    """The ``transformer.Ranks`` an LM cell's step runs on ``mesh`` (None
+    on one rank): to call ``lm_grads`` or the model's functions as the
+    step does."""
+    return _LazyRanks(mesh, _lm_rules(cell.arch_id))(cell.cfg)
+
+
+def _lm_rules(arch_id) -> dict:
+    return {**LM_RULES, **(get_arch(arch_id).rules_override or {})}
+
+
+class _LazyRanks:
+    """The step's ``transformer.Ranks``, made at its first call (a cell's
+    specs need only the mesh's names and sizes; its step, a process
+    group); ``None`` on one rank, where the step is the reference's."""
+
+    def __init__(self, mesh, rules):
+        self.mesh, self.rules, self.ranks = mesh, rules, None
+
+    def __call__(self, cfg):
+        if self.mesh.size() == 1:
+            return None
+        if self.ranks is None:
+            self.ranks = tf.Ranks(self.mesh, cfg, self.rules)
+        return self.ranks
+
+
 def build_lm_cell(arch_id, shape_name, mesh, *, reduced=False,
                   overrides: Optional[dict] = None) -> Cell:
-    _one_rank(mesh, "an LM cell")
     spec = get_arch(arch_id)
     cfg = spec.make_reduced() if reduced else spec.make_config()
     # activation sharding options (see models/transformer.py): batch over
@@ -196,6 +315,7 @@ def build_lm_cell(arch_id, shape_name, mesh, *, reduced=False,
     d_axes = _divisible_axes(mesh, b)
     b_ax = _axes_or_none(d_axes)
     cfg = dataclasses.replace(cfg, act_batch_axes=d_axes or None)
+    ranks = _LazyRanks(mesh, _lm_rules(arch_id))
 
     if kind == "train":
         params_sds, param_shard = _lm_param_specs(
@@ -207,13 +327,14 @@ def build_lm_cell(arch_id, shape_name, mesh, *, reduced=False,
         mb = int((overrides or {}).get("microbatches", 1))
 
         def train_step(params, opt_state, tokens):
-            loss, grads = lm_grads(params, tokens, cfg, mb)
+            loss, grads = lm_grads(params, tokens, cfg, mb, ranks(cfg))
             adamw_update_(grads, opt_state, params, opt_cfg)
             return params, opt_state, loss
 
         return Cell(arch_id, shape_name, train_step,
                     (params_sds, opt_sds, tokens), kind,
-                    lm_model_flops(cfg, b * s, "train"), donate=(0, 1))
+                    lm_model_flops(cfg, b * s, "train"), donate=(0, 1),
+                    cfg=cfg)
 
     serve_dtype = cfg.dtype
     params_sds, _ = _lm_param_specs(mesh, cfg, dtype=serve_dtype,
@@ -223,11 +344,20 @@ def build_lm_cell(arch_id, shape_name, mesh, *, reduced=False,
 
         @torch.no_grad()
         def prefill_step(params, tokens):
-            return tf.prefill(params, tokens, cfg)
+            rk = ranks(cfg)
+            if rk is None:
+                return tf.prefill(params, tokens, cfg)
+            logits, cache = tf.prefill(tree_map(to_local, params),
+                                       to_local(tokens), cfg, ranks=rk)
+            specs = _cache_specs(mesh, cfg, *tokens.shape)
+            return (_placed_logits(logits, mesh, b_ax),
+                    {k: as_placed(v, mesh, specs[k].placements,
+                                  specs[k].shape)
+                     for k, v in cache.items()})
 
         return Cell(arch_id, shape_name, prefill_step,
                     (params_sds, tokens), kind,
-                    lm_model_flops(cfg, b * s, "prefill"))
+                    lm_model_flops(cfg, b * s, "prefill"), cfg=cfg)
 
     # decode: one new token against a seq_len-deep KV cache
     cache_sds = _cache_specs(mesh, cfg, b, s)
@@ -235,11 +365,21 @@ def build_lm_cell(arch_id, shape_name, mesh, *, reduced=False,
 
     @torch.no_grad()
     def decode(params, cache, tokens):
-        return tf.decode_step(params, cache, tokens, cfg)
+        rk = ranks(cfg)
+        if rk is None:
+            return tf.decode_step(params, cache, tokens, cfg)
+        logits, new = tf.decode_step(
+            tree_map(to_local, params), tree_map(to_local, cache),
+            to_local(tokens), cfg, ranks=rk)
+        # k and v were written in place: the donated cache, returned
+        return (_placed_logits(logits, mesh, b_ax),
+                {**cache, "pos": as_placed(new["pos"], mesh,
+                                           cache["pos"].placements,
+                                           cache["pos"].shape)})
 
     return Cell(arch_id, shape_name, decode,
                 (params_sds, cache_sds, tokens), kind,
-                lm_model_flops(cfg, b, "decode"), donate=(1,))
+                lm_model_flops(cfg, b, "decode"), donate=(1,), cfg=cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -9,16 +9,22 @@ reference's axis names: ``("data", "model")``, ``("pod", "data",
 
   * :func:`make_host_mesh` — a 1-rank group on this process's device
     (NCCL on the card, gloo on the CPU), made through an in-process
-    ``HashStore`` when no default group exists: no launcher needed.
+    ``HashStore`` when no default group exists: no launcher needed; on a
+    world of R ranks, a ``(R / model_axis, model_axis)`` mesh (the
+    reference's ``(1, model_axis)`` on R devices).
   * :func:`parse_mesh` — the CLIs' ``--mesh``: ``host`` as above; ``auto``
     the world group that ``torchrun`` set up (``RANK``/``WORLD_SIZE`` in
     the environment), shaped ``(world, 1)``, or one rank when none was.
   * :func:`make_production_mesh` / :func:`batch_axes` — the reference's
-    shapes; a world of another size raises.
+    shapes; a world of another size raises. :func:`fake_world` makes the
+    default group a fake one of 256 or 512 ranks (this process rank 0,
+    collectives doing nothing), on which the dry run builds them.
 
 NCCL refuses two ranks on one card, so two ranks that resolve to one card
-raise; no other backend is taken in its place. Nothing here runs at
-import.
+raise; no other backend is taken in its place. A caller may make the
+default group a gloo one for ranks that share a card: the meshes then
+take it, and the collectives copy CUDA tensors through the host
+(``distributed/collectives.py``). Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -39,7 +45,8 @@ def _init_world(device: torch.device, *, env: bool) -> None:
     """Create the default process group for ``device`` if there is none:
     from torchrun's environment (``env``) or as one in-process rank."""
     if dist.is_initialized():
-        if dist.get_backend() != _backend(device):
+        backend = dist.get_backend()
+        if backend != _backend(device) and backend not in ("gloo", "fake"):
             raise RuntimeError(
                 f"the default process group runs {dist.get_backend()!r}; a "
                 f"mesh on {device.type} needs {_backend(device)!r}")
@@ -77,12 +84,25 @@ def _mesh(device: torch.device, shape: tuple, names: tuple) -> DeviceMesh:
 
 
 def make_host_mesh(model_axis: int = 1, device="cuda") -> DeviceMesh:
-    """1-rank mesh with the production axis NAMES, so the same sharded
-    code runs on one device (``model_axis`` ranks when a group of that
-    size exists)."""
+    """A mesh with the production axis NAMES over the default group's R
+    ranks: ``(R / model_axis, model_axis)`` (one rank, made here, when
+    there is no group), so the same sharded code runs on one device."""
     dev = resolve_device(device)
     _init_world(dev, env=False)
-    return _mesh(dev, (1, model_axis), ("data", "model"))
+    data = max(dist.get_world_size() // model_axis, 1)
+    return _mesh(dev, (data, model_axis), ("data", "model"))
+
+
+def fake_world(ranks: int) -> None:
+    """Make the default process group a fake one of ``ranks`` ranks with
+    this process as rank 0 (an earlier default group is destroyed): its
+    collectives return at once and move nothing, so a step on fake
+    tensors runs as rank 0 of a production mesh in one process."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=ranks)
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -21,7 +21,8 @@ correlation_order=3, n_rbf=8.
 
 ``act_grid_axes`` is accepted and changes no value: on one rank there is
 nothing to place (the reference's ``with_sharding_constraint``s; placing
-node and edge tensors across ranks is ROADMAP.md queue 1 item 15(d)).
+node and edge tensors across ranks is ROADMAP.md queue 1 item 15(d)(ii),
+after the LM cells across ranks, 15(d)(i)).
 """
 from __future__ import annotations
 

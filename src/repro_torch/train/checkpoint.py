@@ -16,7 +16,14 @@ Restore is mesh-agnostic: leaves are stored whole (a ``DTensor`` is
 gathered first), and each goes to the device and dtype of its ``like``
 leaf, or, given ``shardings`` (placements from
 ``distributed/sharding.tree_shardings``) and their ``mesh``, onto that
-mesh: elastic re-mesh resume is a placement, as in the reference.
+mesh (a ``DTensor`` ``like`` leaf brings its own): elastic re-mesh resume
+is a placement, as in the reference.
+
+On R ranks every rank joins each leaf's gather (a collective: call a
+save on every rank, in the same order), and only rank 0 writes and
+renames; a blocking save then waits for every rank (a barrier), so a
+restore that follows reads the written files. Each rank reads the file
+on restore and keeps its shard.
 """
 from __future__ import annotations
 
@@ -30,7 +37,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Placement, distribute_tensor
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Placement
+
+from repro_torch.distributed.sharding import full_tensor, place
 
 _MANIFEST = "manifest.json"
 _LEAVES = "leaves.npz"
@@ -75,7 +85,7 @@ def _host(path: str, leaf, copy: bool = False) -> np.ndarray:
     """A leaf as a numpy array on the host (a DTensor gathered whole); with
     ``copy`` one of its own, never sharing a CPU tensor's memory."""
     if isinstance(leaf, DTensor):
-        leaf = leaf.full_tensor()
+        leaf = full_tensor(leaf)
     if isinstance(leaf, torch.Tensor):
         _refuse_bfloat16(path, leaf.dtype)
         return leaf.detach().to("cpu", copy=copy).numpy()
@@ -98,16 +108,36 @@ def _host_copy(tree):
     return _unflatten(tree, [_host(p, leaf, copy=True) for p, leaf in pairs])
 
 
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_writer() -> bool:
+    """True on the rank that writes checkpoints (rank 0, or without a
+    process group)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str, step: int, tree: Any) -> str:
-    """Blocking save. Returns the final checkpoint path."""
+    """Blocking save (on every rank of a group: see the module's note).
+    Returns the final checkpoint path."""
+    pairs = _flatten(tree)
+    arrays = {f"leaf_{i}": _host(p, leaf) for i, (p, leaf) in enumerate(pairs)}
+    final = _write(directory, step, pairs, arrays) if is_writer() else \
+        os.path.join(directory, f"step_{step:010d}")
+    if _ranks() > 1:
+        dist.barrier()
+    return final
+
+
+def _write(directory: str, step: int, pairs, arrays) -> str:
+    """Write host arrays to ``.tmp`` and publish by an atomic rename."""
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:010d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    pairs = _flatten(tree)
-    arrays = {f"leaf_{i}": _host(p, leaf) for i, (p, leaf) in enumerate(pairs)}
     np.savez(os.path.join(tmp, _LEAVES), **arrays)
     manifest = {"step": step,
                 "paths": [p for p, _ in pairs],
@@ -134,7 +164,7 @@ def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
     """Restore into the structure of ``like``: each leaf on its ``like``
     leaf's device and in its dtype, or, given ``shardings`` (a tree
     matching ``like``, or a flat list, of DTensor placements), placed on
-    ``mesh`` with them."""
+    ``mesh`` with them; a ``DTensor`` ``like`` leaf is placed as it is."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -158,10 +188,15 @@ def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
     with np.load(os.path.join(path, _LEAVES)) as data:
         for i, ((_, leaf), sh) in enumerate(zip(pairs, shard_list)):
             t = torch.from_numpy(data[f"leaf_{i}"])
+            where = mesh
+            if sh is None and isinstance(leaf, DTensor):
+                sh, where = leaf.placements, leaf.device_mesh
             if isinstance(leaf, torch.Tensor):
-                t = t.to(device=leaf.device, dtype=leaf.dtype)
-            if sh is not None:
-                t = distribute_tensor(t.to(mesh.device_type), mesh, sh)
+                t = t.to(dtype=leaf.dtype)
+                if sh is None:
+                    t = t.to(device=leaf.device)
+            if sh is not None:          # onto the mesh's device type
+                t = place(t, where, sh)
             out.append(t)
     return _unflatten(like, out), step
 
@@ -171,7 +206,9 @@ class AsyncCheckpointer:
     newer pending save supersedes an older one, like orbax's behaviour).
     The copy to the host is made by the caller of :meth:`save`, so the
     caller may change its tensors as soon as ``save`` returns; a failed
-    write is raised by the next ``save`` or ``close``."""
+    write is raised by the next ``save`` or ``close``. On R ranks every
+    rank calls ``save`` (the copy gathers placed leaves) and only rank 0
+    writes."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
@@ -191,7 +228,9 @@ class AsyncCheckpointer:
             step, host_tree = item
             del item
             try:
-                save_checkpoint(self.directory, step, host_tree)
+                pairs = _flatten(host_tree)
+                _write(self.directory, step, pairs,
+                       {f"leaf_{i}": a for i, (_, a) in enumerate(pairs)})
                 self._gc()
             except Exception as e:  # surfaced on next save()/close()
                 with self._err_lock:
@@ -214,6 +253,8 @@ class AsyncCheckpointer:
     def save(self, step: int, tree: Any):
         self._raise_pending()
         host_tree = _host_copy(tree)
+        if not is_writer():
+            return
         try:
             self._q.put_nowait((step, host_tree))
         except queue.Full:

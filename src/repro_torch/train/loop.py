@@ -1,6 +1,7 @@
 """Fault-tolerant training loop (port of ``repro/train/loop.py``): a step
 function + async checkpoints + straggler policy + resume. Used by
-launch/train.py.
+launch/train.py. On R ranks every rank runs the loop (its saves are
+collectives: train/checkpoint.py) and only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -9,9 +10,10 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.train.checkpoint import (AsyncCheckpointer, latest_step,
-                                          restore_checkpoint)
+from repro_torch.train.checkpoint import (AsyncCheckpointer, is_writer,
+                                          latest_step, restore_checkpoint)
 from repro_torch.train.elastic import StragglerPolicy
 
 
@@ -31,6 +33,17 @@ def _wait(loss: torch.Tensor) -> None:
         torch.cuda.synchronize(loss.device)
 
 
+def _any_rank(flag: bool) -> bool:
+    """``flag`` on any rank of the default group (every rank calls it), so
+    ranks that time their steps apart still save together."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return flag
+    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor([int(flag)], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def train_loop(step_fn: Callable, params: Any, opt_state: Any,
                batch_fn: Callable[[int], Any], cfg: LoopConfig,
                *, metrics_cb: Optional[Callable] = None) -> tuple:
@@ -48,7 +61,8 @@ def train_loop(step_fn: Callable, params: Any, opt_state: Any,
         if last is not None:
             (params, opt_state), start = restore_checkpoint(
                 cfg.checkpoint_dir, (params, opt_state))
-            print(f"resumed from step {start}")
+            if is_writer():
+                print(f"resumed from step {start}")
 
     policy = StragglerPolicy()
     losses = []
@@ -58,13 +72,14 @@ def train_loop(step_fn: Callable, params: Any, opt_state: Any,
         params, opt_state, loss = step_fn(params, opt_state, batch)
         _wait(loss)
         status = policy.observe(time.time() - t0)
-        if status == "remesh":
-            print(f"step {step}: persistent straggler -> snapshot + remesh "
-                  f"requested (see train/elastic.py)")
+        if _any_rank(status == "remesh"):
+            if is_writer():
+                print(f"step {step}: persistent straggler -> snapshot + "
+                      f"remesh requested (see train/elastic.py)")
             if ckpt:
                 ckpt.save(step + 1, (params, opt_state))
         losses.append(float(loss))
-        if cfg.log_every and step % cfg.log_every == 0:
+        if cfg.log_every and step % cfg.log_every == 0 and is_writer():
             print(f"step {step}: loss {float(loss):.4f} "
                   f"({time.time() - t0:.2f}s)", flush=True)
         if ckpt and (step + 1) % cfg.checkpoint_every == 0:

@@ -11,7 +11,9 @@ matrices into row and column statistics.
 Parameters, gradients and optimizer state are trees of nested dicts (str
 or int keys) and lists of tensors, as in the reference; leaves are visited
 in sorted key order and list index order, the order in which JAX flattens
-them, so the global norm sums in the same order. ``adamw_update`` returns new tensors and changes nothing in place.
+them, so the global norm sums in the same order (over a mesh, the norm of
+the whole leaves: :func:`global_norm`). ``adamw_update`` returns new
+tensors and changes nothing in place.
 ``adamw_update_`` is the same step on donated state (the reference's
 ``donate_argnums``): it writes the new parameters, moments and step into
 the tensors it was given, and clips the gradients in place, one leaf at a
@@ -25,6 +27,10 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import to_local
 
 
 def tree_leaves(tree) -> list:
@@ -89,8 +95,29 @@ def _schedule(step: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+    """The norm of all leaves. A tree placed on a mesh (``DTensor``
+    leaves) gives the norm of the WHOLE leaves on every rank: each rank's
+    sums of squares of its shards, each over the number of ranks holding
+    that shard alike, summed over the mesh (one all-reduce). A norm of
+    the local shards alone would clip each rank by another scale."""
+    leaves = tree_leaves(tree)
+    if not any(isinstance(x, DTensor) for x in leaves):
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in leaves))
+    mesh = next(x.device_mesh for x in leaves if isinstance(x, DTensor))
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    parts = []
+    for x in leaves:
+        copies = 1
+        if isinstance(x, DTensor):
+            copies = math.prod(sizes[n] for n, p in zip(
+                mesh.mesh_dim_names, x.placements) if not p.is_shard())
+        else:
+            copies = math.prod(sizes.values())
+        local = to_local(x).to(torch.float32)
+        parts.append(torch.sum(torch.square(local)) / copies)
+    total = coll.all_reduce(torch.stack(parts), mesh, mesh.mesh_dim_names)
+    return torch.sqrt(total.sum())
 
 
 def clip_by_global_norm(grads, max_norm):
@@ -135,8 +162,9 @@ def adamw_update(grads, state, params, cfg: AdamWConfig):
 def adamw_update_(grads, state, params, cfg: AdamWConfig):
     """``adamw_update`` on donated ``state`` and ``params``, written in
     place (``grads`` are consumed: clipped in place, then used as
-    scratch). Returns ``{"grad_norm", "lr"}``."""
-    step = state["step"].add_(1)
+    scratch). Returns ``{"grad_norm", "lr"}``. On trees placed on a mesh
+    each rank updates its shards, clipped by the whole tree's norm."""
+    step = to_local(state["step"]).add_(1)
     gn = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     lr = _schedule(step, cfg)
@@ -144,9 +172,8 @@ def adamw_update_(grads, state, params, cfg: AdamWConfig):
     stepf = step.to(torch.float32)
     bc1, bc2 = 1 - b1 ** stepf, 1 - b2 ** stepf
     with torch.no_grad():
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                              tree_leaves(state["m"]),
-                              tree_leaves(state["v"])):
+        for p, g, m, v in zip(*(map(to_local, tree_leaves(t)) for t in (
+                params, grads, state["m"], state["v"]))):
             g.mul_(scale.to(g.dtype))
             g32 = g.to(torch.float32)
             p32 = p.to(torch.float32)

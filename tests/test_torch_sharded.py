@@ -560,17 +560,18 @@ cache.flush()
 assert born.frozen_n == 103 and born.config.mesh is mesh
 assert len(set(n_groups[1:])) == 1, n_groups
 
-# training and serving across ranks is item 15(d): a cell of each family
-# on this mesh raises
+# the recsys and GNN cells across ranks are item 15(d)(ii): theirs raise on
+# this mesh; the LM's builds (its steps across ranks:
+# tests/test_torch_lm_ranks.py)
 from repro_torch.launch.cells import build_cell
-for arch, shape in (("gemma-2b", "train_4k"), ("dcn-v2", "retrieval_cand"),
-                    ("mace", "molecule")):
+for arch, shape in (("dcn-v2", "retrieval_cand"), ("mace", "molecule")):
     try:
         build_cell(arch, shape, mesh, reduced=True)
     except NotImplementedError as e:
-        assert "item 15(d)" in str(e), e
+        assert "item 15(d)(ii)" in str(e), e
     else:
         raise AssertionError(f"a {arch} cell on 2 ranks was built")
+assert build_cell("gemma-2b", "train_4k", mesh, reduced=True).kind == "train"
 print("TWO-RANK-OK", rank)
 """
 
@@ -582,8 +583,8 @@ def test_two_ranks_gloo(tmp_path):
     all-reduce's mean, and a streamed live index with appends and
     background compactions set-equal to a single-device one, also across
     tenant evictions that hand its compaction groups to the next build;
-    an LM, a recsys and a GNN cell on the two ranks raise, naming item
-    15(d)."""
+    a recsys and a GNN cell on the two ranks raise, naming item 15(d)(ii),
+    and an LM cell builds."""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH",
