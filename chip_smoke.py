@@ -101,22 +101,26 @@ From the root of a checkout, with one card. In order:
     time; then the default grid at 8192 queries (full-corpus searches of
     1.3e5 rows: a tuned bucket) with the table active and under
     ``--no-tuned-kernels``: equal cells, fidelity report and curve recall.
-11. Host time: the sampling and evaluation CLIs once more at phases 5 and
-    6's sizes under cProfile, the 15 functions with the largest cumulative
-    and the largest own time in each (profiles kept in build/chip_smoke).
-12. Sharded sampling at full width: ``repro_torch.launch.sample --streamed
-    --mesh host`` on phase 5's arguments, a 1-rank NCCL group on the card
-    (the QRel table sharded from birth, the LP kernel on the rank's rows);
-    ``sample.npz`` equal bit for bit to phase 5's. Then a legacy
+11. Host time: the sampling and evaluation CLIs once more, at
+    1/``REPEAT_SHARE`` of phases 5 and 6's queries (8192 and 4096; the
+    rest of their arguments the same), under cProfile, the 15 functions
+    with the largest cumulative and the largest own time in each (profiles
+    kept in build/chip_smoke); their outputs are phases 12 and 13's
+    reference.
+12. Sharded sampling: ``repro_torch.launch.sample --streamed --mesh host``
+    on phase 11's arguments, a 1-rank NCCL group on the card (the QRel
+    table sharded from birth, the LP kernel on the rank's rows);
+    ``sample.npz`` and the stats equal bit for bit to phase 11's. Then a
+    legacy
     ``--sharded`` ``SamplerSession`` in-process on phase 5's corpus, its
     labels and changes equal to phase 5's. 5 ``lp_round`` launches each;
     the wall and the ``build.peak_bytes_per_device`` gauge, which the
     sharded stage records.
-13. Sharded evaluation at full width: ``repro_torch.launch.evaluate --grid
-    default --backend cuda --streamed --mesh host`` at 32768 queries (every
-    index built per shard from a streamed corpus, every search merged
-    across shards); cells and fidelity report equal to phase 6's; the
-    kernels' launches by shape, device ms and the gauge.
+13. Sharded evaluation: ``repro_torch.launch.evaluate --grid default
+    --backend cuda --streamed --mesh host`` on phase 11's arguments (4096
+    queries: every index built per shard from a streamed corpus, every
+    search merged across shards); cells and fidelity report equal to
+    phase 11's; the kernels' launches by shape, device ms and the gauge.
 14. Two ranks on the card: two processes in one gloo group made through
     the API, each on the one H100, at 8192 queries. A stand-in for two
     cards: NCCL refuses two ranks on one device, and this machine has one
@@ -242,8 +246,8 @@ From the root of a checkout, with one card. In order:
     nodes at fanouts (15, 10) laid into the cell's padded 180,224-node,
     179,200-edge block, and its train step's times, peak and rate against
     ``mace_flops``. dlrm-mlperf's published tables (91.1 GB) and MACE's
-    ogb_products (285 GB a message set) do not fit one card and wait for
-    ROADMAP.md item 15(d)(ii).
+    ogb_products (285 GB a message set) do not fit one card: they run
+    across ranks in the dry run only (``launch/dryrun.py``).
 20. The LM cells across ranks (no kernel lies on them; every launch count
     must stay 0, in this process and in each rank's): four processes in
     one gloo group on the one card as a (data 2, model 2) mesh (NCCL
@@ -252,7 +256,8 @@ From the root of a checkout, with one card. In order:
     on placed ``DTensor``s; rank 0 runs each check on one rank on the card
     too and holds the mesh to it. gemma-2b at its published width with
     its depth cut from 18 to ``LM_RANKS_LAYERS`` layers (bf16 compute, f32
-    parameters and AdamW state, sequence parallel): 20a 3 train steps at
+    parameters and AdamW state, sequence parallel): 20a
+    ``LM_RANKS_TRAIN_STEPS`` train steps at
     ``LM_RANKS_BATCH`` x ``LM_RANKS_SEQ`` tokens, losses within
     ``LM_RANKS_LOSS_TOL`` and the gathered parameters within 2 lr(step) a
     step; 20b (bf16 weights) prefill of the same size, then
@@ -265,11 +270,36 @@ From the root of a checkout, with one card. In order:
     bit-equal; 20e each rank's bytes of parameters and moments equal to
     the rules' share of each leaf, its allocator peak, and the step times
     beside one rank's.
+21. The recsys and GNN cells across ranks: four processes in one gloo
+    group on the card as a (data 2, model 2) mesh, as in 20, each running
+    ``recsys_gnn_rank``; rank 0 holds each check to one rank on the card.
+    21a: DCN-v2 at its published config (26 Criteo Kaggle tables, each
+    one's rows over the grid: 8,441,664 of the 33,766,656 padded rows a
+    rank), ``RANKS_TRAIN_STEPS`` train_batch steps of 65,536 rows, losses
+    within ``SMALL_TOL`` of one rank's and the gathered parameters within
+    2 lr(step) a step; each rank's table shards and moments a quarter of
+    the whole, the replicated leaves equal on every rank; the allocator
+    peak a rank. 21b: its retrieval_cand (1 x 1,000,000 candidates, k 100)
+    under ``sharded_topk`` False, True and "local": each rank launches
+    the dense top-k kernel on its candidate shard (counted), holds that
+    launch's output to the plain path on the same shard, and rank 0 holds
+    the merged ids and scores to one rank's step (False, True) or to the
+    "local" statement computed on one rank (chunk s scores rows
+    ``cand % rows_l`` of table chunk s), ids equal away from near-ties and
+    scores within phase 3's bound. 21c: MACE at its published config,
+    molecule (128 graphs: energies and forces within ``MACE_TOL``, the
+    second-order step) and full_graph_sm (node loss, d_feat 1433),
+    ``RANKS_MACE_STEPS`` steps each, losses within ``SMALL_TOL`` and
+    parameters within the bound. 21d: DCN-v2's parameters saved on the
+    mesh restored on one rank bit-equal, and that tree saved on one rank
+    restored on the mesh equal to every rank's shards bit for bit. Every
+    time it logs is gloo's through the host.
 
 Launch counts are set to 0 just before each main-path run (5, 6, 7, 9, 12,
-13, 15's, 17c, 18, 19b's retrieval and its train and serve steps, 20) and
-read just after; a kernel the run did not launch is a failure (in 18,
-19b's train and serve steps and 20, a kernel it did launch). No tuned
+13, 15's, 17c, 18, 19b's retrieval and its train and serve steps, 20, 21
+and each of 21b's steps in every rank) and read just after; a kernel the
+run did not launch is a failure (in 18, 19b's train and serve steps, 20
+and 21 in this process, a kernel it did launch). No tuned
 table is active outside phase 10, whatever ``REPRO_TORCH_TUNED_KERNELS``
 names: a launch that resolves through one is a failure, so every other
 phase runs today's split plans. Each run
@@ -302,6 +332,9 @@ OUT = os.path.join(ROOT, "build", "chip_smoke")
 
 SAMPLE_QUERIES = 65536
 EVAL_QUERIES = 32768
+REPEAT_SHARE = 8                # phases 11-13 run the two CLIs again at
+                                # 1/8 of phases 5-6's queries (their full
+                                # counts before phase 21 took the time)
 PROBE_QUERIES = 512             # the grid's per-sample query cap
 INDEX_RTOL = 1e-5               # centroids / projection, card vs CPU
 ATTN_F32_TOL = (1e-5, 2e-5)     # rtol, atol: the reference's kernel tolerance
@@ -351,12 +384,16 @@ MACE_TOL = 1e-4                 # 19c: molecule energies and forces, card vs
 LM_RANKS_LAYERS = 2             # phase 20: gemma-2b's 18 layers cut to 2
 LM_RANKS_BATCH, LM_RANKS_SEQ = 4, 512   # 20's tokens a step and prompts
 LM_RANKS_TRAIN_STEPS = 3        # 20a
-LM_RANKS_DECODE = 8             # 20b's decode steps after the prefill
+LM_RANKS_DECODE = 4             # 20b's decode steps after the prefill (8
+                                # before phase 21 took the time)
 LM_RANKS_MOE_STEPS = 2          # 20c
 LM_RANKS_LOSS_TOL = 0.02        # 20a: |loss| of order 12 in bf16, mesh vs one
                                 # rank: each block's output summed from two
                                 # bf16 halves (2**-8 relative a rounding)
 LM_RANKS_TIMEOUT = 420          # s, phase 20's four processes together
+RANKS_TRAIN_STEPS = 3           # 21a: DCN-v2 steps, on the mesh and one rank
+RANKS_MACE_STEPS = 2            # 21c: steps of each MACE cell
+RANKS_TIMEOUT = 480             # s, phase 21's four processes together
 
 
 # phase 14's child: one rank of two in a gloo group on the one card;
@@ -1241,13 +1278,14 @@ def check_untuned(region: str, hits0: float) -> None:
 
 def profile_top(label: str, fn):
     """Run ``fn()`` under cProfile; log the functions with the largest
-    cumulative and the largest own time, and keep the profile in OUT."""
+    cumulative and the largest own time, and keep the profile in OUT.
+    Returns ``fn()``'s result."""
     import cProfile
     import io
     import pstats
     prof = cProfile.Profile()
     t0 = time.perf_counter()
-    prof.runcall(fn)
+    res = prof.runcall(fn)
     wall = time.perf_counter() - t0
     prof.dump_stats(os.path.join(OUT, f"{label}.prof"))
     log(f"    {label} under cProfile: {wall:.2f} s wall")
@@ -1261,6 +1299,7 @@ def profile_top(label: str, fn):
             f"cumtime percall function):")
         for line in rows[:PROFILE_TOP]:
             log(f"      {line.strip().replace(ROOT + os.sep, '')[:160]}")
+    return res
 
 
 def device_profile(fn):
@@ -2607,6 +2646,486 @@ def lm_ranks_on_card(smi: str) -> dict:
     return reports
 
 
+def ranks_timed(fn):
+    """``fn()``'s result and its wall ms (the card synchronized on both
+    sides): on a gloo mesh the time is the host's collectives', not the
+    card's."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def recsys_gnn_rank(rank: int, store: str, out: str) -> None:
+    """21: rank ``rank`` of four in one gloo group on the card, a (data 2,
+    model 2) mesh. Prints "    rank r: ..." lines, then one JSON report as
+    its last line; rank 0 holds each check to one rank on the card, and
+    any rank fails (exits 1) on a difference.
+
+    a: DCN-v2 at its published config trained RANKS_TRAIN_STEPS steps
+       (its tables' rows over the grid), losses and parameters against
+       one rank, each rank's tables and moments its quarter, the
+       replicated leaves equal on all ranks; d: its parameters saved on
+       the mesh restored on one rank bit-equal, and saved from there
+       restored on the mesh bit-equal; b: its
+       retrieval_cand (1 x 1,000,000, k 100) under each sharded_topk,
+       each rank's dense top-k kernel held to the plain path on its
+       shard, False and True to one rank's step, "local" to its
+       statement on one rank; c: MACE's molecule (energies, forces, the
+       second-order step) and full_graph_sm at the published config,
+       RANKS_MACE_STEPS steps each, against one rank."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4),
+                            rank=rank, world_size=4)
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels.flash_attention.ops import FLASH_ATTENTION
+    from repro_torch.kernels.label_prop.ops import LP_ROUND
+    from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK
+    from repro_torch.kernels.topk_scoring.ops import (
+        GATHERED_TILES, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_PARTIAL,
+        topk_scores)
+    from repro_torch.kernels.topk_scoring.ref import topk_scores_ref
+    from repro_torch.launch import cells
+    from repro_torch.launch.dryrun import MeshShape
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import mace as mc
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.optimizer import adamw_init, tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
+               HAMMING_TOPK, TOPK_MERGE, FLASH_ATTENTION)
+    mesh = make_host_mesh(model_axis=2, device="cuda")
+    one = MeshShape(("data", "model"), (1, 1))
+    grid = ("data", "model")
+    report = {"rank": rank, "mesh": [list(mesh.mesh_dim_names),
+                                     list(mesh.shape)], "seconds": {}}
+    t_part = time.perf_counter()
+
+    def part(name):
+        """Wall seconds since the previous part ended."""
+        nonlocal t_part
+        now = time.perf_counter()
+        report["seconds"][name] = now - t_part
+        t_part = now
+
+    def say(msg):
+        print(f"    rank {rank}: {msg}", flush=True)
+
+    def check(ok, msg):
+        if not ok:
+            fail(f"21 rank {rank}: {msg}")
+
+    def placed(specs, tree):
+        return sh.place_tree(tree, mesh, tree_map(lambda s: s.placements,
+                                                  specs))
+
+    def placed_state(cell, params):
+        opt = adamw_init(params)
+        return placed(cell.args[0], params), {
+            "m": placed(cell.args[0], opt["m"]),
+            "v": placed(cell.args[0], opt["v"]),
+            "step": sh.place(opt["step"], mesh,
+                             cell.args[1]["step"].placements)}
+
+    def against(tree, ref_tree, equal_to=None):
+        """On rank 0: the largest |mesh - one rank| over the leaves, and
+        whether each leaf equals ``equal_to``'s bit for bit (every rank
+        joins each leaf's gather)."""
+        err, eq = 0.0, []
+        refs = tree_leaves(ref_tree) if rank == 0 else None
+        for j, leaf in enumerate(tree_leaves(tree)):
+            whole = sh.full_tensor(leaf)
+            if rank == 0:
+                err = max(err, float((whole - refs[j]).abs().max()))
+                if equal_to is not None:
+                    eq.append(torch.equal(whole, equal_to[j]))
+            del whole
+        return err, eq
+
+    def local_bytes(tree):
+        return sum(sh.to_local(x).numel() * x.dtype.itemsize
+                   for x in tree_leaves(tree))
+
+    # (a) DCN-v2 training at its published config --------------------------
+    cfg = configs.get_arch("dcn-v2").make_config()
+    train = cells.build_cell("dcn-v2", "train_batch", mesh)
+    b = train.args[2]["label"].shape[0]
+    full = rs.init_recsys(prng.prng_key(0), cfg, device="cuda")
+    report["n_params"] = sum(t.numel() for t in tree_leaves(full))
+    params, opt = placed_state(train, full)
+    batches = [recsys_batch(cfg, b, 210 + s, "cuda")
+               for s in range(RANKS_TRAIN_STEPS)]
+    if rank == 0:
+        one_cell = cells.build_cell("dcn-v2", "train_batch", one)
+        p1, o1 = full, adamw_init(full)
+        one_losses, one_ms = [], []
+        for bt in batches:
+            (p1, o1, l1), ms = ranks_timed(lambda: one_cell.fn(p1, o1, bt))
+            one_losses.append(float(l1))
+            one_ms.append(ms)
+        report["one_rank_step_ms"] = one_ms
+        del o1
+    del full
+    torch.cuda.synchronize()
+    dist.barrier()
+    report["peak_before_steps"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for bt in batches:
+        pb = placed(train.args[2], bt)
+        (params, opt, loss), ms = ranks_timed(lambda: train.fn(params, opt,
+                                                               pb))
+        losses.append(float(loss))
+        step_ms.append(ms)
+    report.update(losses=losses, step_ms=step_ms,
+                  peak_bytes=torch.cuda.max_memory_allocated())
+    # each rank's shards: a table's rows and moments exactly a quarter of
+    # the whole, every replicated leaf equal on all ranks
+    quarter, rep = True, []
+    for leaf in tree_leaves([params, opt["m"], opt["v"]]):
+        if any(p.is_shard() for p in leaf.placements):
+            quarter &= leaf.to_local().numel() * 4 == leaf.numel()
+        else:
+            rep.append(leaf.to_local().reshape(-1))
+    rep = torch.cat(rep)
+    copies = coll.all_gather(rep[None], mesh, grid)
+    check(quarter, "(a) a table's shard is not a quarter of its rows")
+    check(all(torch.equal(c, copies[0]) for c in copies),
+          "(a) a replicated leaf differs between ranks")
+    report["state_bytes"] = local_bytes([params, opt["m"], opt["v"]])
+    del rep, copies
+    part("a")
+    # (d) checkpoints across meshes: the mesh's parameters saved there and
+    # restored on one rank (held to the gathered leaves with the one-rank
+    # comparison of a), that tree saved on one rank and restored on the
+    # mesh; both bit-equal
+    ckdir = os.path.join(out, "mesh_to_one")
+    t0 = time.perf_counter()
+    ck.save_checkpoint(ckdir, RANKS_TRAIN_STEPS, params)
+    save_s = time.perf_counter() - t0
+    got = None
+    if rank == 0:
+        like = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                              device="cuda"), params)
+        t0 = time.perf_counter()
+        got, _ = ck.restore_checkpoint(ckdir, like)
+        restore_s = time.perf_counter() - t0
+    err, eq = against(params, p1 if rank == 0 else None,
+                      tree_leaves(got) if rank == 0 else None)
+    atol = adam_atol(RANKS_TRAIN_STEPS)
+    if rank == 0:
+        del p1
+        d = [abs(a - c) for a, c in zip(losses, one_losses)]
+        tol = [SMALL_TOL[1] + SMALL_TOL[0] * abs(c) for c in one_losses]
+        report["train"] = {"loss_err": d, "param_err": err,
+                           "param_tol": atol}
+        check(all(x <= t for x, t in zip(d, tol)),
+              f"(a) losses {losses} vs one rank {one_losses}")
+        check(err <= atol, f"(a) parameters after {RANKS_TRAIN_STEPS} "
+              f"steps differ by {err}")
+        say(f"(a) dcn-v2 train_batch {b} on the 2 x 2 mesh: losses "
+            f"{[round(x, 6) for x in losses]} within {max(d):.3g} of one "
+            f"rank's (tolerance {SMALL_TOL}); parameters after step "
+            f"{RANKS_TRAIN_STEPS} within {err:.3g} (bound {atol:.3g}); "
+            f"one rank's step ms {[round(x, 1) for x in one_ms]}")
+        check(all(eq), "(d) the mesh's checkpoint restored on one rank "
+              "differs")
+        # that one-rank tree (bit-equal to the mesh's parameters) saved
+        # from one rank: restored on the mesh, each rank's shards must
+        # equal its own
+        ck.save_checkpoint(os.path.join(out, "one_to_mesh"),
+                           RANKS_TRAIN_STEPS, got)
+        del got
+    else:
+        dist.barrier()      # the one-rank save's barrier
+    back, _ = ck.restore_checkpoint(os.path.join(out, "one_to_mesh"),
+                                    params)
+    check(all(x.placements == y.placements for x, y in
+              zip(tree_leaves(back), tree_leaves(params))),
+          "(d) restored leaves placed otherwise")
+    check(all(torch.equal(x.to_local(), y.to_local()) for x, y in
+              zip(tree_leaves(back), tree_leaves(params))),
+          "(d) the one-rank checkpoint restored on the mesh differs from "
+          "this rank's shards")
+    if rank == 0:
+        report["checkpoint"] = {"save_s": save_s, "restore_s": restore_s,
+                                "leaves": len(eq)}
+        say(f"(d) {len(eq)} dcn-v2 parameter leaves: saved on the mesh and "
+            f"restored on one rank bit-equal, saved from there on one rank "
+            f"and restored on the mesh bit-equal, every rank's shards (save "
+            f"{save_s:.2f} s, restore {restore_s:.2f} s)")
+    del back, params, opt, batches
+    torch.cuda.empty_cache()
+    part("a, d: gathers, checkpoints")
+
+    # (b) retrieval_cand under each sharded_topk ---------------------------
+    full = rs.init_recsys(prng.prng_key(1), cfg, device="cuda")
+    ret0 = cells.build_cell("dcn-v2", "retrieval_cand", mesh)
+    params = placed(ret0.args[0], full)
+    query = recsys_batch(cfg, 1, 212, "cuda", label=False)
+    perm = np.random.default_rng(213).permutation(max(cfg.vocab_sizes))
+    report["retrieval"] = {}
+    for name, variant in (("false", False), ("true", True),
+                          ("local", "local")):
+        ret = cells.build_cell("dcn-v2", "retrieval_cand", mesh,
+                               overrides={"sharded_topk": variant})
+        nc = ret.args[2].shape[0]
+        cand = torch.from_numpy(perm[:nc].astype(np.int32)).cuda()
+        pq = placed(ret.args[1], query)
+        pc = sh.place(cand, mesh, ret.args[2].placements)
+        for kern in kernels:
+            kern.launches = 0
+        (s, i), ms = ranks_timed(lambda: ret.fn(params, pq, pc))
+        launched = {kern.name: kern.launches for kern in kernels}
+        check(launched["topk_partial"] >= 1 and launched["topk_merge"] >= 1,
+              f"(b) {name}: the step launched no dense top-k kernel "
+              f"({launched})")
+        s, i = sh.to_local(s), sh.to_local(i)
+        # this rank's shard: the kernel against the plain path on it
+        rk = ret.ranks()
+        lp, lc = tree_map(sh.to_local, params), sh.to_local(pc)
+        u = rs.user_vector(lp, tree_map(sh.to_local, pq), cfg, rk)
+        rows = cells.retrieval_rows(lp, lc, cfg, rk, variant == "local")
+        kk = min(100, rows.shape[0])
+        sk, ik = topk_scores(u, rows, k=kk)
+        sp, ip = topk_scores_ref(u, rows, k=kk)
+        shard_err, shard_ratio = compare_topk(
+            u, rows, sk, ik, sp, ip, f"21b rank {rank} {name} shard")
+        res = {"ms": ms, "launches": launched, "shard_rows": rows.shape[0],
+               "shard_err": shard_err}
+        if rank == 0:
+            u1 = rs.user_vector(full, query, cfg)
+            if variant == "local":
+                # section 2's statement on one rank: grid chunk c scores
+                # rows cand % rows_l of the item matrix's chunk c
+                items = rs.item_matrix(full, cfg)
+                n_l, rows_l = nc // 4, items.shape[0] // 4
+                every = torch.cat([
+                    items[c * rows_l:(c + 1) * rows_l][
+                        cand[c * n_l:(c + 1) * n_l].long() % rows_l]
+                    for c in range(4)])
+                ls, li = [], []
+                for c in range(4):
+                    sc = u1 @ every[c * n_l:(c + 1) * n_l].T
+                    o = torch.sort(sc, dim=1, descending=True,
+                                   stable=True).indices[:, :100]
+                    ls.append(sc.gather(1, o))
+                    li.append(o + c * n_l)
+                ls, li = torch.cat(ls, 1), torch.cat(li, 1)
+                o = torch.sort(ls, dim=1, descending=True,
+                               stable=True).indices[:, :100]
+                s1, i1 = ls.gather(1, o), li.gather(1, o)
+            else:
+                ret1 = cells.build_cell("dcn-v2", "retrieval_cand", one,
+                                        overrides={"sharded_topk": variant})
+                s1, i1 = ret1.fn(full, query, cand)
+                every = rs.candidate_rows(full, cfg, cand)
+            err, ratio = compare_topk(u1, every, s, i.long(), s1,
+                                      i1.long(), f"21b {name} vs one rank")
+            res.update(err=err, ratio=ratio)
+            say(f"(b) retrieval_cand 1 x {nc}, sharded_topk={variant!r}: "
+                f"ids equal to {'the statement' if variant == 'local' else 'one rank'}"
+                f"'s away from near-ties, scores within {err:.3g} "
+                f"({ratio:.3f} of the summation bound); this rank's shard "
+                f"({rows.shape[0]} rows) kernel vs plain within "
+                f"{shard_err:.3g}; step {ms:.1f} ms (wall, gloo); dense "
+                f"kernel launches here {launched['topk_partial']} partial, "
+                f"{launched['topk_merge']} merge")
+        report["retrieval"][name] = res
+        del s, i, u, rows, cand, pc
+    del params, full
+    torch.cuda.empty_cache()
+    part("b")
+
+    # (c) MACE at its published config -------------------------------------
+    report["mace"] = {}
+    for shape, seed in (("molecule", 220), ("full_graph_sm", 221)):
+        cell = cells.build_cell("mace", shape, mesh)
+        one_cell = cells.build_cell("mace", shape, one)
+        spec = cell.args[2]
+        n_nodes, n_edges = spec["positions"].shape[0], \
+            spec["edge_src"].shape[0]
+        check(n_nodes == one_cell.args[2]["positions"].shape[0]
+              and n_edges == one_cell.args[2]["edge_src"].shape[0],
+              f"(c) {shape}: the mesh pads the graph otherwise than one rank")
+        n_graphs = (spec["energy_target"].shape[0]
+                    if "energy_target" in spec else 1)
+        full = mc.init_mace(prng.prng_key(2), cell.cfg, device="cuda")
+        g = mc.random_graph_batch(prng.prng_key(seed), n_nodes=n_nodes,
+                                  n_edges=n_edges, d_feat=cell.cfg.d_feat,
+                                  n_graphs=n_graphs, device="cuda")
+        rng = np.random.default_rng(seed)
+        batch = {k: g[k] for k in spec if k in g}
+        for k in ("energy_target", "force_target", "node_target"):
+            if k in spec:
+                batch[k] = torch.from_numpy(rng.normal(
+                    size=spec[k].shape).astype(np.float32)).cuda()
+        if "node_mask" in spec:
+            batch["node_mask"] = torch.from_numpy(
+                (rng.random(n_nodes) > 0.5).astype(np.float32)).cuda()
+        pb = placed(spec, batch)
+        rk = cell.ranks()
+        res = {}
+        if shape == "molecule":
+            with torch.no_grad():
+                (e, f), ef_ms = ranks_timed(lambda: mc.mace_energy_forces(
+                    tree_map(sh.to_local, placed(cell.args[0], full)),
+                    dict({k: sh.to_local(v) for k, v in pb.items()},
+                         n_graphs=n_graphs), cell.cfg, rk))
+            f = sh.full_tensor(sh.as_placed(f, mesh, spec[
+                "force_target"].placements, spec["force_target"].shape))
+            if rank == 0:
+                with torch.no_grad():
+                    e1, f1 = mc.mace_energy_forces(
+                        full, dict(batch, n_graphs=n_graphs), one_cell.cfg)
+                e_err = float((e - e1).abs().max())
+                f_err = float((f - f1).abs().max())
+                scale = max(float(e1.abs().max()), float(f1.abs().max()),
+                            1.0)
+                check(max(e_err, f_err) <= MACE_TOL * scale,
+                      f"(c) energies differ by {e_err}, forces by {f_err}")
+                res.update(e_err=e_err, f_err=f_err, scale=scale,
+                           ef_ms=ef_ms)
+            del e, f
+        p, o = placed_state(cell, full)
+        losses, step_ms = [], []
+        for _ in range(RANKS_MACE_STEPS):
+            (p, o, loss), ms = ranks_timed(lambda: cell.fn(p, o, pb))
+            losses.append(float(loss))
+            step_ms.append(ms)
+        res.update(losses=losses, step_ms=step_ms)
+        if rank == 0:
+            p1, o1, one_losses = full, adamw_init(full), []
+            for _ in range(RANKS_MACE_STEPS):
+                p1, o1, l1 = one_cell.fn(p1, o1, batch)
+                one_losses.append(float(l1))
+            del o1
+        err, _ = against(p, p1 if rank == 0 else None)
+        if rank == 0:
+            d = [abs(a - c) for a, c in zip(losses, one_losses)]
+            tol = [SMALL_TOL[1] + SMALL_TOL[0] * abs(c) for c in one_losses]
+            check(all(x <= t for x, t in zip(d, tol)),
+                  f"(c) {shape}: losses {losses} vs one rank {one_losses}")
+            atol = adam_atol(RANKS_MACE_STEPS)
+            check(err <= atol, f"(c) {shape}: parameters differ by {err}")
+            res.update(loss_err=d, param_err=err)
+            extra = (f"energies and forces within {res['e_err']:.3g} and "
+                     f"{res['f_err']:.3g} of one rank's (bound {MACE_TOL} x "
+                     f"{res['scale']:.3g}), energy+forces {res['ef_ms']:.1f}"
+                     f" ms; " if shape == "molecule" else "")
+            say(f"(c) mace {shape} ({n_nodes} nodes, {n_edges} edges): "
+                f"{extra}{RANKS_MACE_STEPS} steps, losses within "
+                f"{max(d):.3g} of one rank's, parameters within {err:.3g} "
+                f"(bound {atol:.3g}); step ms "
+                f"{[round(x, 1) for x in step_ms]} (wall, gloo)")
+            del p1
+        report["mace"][shape] = res
+        del p, o, pb, full, batch
+        torch.cuda.empty_cache()
+    part("c")
+    report["peak_bytes_all"] = max(torch.cuda.max_memory_allocated(),
+                                   report["peak_before_steps"])
+    dist.destroy_process_group()
+    print(json.dumps(report), flush=True)
+
+
+# phase 21's child: rank argv[3] of four, running recsys_gnn_rank from
+# this file; argv: the repository root, its src, rank, FileStore path,
+# output directory
+RANKS_CHILD = r"""
+import sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import chip_smoke
+chip_smoke.recsys_gnn_rank(int(sys.argv[3]), sys.argv[4], sys.argv[5])
+"""
+
+
+def recsys_gnn_ranks_on_card(smi: str) -> list:
+    """21: the recsys and GNN cells on a (data 2, model 2) mesh of four
+    processes in one gloo group on the one card (``recsys_gnn_rank``;
+    agreement, not scaling: every collective crosses the host). Returns
+    the ranks' reports. A failed or hung child fails the run."""
+    import shutil
+    work = os.path.join(OUT, "recsys_gnn_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANKS_CHILD, ROOT, SRC, str(r),
+         os.path.join(work, "store"), work], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    outs = []
+    try:
+        for p in procs:
+            left = RANKS_TIMEOUT - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(left, 1.0))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 21: the four ranks did not finish in {RANKS_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    reports = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        with open(os.path.join(OUT, f"phase21_rank{r}.log"), "w") as f:
+            f.write(text)
+        lines = text.strip().splitlines()
+        for line in lines[:-1]:
+            if f"rank {r}: " in line:
+                log("    21" + line[line.index(f"rank {r}: ") + 6 + len(
+                    str(r)):])
+        if p.returncode != 0 or not lines:
+            log("\n".join(lines[-30:]))
+            fail(f"phase 21: rank {r} exited {p.returncode}")
+        reports.append(json.loads(lines[-1]))
+    shutil.rmtree(work, ignore_errors=True)
+    whole = 3 * 4 * reports[0]["n_params"]
+    for rep in reports:
+        if rep["losses"] != reports[0]["losses"]:
+            fail(f"phase 21: rank {rep['rank']}'s losses differ from rank "
+                 f"0's")
+    log("    21a per rank (dcn-v2 parameters and AdamW m, v in f32; each "
+        "table's rows and moments a quarter, the replicated leaves equal "
+        "on every rank): " + ", ".join(
+            f"rank {rep['rank']} {rep['state_bytes'] / 1e9:.4f} GB "
+            f"({rep['state_bytes'] / whole:.4f} of the whole "
+            f"{whole / 1e9:.3f})" for rep in reports)
+        + "; allocator peak in the mesh steps "
+        + ", ".join(f"{rep['peak_bytes'] / 1e9:.2f}" for rep in reports)
+        + " GB, over the phase "
+        + ", ".join(f"{rep['peak_bytes_all'] / 1e9:.2f}" for rep in reports)
+        + f" GB; mesh step ms {[round(x, 1) for x in reports[0]['step_ms']]}"
+        f" (wall, gloo through the host), one rank "
+        f"{[round(x, 1) for x in reports[0]['one_rank_step_ms']]}; {smi}")
+    for name in ("false", "true", "local"):
+        log(f"    21b sharded_topk {name}: dense kernel launches by rank "
+            + ", ".join(
+                f"{rep['rank']}: {rep['retrieval'][name]['launches']['topk_partial']}"
+                f" partial + "
+                f"{rep['retrieval'][name]['launches']['topk_merge']} merge"
+                f" on {rep['retrieval'][name]['shard_rows']} rows"
+                for rep in reports)
+            + f"; step {reports[0]['retrieval'][name]['ms']:.1f} ms (wall, "
+            f"gloo); {smi}")
+    log(f"    21 parts on rank 0 (wall s, start-up excluded): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in
+                    reports[0]["seconds"].items())
+        + f"; 21 in {wall:.1f} s (four processes); {smi}")
+    return reports
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2658,7 +3177,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/20] device: {name}; nvidia-smi: {smi}; "
+    log(f"[1/21] device: {name}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 2. build -------------------------------------------------------------
@@ -2676,7 +3195,7 @@ def main() -> None:
 
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_counted, sources))
-    log(f"[2/20] built {', '.join(sources)} in "
+    log(f"[2/21] built {', '.join(sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     if recompile.counts() != ({"phase 2": len(uncached)} if uncached
                               else {}):
@@ -2695,7 +3214,7 @@ def main() -> None:
     tuning.set_table(None)
     untuned_hits = REGISTRY.counter("tuning.resolve.hit").value
     main_shapes: dict = {}      # phases 5-7's launches by shape, for phase 10
-    log("[3/20] kernel vs plain")
+    log("[3/21] kernel vs plain")
     for n, k, quarter in [(1, 1, True), (37, 5, True), (513, 33, True),
                           (300, 70, False), (4096, 0, True),
                           (100_003, 32, True), (100_003, 32, False)]:
@@ -2925,7 +3444,7 @@ def main() -> None:
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
-    log("[4/20] times (CUDA events, after warm-up)")
+    log("[4/21] times (CUDA events, after warm-up)")
     labels, nbr, wgt, deg_sq = lp_main
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
@@ -3189,9 +3708,9 @@ def main() -> None:
         stats, wall = run_sample(sample_argv + [
             "--out", os.path.join(OUT, "sample"), "--trace", sample_trace])
     sample_corpus = corpus_seen.results["corpus"]
-    sample_stats, sample_wall = stats, wall
+    sample_stats = stats
     del corpus_seen
-    log(f"[5/20] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
+    log(f"[5/21] sampling: {wall:.2f} s wall, {stats['edges']} edges, "
         f"{stats['communities']} communities, changes/round "
         f"{stats['changes_per_round']}, {stats['entities']} entities "
         f"sampled")
@@ -3234,8 +3753,7 @@ def main() -> None:
         out, wall = run_evaluate(eval_argv + [
             "--json", os.path.join(OUT, "eval.json"), "--trace", eval_trace])
     cells = out["grid"]["cells"]
-    eval_out, eval_wall = out, wall
-    log(f"[6/20] evaluation: {wall:.2f} s wall, {len(cells)} cells")
+    log(f"[6/21] evaluation: {wall:.2f} s wall, {len(cells)} cells")
     eval_launches = read_counts(kernels, "evaluation", main_shapes)
     trace.disable()
     # the Hamming kernel at each shape the grid launched it at
@@ -3270,7 +3788,7 @@ def main() -> None:
     from repro_torch.retrieval.experiment import run_table1_experiment
     t0 = time.perf_counter()
     t1_corpus = eval_corpus(EVAL_QUERIES, 2048, embed=False)
-    log(f"[7/20] Table I corpus: {t1_corpus.num_entities} entities, "
+    log(f"[7/21] Table I corpus: {t1_corpus.num_entities} entities, "
         f"{t1_corpus.num_queries} queries, passages "
         f"{t1_corpus.passage_tokens.shape[1]} tokens, queries "
         f"{t1_corpus.query_tokens.shape[1]}, vocab {t1_corpus.vocab_size} "
@@ -3495,7 +4013,7 @@ def main() -> None:
         f"both; load of 256: completed {g_load['completed']}, rejected "
         f"{g_load['rejected']}, ticks {g_load['ticks']}, mean batch "
         f"{g_load['mean_batch']} on both")
-    log("[8/20] small inputs: sample.npz, grid cells, the encoder's and the "
+    log("[8/21] small inputs: sample.npz, grid cells, the encoder's and the "
         "serve CLI's results equal (or within the stated tolerance) on cuda "
         "and cpu")
 
@@ -3539,7 +4057,7 @@ def main() -> None:
             sample_corpus.num_entities, prng.prng_key(0), rate=0.15,
             device="cuda")):
         fail("run_uniform_baseline's mask != uniform_sample's")
-    log(f"[9/20] run_windtunnel (engine {session.spec.engine}, "
+    log(f"[9/21] run_windtunnel (engine {session.spec.engine}, "
         f"{sample_corpus.num_entities} entities): {wt_wall:.2f} s wall, "
         f"{int(wt.sample.entity_mask.sum())} entities sampled; labels and "
         f"entity_mask equal to the session's bit for bit; "
@@ -3564,7 +4082,7 @@ def main() -> None:
                      for kernel, dt in traffic
                      for bucket in ("le65536", "gt65536")
                      if (kernel, bucket, dt) not in table.entries)
-    log(f"[10/20] autotune (topk float32/int8, hamming_topk; le65536, "
+    log(f"[10/21] autotune (topk float32/int8, hamming_topk; le65536, "
         f"gt65536) over phases 5-7's launches in "
         f"{time.perf_counter() - t0:.1f} s; {smi}; cells the main path "
         f"never launched, so left untuned: {', '.join(untuned) or 'none'}; "
@@ -3642,15 +4160,24 @@ def main() -> None:
     check_no_build("phase 10")
 
     # 11. where the host time goes ----------------------------------------
-    # the two CLIs once more at the timed runs' sizes, under cProfile (the
-    # timed runs above stay unprofiled)
-    log("[11/20] host time: the sampling and evaluation CLIs under cProfile")
-    with tempfile.TemporaryDirectory(dir=OUT) as tmp, \
-            recompile.region("phase 11"):
-        profile_top("sampling", lambda: run_sample(
-            sample_argv + ["--quiet", "--out", tmp]))
-        profile_top("evaluation", lambda: run_evaluate(
-            eval_argv + ["--quiet"]))
+    # the two CLIs once more at an eighth of the timed runs' queries, under
+    # cProfile (the timed runs above stay unprofiled); their outputs are
+    # what phases 12 and 13 are held to
+    def fewer(argv):
+        i = argv.index("--queries")
+        return argv[:i + 1] + [str(int(argv[i + 1]) // REPEAT_SHARE)] \
+            + argv[i + 2:]
+
+    rep_sample_argv, rep_eval_argv = fewer(sample_argv), fewer(eval_argv)
+    log(f"[11/21] host time: the sampling and evaluation CLIs under "
+        f"cProfile at {SAMPLE_QUERIES // REPEAT_SHARE} and "
+        f"{EVAL_QUERIES // REPEAT_SHARE} queries")
+    rep_out = os.path.join(OUT, "sample_profiled")
+    with recompile.region("phase 11"):
+        rep_stats, _ = profile_top("sampling", lambda: run_sample(
+            rep_sample_argv + ["--quiet", "--out", rep_out]))
+        rep_eval, _ = profile_top("evaluation", lambda: run_evaluate(
+            rep_eval_argv + ["--quiet"]))
     check_no_build("phase 11")
     check_untuned("phase 11", untuned_hits)
 
@@ -3669,13 +4196,13 @@ def main() -> None:
     reset_counts(kernels)
     reset_memory()
     with recompile.region("phase 12"):
-        sh_stats, sh_wall = run_sample(sample_argv + [
+        sh_stats, sh_wall = run_sample(rep_sample_argv + [
             "--streamed", "--mesh", "host", "--out",
             os.path.join(OUT, "sample_streamed"), "--trace", streamed_trace])
     trace.disable()
-    log(f"[12/20] streamed sampling (1-rank NCCL mesh, "
-        f"{dist.get_backend()}): {sh_wall:.2f} s wall (phase 5: "
-        f"{sample_wall:.2f} s), changes/round "
+    log(f"[12/21] streamed sampling (1-rank NCCL mesh, "
+        f"{dist.get_backend()}, {SAMPLE_QUERIES // REPEAT_SHARE} queries): "
+        f"{sh_wall:.2f} s wall, changes/round "
         f"{sh_stats['changes_per_round']}")
     sh_launches = read_counts(kernels, "streamed sampling")
     log_trace(streamed_trace, sh_wall)
@@ -3686,16 +4213,17 @@ def main() -> None:
              f"{memory.PEAK_GAUGE} reading")
     if sh_launches["lp_round"] != len(sh_stats["changes_per_round"]):
         fail("streamed sampling: lp_round launches != LP rounds")
-    single_npz = np.load(os.path.join(OUT, "sample", "sample.npz"))
+    rep_npz = np.load(os.path.join(rep_out, "sample.npz"))
     sharded_npz = np.load(os.path.join(OUT, "sample_streamed", "sample.npz"))
     for key in ("entity_mask", "labels", "qrel_valid"):
-        if not np.array_equal(single_npz[key], sharded_npz[key]):
-            fail(f"streamed sampling: sample.npz {key} != phase 5's")
-    if sh_stats != sample_stats:
-        fail(f"streamed sampling: stats {sh_stats} != phase 5's "
-             f"{sample_stats}")
+        if not np.array_equal(rep_npz[key], sharded_npz[key]):
+            fail(f"streamed sampling: sample.npz {key} != phase 11's")
+    if sh_stats != rep_stats:
+        fail(f"streamed sampling: stats {sh_stats} != phase 11's "
+             f"{rep_stats}")
     log("    sample.npz (entity_mask, labels, qrel_valid) and stats equal "
-        "to phase 5's bit for bit")
+        "to phase 11's single-device run bit for bit")
+    single_npz = np.load(os.path.join(OUT, "sample", "sample.npz"))
     mesh = make_host_mesh(device="cuda")
     reset_counts(kernels)
     reset_memory()
@@ -3734,28 +4262,29 @@ def main() -> None:
     reset_counts(kernels)
     reset_memory()
     with recompile.region("phase 13"):
-        sh_out, sh_eval_wall = run_evaluate(eval_argv + [
+        sh_out, sh_eval_wall = run_evaluate(rep_eval_argv + [
             "--streamed", "--mesh", "host", "--json",
             os.path.join(OUT, "eval_streamed.json"), "--trace",
             streamed_eval_trace])
     trace.disable()
-    log(f"[13/20] streamed evaluation (1-rank NCCL mesh): "
-        f"{sh_eval_wall:.2f} s wall (phase 6: {eval_wall:.2f} s), "
-        f"{len(sh_out['grid']['cells'])} cells")
+    log(f"[13/21] streamed evaluation (1-rank NCCL mesh, "
+        f"{EVAL_QUERIES // REPEAT_SHARE} queries): {sh_eval_wall:.2f} s "
+        f"wall, {len(sh_out['grid']['cells'])} cells")
     sh_eval_launches = read_counts(kernels, "streamed evaluation")
     log_trace(streamed_eval_trace, sh_eval_wall)
     check_no_build("phase 13")
     check_untuned("phase 13", untuned_hits)
-    if sh_out["grid"]["cells"] != eval_out["grid"]["cells"]:
-        fail("streamed evaluation: grid cells != phase 6's")
-    if sh_out["fidelity"] != eval_out["fidelity"]:
-        fail("streamed evaluation: fidelity report != phase 6's")
+    if sh_out["grid"]["cells"] != rep_eval["grid"]["cells"]:
+        fail("streamed evaluation: grid cells != phase 11's")
+    if sh_out["fidelity"] != rep_eval["fidelity"]:
+        fail("streamed evaluation: fidelity report != phase 11's")
     for kname in ("gathered_tiles", "hamming_topk", "topk_partial",
                   "topk_merge", "lp_round"):
         if sh_eval_launches[kname] == 0:
             fail(f"the streamed evaluation launched no {kname} kernel")
-    log("    grid cells and fidelity report equal to phase 6's")
-    del sh_out
+    log("    grid cells and fidelity report equal to phase 11's "
+        "single-device run")
+    del sh_out, rep_eval
     dist.destroy_process_group()
 
     # 14. two ranks on the card ------------------------------------------------
@@ -3788,7 +4317,7 @@ def main() -> None:
                 p.kill()
                 p.wait()
     two_wall = time.perf_counter() - t0
-    log(f"[14/20] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
+    log(f"[14/21] two ranks on the card (gloo, {TWO_RANK_QUERIES} queries): "
         f"{two_wall:.2f} s wall, both processes")
     reports = []
     for r, (p, text) in enumerate(zip(procs, outs)):
@@ -3887,7 +4416,7 @@ def main() -> None:
         list(pool.map(lambda t: shared_corpus(t, docs=SERVE_DOCS,
                                               dim=SERVE_DIM, seed=0),
                       ("tenant-0", "tenant-1")))
-    log(f"[15/20] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
+    log(f"[15/21] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
         f"(two drawn on the host in {time.perf_counter() - t0:.2f} s, "
         f"two threads, before the runs), buckets up to {SERVE_BATCH}, "
         f"k_max {SERVE_KMAX}; {smi}")
@@ -4254,7 +4783,7 @@ def main() -> None:
     if fresh or lint.returncode != 0:
         fail(f"phase 16: {len(fresh)} finding(s) not in "
              f"lint_baseline_torch.json (exit {lint.returncode})")
-    log(f"[16/20] analyzer: python -m repro_torch.launch.lint over "
+    log(f"[16/21] analyzer: python -m repro_torch.launch.lint over "
         f"src/repro_torch on Python {sys.version.split()[0]}: "
         f"{len(report['findings'])} findings ({report['counts']}), all in "
         f"the baseline, {len(report['rules'])} rules, {lint_s:.2f} s; {smi}")
@@ -4276,7 +4805,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_no_build("phase 17")
     check_untuned("phase 17", untuned_hits)
-    log(f"[17/20] LM decoder and RAG serving: 5 reduced archs card vs CPU, "
+    log(f"[17/21] LM decoder and RAG serving: 5 reduced archs card vs CPU, "
         f"gemma-2b prefill vs decode, RAG at full width in "
         f"{time.perf_counter() - t17:.1f} s; {smi}")
 
@@ -4306,7 +4835,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_no_build("phase 18")
     check_untuned("phase 18", untuned_hits)
-    log(f"[18/20] LM training: 5 reduced archs card vs CPU and resumed, "
+    log(f"[18/21] LM training: 5 reduced archs card vs CPU and resumed, "
         f"gemma-2b trained at full width with an async save and a restore, "
         f"no kernel launched, in {time.perf_counter() - t18:.1f} s; {smi}")
 
@@ -4340,7 +4869,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_no_build("phase 19")
     check_untuned("phase 19", untuned_hits)
-    log(f"[19/20] recsys and MACE: 4 recsys archs and 3 MACE cells card vs "
+    log(f"[19/21] recsys and MACE: 4 recsys archs and 3 MACE cells card vs "
         f"CPU and resumed, DCN-v2 trained, served and retrieved at full "
         f"width, AutoInt and DIEN stepped, MACE trained on molecules and a "
         f"sampled Reddit-sized graph, in {time.perf_counter() - t19:.1f} s; "
@@ -4356,20 +4885,43 @@ def main() -> None:
     if any(read_counts(kernels, "phase 20").values()):
         fail("phase 20 launched kernels in this process")
     check_no_build("phase 20")
-    log(f"[20/20] LM cells across ranks: gemma-2b (published width, "
+    log(f"[20/21] LM cells across ranks: gemma-2b (published width, "
         f"{LM_RANKS_LAYERS} layers) trained, checkpointed across meshes "
         f"and served on a 2 x 2 mesh of 4 gloo processes on the card, "
         f"mixtral's reduced MoE trained there, all held to one rank, in "
         f"{time.perf_counter() - t20:.1f} s; {smi}")
 
+    # 21. the recsys and GNN cells across ranks ----------------------------
+    # DCN-v2 and MACE at their published configs on a (data 2, model 2)
+    # mesh of four processes sharing the card, each check held to one rank
+    # on the card; the retrieval step's ranks each launch the dense top-k
+    # kernel on their candidate shard (counted in the ranks, their sum
+    # added to the kernel table's launches)
+    t21 = time.perf_counter()
+    reset_counts(kernels)
+    ranks21 = recsys_gnn_ranks_on_card(smi)
+    if any(read_counts(kernels, "phase 21").values()):
+        fail("phase 21 launched kernels in this process")
+    check_no_build("phase 21")
+    ranks_launches = collections.Counter()
+    for rep in ranks21:
+        for res in rep["retrieval"].values():
+            ranks_launches.update(res["launches"])
+    log(f"[21/21] recsys and GNN cells across ranks: DCN-v2 trained, "
+        f"checkpointed across meshes and retrieved under the three "
+        f"sharded_topk (the dense kernel on each rank's shard), MACE's "
+        f"molecule and full_graph_sm trained, at published configs on a "
+        f"2 x 2 mesh of 4 gloo processes on the card, all held to one "
+        f"rank, in {time.perf_counter() - t21:.1f} s; {smi}")
+
     def launches(kname: str) -> int:
         """A kernel's launches over the main-path runs (phases 5-7, 12,
-        13, 15, 17, 19)."""
+        13, 15, 17, 19, and 21's four ranks)."""
         return (sample_launches[kname] + eval_launches[kname]
                 + t1_launches[kname] + sh_launches[kname]
                 + leg_launches[kname] + sh_eval_launches[kname]
                 + serve_launches[kname] + rag_launches[kname]
-                + recsys_launches[kname])
+                + recsys_launches[kname] + ranks_launches[kname])
 
     table = {"kernels": [
         {"name": "lp_round", "route": "cuda",

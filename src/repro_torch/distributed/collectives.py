@@ -38,7 +38,10 @@ an NCCL group reads the card's tensors in place (and refuses CPU ones).
   all-to-all's the reverse all-to-all), which is exact when the objective
   is the SUM of the ranks' losses: a rank's loss is its share of the
   global one, and a value every rank holds alike is a sum of per-rank
-  copies whose gradients add.
+  copies whose gradients add. Each backward is itself the autograd
+  collective of its adjoint, so a gradient taken with ``create_graph``
+  (MACE's forces) keeps its graph across ranks and has a second-order
+  gradient.
 """
 from __future__ import annotations
 
@@ -225,7 +228,7 @@ class _AllReduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+        return grad_all_reduce(g, ctx.mesh, ctx.axes), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -236,8 +239,8 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (_reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None,
-                None)
+        return (grad_reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim), None,
+                None, None)
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -248,8 +251,8 @@ class _ReduceScatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather(g, ctx.mesh, ctx.axes, dim=ctx.dim), None, None, \
-            None
+        return (grad_all_gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None,
+                None)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -262,8 +265,8 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         in_splits, out_splits = ctx.splits
-        return (all_to_all(g, ctx.mesh, ctx.axes, out_splits, in_splits),
-                None, None, None, None)
+        return (grad_all_to_all(g, ctx.mesh, ctx.axes, out_splits,
+                                in_splits), None, None, None, None)
 
 
 def _reduce_scatter(x: torch.Tensor, mesh, axis_names: AxisNames,

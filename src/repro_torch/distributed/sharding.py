@@ -19,9 +19,14 @@ collective on a CUDA tensor goes through the host). Two mesh dims that
 shard one tensor dim nest, the first the outer (the reference's
 ``PartitionSpec(("pod", "data"))``). :func:`full_tensor` gathers a leaf
 whole on every rank through ``collectives.all_gather``.
+
+:class:`GridRanks` is what one rank holds of tensors split on their
+leading dim over the grid (``data`` and ``model``): the recsys tables'
+rows and MACE's nodes and edges, which the models read through it.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -224,3 +229,54 @@ def to_local(x):
     """A placed leaf's own shard (its storage: in-place writes reach the
     DTensor); a plain tensor as it is."""
     return x.to_local() if isinstance(x, DTensor) else x
+
+
+class GridRanks:
+    """What one rank of ``mesh`` holds of a tensor whose leading dim is
+    split over the grid, ``data`` and ``model`` in the mesh's order (the
+    chunk :func:`local_slices` gives a leaf placed ``Shard(0)`` on both:
+    chunk ``s`` of ``g``), and the collectives the models call over it.
+    Axes of size 1 take no part. ``n_all`` counts the mesh's ranks;
+    ``copies`` the ranks that hold the same chunk (the ``pod`` replicas),
+    so a loss term every rank holds alike has the share 1 / ``n_all`` and
+    a sum over chunks the share 1 / ``copies`` (the shares of the ranks
+    sum to the loss, as ``models/transformer.Ranks``')."""
+
+    def __init__(self, mesh):
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        self.mesh = mesh
+        self.sizes = sizes
+        self.grid = tuple(n for n in mesh.mesh_dim_names
+                          if n in ("data", "model") and sizes[n] > 1)
+        self.g = math.prod(sizes[n] for n in self.grid)
+        self.s = coll.flat_axis_index(mesh, self.grid) if self.grid else 0
+        self.n_all = math.prod(mesh.shape)
+        self.copies = self.n_all // self.g
+
+    def axes(self, names) -> tuple:
+        """``names`` that split the grid, in the mesh's order."""
+        return tuple(n for n in self.grid if n in names)
+
+    def gather(self, x: torch.Tensor, names=None) -> torch.Tensor:
+        """The chunks of ``x`` over ``names`` (the whole grid by default)
+        in chunk order; the gradient is reduce-scattered."""
+        axes = self.grid if names is None else self.axes(names)
+        return coll.grad_all_gather(x, self.mesh, axes) if axes else x
+
+    def scatter(self, x: torch.Tensor, names=None) -> torch.Tensor:
+        """This rank's chunk of ``x`` summed over ``names`` (the whole
+        grid by default); the gradient is all-gathered."""
+        axes = self.grid if names is None else self.axes(names)
+        return coll.grad_reduce_scatter(x, self.mesh, axes) if axes else x
+
+    def sum(self, x: torch.Tensor, names=None) -> torch.Tensor:
+        """``x`` summed over ``names`` (the whole grid by default); the
+        gradient is summed too."""
+        axes = self.grid if names is None else self.axes(names)
+        return coll.grad_all_reduce(x, self.mesh, axes) if axes else x
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over every rank of the mesh (no gradient): a
+        loss from its shares."""
+        names = tuple(n for n, k in self.sizes.items() if k > 1)
+        return coll.all_reduce(x, self.mesh, names) if names else x

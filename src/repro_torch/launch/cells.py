@@ -24,18 +24,28 @@ reference's ``lax.top_k`` gives them.
 
 On one rank the activation-sharding options (the LM's ``act_*``, MACE's
 ``act_grid_axes``, the retrieval step's ``sharded_topk``) are set as the
-reference sets them and change no value. The LM cells run on a mesh of
-any number of ranks whose axes divide their shapes: the step takes its
+reference sets them and change no value. Every cell runs on a mesh of
+any number of ranks whose axes divide its shapes: the step takes its
 arguments placed on the mesh (``DTensor``s with the specs' placements,
 ``distributed/sharding.place_tree``) and runs each rank's part of the
-model (``models/transformer.Ranks``: ZeRO ``embed`` over ``data``,
-Megatron TP over ``model``, the batch over ``pod``/``data``); the
-gradients of what a rank holds alike with others are summed over those
-ranks (the data-parallel reduction), and AdamW updates each rank's
-shards, clipped by the whole tree's norm. The recsys and GNN cells raise
-on more than one rank: DLRM's row-sharded tables, shard-local top-k and
-MACE's node and edge tensors over the grid are ROADMAP.md queue 1 item
-15(d)(ii).
+model on its shards, its loss the rank's share of the whole:
+
+* LM (``models/transformer.Ranks``): ZeRO ``embed`` over ``data``,
+  Megatron TP over ``model``, the batch over ``pod``/``data``;
+* recsys (``models/recsys.Ranks``): every table's rows over the grid
+  (``data`` and ``model``), its lookups masked partial lookups summed
+  over the grid, the batch over ``pod``/``data``; the retrieval step
+  scores each rank's candidate shard with the dense top-k kernel and
+  merges the shards' lists (``sharded_topk``: ``False`` and ``True`` give
+  the global top-k, ``"local"`` each grid chunk's own candidate pool);
+* GNN (``models/mace.py`` with ``distributed/sharding.GridRanks``): nodes
+  and edges over the grid, the node state gathered and the messages'
+  sums reduce-scattered in each layer.
+
+The gradients of what a rank holds alike with others are summed over
+those ranks (:func:`reduce_replicated`: the data-parallel reduction), a
+table's stays on its shard, and AdamW updates each rank's shards, clipped
+by the whole tree's norm.
 """
 from __future__ import annotations
 
@@ -48,9 +58,9 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core import prng
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.sharding import (LM_RULES, Shaped, as_placed,
-                                              placements, to_local,
-                                              tree_shardings)
+from repro_torch.distributed.sharding import (LM_RULES, GridRanks, Shaped,
+                                              as_placed, placements,
+                                              to_local, tree_shardings)
 from repro_torch.kernels.topk_scoring.ops import topk_scores
 from repro_torch.models import mace as mc
 from repro_torch.models import recsys as rs
@@ -70,7 +80,8 @@ class Cell:
     kind: str               # train | prefill | decode | serve | retrieval
     model_flops_per_step: float  # 6*N*D style estimate (§Roofline)
     donate: tuple = ()      # arguments the step may write its results into
-    cfg: object = None      # the LM's config as the step runs it
+    cfg: object = None      # the model's config as the step runs it
+    ranks: Callable = None  # () -> the step's ranks object (None: one rank)
 
 
 def _mesh_sizes(mesh) -> dict:
@@ -89,18 +100,6 @@ def _divisible_axes(mesh, b: int) -> tuple:
 
 def _axes_or_none(axes: tuple):
     return axes if len(axes) > 1 else (axes[0] if axes else None)
-
-
-def _one_rank(mesh, what: str) -> None:
-    """Raise unless ``mesh`` is one rank (the recsys and GNN cells across
-    ranks are ROADMAP.md queue 1 item 15(d)(ii))."""
-    if mesh.size() > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {mesh.size()} ranks: the recsys and GNN "
-            f"cells across ranks (DLRM's row-sharded tables, shard-local "
-            f"top-k, MACE's node and edge tensors over the grid) are not "
-            f"ported to PyTorch yet (ROADMAP.md queue 1 item 15(d)(ii)); "
-            f"use a 1-rank mesh")
 
 
 def value_and_grad(loss_fn, params, *args):
@@ -237,6 +236,27 @@ def reduce_replicated(grads, mesh):
     return grads
 
 
+def _placed_grads(grads, params, mesh):
+    """Each rank's gradients of its shards placed as the parameters, then
+    summed over the ranks that hold a leaf alike."""
+    return reduce_replicated(tree_map(
+        lambda g, p: as_placed(g, p.device_mesh, p.placements, p.shape),
+        grads, params), mesh)
+
+
+def grads_ranks(loss_fn, params, batch, cfg, ranks):
+    """``loss_fn(params, batch, cfg, ranks=ranks)`` on this rank's shards
+    of the placed ``params`` and ``batch``: the loss (its shares summed
+    over the mesh) on every rank, and the gradients of its share placed
+    as the parameters, summed over the ranks that hold a leaf alike (the
+    recsys and GNN train steps across ranks)."""
+    share, grads = value_and_grad(
+        lambda p, b: loss_fn(p, b, cfg, ranks=ranks),
+        tree_map(to_local, params), tree_map(to_local, batch))
+    return (ranks.total(share),
+            _placed_grads(grads, params, ranks.mesh))
+
+
 def _lm_grads_ranks(params, tokens, cfg, microbatches, ranks):
     local = tree_map(to_local, params)
     blocks = _microbatch_rows(to_local(tokens), microbatches, ranks)
@@ -253,37 +273,25 @@ def _lm_grads_ranks(params, tokens, cfg, microbatches, ranks):
                 acc.add_(gi.to(torch.float32) / microbatches)
             shares.append(share)
         share = torch.stack(shares).mean()
-    grads = reduce_replicated(tree_map(
-        lambda g, p: as_placed(g, p.device_mesh, p.placements, p.shape),
-        grads, params), ranks.mesh)
+    grads = _placed_grads(grads, params, ranks.mesh)
     loss = coll.all_reduce(share, ranks.mesh, ranks.mesh.mesh_dim_names)
     return loss, grads
 
 
-def lm_ranks(cell: Cell, mesh):
-    """The ``transformer.Ranks`` an LM cell's step runs on ``mesh`` (None
-    on one rank): to call ``lm_grads`` or the model's functions as the
-    step does."""
-    return _LazyRanks(mesh, _lm_rules(cell.arch_id))(cell.cfg)
-
-
-def _lm_rules(arch_id) -> dict:
-    return {**LM_RULES, **(get_arch(arch_id).rules_override or {})}
-
-
 class _LazyRanks:
-    """The step's ``transformer.Ranks``, made at its first call (a cell's
+    """The step's ranks object (``make(mesh)``: a ``transformer.Ranks``,
+    ``recsys.Ranks`` or ``GridRanks``), made at its first call (a cell's
     specs need only the mesh's names and sizes; its step, a process
     group); ``None`` on one rank, where the step is the reference's."""
 
-    def __init__(self, mesh, rules):
-        self.mesh, self.rules, self.ranks = mesh, rules, None
+    def __init__(self, mesh, make):
+        self.mesh, self.make, self.ranks = mesh, make, None
 
-    def __call__(self, cfg):
+    def __call__(self):
         if self.mesh.size() == 1:
             return None
         if self.ranks is None:
-            self.ranks = tf.Ranks(self.mesh, cfg, self.rules)
+            self.ranks = self.make(self.mesh)
         return self.ranks
 
 
@@ -315,7 +323,8 @@ def build_lm_cell(arch_id, shape_name, mesh, *, reduced=False,
     d_axes = _divisible_axes(mesh, b)
     b_ax = _axes_or_none(d_axes)
     cfg = dataclasses.replace(cfg, act_batch_axes=d_axes or None)
-    ranks = _LazyRanks(mesh, _lm_rules(arch_id))
+    rules = {**LM_RULES, **(spec.rules_override or {})}
+    ranks = _LazyRanks(mesh, lambda m: tf.Ranks(m, cfg, rules))
 
     if kind == "train":
         params_sds, param_shard = _lm_param_specs(
@@ -327,14 +336,14 @@ def build_lm_cell(arch_id, shape_name, mesh, *, reduced=False,
         mb = int((overrides or {}).get("microbatches", 1))
 
         def train_step(params, opt_state, tokens):
-            loss, grads = lm_grads(params, tokens, cfg, mb, ranks(cfg))
+            loss, grads = lm_grads(params, tokens, cfg, mb, ranks())
             adamw_update_(grads, opt_state, params, opt_cfg)
             return params, opt_state, loss
 
         return Cell(arch_id, shape_name, train_step,
                     (params_sds, opt_sds, tokens), kind,
                     lm_model_flops(cfg, b * s, "train"), donate=(0, 1),
-                    cfg=cfg)
+                    cfg=cfg, ranks=ranks)
 
     serve_dtype = cfg.dtype
     params_sds, _ = _lm_param_specs(mesh, cfg, dtype=serve_dtype,
@@ -344,7 +353,7 @@ def build_lm_cell(arch_id, shape_name, mesh, *, reduced=False,
 
         @torch.no_grad()
         def prefill_step(params, tokens):
-            rk = ranks(cfg)
+            rk = ranks()
             if rk is None:
                 return tf.prefill(params, tokens, cfg)
             logits, cache = tf.prefill(tree_map(to_local, params),
@@ -357,7 +366,8 @@ def build_lm_cell(arch_id, shape_name, mesh, *, reduced=False,
 
         return Cell(arch_id, shape_name, prefill_step,
                     (params_sds, tokens), kind,
-                    lm_model_flops(cfg, b * s, "prefill"), cfg=cfg)
+                    lm_model_flops(cfg, b * s, "prefill"), cfg=cfg,
+                    ranks=ranks)
 
     # decode: one new token against a seq_len-deep KV cache
     cache_sds = _cache_specs(mesh, cfg, b, s)
@@ -365,7 +375,7 @@ def build_lm_cell(arch_id, shape_name, mesh, *, reduced=False,
 
     @torch.no_grad()
     def decode(params, cache, tokens):
-        rk = ranks(cfg)
+        rk = ranks()
         if rk is None:
             return tf.decode_step(params, cache, tokens, cfg)
         logits, new = tf.decode_step(
@@ -379,7 +389,8 @@ def build_lm_cell(arch_id, shape_name, mesh, *, reduced=False,
 
     return Cell(arch_id, shape_name, decode,
                 (params_sds, cache_sds, tokens), kind,
-                lm_model_flops(cfg, b, "decode"), donate=(1,), cfg=cfg)
+                lm_model_flops(cfg, b, "decode"), donate=(1,), cfg=cfg,
+                ranks=ranks)
 
 
 # ---------------------------------------------------------------------------
@@ -400,7 +411,12 @@ def _map_with_path(fn, tree, path=()):
 def _recsys_param_specs(mesh, cfg):
     shapes = rs.init_recsys(prng.prng_key(0), cfg, device="meta")
     # tables: rows over the whole grid (the 96GB Criteo-TB tables + AdamW
-    # slots must split 256 ways, not 16); everything else replicated
+    # slots must split 256 ways, not 16); everything else replicated. The
+    # reference's ("model", "data") is model-major; the placements nest
+    # the mesh's dims outer first, so chunk s of a (data, model) mesh is
+    # data-major (``sharding.local_slices``). No value depends on it: the
+    # lookups and the "local" retrieval read the rank's chunk s of the
+    # table rows and of the candidates alike (``recsys.Ranks``)
     grid = tuple(a for a in ("model", "data") if a in mesh.mesh_dim_names)
 
     def shard_for(path, leaf):
@@ -438,7 +454,6 @@ def _recsys_batch(mesh, cfg, batch):
 
 def build_recsys_cell(arch_id, shape_name, mesh, *, reduced=False,
                       overrides=None) -> Cell:
-    _one_rank(mesh, "a recsys cell")
     spec = get_arch(arch_id)
     cfg = spec.make_reduced() if reduced else spec.make_config()
     cfg_overrides = {k: v for k, v in (overrides or {}).items()
@@ -453,6 +468,8 @@ def build_recsys_cell(arch_id, shape_name, mesh, *, reduced=False,
     b = shape["batch"]
     params_sds, param_shard = _recsys_param_specs(mesh, cfg)
     batch_sds = _recsys_batch(mesh, cfg, b)
+    b_axes = _divisible_axes(mesh, b)
+    ranks = _LazyRanks(mesh, lambda m: rs.Ranks(m, b_axes))
 
     # rough flops: embedding gathers + MLP/attention matmuls (dense dims)
     flops = _recsys_flops(cfg, b)
@@ -462,26 +479,40 @@ def build_recsys_cell(arch_id, shape_name, mesh, *, reduced=False,
         opt_cfg = AdamWConfig()
 
         def train_step(params, opt_state, batch):
-            loss, grads = value_and_grad(rs.bce_loss, params, batch, cfg)
+            rk = ranks()
+            if rk is None:
+                loss, grads = value_and_grad(rs.bce_loss, params, batch, cfg)
+            else:
+                loss, grads = grads_ranks(rs.bce_loss, params, batch, cfg,
+                                          rk)
             adamw_update_(grads, opt_state, params, opt_cfg)
             return params, opt_state, loss
 
         return Cell(arch_id, shape_name, train_step,
                     (params_sds, opt_sds, batch_sds), kind, 3 * flops,
-                    donate=(0, 1))
+                    donate=(0, 1), cfg=cfg, ranks=ranks)
 
     if kind == "serve":
         @torch.no_grad()
         def serve_step(params, batch):
-            return rs.recsys_forward(params, batch, cfg)
+            rk = ranks()
+            if rk is None:
+                return rs.recsys_forward(params, batch, cfg)
+            logits = rs.recsys_forward(tree_map(to_local, params),
+                                       tree_map(to_local, batch), cfg, rk)
+            return as_placed(logits, mesh, placements(
+                mesh, (_axes_or_none(b_axes),)), (b,))
 
         return Cell(arch_id, shape_name, serve_step,
-                    (params_sds, batch_sds), kind, flops)
+                    (params_sds, batch_sds), kind, flops, cfg=cfg,
+                    ranks=ranks)
 
     # retrieval: 1 query batch x n_candidates, fused top-k. On one rank the
     # sharded_topk variants (a per-shard top-k then a merge, or shard-local
-    # candidate pools) select what the global top-k does
+    # candidate pools) select what the global top-k does; across ranks see
+    # _retrieval_ranks
     nc = shape["n_candidates"]
+    k_top = min(100, nc)
     grid = tuple(a for a in ("model", "data") if a in mesh.mesh_dim_names)
     grid_n = math.prod(_mesh_sizes(mesh)[a] for a in grid)
     sharded_topk = (overrides or {}).get("sharded_topk", False)
@@ -493,13 +524,66 @@ def build_recsys_cell(arch_id, shape_name, mesh, *, reduced=False,
 
     @torch.no_grad()
     def retrieval_step(params, batch, candidate_ids):
-        u = rs.user_vector(params, batch, cfg)
-        rows = rs.candidate_rows(params, cfg, candidate_ids)
-        return topk_scores(u, rows, k=min(100, rows.shape[0]))
+        rk = ranks()
+        if rk is None:
+            u = rs.user_vector(params, batch, cfg)
+            rows = rs.candidate_rows(params, cfg, candidate_ids)
+            return topk_scores(u, rows, k=min(100, rows.shape[0]))
+        top = _retrieval_ranks(
+            tree_map(to_local, params), tree_map(to_local, batch),
+            to_local(candidate_ids), cfg, rk, k_top, sharded_topk == "local")
+        return tuple(as_placed(t, mesh, placements(mesh, ())) for t in top)
 
     d = rs.item_matrix_dim(cfg)
     return Cell(arch_id, shape_name, retrieval_step,
-                (params_sds, batch_sds, cand), kind, 2.0 * b * nc * d)
+                (params_sds, batch_sds, cand), kind, 2.0 * b * nc * d,
+                cfg=cfg, ranks=ranks)
+
+
+def _retrieval_ranks(params, batch, cand, cfg, ranks, k_top: int,
+                     local: bool):
+    """The retrieval step on this rank's shards: (scores, ids) of the
+    top ``k_top``, whole on every rank.
+
+    The batch is the cell's one query, on every rank. ``local``
+    (``sharded_topk="local"``, the reference's shard-local pools): the
+    rank's candidates are grid chunk s, and it scores its own table rows
+    ``cand % rows`` (rows: the chunk's row count), its ids offset by s
+    times the chunk's length, then the chunks' lists are merged over the
+    grid. Otherwise (``False`` and ``True``: the reference's global
+    top-k) the candidates lie over ``model``, their rows come through the
+    row-sharded lookup, the ids are offset by the shard's start and the
+    lists are merged over ``model``. Each rank's list is the dense top-k
+    kernel's (``topk_scores``: ties to the lowest id), and the merge is a
+    stable sort of the lists in chunk order, so a tie goes to the lowest
+    global position."""
+    u = rs.user_vector(params, batch, cfg, ranks)
+    rows = retrieval_rows(params, cand, cfg, ranks, local)
+    if local:
+        axes, start = ranks.grid, ranks.s * cand.shape[0]
+    else:
+        axes = ranks.axes(("model",))
+        start = (coll.flat_axis_index(ranks.mesh, axes) * cand.shape[0]
+                 if axes else 0)
+    s, i = topk_scores(u, rows, k=min(k_top, rows.shape[0]))
+    i = i + start
+    if axes:
+        s = coll.all_gather(s, ranks.mesh, axes, dim=1)
+        i = coll.all_gather(i, ranks.mesh, axes, dim=1)
+    order = torch.sort(s, dim=1, descending=True, stable=True).indices
+    order = order[:, :k_top]
+    return s.gather(1, order), i.gather(1, order)
+
+
+def retrieval_rows(params, cand, cfg, ranks, local: bool):
+    """The item rows this rank's retrieval step scores, from its local
+    ``params`` and candidate chunk ``cand``: its own table rows
+    ``cand % rows`` for ``local``, else the rows of its candidates through
+    the row-sharded lookup."""
+    if local:
+        items = rs.item_matrix(params, cfg)
+        return items[cand.long() % items.shape[0]]
+    return rs.candidate_rows(params, cfg, cand, ranks)
 
 
 def _recsys_flops(cfg, b):
@@ -574,7 +658,6 @@ def mace_flops(cfg, n_edges, n_nodes):
 
 def build_gnn_cell(arch_id, shape_name, mesh, *, reduced=False,
                    overrides=None) -> Cell:
-    _one_rank(mesh, "a GNN cell")
     spec = get_arch(arch_id)
     cfg = spec.make_reduced() if reduced else spec.make_config()
     shape = dict(spec.shapes[shape_name])
@@ -620,17 +703,23 @@ def build_gnn_cell(arch_id, shape_name, mesh, *, reduced=False,
     opt_sds = _opt_specs(mesh, params_sds, rep_shard)
     opt_cfg = AdamWConfig()
     loss_fn = mc.mace_node_loss if node_loss else mc.mace_loss
+    ranks = _LazyRanks(mesh, GridRanks)
 
     def train_step(params, opt_state, batch):
         batch = dict(batch, n_graphs=n_graphs)
-        loss, grads = value_and_grad(loss_fn, params, batch, cfg)
+        rk = ranks()
+        if rk is None:
+            loss, grads = value_and_grad(loss_fn, params, batch, cfg)
+        else:
+            loss, grads = grads_ranks(loss_fn, params, batch, cfg, rk)
         adamw_update_(grads, opt_state, params, opt_cfg)
         return params, opt_state, loss
 
     mult = 3.0 if node_loss else 7.0   # fwd+bwd (+force second-order)
     return Cell(arch_id, shape_name, train_step,
                 (params_sds, opt_sds, batch_sds), "train",
-                mult * mace_flops(cfg, n_edges, n_nodes), donate=(0, 1))
+                mult * mace_flops(cfg, n_edges, n_nodes), donate=(0, 1),
+                cfg=cfg, ranks=ranks)
 
 
 # ---------------------------------------------------------------------------

@@ -7,19 +7,21 @@ allocated.
       --shape train_batch
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out /tmp/dryrun
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh single \
-      --layers 2       # every LM cell at 2 layers: a quick check
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --layers 2
+      # every LM cell at 2 layers: a quick check
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh host
 
-Each cell is ``launch/cells.build_cell``'s, on ``--mesh``: ``host`` (the
-default) is the 1-rank mesh (a gloo group on the CPU, which no step
-touches); ``single`` (16 x 16, 256 ranks), ``multi`` (2 x 16 x 16, 512) and
-``both`` are the reference's production layouts, built on a fake process
-group (``launch/mesh.fake_world``: this process is rank 0, collectives
-move nothing), where each argument is rank 0's shard of its spec (a
+Each cell is ``launch/cells.build_cell``'s, on ``--mesh``: ``single`` (the
+default: 16 x 16, 256 ranks), ``multi`` (2 x 16 x 16, 512) and ``both`` are
+the reference's production layouts, built on a fake process group
+(``launch/mesh.fake_world``: this process is rank 0, collectives move
+nothing), where each argument is rank 0's shard of its spec (a
 ``DTensor`` over a fake local tensor) and the step runs rank 0's part of
-the model. The recsys and GNN cells raise there (across ranks they are
-ROADMAP.md queue 1 item 15(d)(ii)) and are recorded as failed, as the
-reference records a cell that does not compile. The step runs under ``FakeTensorMode`` (each
+the model: the LM's Megatron and ZeRO shards, the recsys tables' rows and
+MACE's nodes and edges over the grid. ``host`` is the 1-rank mesh (a
+gloo group on the CPU, which no step touches). A cell that raises is
+recorded as failed, as the reference records a cell that does not
+compile. The step runs under ``FakeTensorMode`` (each
 argument an empty tensor of its spec's shape and dtype) and
 ``torch.utils.flop_counter.FlopCounterMode``: the flops are what the
 step's matmuls, convolutions and attention calls do (elementwise work is
@@ -164,10 +166,12 @@ def main(argv=None) -> int:
     p.add_argument("--arch", default=None, choices=list_archs())
     p.add_argument("--shape", default=None)
     p.add_argument("--all", action="store_true")
-    p.add_argument("--mesh", default="host",
+    p.add_argument("--mesh", default="single",
                    choices=["host", "single", "multi", "both"],
-                   help="host: the 1-rank mesh (the default); single, multi "
-                        "and both: 256 and 512 fake ranks")
+                   help="single (the default), multi and both: the "
+                        "production layouts on 256 and 512 fake ranks, "
+                        "every cell run as rank 0 on its shards; host: "
+                        "the 1-rank mesh")
     p.add_argument("--out", default=None, help="write JSON results here")
     p.add_argument("--layers", type=int, default=None,
                    help="cut every LM config to this many layers (a quick "
@@ -211,8 +215,7 @@ def main(argv=None) -> int:
                                layers=args.layers)
             except Exception as e:
                 failures += 1
-                if not isinstance(e, NotImplementedError):
-                    traceback.print_exc()
+                traceback.print_exc()
                 res = {"arch": arch_id, "shape": shape_name, "ok": False,
                        "mesh": mesh_name, "error": repr(e)[:500]}
             res["mesh"] = mesh_name

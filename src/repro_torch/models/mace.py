@@ -19,10 +19,22 @@ correlation_order=3, n_rbf=8.
   through each layer's non-reentrant checkpoint (the reference's
   ``jax.checkpoint``).
 
-``act_grid_axes`` is accepted and changes no value: on one rank there is
-nothing to place (the reference's ``with_sharding_constraint``s; placing
-node and edge tensors across ranks is ROADMAP.md queue 1 item 15(d)(ii),
-after the LM cells across ranks, 15(d)(i)).
+Across ranks (``ranks=``, a ``distributed/sharding.GridRanks``): nodes
+and edges lie over the grid (``data`` and ``model``), node chunk s and
+edge chunk s on one rank (``launch/cells.build_gnn_cell`` pads both
+counts to the grid). ``src`` and ``dst`` are global node ids. The
+positions are gathered once for the edge geometry; each layer gathers the
+node state over the grid, computes the messages of the rank's own edges,
+sums them into a buffer of every node and reduce-scatters it back to the
+node chunks; the correlation products, the channel mixes and the readout
+stay on the rank's nodes. The per-graph energy is a sum of the ranks'
+partial sums, and a loss is the rank's share (the shares sum to the
+loss). The collectives are autograd functions whose backwards are
+collectives too, so the forces keep their graph across ranks. Under a
+layer's checkpoint its collectives run again in the backward, in the same
+order on every rank. ``act_grid_axes`` names the grid the cell places
+nodes and edges over; the split itself comes from ``ranks``, and on one
+rank nothing is placed (the reference's ``with_sharding_constraint``s).
 """
 from __future__ import annotations
 
@@ -52,8 +64,8 @@ class MACEConfig:
     dtype: Any = torch.float32
     remat: bool = True             # checkpoint each interaction layer:
     # per-edge message tensors at 61.9M edges x 128ch are the memory wall
-    act_grid_axes: Any = None      # mesh axes of edge/node tensors (unused
-    # on one rank)
+    act_grid_axes: Any = None      # mesh axes the cell places edge/node
+    # tensors over (the model reads its split from ranks=)
     # fuse the 3 per-l3 scatters into one, and carry messages in msg_dtype
     fused_scatter: bool = False
     msg_dtype: Any = None          # e.g. torch.bfloat16
@@ -148,11 +160,32 @@ def _segment_sum(x, ids, n):
                                                    accumulate=True)
 
 
-def _layer(lp, h, src, dst, rbf, ylm, emask, cfg):
-    n, C = h[0].shape[0], cfg.channels
+def _node_flat(d: dict) -> torch.Tensor:
+    """{l: (N, C, 2l+1)} as one (N, C * (l_max + 1)^2) tensor."""
+    return torch.cat([d[l].reshape(d[l].shape[0], -1) for l in sorted(d)],
+                     -1)
+
+
+def _node_split(flat: torch.Tensor, like: dict) -> dict:
+    """:func:`_node_flat`'s inverse, the l pieces shaped as ``like``'s."""
+    out, off = {}, 0
+    for l in sorted(like):
+        width = like[l][0].numel()
+        out[l] = flat[:, off:off + width].reshape(
+            (flat.shape[0],) + tuple(like[l].shape[1:]))
+        off += width
+    return out
+
+
+def _layer(lp, h, src, dst, rbf, ylm, emask, cfg, ranks=None):
+    C = cfg.channels
     e = src.shape[0]
     dt = h[0].dtype
     paths = _paths(cfg)
+    # across ranks: the node state of every node, in one gather
+    across = ranks is not None and ranks.g > 1
+    h_all = _node_split(ranks.gather(_node_flat(h)), h) if across else h
+    n = h_all[0].shape[0]
     rad = F.silu(rbf @ lp["rad_w1"]) @ lp["rad_w2"]        # (E, n_paths*C)
     rad = rad.reshape(-1, len(paths), C) * emask[:, None, None]
 
@@ -160,23 +193,26 @@ def _layer(lp, h, src, dst, rbf, ylm, emask, cfg):
     # message summed per edge first, then one scatter per l3
     msg = {l: torch.zeros((e, C, 2 * l + 1), dtype=dt, device=h[0].device)
            for l in range(cfg.l_max + 1)}
-    gathered = {l: h[l][src] for l in range(cfg.l_max + 1)}
+    gathered = {l: h_all[l][src] for l in range(cfg.l_max + 1)}
     for pi, (l1, l2, l3) in enumerate(paths):
         m = _cg_product_edge(gathered[l1], ylm[l2], l1, l2, l3)
         msg[l3] = msg[l3] + m * rad[:, pi, :, None]
     mdt = cfg.msg_dtype or dt
+    # across ranks the sums of every node, reduce-scattered back to the
+    # rank's nodes in one collective (in msg_dtype, as they were summed)
     if cfg.fused_scatter:
         flat = torch.cat([msg[l].reshape(e, -1)
                           for l in range(cfg.l_max + 1)], -1).to(mdt)
-        agg = _segment_sum(flat, dst, n).to(dt)
-        a, off = {}, 0
-        for l in range(cfg.l_max + 1):
-            width = C * (2 * l + 1)
-            a[l] = agg[:, off:off + width].reshape(n, C, 2 * l + 1)
-            off += width
+        agg = _segment_sum(flat, dst, n)
+        if across:
+            agg = ranks.scatter(agg)
+        a = _node_split(agg.to(dt), h)
     else:
-        a = {l: _segment_sum(msg[l].to(mdt), dst, n).to(dt)
+        a = {l: _segment_sum(msg[l].to(mdt), dst, n)
              for l in range(cfg.l_max + 1)}
+        if across:
+            a = _node_split(ranks.scatter(_node_flat(a)), h)
+        a = {l: x.to(dt) for l, x in a.items()}
 
     # higher-order products (correlation 3): B2 = AxA, B3 = B2xA
     b2 = {l: torch.zeros_like(a[l]) for l in a}
@@ -200,10 +236,27 @@ def _layer(lp, h, src, dst, rbf, ylm, emask, cfg):
     return new_h
 
 
-def mace_forward(params, batch, cfg: MACEConfig, return_nodes: bool = False):
+def mace_forward(params, batch, cfg: MACEConfig, return_nodes: bool = False,
+                 ranks=None):
     """batch: positions (N,3), node_feats (N,d_feat), edge_src/dst (E,),
     edge_mask (E,), graph_ids (N,), n_graphs int.
-    Returns per-graph energies (G,) (or per-node readouts)."""
+    Returns per-graph energies (G,) (or per-node readouts). Under
+    ``ranks``: the batch's node and edge chunks of this rank; the
+    energies summed over the grid, the readouts of the rank's nodes."""
+    if return_nodes:
+        return _node_energies(params, batch, cfg, ranks)
+    e = _graph_energies(params, batch, cfg, ranks)
+    return e if ranks is None else ranks.sum(e)
+
+
+def _graph_energies(params, batch, cfg: MACEConfig, ranks=None):
+    """The per-graph sums of the batch's (this rank's) node energies."""
+    return _segment_sum(_node_energies(params, batch, cfg, ranks),
+                        batch["graph_ids"].long(), batch["n_graphs"])
+
+
+def _node_energies(params, batch, cfg: MACEConfig, ranks=None):
+    """The per-node energies of the batch's (this rank's) nodes."""
     pos = batch["positions"]
     src = batch["edge_src"].long()
     dst = batch["edge_dst"].long()
@@ -211,8 +264,9 @@ def mace_forward(params, batch, cfg: MACEConfig, return_nodes: bool = False):
     n = pos.shape[0]
     C = cfg.channels
 
-    # edge geometry
-    rvec = pos[src] - pos[dst]                                  # (E,3)
+    # edge geometry, from every node's position across ranks
+    pos_all = pos if ranks is None else ranks.gather(pos)
+    rvec = pos_all[src] - pos_all[dst]                          # (E,3)
     r = torch.sqrt(torch.sum(rvec * rvec, -1) + 1e-12)
     rhat = rvec / r[..., None]
     ylm = so3.spherical_harmonics(rhat, torch)                  # {l: (E,2l+1)}
@@ -228,46 +282,63 @@ def mace_forward(params, batch, cfg: MACEConfig, return_nodes: bool = False):
     for lp in params["layers_list"]:
         if remat:
             h = checkpoint(_layer, lp, h, src, dst, rbf, ylm, emask, cfg,
-                           use_reentrant=False)
+                           ranks, use_reentrant=False)
         else:
-            h = _layer(lp, h, src, dst, rbf, ylm, emask, cfg)
+            h = _layer(lp, h, src, dst, rbf, ylm, emask, cfg, ranks)
 
-    # invariant readout -> per-node energy -> per-graph sum
-    e_node = (F.silu(h[0][:, :, 0] @ params["readout_w1"])
-              @ params["readout_w2"])[:, 0]
-    if return_nodes:
-        return e_node
-    return _segment_sum(e_node, batch["graph_ids"].long(), batch["n_graphs"])
+    # invariant readout -> per-node energy
+    return (F.silu(h[0][:, :, 0] @ params["readout_w1"])
+            @ params["readout_w2"])[:, 0]
 
 
-def mace_energy_forces(params, batch, cfg: MACEConfig):
+def mace_energy_forces(params, batch, cfg: MACEConfig, ranks=None):
     """Per-graph energies and forces -dE/dpositions. Under grad mode the
     forces stay in the graph, so a loss of them has parameter gradients
-    (second order); otherwise both come back detached."""
+    (second order); otherwise both come back detached. Under ``ranks``:
+    the energies whole, the forces of the rank's nodes (each rank
+    differentiates its partial sum of the energies; the backward's
+    collectives add the ranks' parts)."""
     create = torch.is_grad_enabled()
     with torch.enable_grad():
         pos = batch["positions"].detach().requires_grad_()
-        e = mace_forward(params, {**batch, "positions": pos}, cfg)
+        e = _graph_energies(params, {**batch, "positions": pos}, cfg,
+                            ranks)
         (g,) = torch.autograd.grad(e.sum(), pos, create_graph=create)
+        if ranks is not None:
+            e = ranks.sum(e)
     if not create:
         e = e.detach()
     return e, -g
 
 
-def mace_loss(params, batch, cfg: MACEConfig, force_weight: float = 10.0):
-    e, f = mace_energy_forces(params, batch, cfg)
+def mace_loss(params, batch, cfg: MACEConfig, force_weight: float = 10.0,
+              ranks=None):
+    """Energy MSE plus ``force_weight`` times the force MSE; under
+    ``ranks`` this rank's share: the energy term (whole on every rank)
+    over ``n_all``, its nodes' force errors over the node count and the
+    ``copies`` of each chunk."""
+    e, f = mace_energy_forces(params, batch, cfg, ranks)
     le = torch.mean((e - batch["energy_target"]) ** 2)
-    lf = torch.mean(torch.sum((f - batch["force_target"]) ** 2, -1))
-    return le + force_weight * lf
+    if ranks is None:
+        lf = torch.mean(torch.sum((f - batch["force_target"]) ** 2, -1))
+        return le + force_weight * lf
+    lf = torch.sum((f - batch["force_target"]) ** 2) / (f.shape[0] * ranks.g)
+    return le / ranks.n_all + force_weight * lf / ranks.copies
 
 
-def mace_node_loss(params, batch, cfg: MACEConfig):
+def mace_node_loss(params, batch, cfg: MACEConfig, ranks=None):
     """Sampled-training objective (minibatch_lg): per-node invariant
-    prediction, MSE over the labelled batch nodes only."""
-    preds = mace_forward(params, batch, cfg, return_nodes=True)
+    prediction, MSE over the labelled batch nodes only; under ``ranks``
+    this rank's share (its nodes' errors over the grid's labelled count
+    and the ``copies`` of each chunk)."""
+    preds = mace_forward(params, batch, cfg, return_nodes=True, ranks=ranks)
     mask = batch["node_mask"].to(preds.dtype)
     err = (preds - batch["node_target"]) ** 2 * mask
-    return torch.sum(err) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask)
+    if ranks is not None:
+        count = ranks.sum(count)
+    loss = torch.sum(err) / torch.clamp(count, min=1.0)
+    return loss if ranks is None else loss / ranks.copies
 
 
 # ---------------------------------------------------------------------------

@@ -15,16 +15,34 @@ NaN written where the id was out of range, with no read back to the host.
 The ``retrieval_cand`` shape (1 query x 1M candidates) is served by the
 cells' retrieval step: the user vector against the gathered candidate
 rows through the dense top-k kernel (``kernels/topk_scoring``).
+
+Across ranks (``ranks=``, a :class:`Ranks`): every ``table`` leaf's rows
+lie over the grid (``data`` and ``model``), each rank holding the chunk
+``sharding.local_slices`` gives it, and everything else is replicated.
+The single-hot lookups the models make are then masked partial lookups
+summed over the grid: the ids are gathered over the grid axes that split
+them, each rank reads the rows it holds and writes zeros elsewhere, and
+one reduce-scatter over those axes and one all-reduce over the others
+give each rank its rows (their shapes do not depend on the data, so a
+dry run traces them, and nothing is read back to the host). ``jnp.take``'s
+result holds on the global padded row count: an id in [-R, 0) wraps, and
+NaN is written after the sum where the global id is out of range. A
+loss under ``ranks`` is the rank's share (the shares sum to the loss).
+``embedding_bag`` and ``masked_bag`` stay one-rank functions: no cell
+reaches them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Sequence
 
 import torch
 
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import GridRanks
 from repro_torch.models.transformer import _dense_init
 
 # Criteo cardinalities: Kaggle display-advertising (AutoInt/DCN-family) and
@@ -78,6 +96,61 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     valid = (idx >= 0) & (idx < n)
     rows = table[idx.clamp(0, max(n - 1, 0))]
     return torch.where(valid[..., None], rows, torch.nan)
+
+
+class Ranks(GridRanks):
+    """What one rank of ``mesh`` holds and runs of a recsys model whose
+    tables are row-sharded over the grid: built by
+    ``launch/cells.build_recsys_cell``, passed as ``ranks=``. ``batch``
+    are the mesh axes the batch's rows lie over (those of size 1 left
+    out)."""
+
+    def __init__(self, mesh, batch_axes=()):
+        super().__init__(mesh)
+        self.batch = tuple(a for a in batch_axes if self.sizes[a] > 1)
+
+    def lookup(self, pairs, split=None) -> list:
+        """``embedding_lookup`` of each (local table, ids) pair, the
+        tables row-sharded over the grid and the ids' leading dim split
+        over the grid axes ``split`` (the batch's by default): the ids
+        gathered over ``split``, each rank's partial rows (zeros where it
+        does not hold the row), one reduce-scatter over ``split`` and one
+        all-reduce over the rest of the grid for all pairs together, then
+        NaN where the global id is out of range. The gradient of each
+        table stays on its shard."""
+        split = self.axes(self.batch if split is None else split)
+        rest = tuple(a for a in self.grid if a not in split)
+        parts, valid = [], []
+        for table, ids in pairs:
+            n_l = table.shape[0]
+            rows = n_l * self.g
+            ids = ids.long()
+            idx = torch.where(ids < 0, ids + rows, ids)
+            valid.append((idx >= 0) & (idx < rows))
+            if split:
+                idx = coll.all_gather(idx, self.mesh, split)
+            loc = idx - self.s * n_l
+            own = (loc >= 0) & (loc < n_l)
+            got = table[loc.clamp(0, max(n_l - 1, 0))]
+            got = torch.where(own[..., None], got, 0.0)
+            parts.append(got.reshape(got.shape[0], -1))
+        flat = self.sum(self.scatter(torch.cat(parts, 1), split), rest)
+        out, off = [], 0
+        for (table, ids), ok in zip(pairs, valid):
+            width = math.prod(ids.shape[1:]) * table.shape[1]
+            piece = flat[:, off:off + width].reshape(*ids.shape,
+                                                     table.shape[1])
+            off += width
+            out.append(torch.where(ok[..., None], piece, torch.nan))
+        return out
+
+
+def _lookups(pairs, ranks: Optional[Ranks] = None, split=None) -> list:
+    """Single-hot lookups of (table, ids) pairs: one rank's
+    ``embedding_lookup`` each, or :meth:`Ranks.lookup` under ``ranks``."""
+    if ranks is None:
+        return [embedding_lookup(t, i) for t, i in pairs]
+    return ranks.lookup(pairs, split)
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
@@ -147,11 +220,12 @@ def _field_tables(key, cfg: RecsysConfig, dim: int, cards, device) -> dict:
             for i, v in enumerate(cards)}
 
 
-def field_embeddings(tables: dict, sparse_ids: torch.Tensor) -> torch.Tensor:
+def field_embeddings(tables: dict, sparse_ids: torch.Tensor,
+                     ranks: Optional[Ranks] = None) -> torch.Tensor:
     """(B, n_fields) ids -> (B, n_fields, D), one table per field."""
-    cols = [embedding_lookup(tables[f"table_{i}"], sparse_ids[:, i])
-            for i in range(sparse_ids.shape[1])]
-    return torch.stack(cols, dim=1)
+    return torch.stack(_lookups(
+        [(tables[f"table_{i}"], sparse_ids[:, i])
+         for i in range(sparse_ids.shape[1])], ranks), dim=1)
 
 
 def _zeros(n, cfg, device):
@@ -199,9 +273,9 @@ def init_dlrm(key, cfg: RecsysConfig, device="cuda"):
     }
 
 
-def dlrm_forward(params, batch, cfg: RecsysConfig):
+def dlrm_forward(params, batch, cfg: RecsysConfig, ranks=None):
     dense = _mlp_apply(params["bot"], batch["dense"], final_act=True)  # (B,D)
-    emb = field_embeddings(params["tables"], batch["sparse"])          # (B,F,D)
+    emb = field_embeddings(params["tables"], batch["sparse"], ranks)   # (B,F,D)
     feats = torch.cat([dense[:, None, :], emb], dim=1)                 # (B,F+1,D)
     inter = torch.einsum("bfd,bgd->bfg", feats, feats)
     f = feats.shape[1]
@@ -232,8 +306,8 @@ def init_dcn_v2(key, cfg: RecsysConfig, device="cuda"):
             "head": _head_init(kk, d0 + cfg.mlp_dims[-1], cfg, device)}
 
 
-def dcn_v2_forward(params, batch, cfg: RecsysConfig):
-    emb = field_embeddings(params["tables"], batch["sparse"])
+def dcn_v2_forward(params, batch, cfg: RecsysConfig, ranks=None):
+    emb = field_embeddings(params["tables"], batch["sparse"], ranks)
     x0 = torch.cat([batch["dense"], emb.reshape(emb.shape[0], -1)], -1)
     x = x0
     for lyr in params["cross"]:                  # x_{l+1} = x0 * (W x_l + b) + x_l
@@ -273,8 +347,8 @@ def init_autoint(key, cfg: RecsysConfig, device="cuda"):
             "head": _head_init(k3, cfg.n_sparse * in_d, cfg, device)}
 
 
-def autoint_forward(params, batch, cfg: RecsysConfig):
-    x = field_embeddings(params["tables"], batch["sparse"])  # (B,F,D)
+def autoint_forward(params, batch, cfg: RecsysConfig, ranks=None):
+    x = field_embeddings(params["tables"], batch["sparse"], ranks)  # (B,F,D)
     h, da = cfg.n_heads, cfg.d_attn
     for lyr in params["attn"]:
         b, f, _ = x.shape
@@ -333,13 +407,14 @@ def init_dien(key, cfg: RecsysConfig, device="cuda"):
     }
 
 
-def dien_forward(params, batch, cfg: RecsysConfig):
-    it = embedding_lookup(params["item_table"], batch["hist_items"])   # (B,T,d)
-    ct = embedding_lookup(params["cat_table"], batch["hist_cats"])
+def dien_forward(params, batch, cfg: RecsysConfig, ranks=None):
+    it, ct, ti, tc = _lookups(                                         # (B,T,d)
+        [(params["item_table"], batch["hist_items"]),
+         (params["cat_table"], batch["hist_cats"]),
+         (params["item_table"], batch["target_item"]),
+         (params["cat_table"], batch["target_cat"])], ranks)
     seq = torch.cat([it, ct], -1)                                      # (B,T,2d)
-    tgt = torch.cat([
-        embedding_lookup(params["item_table"], batch["target_item"]),
-        embedding_lookup(params["cat_table"], batch["target_cat"])], -1)
+    tgt = torch.cat([ti, tc], -1)
     mask = batch["hist_mask"].to(seq.dtype)                            # (B,T)
     b, t, _ = seq.shape
     keep = mask[:, :, None] > 0
@@ -388,34 +463,45 @@ def init_recsys(key, cfg: RecsysConfig, device="cuda"):
     return ARCHS[cfg.arch][0](key, cfg, device)
 
 
-def recsys_forward(params, batch, cfg: RecsysConfig):
-    return ARCHS[cfg.arch][1](params, batch, cfg)
+def recsys_forward(params, batch, cfg: RecsysConfig,
+                   ranks: Optional[Ranks] = None):
+    """The logits of the batch's rows (under ``ranks``: of this rank's
+    rows, from its shards)."""
+    return ARCHS[cfg.arch][1](params, batch, cfg, ranks)
 
 
-def bce_loss(params, batch, cfg: RecsysConfig):
-    logit = recsys_forward(params, batch, cfg).to(torch.float32)
+def bce_loss(params, batch, cfg: RecsysConfig,
+             ranks: Optional[Ranks] = None):
+    """The mean binary cross-entropy of the logits; under ``ranks`` this
+    rank's share of it: its rows' mean over the ``n_all`` ranks (each
+    batch chunk's ranks hold its rows alike, so the shares sum to the
+    mean over the batch)."""
+    logit = recsys_forward(params, batch, cfg, ranks).to(torch.float32)
     y = batch["label"].to(torch.float32)
-    return torch.mean(torch.clamp(logit, min=0) - logit * y
+    loss = torch.mean(torch.clamp(logit, min=0) - logit * y
                       + torch.log1p(torch.exp(-torch.abs(logit))))
+    return loss if ranks is None else loss / ranks.n_all
 
 
-def user_vector(params, batch, cfg: RecsysConfig) -> torch.Tensor:
+def user_vector(params, batch, cfg: RecsysConfig,
+                ranks: Optional[Ranks] = None) -> torch.Tensor:
     """Query-side tower for retrieval_cand scoring (per-arch)."""
     if cfg.arch == "dlrm":
         return _mlp_apply(params["bot"], batch["dense"], final_act=True)
     if cfg.arch == "dien":
-        it = embedding_lookup(params["item_table"], batch["hist_items"])
-        ct = embedding_lookup(params["cat_table"], batch["hist_cats"])
+        it, ct = _lookups([(params["item_table"], batch["hist_items"]),
+                           (params["cat_table"], batch["hist_cats"])], ranks)
         seq = torch.cat([it, ct], -1)
         m = batch["hist_mask"][..., None].to(seq.dtype)
         return (seq * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
     # autoint / dcn_v2: mean of field embeddings
-    emb = field_embeddings(params["tables"], batch["sparse"])
+    emb = field_embeddings(params["tables"], batch["sparse"], ranks)
     return emb.mean(1)
 
 
 def item_matrix(params, cfg: RecsysConfig) -> torch.Tensor:
-    """Candidate-side embedding matrix used for retrieval scoring."""
+    """Candidate-side embedding matrix used for retrieval scoring (of a
+    rank's table shard: its rows of the matrix)."""
     if cfg.arch == "dien":
         t = params["item_table"]
         return torch.cat([t, torch.zeros((t.shape[0], cfg.embed_dim),
@@ -437,8 +523,10 @@ def retrieval_scores(params, batch, cfg: RecsysConfig,
     return u @ candidate_rows(params, cfg, candidate_ids).T
 
 
-def candidate_rows(params, cfg: RecsysConfig,
-                   candidate_ids: torch.Tensor) -> torch.Tensor:
+def candidate_rows(params, cfg: RecsysConfig, candidate_ids: torch.Tensor,
+                   ranks: Optional[Ranks] = None) -> torch.Tensor:
     """The item matrix's rows of ``candidate_ids`` (n_cand, D), as the
-    reference's ``jnp.take`` gives them."""
-    return embedding_lookup(item_matrix(params, cfg), candidate_ids)
+    reference's ``jnp.take`` gives them; under ``ranks``, the rows of this
+    rank's candidates, which lie over ``model``."""
+    return _lookups([(item_matrix(params, cfg), candidate_ids)], ranks,
+                    ("model",))[0]

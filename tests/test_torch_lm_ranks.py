@@ -115,7 +115,7 @@ def train(arch, mb, overrides=None, tag=None):
     tokens = sh.place(ttrain.step_batch(cell, 0, "cpu"), mesh,
                       cell.args[2].placements)
     loss, grads = cells.lm_grads(params, tokens, cell.cfg, mb,
-                                 cells.lm_ranks(cell, mesh))
+                                 cell.ranks())
     keep(f"{tag}/grads", full(grads))
     got[f"{tag}/loss0"] = np.float32(loss)
     got[f"{tag}/norm"] = np.float32(topt.global_norm(grads))

@@ -460,14 +460,26 @@ def test_mace_checkpoints_cross_between_the_packages(tmp_path, writer):
 
 
 def test_cells_on_more_than_one_rank_raise_naming_15d():
-    """A mesh of 256 ranks (its axis names and sizes): the GNN and recsys
-    builders raise before they read anything else, naming item 15(d)(ii);
-    the LM's builds (the LM cells across ranks are ported)."""
+    """A mesh of 256 ranks (its axis names and sizes): the GNN, recsys and
+    LM builders all build. MACE's node and edge arguments lie over the
+    grid (``Shard(0)`` on ``data`` and ``model``) and its parameters are
+    replicated; a recsys table's rows lie over the grid; the steps across
+    ranks are held to the reference in ``tests/test_torch_mace_ranks.py``
+    and ``tests/test_torch_recsys_ranks.py``."""
+    from torch.distributed.tensor import Replicate, Shard
     from repro_torch.launch.dryrun import PRODUCTION
     _, big = PRODUCTION["single"]
-    for arch, shape in (("mace", "molecule"), ("dcn-v2", "train_batch"),
+    grid = (Shard(0), Shard(0))
+    mace = cells.build_cell("mace", "molecule", big)
+    assert mace.kind == "train"
+    for name in ("positions", "edge_src", "graph_ids", "force_target"):
+        assert mace.args[2][name].placements == grid
+    assert mace.args[2]["positions"].shape[0] % 256 == 0
+    assert mace.args[2]["edge_src"].shape[0] % 256 == 0
+    assert all(s.placements == (Replicate(), Replicate())
+               for s in topt.tree_leaves(mace.args[0]))
+    for arch, shape in (("dcn-v2", "train_batch"),
                         ("dlrm-mlperf", "retrieval_cand")):
-        with pytest.raises(NotImplementedError,
-                           match=r"item 15\(d\)\(ii\)"):
-            cells.build_cell(arch, shape, big)
+        cell = cells.build_cell(arch, shape, big)
+        assert cell.args[0]["tables"]["table_0"].placements == grid
     assert cells.build_cell("gemma-2b", "train_4k", big).kind == "train"

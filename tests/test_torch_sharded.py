@@ -560,17 +560,49 @@ cache.flush()
 assert born.frozen_n == 103 and born.config.mesh is mesh
 assert len(set(n_groups[1:])) == 1, n_groups
 
-# the recsys and GNN cells across ranks are item 15(d)(ii): theirs raise on
-# this mesh; the LM's builds (its steps across ranks:
+# the recsys and GNN cells across ranks (held to the reference on 2 x 2
+# and pod meshes by tests/test_torch_recsys_ranks.py and
+# tests/test_torch_mace_ranks.py): on this mesh a DCN-v2 retrieval (the
+# table rows over 'data') and a MACE train step (nodes and edges over
+# 'data') equal one rank's; the LM's builds (its steps across ranks:
 # tests/test_torch_lm_ranks.py)
+from repro_torch.distributed import sharding as sh
 from repro_torch.launch.cells import build_cell
-for arch, shape in (("dcn-v2", "retrieval_cand"), ("mace", "molecule")):
-    try:
-        build_cell(arch, shape, mesh, reduced=True)
-    except NotImplementedError as e:
-        assert "item 15(d)(ii)" in str(e), e
-    else:
-        raise AssertionError(f"a {arch} cell on 2 ranks was built")
+from repro_torch.launch.dryrun import MeshShape
+from repro_torch.launch.train import _batch_like, initial_params, step_batch
+from repro_torch.train.optimizer import adamw_init, tree_leaves, tree_map
+one = MeshShape(("data", "model"), (1, 1))
+
+
+def placed_like(cell, i, tree):
+    return sh.place_tree(tree, mesh, tree_map(lambda s: s.placements,
+                                              cell.args[i]))
+
+
+ret, ret1 = (build_cell("dcn-v2", "retrieval_cand", m, reduced=True)
+             for m in (mesh, one))
+p = initial_params(ret1, 0, "cpu")
+q = _batch_like(ret1.args[1], np.random.default_rng(3), "cpu")
+cand = (torch.arange(ret1.args[2].shape[0]) % 256).to(torch.int32)
+s1, i1 = ret1.fn(p, q, cand)
+s2, i2 = ret.fn(placed_like(ret, 0, p), placed_like(ret, 1, q),
+                sh.place(cand, mesh, ret.args[2].placements))
+assert torch.equal(sh.full_tensor(i2), i1)
+assert torch.allclose(sh.full_tensor(s2), s1, rtol=1e-5, atol=1e-6)
+tr, tr1 = (build_cell("mace", "molecule", m, reduced=True)
+           for m in (mesh, one))
+p = initial_params(tr1, 0, "cpu")
+o = adamw_init(p)
+pp, po = placed_like(tr, 0, p), {
+    "m": placed_like(tr, 0, o["m"]), "v": placed_like(tr, 0, o["v"]),
+    "step": sh.place(o["step"], mesh, tr.args[1]["step"].placements)}
+for step in range(2):
+    b = step_batch(tr1, step, "cpu")
+    p, o, l1 = tr1.fn(p, o, b)
+    pp, po, l2 = tr.fn(pp, po, placed_like(tr, 2, b))
+    assert torch.allclose(l2, l1, rtol=1e-4, atol=1e-5), (l2, l1)
+for a, b in zip(tree_leaves(pp), tree_leaves(p)):
+    assert torch.allclose(sh.full_tensor(a), b, rtol=0, atol=2e-5)
 assert build_cell("gemma-2b", "train_4k", mesh, reduced=True).kind == "train"
 print("TWO-RANK-OK", rank)
 """
@@ -583,8 +615,8 @@ def test_two_ranks_gloo(tmp_path):
     all-reduce's mean, and a streamed live index with appends and
     background compactions set-equal to a single-device one, also across
     tenant evictions that hand its compaction groups to the next build;
-    a recsys and a GNN cell on the two ranks raise, naming item 15(d)(ii),
-    and an LM cell builds."""
+    a DCN-v2 retrieval and two MACE train steps on the two ranks equal
+    one rank's, and an LM cell builds."""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH",

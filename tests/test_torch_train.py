@@ -481,11 +481,24 @@ def test_lm_model_flops_equal_the_references():
 
 @pytest.mark.parametrize("arch", ["dlrm-mlperf", "mace"])
 def test_build_cell_raises_for_the_other_families(mesh, arch):
-    """The recsys and GNN families build on one rank and raise on a mesh
-    of more than one (the production layout's 256 ranks), naming item
-    15(d)."""
+    """The recsys and GNN families build on one rank and on a mesh of more
+    than one (the production layout's 256 ranks): the same parameter
+    shapes; the batch the same for the recsys cell, MACE's node and edge
+    counts padded to a multiple of the grid's 256 ranks; no ranks object
+    on one rank, where the step is the reference's."""
     from repro_torch.launch.dryrun import PRODUCTION
     shape = "train_batch" if arch == "dlrm-mlperf" else "molecule"
-    assert cells.build_cell(arch, shape, mesh, reduced=True).kind == "train"
-    with pytest.raises(NotImplementedError, match=r"item 15\(d\)"):
-        cells.build_cell(arch, shape, PRODUCTION["single"][1], reduced=True)
+    one = cells.build_cell(arch, shape, mesh, reduced=True)
+    big = cells.build_cell(arch, shape, PRODUCTION["single"][1],
+                           reduced=True)
+    assert one.kind == big.kind == "train"
+    assert one.ranks() is None
+    assert [s.shape for s in topt.tree_leaves(one.args[0])] == \
+        [s.shape for s in topt.tree_leaves(big.args[0])]
+    for a, b in zip(topt.tree_leaves(one.args[2]),
+                    topt.tree_leaves(big.args[2])):
+        if arch == "mace" and a is not one.args[2]["energy_target"]:
+            assert b.shape[0] % 256 == 0 and b.shape[0] >= a.shape[0]
+            assert b.shape[1:] == a.shape[1:]
+        else:
+            assert a.shape == b.shape
