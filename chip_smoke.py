@@ -21,7 +21,13 @@ From the root of a checkout, with one card. In order:
    any slot, K 0 and 70, and the sampling run's shape as a block of rows
    from half of N, ``row0``; for the Hamming top-k, W 1, 3, 8 and 12, k = N
    and k > N, all codes equal and few distinct codes, so the threshold
-   distance is one large tie). The gathered kernel's main shape
+   distance is one large tie). The f32 top-k's narrow path (Q at or below
+   ``NARROW_QUERIES``: ``topk_narrow_scores`` then ``topk_narrow_select``)
+   at Q 1, 3, 8, 32 and 64, k up to 1000, k = N and D <= 8, its select
+   held equal to its plain version on each scorer's keys and on chosen
+   keys (ties, -0.0 and +0.0, -inf rows), and its lists equal to the
+   plain version's on integer inputs (exact scores, many ties). The
+   gathered kernel's main shape
    is the ivfflat
    probe of the evaluation path's full corpus (its tf-idf embedding, 5.2e5
    x 2048, indexed as the ivfflat engine does: 64 lists, nprobe 8) for 512
@@ -45,7 +51,11 @@ From the root of a checkout, with one card. In order:
    f32 top-k also at a grid search's shape (256 queries over the rows of
    the evaluation grid's uniform sample) and at the serving tick's (a full
    bucket of 32 queries over a 1,048,576 x 768 tenant at k 16, checked in
-   phase 3 too), the gathered kernel also at
+   phase 3 too; there each narrow kernel's device time, the narrow and
+   128-query paths at Q 1, 8, 32, 64 and 128, the buckets 1-32, and the
+   retrieval shapes 1 x 1,000,000 x 16 at k 100 and 21b's shards of
+   500,000 and 250,000 rows beside matmul + stable sort), the gathered
+   kernel also at
    Table I's probe, the Hamming kernel's three kernels and the flash
    kernel and ``scaled_dot_product_attention`` also by the profiler's
    device time a call; ``topk_merge`` alone on the f32 kernel's partial
@@ -147,8 +157,8 @@ From the root of a checkout, with one card. In order:
     exact plain f32 search over its frozen + pending rows (phase 3's bound,
     ids equal away from near-ties). 15b: ``--single --k 5``, held the same
     way. 15c: ``--recompile-check 64`` with no appends: no build, no launch
-    at a shape the warm-up did not launch, one ``topk_partial`` shape a
-    bucket in the warm-up. 15d: one tenant, 1024 requests with appends, on
+    at a shape the warm-up did not launch, one ``topk_narrow_scores`` shape
+    a bucket in the warm-up. 15d: one tenant, 1024 requests with appends, on
     ``--backend int8``, ``--engine ivfflat`` and ``--engine lsh`` (rerank
     64): each launches its kernel, which is held to its plain version on
     the run's own inputs at every shape the run called its wrapper at; the
@@ -235,7 +245,7 @@ From the root of a checkout, with one card. In order:
     (65,536 rows) step times by CUDA events over ``RECSYS_STEPS`` steps,
     the allocator peak and a profiled step; serve_p99 and serve_bulk
     forward times; retrieval_cand (1 x 1,000,000 candidates of its largest
-    table, k 100) through the kernels, ids equal to the plain path's on
+    table, k 100) through the narrow kernels, ids equal to the plain path's on
     the card away from near-ties, timed against matmul + stable sort;
     then one AutoInt and one DIEN train_batch step at their published
     configs. 19c: MACE at its published config: molecule (128 graphs)
@@ -281,7 +291,7 @@ From the root of a checkout, with one card. In order:
     the whole, the replicated leaves equal on every rank; the allocator
     peak a rank. 21b: its retrieval_cand (1 x 1,000,000 candidates, k 100)
     under ``sharded_topk`` False, True and "local": each rank launches
-    the dense top-k kernel on its candidate shard (counted), holds that
+    the narrow dense top-k kernels on its candidate shard (counted), holds that
     launch's output to the plain path on the same shard, and rank 0 holds
     the merged ids and scores to one rank's step (False, True) or to the
     "local" statement computed on one rank (chunk s scores rows
@@ -394,6 +404,9 @@ LM_RANKS_TIMEOUT = 420          # s, phase 20's four processes together
 RANKS_TRAIN_STEPS = 3           # 21a: DCN-v2 steps, on the mesh and one rank
 RANKS_MACE_STEPS = 2            # 21c: steps of each MACE cell
 RANKS_TIMEOUT = 480             # s, phase 21's four processes together
+# the dense top-k kernels that Q <= NARROW_QUERIES launches (the serving
+# ticks, the retrieval steps)
+NARROW_PAIR = ("topk_narrow_scores", "topk_narrow_select")
 
 
 # phase 14's child: one rank of two in a gloo group on the one card;
@@ -419,7 +432,8 @@ from repro_torch.eval import tfidf_embedder
 from repro_torch.kernels.label_prop.ops import LP_ROUND
 from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK
 from repro_torch.kernels.topk_scoring.ops import (
-    GATHERED_TILES, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_PARTIAL)
+    GATHERED_TILES, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_NARROW_SCORES,
+    TOPK_NARROW_SELECT, TOPK_PARTIAL)
 from repro_torch.obs import recompile
 from repro_torch.retrieval.search_core import SearchConfig, SearchSession
 
@@ -427,7 +441,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 recompile.enable()
 recompile.reset()
 KERNELS = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
-           HAMMING_TOPK, TOPK_MERGE)
+           HAMMING_TOPK, TOPK_MERGE, TOPK_NARROW_SCORES, TOPK_NARROW_SELECT)
 ENGINES = ("exact", "tfidf", "lsh", "ivfflat")
 K = 10
 
@@ -556,7 +570,8 @@ from repro_torch.kernels.flash_attention.ops import FLASH_ATTENTION
 from repro_torch.kernels.label_prop.ops import LP_ROUND
 from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK
 from repro_torch.kernels.topk_scoring.ops import (
-    GATHERED_TILES, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_PARTIAL)
+    GATHERED_TILES, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_NARROW_SCORES,
+    TOPK_NARROW_SELECT, TOPK_PARTIAL)
 from repro_torch.launch import cells
 from repro_torch.launch.dryrun import MeshShape
 from repro_torch.launch.mesh import make_host_mesh
@@ -567,7 +582,8 @@ from repro_torch.train.optimizer import adamw_init, tree_leaves, tree_map
 
 torch.backends.cuda.matmul.allow_tf32 = False
 KERNELS = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
-           HAMMING_TOPK, TOPK_MERGE, FLASH_ATTENTION)
+           HAMMING_TOPK, TOPK_MERGE, FLASH_ATTENTION, TOPK_NARROW_SCORES,
+           TOPK_NARROW_SELECT)
 for kern in KERNELS:
     kern.launches = 0
 mesh = make_host_mesh(model_axis=2, device="cuda")
@@ -1016,6 +1032,98 @@ def compare_topk(qs, cs, s, i, s_ref, i_ref, shape: str):
     if not err.numel():
         return 0.0, 0.0
     return float(err.max()), float((err / tol).max())
+
+
+def tie_inputs(q: int, n: int, d: int, *, seed: int, device, lo: int = -2,
+               hi: int = 3):
+    """Small integers: every score is exact in f32 on every path, with
+    many exact ties (and exact zeros)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randint(lo, hi, (q, d), generator=g).float().to(device),
+            torch.randint(lo, hi, (n, d), generator=g).float().to(device))
+
+
+def check_topk_exact(qs, cs, k: int) -> None:
+    """Kernel vs plain top-k on inputs whose scores are exact: the lists
+    must be equal, scores and ids, ties to the lowest id."""
+    import torch
+    from repro_torch.kernels.topk_scoring.ops import topk_scores
+    from repro_torch.kernels.topk_scoring.ref import topk_scores_ref
+    s, i = topk_scores(qs, cs, k=k)
+    torch.cuda.synchronize()
+    k_eff = min(k, cs.shape[0])
+    s_ref, i_ref = topk_scores_ref(qs, cs, k=k_eff)
+    if not (torch.equal(s[:, :k_eff], s_ref)
+            and torch.equal(i[:, :k_eff], i_ref)):
+        fail(f"topk lists differ on exact (tie) inputs Q={qs.shape[0]} "
+             f"N={cs.shape[0]} D={cs.shape[1]} k={k}")
+
+
+def narrow_tile_max(keys, n: int):
+    """The narrow scorer's tile maxima of order keys (int32 holding
+    uint32): the largest of each NARROW_ROWS-row tile of entries [0, n)."""
+    import torch
+    from repro_torch.kernels.topk_scoring.ops import NARROW_ROWS
+    u = keys[:, :n].long() & 0xFFFFFFFF
+    tiles = -(-n // NARROW_ROWS)
+    pad = torch.zeros(keys.shape[0], tiles * NARROW_ROWS, dtype=torch.long,
+                      device=keys.device)
+    pad[:, :n] = u
+    m = pad.view(keys.shape[0], tiles, NARROW_ROWS).amax(2)
+    return torch.where(m >= 2 ** 31, m - 2 ** 32, m).to(torch.int32)
+
+
+def select_plain(keys, n: int, k: int):
+    """The narrow select's plain version on order keys: the scores they
+    stand for, a stable sort (ties to the lowest id), the first k, -inf
+    with id -1."""
+    import torch
+    from repro_torch.kernels.topk_scoring.ops import key_scores
+    s = key_scores(keys[:, :n])
+    pos = torch.sort(s, dim=1, descending=True, stable=True).indices[:, :k]
+    top = torch.gather(s, 1, pos)
+    return top, torch.where(torch.isneginf(top), -1, pos.to(torch.int32))
+
+
+def check_select(nar, k: int, what: str) -> None:
+    """The narrow select over a scorer's keys (``nar``, its scratch still
+    zeroed) against its plain version on the same keys: equal lists."""
+    import torch
+    from repro_torch.kernels.topk_scoring.ops import narrow_select_cuda
+    keys = nar.view("keys").clone()
+    got = narrow_select_cuda(nar, k)
+    torch.cuda.synchronize()
+    if not torch.equal(nar.view("tile_max"), narrow_tile_max(keys, nar.n)):
+        fail(f"narrow scorer's tile maxima != the keys' ({what})")
+    for a, b in zip(got, select_plain(keys, nar.n, k)):
+        if not torch.equal(a, b):
+            fail(f"narrow select != its plain version on the same keys "
+                 f"({what})")
+
+
+def check_select_keys(q: int, n: int, k: int, *, seed: int, device) -> None:
+    """The narrow select alone on the keys of chosen scores: small integers
+    with -0.0 and +0.0 among the ties, -inf rows and (odd seeds) normal
+    values, through a scorer's buffer whose keys, tile maxima and scratch
+    are overwritten."""
+    import torch
+    from repro_torch.kernels.topk_scoring.ops import (narrow_scores_cuda,
+                                                      score_keys)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    sc = torch.randint(-3, 4, (q, n), generator=g).float()
+    sc[:, ::7] = -0.0
+    sc[:, 1::7] = 0.0
+    sc[:, 2::11] = -torch.inf
+    if seed % 2:
+        sc[:, 3::5] = torch.randn(q, len(range(3, n, 5)), generator=g)
+    nar = narrow_scores_cuda(torch.zeros(q, 4, device=device),
+                             torch.zeros(n, 4, device=device), k)
+    keys = nar.view("keys")
+    keys[:, :n] = score_keys(sc.to(device))
+    nar.view("tile_max").copy_(narrow_tile_max(keys, n))
+    nar.view("scratch").zero_()
+    check_select(nar, k, f"chosen keys Q={q} N={n} k={k}")
 
 
 def merge_plain(part_s, part_i, k: int):
@@ -2168,7 +2276,7 @@ def recsys_full_width(kernels, smi: str) -> dict:
     reset_counts(kernels)
     s, i = cell.fn(params, batch, cand)
     launched = read_counts(kernels, "phase 19b retrieval")
-    for kname in ("topk_partial", "topk_merge"):
+    for kname in NARROW_PAIR:
         if not launched[kname]:
             fail(f"19b: the retrieval step launched no {kname}")
     u = rs.user_vector(params, batch, cfg)
@@ -2689,8 +2797,8 @@ def recsys_gnn_rank(rank: int, store: str, out: str) -> None:
     from repro_torch.kernels.label_prop.ops import LP_ROUND
     from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK
     from repro_torch.kernels.topk_scoring.ops import (
-        GATHERED_TILES, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_PARTIAL,
-        topk_scores)
+        GATHERED_TILES, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_NARROW_SCORES,
+        TOPK_NARROW_SELECT, TOPK_PARTIAL, topk_scores)
     from repro_torch.kernels.topk_scoring.ref import topk_scores_ref
     from repro_torch.launch import cells
     from repro_torch.launch.dryrun import MeshShape
@@ -2701,7 +2809,8 @@ def recsys_gnn_rank(rank: int, store: str, out: str) -> None:
     from repro_torch.train.optimizer import adamw_init, tree_leaves, tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
-               HAMMING_TOPK, TOPK_MERGE, FLASH_ATTENTION)
+               HAMMING_TOPK, TOPK_MERGE, FLASH_ATTENTION, TOPK_NARROW_SCORES,
+               TOPK_NARROW_SELECT)
     mesh = make_host_mesh(model_axis=2, device="cuda")
     one = MeshShape(("data", "model"), (1, 1))
     grid = ("data", "model")
@@ -2885,9 +2994,9 @@ def recsys_gnn_rank(rank: int, store: str, out: str) -> None:
             kern.launches = 0
         (s, i), ms = ranks_timed(lambda: ret.fn(params, pq, pc))
         launched = {kern.name: kern.launches for kern in kernels}
-        check(launched["topk_partial"] >= 1 and launched["topk_merge"] >= 1,
-              f"(b) {name}: the step launched no dense top-k kernel "
-              f"({launched})")
+        check(all(launched[kn] >= 1 for kn in NARROW_PAIR),
+              f"(b) {name}: the step launched no narrow dense top-k "
+              f"kernel pair ({launched})")
         s, i = sh.to_local(s), sh.to_local(i)
         # this rank's shard: the kernel against the plain path on it
         rk = ret.ranks()
@@ -2937,8 +3046,8 @@ def recsys_gnn_rank(rank: int, store: str, out: str) -> None:
                 f"({ratio:.3f} of the summation bound); this rank's shard "
                 f"({rows.shape[0]} rows) kernel vs plain within "
                 f"{shard_err:.3g}; step {ms:.1f} ms (wall, gloo); dense "
-                f"kernel launches here {launched['topk_partial']} partial, "
-                f"{launched['topk_merge']} merge")
+                f"kernel launches here {launched['topk_narrow_scores']} "
+                f"scores, {launched['topk_narrow_select']} select")
         report["retrieval"][name] = res
         del s, i, u, rows, cand, pc
     del params, full
@@ -3141,16 +3250,12 @@ def main() -> None:
     from repro_torch.kernels.lsh_hamming.ops import (HAMMING_TOPK,
                                                      hamming_topk)
     from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
-    from repro_torch.kernels.topk_scoring.ops import (GATHERED_TILES,
-                                                      TILE_PIECES, TILE_ROWS,
-                                                      TOPK_INT8_PARTIAL,
-                                                      TOPK_MERGE,
-                                                      TOPK_PARTIAL,
-                                                      gathered_topk,
-                                                      launch_merge,
-                                                      topk_partials_cuda,
-                                                      topk_scores,
-                                                      topk_scores_int8)
+    from repro_torch.kernels.topk_scoring.ops import (
+        GATHERED_TILES, NARROW_QUERIES, NARROW_ROWS, TILE_PIECES, TILE_ROWS,
+        TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_NARROW_SCORES,
+        TOPK_NARROW_SELECT, TOPK_PARTIAL, gathered_topk, launch_merge,
+        narrow_scores_cuda, narrow_select_cuda, score_keys, topk_narrow_cuda,
+        topk_partials_cuda, topk_scores, topk_scores_cuda, topk_scores_int8)
     from repro_torch.kernels.topk_scoring.ref import (gathered_topk_ref,
                                                       topk_scores_int8_ref,
                                                       topk_scores_ref)
@@ -3165,7 +3270,8 @@ def main() -> None:
     from repro_torch.retrieval.ivfflat import probe_candidates
     from repro_torch.retrieval.lsh import encode
     kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
-               HAMMING_TOPK, TOPK_MERGE, FLASH_ATTENTION)
+               HAMMING_TOPK, TOPK_MERGE, FLASH_ATTENTION, TOPK_NARROW_SCORES,
+               TOPK_NARROW_SELECT)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3272,6 +3378,49 @@ def main() -> None:
                          negative=False, device=dev)
     err, ratio = check_topk(sq, sc, SERVE_KMAX)
     topk_err, topk_ratio = max(topk_err, err), max(topk_ratio, ratio)
+    # the narrow path (Q <= NARROW_QUERIES: the scorer and the radix
+    # select): Q 1, 3, 8, 32 and 64, k up to 1000 and k = N, D <= 8 (f64
+    # sums) and wider, the 1 x 1M retrieval shape; the same magnitudes as
+    # above; exact (tie) inputs, whose lists must equal the plain
+    # version's; the select alone on each scorer's keys and on chosen keys
+    narrow_cases = [(1, 1_000_000, 16, 100), (3, 5000, 37, 1000),
+                    (8, 4097, 3, 4097), (32, 70_000, 64, 16),
+                    (64, 20_000, 128, 1000), (64, 777, 2050, 33),
+                    (1, 300, 24, 300), (3, 9000, 16, 5000),
+                    (33, 20_000, 5, 1000)]
+    narrow_err = 0.0
+    for q, n, d, k in narrow_cases:
+        qs, cs = topk_inputs(q, n, d, seed=q + n + d, negative=q % 2 == 0,
+                             device=dev)
+        err, ratio = check_topk(qs, cs, k)
+        narrow_err = max(narrow_err, err)
+        topk_err, topk_ratio = max(topk_err, err), max(topk_ratio, ratio)
+        check_select(narrow_scores_cuda(qs, cs, min(k, n)), min(k, n),
+                     f"Q={q} N={n} D={d} k={k}")
+    for d in (64, 2048):
+        qs, cs = topk_inputs(33, 1000, d, seed=d, negative=False,
+                             device=dev, wide=True)
+        topk_ratio = max(topk_ratio, check_topk(qs, cs, 10)[1])
+        for tiny in ("queries", "corpus"):
+            qs, cs = topk_inputs(33, 1000, d, seed=d + len(tiny),
+                                 negative=False, device=dev, tiny=tiny)
+            topk_ratio = max(topk_ratio, check_topk(qs, cs, 10)[1])
+    tie_cases = [(1, 1000, 16, 100), (3, 5000, 8, 1000), (32, 4000, 16, 16),
+                 (64, 3000, 24, 3000), (8, 20_000, 1, 100),
+                 (2, 9000, 2, 5000), (64, 129, 2048, 3)]
+    for q, n, d, k in tie_cases:
+        check_topk_exact(*tie_inputs(q, n, d, seed=q * n + d, device=dev), k)
+    key_cases = [(1, 1000, 100), (3, 5000, 1000), (64, 3000, 3000),
+                 (7, 20_000, 16), (1, 100_000, 100), (32, 70_000, 4097)]
+    for i, (q, n, k) in enumerate(key_cases):
+        check_select_keys(q, n, k, seed=i, device=dev)
+    log(f"    narrow path (Q <= {NARROW_QUERIES}): within the summation "
+        f"bound at {len(narrow_cases) + 6} shapes incl. Q=1 N=1000000 D=16 "
+        f"k=100, Q=8 N=4097 D=3 k=N and Q=64 k=1000, the select equal to "
+        f"its plain version on each one's keys; lists equal to the plain "
+        f"version's on {len(tie_cases)} tie inputs; the select alone equal "
+        f"on {len(key_cases)} sets of chosen keys (ties, -0.0 and +0.0, "
+        f"-inf rows)")
     log(f"    topk_scores: within the summation bound at "
         f"{len(topk_cases) + 9} shapes incl. two of magnitudes 2**-20..2**20, "
         f"four with one operand's rows near 2**-120 (D=64, 2048), "
@@ -3530,7 +3679,94 @@ def main() -> None:
         f"bound {sv_bound:.4f} ms ({sv_by}; bytes term "
         f"{sv_terms['memory_ms']:.4f}, operations term "
         f"{sv_terms['compute_ms']:.4f} ms)")
-    del sq, sc
+    # the narrow path at the tick: each kernel's device time a launch (CUDA
+    # events around each launch, Kernel.timed), beside its plain version
+    # and one PyTorch call; the select held equal to its plain version on
+    # the scorer's keys
+    from repro_torch.kernels.build import Kernel
+
+    def narrow_device_ms(qs, cs, k, calls=10):
+        topk_narrow_cuda(qs, cs, k)
+        Kernel.timed = []
+        for _ in range(calls):
+            topk_narrow_cuda(qs, cs, k)
+        torch.cuda.synchronize()
+        timed, Kernel.timed = Kernel.timed, None
+        return tuple(sum(a.elapsed_time(b) for name, a, b in timed
+                         if name == kname) / calls for kname in NARROW_PAIR)
+
+    nsc_ms, nsel_ms = narrow_device_ms(sq, sc, SERVE_KMAX)
+    nar = narrow_scores_cuda(sq, sc, SERVE_KMAX)
+    sv_keys = nar.view("keys").clone()
+    check_select(nar, SERVE_KMAX, "the serving tick")
+    del nar
+    nsc_lib_ms = cuda_ms(lambda: sq @ sc.T, 5)
+    nsc_plain_ms = cuda_ms(lambda: score_keys(sq @ sc.T), 5)
+    sv_scores = sq @ sc.T
+    nsel_plain_ms = cuda_ms(lambda: select_plain(sv_keys, SERVE_DOCS,
+                                                 SERVE_KMAX), 3)
+    nsel_lib_ms = cuda_ms(lambda: torch.topk(sv_scores, SERVE_KMAX, dim=1),
+                          5)
+    del sv_scores
+    sv_tiles = -(-SERVE_DOCS // NARROW_ROWS)
+    key_bytes = sv_n[0] * (SERVE_DOCS + sv_tiles) * 4
+    nsc_bound, nsc_by = bound((sv_n[0] + sv_n[1]) * sv_n[2] * 4 + key_bytes,
+                              sv_ops, H100_TF32_FLOPS)
+    nsel_bound, nsel_by = bound(key_bytes + sv_n[0] * SERVE_KMAX * 8,
+                                sv_n[0] * SERVE_DOCS)
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    log(f"    narrow kernels at the serving tick, device time a launch: "
+        f"topk_narrow_scores {fmt(nsc_ms)} (plain: the keys of the "
+        f"f32 product {nsc_plain_ms:.4f} ms; the product alone "
+        f"{nsc_lib_ms:.4f} ms; bound {nsc_bound:.4f} ms, {nsc_by}), "
+        f"topk_narrow_select {fmt(nsel_ms)} (plain: a stable sort of the "
+        f"keys' scores {nsel_plain_ms:.4f} ms; torch.topk {nsel_lib_ms:.4f} "
+        f"ms; bound {nsel_bound:.4f} ms, {nsel_by}); the select equal to its "
+        f"plain version on the tick's keys")
+    del sv_keys
+    # the cutoff: both paths at Q 1, 8, 32, 64 and 128 over the tick's
+    # corpus (the 128-query path alone above NARROW_QUERIES), and the
+    # buckets 1-32 through topk_scores, each with its bound
+    cq = topk_inputs(128, 1, SERVE_DIM, seed=29, negative=False,
+                     device=dev)[0]
+    cut = []
+    for q in (1, 8, 32, 64, 128):
+        wide_ms = cuda_ms(lambda: topk_scores_cuda(cq[:q], sc, SERVE_KMAX),
+                          10)
+        nar_ms = (cuda_ms(lambda: topk_narrow_cuda(cq[:q], sc, SERVE_KMAX),
+                          10) if q <= NARROW_QUERIES else None)
+        cut.append(f"Q={q} narrow {fmt(nar_ms)}, 128-query {wide_ms:.4f} ms")
+    log(f"    the cutoff at the tick's corpus (k={SERVE_KMAX}): "
+        + "; ".join(cut))
+    tick = []
+    for q in (1, 2, 4, 8, 16, 32):
+        b_ms = cuda_ms(lambda: topk_scores(cq[:q], sc, k=SERVE_KMAX), 20)
+        b_bound = bound((q + SERVE_DOCS) * SERVE_DIM * 4 + q * SERVE_KMAX * 8,
+                        3 * 2.0 * q * SERVE_DOCS * SERVE_DIM,
+                        H100_TF32_FLOPS)[0]
+        tick.append(f"Q={q} {b_ms:.4f} ms (bound {b_bound:.4f})")
+    log(f"    topk_scores at the tick's buckets (N={SERVE_DOCS} "
+        f"D={SERVE_DIM} k={SERVE_KMAX}): " + "; ".join(tick))
+    del sq, sc, cq
+    # the retrieval shapes: one user over 1,000,000 candidate rows of D 16
+    # at k 100 (19b), and the shards phase 21b's ranks take (500,000 rows;
+    # 250,000 for "local"), each beside matmul + stable sort
+    rq, rc = topk_inputs(1, 1_000_000, 16, seed=31, negative=False,
+                         device=dev)
+    for rn in (1_000_000, 500_000, 250_000):
+        rows = rc[:rn]
+        r_ms = cuda_ms(lambda: topk_scores(rq, rows, k=100), 50, 5)
+        r_plain = cuda_ms(lambda: topk_scores_ref(rq, rows, k=100), 5)
+        r_lib = cuda_ms(lambda: torch.sort(rq @ rows.T, dim=1,
+                                           descending=True, stable=True), 20)
+        r_sc, r_sel = narrow_device_ms(rq, rows, 100)
+        r_bound, r_by = bound((1 + rn) * 16 * 4 + 100 * 8,
+                              3 * 2.0 * rn * 16, H100_TF32_FLOPS)
+        log(f"    topk_scores Q=1 N={rn} D=16 k=100: {r_ms:.4f} ms "
+            f"(device time a launch: scores {fmt(r_sc)}, select "
+            f"{fmt(r_sel)}), plain {r_plain:.4f} ms, matmul+stable sort "
+            f"{r_lib:.4f} ms, bound {r_bound:.4f} ms ({r_by})")
+    del rq, rc, rows
     log(f"    topk_scores_int8 Q={qn} N={n_c} D={d} k={k_i}: kernel "
         f"{i8_ms:.4f} ms, plain {i8_plain_ms:.4f} ms, _int_mm+stable sort "
         f"{i8_lib_ms:.4f} ms, bound {i8_bound:.4f} ms ({i8_by})")
@@ -3659,7 +3895,6 @@ def main() -> None:
         a_lib_dev = device_ms(lambda: sdpa(aq.transpose(1, 2),
                                            ak.transpose(1, 2),
                                            av.transpose(1, 2)))
-    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     log(f"    flash_attention at the same shape, profiler device time a "
         f"call: kernel {fmt(a_dev)}, scaled_dot_product_attention "
         f"{fmt(a_lib_dev)}")
@@ -4428,7 +4663,7 @@ def main() -> None:
              f"{row['completed'] + row['rejected']} of {SERVE_REQUESTS}")
     if row["compactions"] < 1:
         fail("15a: no compaction landed (serve.ingest.compactions 0)")
-    need("a", launched, ("topk_partial", "topk_merge"))
+    need("a", launched, NARROW_PAIR)
     # the worker lands its own compaction: joined with no further call of
     # the index, frozen_n, pending_rows, the pending gauge and the
     # compactions counter read the state after it
@@ -4533,7 +4768,7 @@ def main() -> None:
     row, launched, server = run_serve(
         "b", serve_base + ["--engine", "exact", "--backend", "cuda",
                            "--single", "--k", "5"])
-    need("b", launched, ("topk_partial", "topk_merge"))
+    need("b", launched, NARROW_PAIR)
     q1 = np.random.default_rng(1).normal(size=(SERVE_DIM,)).astype(
         np.float32)
     c0 = torch.from_numpy(shared_corpus("tenant-0", docs=SERVE_DOCS,
@@ -4560,10 +4795,10 @@ def main() -> None:
         fail(f"15c: {row['steady_recompiles']} builds and "
              f"{row['steady_new_shapes']} launches at a new shape in "
              f"steady state")
-    if row["warmup_shapes"].get("topk_partial") != len(buckets):
-        fail(f"15c: the warm-up launched topk_partial at "
-             f"{row['warmup_shapes'].get('topk_partial')} shapes, one a "
-             f"bucket is {len(buckets)}")
+    if row["warmup_shapes"].get("topk_narrow_scores") != len(buckets):
+        fail(f"15c: the warm-up launched topk_narrow_scores at "
+             f"{row['warmup_shapes'].get('topk_narrow_scores')} shapes, one "
+             f"a bucket is {len(buckets)}")
     log(f"    15c: {row['steady_ticks']} steady ticks, 0 builds, 0 launches "
         f"at a new shape; warm-up shapes {row['warmup_shapes']} over "
         f"buckets {buckets}")
@@ -4695,12 +4930,12 @@ def main() -> None:
             if dist.is_initialized() else 0
 
     row, launched, unsharded = run_serve("e-single", load_15e)
-    need("e-single", launched, ("topk_partial", "topk_merge"))
+    need("e-single", launched, NARROW_PAIR)
     check_landings("e-single", row)
     g_before = n_groups()
     row, launched, streamed = run_serve(
         "e-streamed", load_15e + ["--streamed", "--mesh", "host"])
-    need("e-streamed", launched, ("topk_partial", "topk_merge"))
+    need("e-streamed", launched, NARROW_PAIR)
     check_landings("e-streamed", row)
     g_after = n_groups()
     live_s = streamed.tenants.get("tenant-0")
@@ -4948,6 +5183,20 @@ def main() -> None:
          "launches": launches("gathered_tiles"),
          "max_abs_err": gath_err, "ms": g_ms, "plain_ms": g_plain_ms,
          "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib_ms},
+        {"name": "topk_narrow_scores", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:23",
+         "launches": launches("topk_narrow_scores"),
+         "max_abs_err": narrow_err, "ms": nsc_ms, "plain_ms": nsc_plain_ms,
+         "bound_ms": nsc_bound, "bound_by": nsc_by,
+         "library_ms": nsc_lib_ms},
+        {"name": "topk_narrow_select", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:23",
+         "launches": launches("topk_narrow_select"),
+         "max_abs_err": 0, "ms": nsel_ms, "plain_ms": nsel_plain_ms,
+         "bound_ms": nsel_bound, "bound_by": nsel_by,
+         "library_ms": nsel_lib_ms},
         {"name": "topk_merge", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_scores.cu",
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:23",

@@ -32,13 +32,21 @@
 // set its time; this one shares each row tile among the queries that probe
 // it.
 //
+// With few queries (a serving tick of 1-32, a retrieval step of 1), the
+// f32 search is bound by the corpus's bytes: at Q 32, N 1,048,576, D 768,
+// 3.2 GB (0.96 ms) against 1.5e11 flops taken three times (0.31 ms at the
+// TF32 rate, about 0.55 ms at the rate mma.sync reaches). A 128-query
+// block would run 96 zero queries through the MMAs there, and a per-split
+// list of k 100 at Q 1 leaves a merge of 13,100 entries to one warp, so
+// Q <= kNQMax takes the narrow kernels below instead.
+//
 // Design (simple first; wgmma/TMA/warp specialisation are later work):
 //  * dense_partial<In, kPieces, kR> (topk_partial, topk_int8_partial):
 //    grid (query tile, candidate split), the query tile fastest, so the
 //    blocks that share a split's rows stream them through L2 together. A
 //    block of 256 threads takes 128 queries (the curve's Q 128 once, a grid
-//    search's chunk of 256 twice) and walks its split's 128-row corpus
-//    tiles. Each row streams in chunks of 128 bytes through a ring of 3
+//    search's chunk of 256 twice; the f32 kernel only above kNQMax
+//    queries) and walks its split's 128-row corpus tiles. Each row streams in chunks of 128 bytes through a ring of 3
 //    shared-memory stages fed by 16-byte cp.async two steps ahead, the ring
 //    running on across tiles (zeros past Q, N and D, so a ragged D adds
 //    nothing to a sum; a row that is not 16-byte aligned is staged a word
@@ -128,6 +136,39 @@
 //  * topk_merge_kernel: one warp per query merges the n_splits*k partials
 //    with the same insertion, so ties still go to the lowest id (position);
 //    for the gathered kernel, each query's row of piece lists.
+//  * narrow_scores<kExact, kQT> (topk_narrow_scores, Q <= kNQMax): the
+//    operands' roles swap, corpus rows on the MMA's M side and the queries,
+//    rounded up to 8 kQT (8, 16, 32 or 64), on its N side, so the products
+//    cost the real queries only. One block of 8 warps an SM walks a run of
+//    256-row tiles (32 rows, two m16 tiles, a warp) through the dense
+//    kernel's ring (4 stages of 128-byte chunks of the tile's rows and of
+//    every query, cp.async, 144-byte rows for ldmatrix). f32: dense_chunk's
+//    3xTF32 products and order, a query fragment split once for both row
+//    tiles and each product issued for all 2 kQT accumulators before the
+//    next; D <= kExactDepth: the dots summed in f64 on the CUDA cores
+//    (exact products, one rounding), since the MMA truncates as it adds
+//    and a sum of so few terms has no room for that. Each score leaves as
+//    its order key (f32_key: larger score, larger unsigned key; -0.0 is
+//    +0.0, -inf the least number), Q N 4 bytes against the corpus's N D 4,
+//    with each tile's largest key.
+//  * narrow_select (topk_narrow_select): one cooperative launch (its blocks
+//    co-resident, so a grid-wide barrier works) of (query, chunk) items, an
+//    exact radix select over the keys, no list kept anywhere: a floor from
+//    the tile maxima (the bin of the k-th largest maximum: k distinct rows
+//    lie at or above it, so the k-th best key does), then a count of the
+//    keys at or above it by their top 11 bits that also gathers them; where
+//    they number no more than kSortK, one block a query sorts them (a
+//    bitonic network in shared memory) and keeps k. Else two more digits
+//    (11 and 10 bits) fix T, the k-th best key; where more keys equal T
+//    than the list has room for, each item counts its ties and the collect
+//    keeps the lowest ids by those counts' prefix; the k survivors are
+//    sorted by (key desc, id asc), in shared memory up to kSortK, else by
+//    the whole grid in device memory. Histograms are shared-memory counts
+//    (lanes with one bin add once, __match_any_sync) added to a query's
+//    device histogram; the item that finishes a pass last reads it. Every
+//    count is order-free, so the result does not depend on the hardware's
+//    order. At Q 1, N 1M, k 100 a block takes one item of 8192 keys (1024
+//    a warp) a pass, and the sort a few hundred gathered keys.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -700,46 +741,52 @@ __device__ __forceinline__ void dense_chunk(int (&acc)[16][4], unsigned a_addr,
   }
 }
 
-// Stage bytes [ch * kDChunk, +kDChunk) of query rows q0.. and corpus rows
-// n0.. (kDQ + kDN staged rows) into `stage`, zeros past nq, n and the
-// rows' row_bytes. vec: rows 16-byte aligned, row_bytes % 16 == 0.
-__device__ __forceinline__ void dense_stage(unsigned char* stage,
-                                            const unsigned char* q,
-                                            const unsigned char* c, int q0,
-                                            int n0, int nq, int n,
-                                            long long row_bytes, int ch,
-                                            int vec) {
+// Stage bytes [ch * kDChunk, +kDChunk) of kRowsA rows of a from row a0
+// (then kRowsB rows of b from row b0) into `stage`, rows kDRow bytes
+// apart, zeros past na (nb) and the rows' row_bytes. vec: rows 16-byte
+// aligned, row_bytes % 16 == 0. The dense kernels stage their queries,
+// then their corpus rows; the narrow scorer its corpus rows, then the
+// queries.
+template <int kRowsA, int kRowsB>
+__device__ __forceinline__ void stage_rows(unsigned char* stage,
+                                           const unsigned char* a,
+                                           const unsigned char* b, int a0,
+                                           int b0, int na, int nb,
+                                           long long row_bytes, int ch,
+                                           int vec) {
+  constexpr int kCopies = (kRowsA + kRowsB) * (kDChunk / 16);
   const int tid = threadIdx.x;
-  const long long b0 = static_cast<long long>(ch) * kDChunk;
+  const long long c0 = static_cast<long long>(ch) * kDChunk;
   if (vec) {
 #pragma unroll
-    for (int p = 0; p < (kDQ + kDN) * (kDChunk / 16) / kThreads; ++p) {
+    for (int p = 0; p < (kCopies + kThreads - 1) / kThreads; ++p) {
       const int e = tid + p * kThreads;
+      if (kCopies % kThreads != 0 && e >= kCopies) break;
       const int r = e / (kDChunk / 16), piece = e % (kDChunk / 16);
-      const long long off = b0 + piece * 16;
-      const bool is_q = r < kDQ;
-      const int row = is_q ? q0 + r : n0 + r - kDQ;
-      const unsigned char* base = is_q ? q : c;
-      const bool ok = row < (is_q ? nq : n) && off < row_bytes;
+      const long long off = c0 + piece * 16;
+      const bool is_a = r < kRowsA;
+      const int row = is_a ? a0 + r : b0 + r - kRowsA;
+      const unsigned char* base = is_a ? a : b;
+      const bool ok = row < (is_a ? na : nb) && off < row_bytes;
       cp_async_zfill(stage + r * kDRow + piece * 16,
                      ok ? base + row * row_bytes + off : base, ok ? 16 : 0);
     }
   } else {
-    for (int w = tid; w < (kDQ + kDN) * (kDChunk / 4); w += kThreads) {
+    for (int w = tid; w < (kRowsA + kRowsB) * (kDChunk / 4); w += kThreads) {
       const int r = w / (kDChunk / 4), x = (w % (kDChunk / 4)) * 4;
-      const bool is_q = r < kDQ;
-      const int row = is_q ? q0 + r : n0 + r - kDQ;
+      const bool is_a = r < kRowsA;
+      const int row = is_a ? a0 + r : b0 + r - kRowsA;
       unsigned word = 0;
-      if (row < (is_q ? nq : n)) {
+      if (row < (is_a ? na : nb)) {
         const unsigned char* src =
-            (is_q ? q : c) + row * row_bytes + b0 + x;
-        if (b0 + x + 4 <= row_bytes &&
+            (is_a ? a : b) + row * row_bytes + c0 + x;
+        if (c0 + x + 4 <= row_bytes &&
             reinterpret_cast<unsigned long long>(src) % 4 == 0) {
           word = *reinterpret_cast<const unsigned*>(src);
         } else {
 #pragma unroll
-          for (int b = 0; b < 4; ++b)
-            if (b0 + x + b < row_bytes) word |= unsigned(src[b]) << (8 * b);
+          for (int y = 0; y < 4; ++y)
+            if (c0 + x + y < row_bytes) word |= unsigned(src[y]) << (8 * y);
         }
       }
       *reinterpret_cast<unsigned*>(stage + r * kDRow + x) = word;
@@ -873,9 +920,9 @@ dense_partial(const In* __restrict__ q, const In* __restrict__ c,
 #pragma unroll
   for (int s = 0; s < kDStages - 1; ++s) {
     if (s < steps)
-      dense_stage(dsm + s * kDStage, qb, cb, q0,
-                  (t_begin + s / n_chunks) * kDN, nq, n, row_bytes,
-                  s % n_chunks, vec);
+      stage_rows<kDQ, kDN>(dsm + s * kDStage, qb, cb, q0,
+                           (t_begin + s / n_chunks) * kDN, nq, n, row_bytes,
+                           s % n_chunks, vec);
     asm volatile("cp.async.commit_group;\n" ::);
   }
   int tile = t_begin, ch = 0;
@@ -884,9 +931,9 @@ dense_partial(const In* __restrict__ q, const In* __restrict__ c,
     __syncthreads();   // step s has landed; step s - 1's stage is free
     const int ahead = s + kDStages - 1;
     if (ahead < steps)
-      dense_stage(dsm + ahead % kDStages * kDStage, qb, cb, q0,
-                  (t_begin + ahead / n_chunks) * kDN, nq, n, row_bytes,
-                  ahead % n_chunks, vec);
+      stage_rows<kDQ, kDN>(dsm + ahead % kDStages * kDStage, qb, cb, q0,
+                           (t_begin + ahead / n_chunks) * kDN, nq, n,
+                           row_bytes, ahead % n_chunks, vec);
     asm volatile("cp.async.commit_group;\n" ::);
     if (busy) {
       const unsigned st = ring + s % kDStages * kDStage;
@@ -1127,6 +1174,815 @@ __global__ void topk_merge_kernel(const float* __restrict__ part_s,
   }
 }
 
+// ---- narrow: few queries (topk_narrow_scores, topk_narrow_select) ----------
+
+constexpr int kNQMax = 64;               // most queries the narrow path takes
+constexpr int kNRows = 256;              // corpus rows a tile: 8 warps x 2 m16
+constexpr int kNStages = 4;              // ring stages: 3 steps prefetched
+constexpr int kKeyAlign = 8;             // a key row's stride: n rounded up
+constexpr int kSelThreads = 256;
+constexpr int kSelVec = 8;               // keys a thread loads a step
+constexpr int kRadixBins = 2048;         // 11-bit digits (the last 10 bits)
+constexpr int kStateInts = 11;           // a query's select state, below
+constexpr int kSortK = 4096;             // largest list sorted in shared memory
+
+// A score's order key: a larger score has a larger key; -0.0 takes +0.0's
+// key and -inf the least key of any number.
+__device__ __forceinline__ unsigned f32_key(float x) {
+  unsigned b = __float_as_uint(x);
+  if (b == 0x80000000u) b = 0u;
+  return b & 0x80000000u ? ~b : b | 0x80000000u;
+}
+
+__device__ __forceinline__ float key_f32(unsigned key) {
+  return __uint_as_float(key & 0x80000000u ? key & 0x7fffffffu : ~key);
+}
+
+// (ka, ia) before (kb, ib): higher key, or equal key and lower id.
+__device__ __forceinline__ bool key_beats(unsigned ka, int ia, unsigned kb,
+                                          int ib) {
+  return ka > kb || (ka == kb && ia < ib);
+}
+
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2],
+                                            unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// The warp's 32 corpus rows (two m16 tiles) x 8 kQT queries over one
+// staged chunk: `steps` MMA steps, A for tile m from a_addr + m * 16
+// rows, B for query n8 tiles 2p and 2p + 1 from b_addr + p * 16 rows.
+// dense_chunk's 3xTF32 products in its order with the operands' roles
+// swapped: query pieces q0, q1 (hi, lo) and corpus pieces c0, c1, the
+// products c0 * q1, c1 * q0 and c0 * q0 each taken kLoScale times larger,
+// the scale on a low piece where the product has one (q1, c1), else on
+// c0; each chunk's sum is added to the running one with a rounded add.
+// A query fragment is split once for both row tiles.
+template <int kQT>
+__device__ __forceinline__ void narrow_chunk(float (&acc)[2][kQT][4],
+                                             unsigned a_addr,
+                                             unsigned b_addr, int steps) {
+  float part[2][kQT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < kQT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[m][j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kDChunk / 32; ++kk) {
+    if (kk >= steps) break;                       // uniform: past d
+    // tile m's corpus pieces: c0, c0 * kLoScale, c1 * kLoScale
+    unsigned c0[2][4], c0s[2][4], c1s[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      unsigned raw[4];
+      ldmatrix_x4(raw, a_addr + m * 16 * kDRow + kk * 32);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        unsigned p[2];
+        tf32_split<2>(p, raw[r]);
+        c0[m][r] = p[0];
+        c0s[m][r] = __float_as_uint(__uint_as_float(p[0]) * kLoScale);
+        c1s[m][r] = __float_as_uint(__uint_as_float(p[1]) * kLoScale);
+      }
+    }
+    // tile j's query pieces: q0 and q1 * kLoScale, b0/b1 the fragment's
+    // two registers
+    unsigned q0b0[kQT], q0b1[kQT], q1b0[kQT], q1b1[kQT];
+#pragma unroll
+    for (int jp = 0; jp < (kQT + 1) / 2; ++jp) {
+      unsigned braw[4];
+      if (kQT == 1) {
+        unsigned r2[2];
+        ldmatrix_x2(r2, b_addr + kk * 32);
+        braw[0] = r2[0];
+        braw[1] = r2[1];
+        braw[2] = braw[3] = 0u;
+      } else {
+        ldmatrix_x4(braw, b_addr + jp * 16 * kDRow + kk * 32);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * jp + h;
+        if (j >= kQT) break;
+        unsigned b0[2], b1[2];
+        tf32_split<2>(b0, braw[2 * h]);
+        tf32_split<2>(b1, braw[2 * h + 1]);
+        q0b0[j] = b0[0];
+        q0b1[j] = b1[0];
+        q1b0[j] = __float_as_uint(__uint_as_float(b0[1]) * kLoScale);
+        q1b1[j] = __float_as_uint(__uint_as_float(b1[1]) * kLoScale);
+      }
+    }
+    // each product for every (m, j) accumulator before the next product,
+    // so no MMA waits on the one before it
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < kQT; ++j)
+        mma_tf32(part[m][j], c0[m], q1b0[j], q1b1[j]);     // c0 * q1
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < kQT; ++j)
+        mma_tf32(part[m][j], c1s[m], q0b0[j], q0b1[j]);    // c1 * q0
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < kQT; ++j)
+        mma_tf32(part[m][j], c0s[m], q0b0[j], q0b1[j]);    // c0 * q0
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < kQT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[m][j][e] = __fmaf_rn(part[m][j][e], kLoUnscale, acc[m][j][e]);
+}
+
+// The same scores where D <= kExactDepth (one chunk, one MMA step deep):
+// each (row, query) dot of at most 8 products summed in f64 on the CUDA
+// cores from the staged rows at `stage`, where an f32 product is exact,
+// then rounded once to f32. Split TF32 products would be exact too, but
+// the MMA truncates as it adds them, which can put a sum of so few terms
+// more than D * 2^-24 * sum |q c| from the plain f32 product.
+template <int kQT>
+__device__ __forceinline__ void narrow_exact(float (&acc)[2][kQT][4],
+                                             const unsigned char* stage,
+                                             int warp, int g, int t) {
+  double cr[4][kExactDepth];           // rows 32w + g + 8x
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const float4* r = reinterpret_cast<const float4*>(
+        stage + (32 * warp + g + 8 * x) * kDRow);
+    const float4 u = r[0], v = r[1];
+    const float f[kExactDepth] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < kExactDepth; ++i) cr[x][i] = f[i];
+  }
+#pragma unroll
+  for (int j = 0; j < kQT; ++j)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const float4* r = reinterpret_cast<const float4*>(
+          stage + (kNRows + 8 * j + 2 * t + b) * kDRow);
+      const float4 u = r[0], v = r[1];
+      const float f[kExactDepth] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        double sum = 0.0;
+#pragma unroll
+        for (int i = 0; i < kExactDepth; ++i)
+          sum = __fma_rn(cr[x][i], static_cast<double>(f[i]), sum);
+        acc[x >> 1][j][2 * (x & 1) + b] = __double2float_rn(sum);
+      }
+    }
+}
+
+// q [nq, d] (nq <= 8 kQT) and c [n, d], f32. Block b scores the corpus
+// tiles [b tiles_per_block, +tiles_per_block) against every query and
+// writes each score's order key to keys[query * ldk + row] and each
+// tile's largest to tile_max[query * n_tiles + tile]. First the grid
+// zeroes scratch[0, scratch_ints): the select kernel's counters.
+template <bool kExact, int kQT>
+__global__ void __launch_bounds__(kThreads, 1)
+narrow_scores(const float* __restrict__ q, const float* __restrict__ c,
+              unsigned* __restrict__ keys, unsigned* __restrict__ tile_max,
+              int* __restrict__ scratch, long long scratch_ints, int nq,
+              int n, int d, int ldk, int tiles_per_block, int vec) {
+  constexpr int kNQ = 8 * kQT;
+  constexpr int kStage = (kNRows + kNQ) * kDRow;
+  extern __shared__ __align__(128) unsigned char nsm[];
+  __shared__ unsigned warp_max[kWarps][kNQ];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  for (long long e = static_cast<long long>(blockIdx.x) * kThreads + tid;
+       e < scratch_ints; e += static_cast<long long>(gridDim.x) * kThreads)
+    scratch[e] = 0;
+  const int n_tiles = (n + kNRows - 1) / kNRows;
+  const int t_begin = blockIdx.x * tiles_per_block;
+  const int t_end = min(t_begin + tiles_per_block, n_tiles);
+  const long long row_bytes = static_cast<long long>(d) * sizeof(float);
+  // D = 0 still takes one (empty) chunk, so every tile writes its keys
+  const int n_chunks =
+      max(1, static_cast<int>((row_bytes + kDChunk - 1) / kDChunk));
+  const int steps = max(t_end - t_begin, 0) * n_chunks;
+  const auto* qb = reinterpret_cast<const unsigned char*>(q);
+  const auto* cb = reinterpret_cast<const unsigned char*>(c);
+  float acc[2][kQT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < kQT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+  // this lane's ldmatrix row: A rows 32w + (lane & 7) + 8 * (lane >> 3 & 1)
+  // at byte 16 * (lane >> 4); B rows kNRows + (lane & 7) + 8 * (lane >> 4)
+  // at byte 16 * (lane >> 3 & 1) (.x2 reads lanes 0-15's only)
+  const unsigned ring = static_cast<unsigned>(__cvta_generic_to_shared(nsm));
+  const int lr = lane & 7, lm = lane >> 3;
+  const unsigned a_off =
+      (32 * warp + lr + 8 * (lm & 1)) * kDRow + 16 * (lm >> 1);
+  const unsigned b_off =
+      (kNRows + lr + 8 * (lm >> 1)) * kDRow + 16 * (lm & 1);
+
+  // the dense kernel's ring: step s stages chunk s % n_chunks of tile
+  // t_begin + s / n_chunks, a group committed every step
+#pragma unroll
+  for (int s = 0; s < kNStages - 1; ++s) {
+    if (s < steps)
+      stage_rows<kNRows, kNQ>(nsm + s * kStage, cb, qb,
+                              (t_begin + s / n_chunks) * kNRows, 0, n, nq,
+                              row_bytes, s % n_chunks, vec);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  int tile = t_begin, ch = 0;
+  for (int s = 0; s < steps; ++s) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kNStages - 2));
+    __syncthreads();   // step s has landed; step s - 1's stage is free
+    const int ahead = s + kNStages - 1;
+    if (ahead < steps)
+      stage_rows<kNRows, kNQ>(nsm + ahead % kNStages * kStage, cb, qb,
+                              (t_begin + ahead / n_chunks) * kNRows, 0, n,
+                              nq, row_bytes, ahead % n_chunks, vec);
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (kExact) {
+      narrow_exact<kQT>(acc, nsm + s % kNStages * kStage, warp, g, t);
+    } else {
+      const unsigned st = ring + s % kNStages * kStage;
+      const long long left =
+          row_bytes - static_cast<long long>(ch) * kDChunk;
+      narrow_chunk<kQT>(acc, st + a_off, st + b_off,
+                        static_cast<int>(min(left + 31, 128LL) / 32));
+    }
+    if (++ch < n_chunks) continue;
+    // lane (g, t) holds rows 32w + 16m + g + 8h, queries 8j + 2t + b in
+    // acc[m][j][2h + b]: each store writes 8 consecutive rows of 4
+    // queries. Key 0 lies below every score's key: rows past n take it.
+    const int n0 = tile * kNRows + 32 * warp + g;
+#pragma unroll
+    for (int j = 0; j < kQT; ++j)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int qi = 8 * j + 2 * t + b;
+        unsigned best = 0u;
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = n0 + 16 * m + 8 * h;
+            const unsigned key = f32_key(acc[m][j][2 * h + b]);
+            acc[m][j][2 * h + b] = 0.f;
+            if (row < n) {
+              best = max(best, key);
+              if (qi < nq) keys[static_cast<long long>(qi) * ldk + row] = key;
+            }
+          }
+        best = max(best, __shfl_xor_sync(kFull, best, 4));
+        best = max(best, __shfl_xor_sync(kFull, best, 8));
+        best = max(best, __shfl_xor_sync(kFull, best, 16));
+        if (g == 0) warp_max[warp][qi] = best;
+      }
+    __syncthreads();
+    if (tid < nq && tid < kNQ) {
+      unsigned best = 0u;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) best = max(best, warp_max[w][tid]);
+      tile_max[static_cast<long long>(tid) * n_tiles + tile] = best;
+    }
+    ch = 0;
+    ++tile;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// ---- the select: an exact radix select of each query's k best keys --------
+
+// Every block of the (cooperatively launched, so co-resident) grid waits
+// here until all have arrived; bar[0] counts arrivals, bar[1] is the
+// generation. Writes before it are seen after it by every block.
+__device__ __forceinline__ void grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned seen = *gen;       // read before arriving: it moves only
+    __threadfence();                  // once every block has arrived
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      // a grid that is not co-resident would wait forever: fail the
+      // launch after some seconds instead (a barrier takes microseconds)
+      for (long long spins = 0; *gen == seen; ++spins) {
+        __nanosleep(64);
+        if (spins > (1LL << 26)) __trap();
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Sum of v over the lanes below this one; `total` over the warp.
+__device__ __forceinline__ unsigned warp_excl_scan(unsigned v,
+                                                   unsigned& total) {
+  const int lane = threadIdx.x & 31;
+  unsigned x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  total = __shfl_sync(kFull, x, 31);
+  return x - v;
+}
+
+// Sum of v over the block's threads below this one; `total` over the
+// block. Every thread of the block calls it.
+__device__ __forceinline__ unsigned block_excl_scan(unsigned v,
+                                                    unsigned& total) {
+  __shared__ unsigned warp_sums[kSelThreads / 32];
+  const int warp = threadIdx.x >> 5;
+  unsigned wt;
+  const unsigned before = warp_excl_scan(v, wt);
+  if ((threadIdx.x & 31) == 0) warp_sums[warp] = wt;
+  __syncthreads();
+  unsigned below = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kSelThreads / 32; ++w) {
+    const unsigned s = warp_sums[w];
+    below += w < warp ? s : 0u;
+    total += s;
+  }
+  __syncthreads();                    // warp_sums is written again next call
+  return below + before;
+}
+
+// Of kRadixBins counts h (in device memory, written by other blocks, when
+// kGlobal), the bin where the running count from the top first reaches
+// rem: true in the one thread that finds it, with the bin, the count of
+// the bins above it and its own count; false in every thread where all
+// bins together hold fewer than rem. `total`: all bins' count, in every
+// thread. Every thread of the block calls it.
+template <bool kGlobal>
+__device__ __forceinline__ bool find_bin(const unsigned* h, unsigned rem,
+                                         int& bin, unsigned& above,
+                                         unsigned& count, unsigned& total) {
+  constexpr int kPer = kRadixBins / kSelThreads;
+  const int top = kRadixBins - kPer * threadIdx.x;  // bins [top - kPer, top)
+  unsigned cnt[kPer], sum = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    cnt[i] = kGlobal ? __ldcg(h + top - 1 - i) : h[top - 1 - i];
+    sum += cnt[i];
+  }
+  above = block_excl_scan(sum, total);
+  if (!(above < rem && rem <= above + sum)) return false;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    if (rem <= above + cnt[i]) {
+      bin = top - 1 - i;
+      count = cnt[i];
+      return true;
+    }
+    above += cnt[i];
+  }
+  return false;
+}
+
+// The select's scratch (select_scratch_ints): kHeadInts ints (the grid
+// barrier's two, then the number of queries that are not compact), then
+// kStateInts a query: [0] the k-th best key's digits found so far (its
+// prefix), [1] keys known to rank above that prefix, [2] keys of the last
+// digit's bin (after the last pass: the keys equal to the k-th best), [3]
+// the compact list's length (0: not compact), [4] the floor digit, [5..7]
+// items done in passes 0-2, [8] slots taken by keys gathered at or above
+// the floor, [9] by keys above the k-th best, [10] by keys equal to it;
+// then four histograms a query (the tile maxima's top digits, passes 0-2)
+// and a tie count an item.
+constexpr int kHeadInts = 4;
+
+// Called by the block that finished the last item of a query's histogram
+// pass, h its bins: the bin b of this digit with count(bins above b) <
+// k - state[1] <= count(bins from b up) extends the prefix. After pass 0
+// (`first`), whose keys were gathered as they were counted, the query is
+// compact where those keys number no more than kSortK; else it counts as
+// not compact.
+__device__ __forceinline__ void select_digit(const unsigned* h, int* state,
+                                             int* not_compact, int bits,
+                                             int k, bool first) {
+  const unsigned pre = static_cast<unsigned>(__ldcg(state));
+  const unsigned known = static_cast<unsigned>(__ldcg(state + 1));
+  int bin;
+  unsigned above, count, total;
+  if (find_bin<true>(h, static_cast<unsigned>(k) - known, bin, above, count,
+                     total)) {
+    state[0] = static_cast<int>(pre << bits | static_cast<unsigned>(bin));
+    state[1] = static_cast<int>(known + above);
+    state[2] = static_cast<int>(count);
+    if (!first) return;
+    if (total <= kSortK)
+      state[3] = static_cast<int>(total);
+    else
+      atomicAdd(not_compact, 1);
+  }
+}
+
+// The keys [lo, hi) of row `row` that thread tid loads at step e0: kSelVec
+// from e0 + kSelVec * tid (rows are kKeyAlign-aligned; past hi: zeros).
+__device__ __forceinline__ void load_keys(const unsigned* row, long long e0,
+                                          long long hi,
+                                          unsigned (&v)[kSelVec]) {
+  const long long e = e0 + kSelVec * static_cast<long long>(threadIdx.x);
+  if (e < hi) {
+    const uint4* p = reinterpret_cast<const uint4*>(row + e);
+#pragma unroll
+    for (int x = 0; x < kSelVec / 4; ++x) {
+      const uint4 u = p[x];
+      v[4 * x] = u.x;
+      v[4 * x + 1] = u.y;
+      v[4 * x + 2] = u.z;
+      v[4 * x + 3] = u.w;
+    }
+  } else {
+#pragma unroll
+    for (int x = 0; x < kSelVec; ++x) v[x] = 0u;
+  }
+}
+
+// Sort the pow2 >= len entries ck/ci[0, len) of one query by (key desc,
+// id asc) in the block's shared memory (a bitonic network, the entries
+// past len sorting last) and write the first k: scores, and ids (-1
+// where the score is -inf).
+__device__ void sort_out(const unsigned* ck, const int* ci, int len, int k,
+                         unsigned* sk, int* si, float* os, int* oi) {
+  const int tid = threadIdx.x;
+  int n_sort = 1;
+  while (n_sort < len) n_sort <<= 1;
+  for (int p = tid; p < n_sort; p += kSelThreads) {
+    sk[p] = p < len ? __ldcg(ck + p) : 0u;
+    si[p] = p < len ? __ldcg(ci + p) : 0x7fffffff;
+  }
+  __syncthreads();
+  for (int size = 2; size <= n_sort; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < n_sort / 2; i += kSelThreads) {
+        const int a = 2 * i - (i & (stride - 1)), b = a + stride;
+        // best first where a's block of `size` runs best first
+        if (key_beats(sk[b], si[b], sk[a], si[a]) == ((a & size) == 0)) {
+          const unsigned tk = sk[a];
+          const int ti = si[a];
+          sk[a] = sk[b];
+          si[a] = si[b];
+          sk[b] = tk;
+          si[b] = ti;
+        }
+      }
+      __syncthreads();
+    }
+  for (int p = tid; p < k; p += kSelThreads) {
+    const float s = key_f32(sk[p]);
+    os[p] = s;
+    oi[p] = s == -CUDART_INF_F ? -1 : si[p];
+  }
+  __syncthreads();
+}
+
+// keys [nq, ldk] and tile_max [nq, n_tiles] from narrow_scores (keys
+// [0, n) of each row); scratch zeroed by narrow_scores; cand_k/cand_i
+// [nq, cap], cap the larger of kSortK and p2, the power of two at or
+// above k; out_s/out_i [nq, k]. Item (q, chunk) of nq * chunks covers keys
+// [chunk * per, +per) of query q, per a multiple of kNRows.
+//
+// Phases, a grid_sync after each:
+//  * floor: a block a query counts its tile maxima by their top 11 bits
+//    and takes the bin where the count from the top reaches k: k tiles'
+//    largest keys lie at or above it, so the k-th best key does too, and
+//    no key below that bin (the bulk of the scores) needs counting.
+//  * pass 0 counts the keys at or above the floor by their top 11 bits,
+//    finds the bin b of the k-th best, and gathers those keys into cand.
+//    Where they number no more than kSortK (the usual case: a floor
+//    leaves the scores' tail), the query is compact: the sort takes its k
+//    best from them, and where every query is compact the sort follows.
+//  * else the radix select goes on: passes 1 and 2 count by the next 11
+//    and 10 bits the keys of b and of the next digit's bin, which leaves
+//    T, the k-th best key; a count of the keys equal to T in each item
+//    (only where more of them tie than the list has room for: the lowest
+//    ids win), a collect of the k best into cand, and the sort.
+__global__ void __launch_bounds__(kSelThreads)
+narrow_select(const unsigned* __restrict__ keys,
+              const unsigned* __restrict__ tile_max, int* scratch,
+              unsigned* cand_k, int* cand_i, float* out_s, int* out_i,
+              int nq, int n, int ldk, int k, int chunks, int cap) {
+  extern __shared__ __align__(16) unsigned ssm[];
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid & 31;
+  unsigned* bar = reinterpret_cast<unsigned*>(scratch);
+  int* not_compact = scratch + 2;
+  int* state = scratch + kHeadInts;
+  unsigned* hist = reinterpret_cast<unsigned*>(state + nq * kStateInts);
+  int* tie_cnt = reinterpret_cast<int*>(
+      hist + 4LL * nq * kRadixBins);                // [nq][chunks]
+  const int items = nq * chunks;
+  const int n_tiles = (n + kNRows - 1) / kNRows;
+  const long long step = static_cast<long long>(kSelVec) * kSelThreads;
+  long long per = (static_cast<long long>(n) + chunks - 1) / chunks;
+  per = (per + kNRows - 1) / kNRows * kNRows;
+  int p2 = 1;
+  while (p2 < k) p2 <<= 1;
+
+  // floor
+  for (int q = blockIdx.x; q < nq; q += gridDim.x) {
+    for (int b = tid; b < kRadixBins; b += kSelThreads) ssm[b] = 0u;
+    __syncthreads();
+    const unsigned* tm = tile_max + static_cast<long long>(q) * n_tiles;
+    for (int x = tid; x < n_tiles; x += kSelThreads)
+      atomicAdd(ssm + (tm[x] >> 21), 1u);
+    __syncthreads();
+    int bin;
+    unsigned above, count, total;
+    if (find_bin<false>(ssm, static_cast<unsigned>(k), bin, above, count,
+                        total))
+      state[q * kStateInts + 4] = bin;             // else 0: no floor
+    __syncthreads();
+  }
+  grid_sync(bar);
+
+  // histogram passes: digits of 11, 11 and 10 bits from the top; pass p
+  // counts the keys whose higher digits equal the prefix so far, pass 0
+  // those at or above the floor, which it also gathers into cand (as many
+  // as fit: all of them where the query turns out compact)
+  bool radix = true;
+  for (int pass = 0; pass < 3 && radix; ++pass) {
+    const int shift = pass == 0 ? 21 : pass == 1 ? 10 : 0;
+    const int bits = pass == 2 ? 10 : 11;
+    const unsigned mask = (1u << bits) - 1u;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int q = it / chunks, chk = it % chunks;
+      int* st = state + q * kStateInts;
+      if (pass > 0 && __ldcg(st + 3) > 0) continue;   // compact: uniform
+      // pass 0: the floor digit; later, the prefix so far
+      const unsigned pre = static_cast<unsigned>(__ldcg(st + (pass ? 0 : 4)));
+      const long long lo = chk * per;
+      const long long hi = min(lo + per, static_cast<long long>(n));
+      const unsigned* row = keys + static_cast<long long>(q) * ldk;
+      unsigned* ck = cand_k + static_cast<long long>(q) * cap;
+      int* ci = cand_i + static_cast<long long>(q) * cap;
+      for (int b = tid; b < kRadixBins; b += kSelThreads) ssm[b] = 0u;
+      __syncthreads();
+      for (long long e0 = lo; e0 < hi; e0 += step) {
+        unsigned v[kSelVec];
+        load_keys(row, e0, hi, v);
+        const long long e = e0 + kSelVec * static_cast<long long>(tid);
+        unsigned in_bits = 0;
+#pragma unroll
+        for (int x = 0; x < kSelVec; ++x) {
+          const bool in =
+              e + x < hi && (pass == 0 ? v[x] >> 21 >= pre
+                                       : v[x] >> (shift + bits) == pre);
+          in_bits |= static_cast<unsigned>(in) << x;
+          const unsigned bin = in ? v[x] >> shift & mask : kRadixBins;
+          // lanes with the same bin add once, by their lowest lane
+          const unsigned peers = __match_any_sync(kFull, bin);
+          if (in && lane == __ffs(peers) - 1)
+            atomicAdd(ssm + bin, static_cast<unsigned>(__popc(peers)));
+        }
+        if (pass == 0) {
+          unsigned wt;
+          unsigned slot = warp_excl_scan(__popc(in_bits), wt);
+          unsigned base = 0;
+          if (wt && lane == 0)
+            base = atomicAdd(reinterpret_cast<unsigned*>(st + 8), wt);
+          slot += __shfl_sync(kFull, base, 0);
+#pragma unroll
+          for (int x = 0; x < kSelVec; ++x)
+            if (in_bits >> x & 1u) {
+              if (slot < static_cast<unsigned>(cap)) {
+                ck[slot] = v[x];
+                ci[slot] = static_cast<int>(e + x);
+              }
+              ++slot;
+            }
+        }
+      }
+      __syncthreads();
+      unsigned* h = hist + (static_cast<long long>(pass + 1) * nq + q) *
+                               kRadixBins;
+      for (int b = tid; b < kRadixBins; b += kSelThreads)
+        if (ssm[b]) atomicAdd(h + b, ssm[b]);
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) last = atomicAdd(st + 5 + pass, 1) == chunks - 1;
+      __syncthreads();
+      if (last) {
+        __threadfence();
+        select_digit(h, st, not_compact, bits, k, pass == 0);
+      }
+      __syncthreads();                // ssm is zeroed again next item
+    }
+    grid_sync(bar);
+    // every query compact: pass 0 gathered them all
+    if (pass == 0) radix = __ldcg(not_compact) > 0;
+  }
+
+  if (radix) {
+    // T = state[0] is now the k-th best key: state[1] keys lie above it
+    // and state[2] equal it. Where more equal it than the list has room
+    // for, the lowest ids win, so each item counts its ties first.
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int q = it / chunks, chk = it % chunks;
+      const int* st = state + q * kStateInts;
+      const unsigned thr = static_cast<unsigned>(__ldcg(st));
+      const int room = k - __ldcg(st + 1);
+      // uniform in the block: compact, or every tie is taken
+      if (__ldcg(st + 3) > 0 || __ldcg(st + 2) == room) continue;
+      const long long lo = chk * per;
+      const long long hi = min(lo + per, static_cast<long long>(n));
+      const unsigned* row = keys + static_cast<long long>(q) * ldk;
+      unsigned mine = 0;
+      for (long long e0 = lo; e0 < hi; e0 += step) {
+        unsigned v[kSelVec];
+        load_keys(row, e0, hi, v);
+        const long long e = e0 + kSelVec * static_cast<long long>(tid);
+#pragma unroll
+        for (int x = 0; x < kSelVec; ++x) mine += e + x < hi && v[x] == thr;
+      }
+      unsigned total;
+      block_excl_scan(mine, total);
+      if (tid == 0) tie_cnt[it] = static_cast<int>(total);
+    }
+    grid_sync(bar);
+
+    // collect: keys above T to slots [0, state[1]) in any order, and ties
+    // to [state[1], k): any of them where all fit, else the lowest ids
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int q = it / chunks, chk = it % chunks;
+      int* st = state + q * kStateInts;
+      if (__ldcg(st + 3) > 0) continue;             // compact: gathered
+      const unsigned thr = static_cast<unsigned>(__ldcg(st));
+      const int above_n = __ldcg(st + 1);
+      const int room = k - above_n;
+      const bool ordered = __ldcg(st + 2) > room;
+      unsigned* ck = cand_k + static_cast<long long>(q) * cap;
+      int* ci = cand_i + static_cast<long long>(q) * cap;
+      unsigned before = 0;                  // ties in this query's earlier
+      if (ordered) {                        // items, then earlier steps
+        unsigned v = 0;
+        for (int c2 = tid; c2 < chk; c2 += kSelThreads)
+          v += static_cast<unsigned>(__ldcg(tie_cnt + q * chunks + c2));
+        block_excl_scan(v, before);
+      }
+      const long long lo = chk * per;
+      const long long hi = min(lo + per, static_cast<long long>(n));
+      const unsigned* row = keys + static_cast<long long>(q) * ldk;
+      for (long long e0 = lo; e0 < hi; e0 += step) {
+        unsigned v[kSelVec];
+        load_keys(row, e0, hi, v);
+        const long long e = e0 + kSelVec * static_cast<long long>(tid);
+        unsigned n_above = 0, n_tie = 0;
+#pragma unroll
+        for (int x = 0; x < kSelVec; ++x) {
+          n_above += e + x < hi && v[x] > thr;
+          n_tie += e + x < hi && v[x] == thr;
+        }
+        unsigned wt;
+        unsigned slot = warp_excl_scan(n_above, wt);
+        unsigned base = 0;
+        if (wt && lane == 0)
+          base = atomicAdd(reinterpret_cast<unsigned*>(st + 9), wt);
+        slot += __shfl_sync(kFull, base, 0);
+        unsigned tslot;
+        if (ordered) {
+          unsigned total;
+          tslot = before + block_excl_scan(n_tie, total);
+          before += total;
+        } else {
+          tslot = warp_excl_scan(n_tie, wt);
+          base = 0;
+          if (wt && lane == 0)
+            base = atomicAdd(reinterpret_cast<unsigned*>(st + 10), wt);
+          tslot += __shfl_sync(kFull, base, 0);
+        }
+#pragma unroll
+        for (int x = 0; x < kSelVec; ++x) {
+          if (e + x >= hi) break;
+          if (v[x] > thr) {
+            ck[slot] = v[x];
+            ci[slot] = static_cast<int>(e + x);
+            ++slot;
+          } else if (v[x] == thr) {
+            if (tslot < static_cast<unsigned>(room)) {
+              ck[above_n + tslot] = v[x];
+              ci[above_n + tslot] = static_cast<int>(e + x);
+            }
+            ++tslot;
+          }
+        }
+      }
+      if (chk == 0 && p2 > kSortK)          // the device-memory sort's
+        for (int p = k + tid; p < p2; p += kSelThreads) {   // padding
+          ck[p] = 0u;
+          ci[p] = 0x7fffffff;
+        }
+    }
+    grid_sync(bar);
+  }
+
+  // sort: a query's list (k entries, or the compact gather's) in one
+  // block's shared memory where it fits; else (p2 > kSortK, so no query
+  // is compact) a bitonic network over cand in device memory by the
+  // whole grid, a grid_sync a stage
+  if (p2 <= kSortK) {
+    for (int q = blockIdx.x; q < nq; q += gridDim.x) {
+      const int* st = state + q * kStateInts;
+      const int len = __ldcg(st + 3) > 0 ? __ldcg(st + 3) : k;
+      sort_out(cand_k + static_cast<long long>(q) * cap,
+               cand_i + static_cast<long long>(q) * cap, len, k, ssm,
+               reinterpret_cast<int*>(ssm + kSortK),
+               out_s + static_cast<long long>(q) * k,
+               out_i + static_cast<long long>(q) * k);
+    }
+    return;
+  }
+  const long long pairs = static_cast<long long>(nq) * (p2 / 2);
+  const long long gstride = static_cast<long long>(gridDim.x) * kSelThreads;
+  const long long gtid =
+      static_cast<long long>(blockIdx.x) * kSelThreads + tid;
+  for (int size = 2; size <= p2; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (long long x = gtid; x < pairs; x += gstride) {
+        const long long q = x / (p2 / 2);
+        const int i = static_cast<int>(x % (p2 / 2));
+        const int a = 2 * i - (i & (stride - 1)), b = a + stride;
+        unsigned* ck = cand_k + q * cap;
+        int* ci = cand_i + q * cap;
+        const unsigned ka = __ldcg(ck + a), kb = __ldcg(ck + b);
+        const int ia = __ldcg(ci + a), ib = __ldcg(ci + b);
+        if (key_beats(kb, ib, ka, ia) == ((a & size) == 0)) {
+          ck[a] = kb;
+          ci[a] = ib;
+          ck[b] = ka;
+          ci[b] = ia;
+        }
+      }
+      grid_sync(bar);
+    }
+  for (long long x = gtid; x < static_cast<long long>(nq) * k;
+       x += gstride) {
+    const long long q = x / k;
+    const int p = static_cast<int>(x % k);
+    const float s = key_f32(__ldcg(cand_k + q * cap + p));
+    out_s[x] = s;
+    out_i[x] = s == -CUDART_INF_F ? -1 : __ldcg(cand_i + q * cap + p);
+  }
+}
+
+template <bool kExact, int kQT>
+int launch_narrow(const void* q, const void* c, void* keys, void* tile_max,
+                  void* scratch, long long scratch_ints, int nq, int n,
+                  int d, int ldk, int tiles_per_block, int n_blocks, int vec,
+                  cudaStream_t st) {
+  const size_t bytes = size_t(kNStages) * (kNRows + 8 * kQT) * kDRow;
+  const cudaError_t err = cudaFuncSetAttribute(
+      narrow_scores<kExact, kQT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  narrow_scores<kExact, kQT><<<n_blocks, kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(c),
+      static_cast<unsigned*>(keys), static_cast<unsigned*>(tile_max),
+      static_cast<int*>(scratch), scratch_ints, nq, n, d, ldk,
+      tiles_per_block, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kExact>
+int launch_narrow_depth(const void* q, const void* c, void* keys,
+                        void* tile_max, void* scratch, long long scratch_ints,
+                        int nq, int n, int d, int ldk, int tiles_per_block,
+                        int n_blocks, int vec, cudaStream_t st) {
+  if (nq <= 8)
+    return launch_narrow<kExact, 1>(q, c, keys, tile_max, scratch,
+                                    scratch_ints, nq, n, d, ldk,
+                                    tiles_per_block, n_blocks, vec, st);
+  if (nq <= 16)
+    return launch_narrow<kExact, 2>(q, c, keys, tile_max, scratch,
+                                    scratch_ints, nq, n, d, ldk,
+                                    tiles_per_block, n_blocks, vec, st);
+  if (nq <= 32)
+    return launch_narrow<kExact, 4>(q, c, keys, tile_max, scratch,
+                                    scratch_ints, nq, n, d, ldk,
+                                    tiles_per_block, n_blocks, vec, st);
+  return launch_narrow<kExact, 8>(q, c, keys, tile_max, scratch,
+                                  scratch_ints, nq, n, d, ldk,
+                                  tiles_per_block, n_blocks, vec, st);
+}
+
 }  // namespace
 
 // queries/corpus f32 [nq, d] / [n, d]; vec = 1 when both are 16-byte
@@ -1210,4 +2066,72 @@ extern "C" int gathered_tiles(const void* q, const void* table,
           qp, tp, pp, bp, ps, pi, n, r, d, k, width, vec);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// queries/corpus f32 [nq, d] / [n, d], 1 <= nq <= kNQMax: each score's
+// order key to keys [nq, ldk] (ldk: n rounded up to kKeyAlign) and each
+// kNRows-row tile's largest to tile_max [nq, ceil(n / kNRows)], by a grid
+// of n_blocks blocks of tiles_per_block tiles, which first zeroes
+// scratch[0, scratch_ints) for topk_narrow_select. vec = 1 when queries
+// and corpus are 16-byte aligned and d % 4 == 0. D <= kExactDepth sums in
+// f64 on the CUDA cores (narrow_exact), a larger D as three TF32 products
+// on the tensor cores.
+extern "C" int topk_narrow_scores(const void* q, const void* c, void* keys,
+                                  void* tile_max, void* scratch,
+                                  long long scratch_ints, int nq, int n,
+                                  int d, int ldk, int tiles_per_block,
+                                  int n_blocks, int vec, void* stream) {
+  if (nq > kNQMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (nq <= 0 || n_blocks <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return d <= kExactDepth
+             ? launch_narrow_depth<true>(q, c, keys, tile_max, scratch,
+                                         scratch_ints, nq, n, d, ldk,
+                                         tiles_per_block, n_blocks, vec, st)
+             : launch_narrow_depth<false>(q, c, keys, tile_max, scratch,
+                                          scratch_ints, nq, n, d, ldk,
+                                          tiles_per_block, n_blocks, vec,
+                                          st);
+}
+
+// The k best of each row of topk_narrow_scores' keys [nq, ldk] (entries
+// [0, n)), 1 <= k <= n, to out_s/out_i [nq, k] by (score desc, id asc),
+// a score of -inf with id -1; tile_max as that kernel wrote it. scratch:
+// the counters it zeroed (kHeadInts + nq * kStateInts + 4 * nq *
+// kRadixBins + nq * chunks ints); cand_k/cand_i [nq, cap], cap the larger
+// of kSortK and the power of two at or above k. One cooperative launch:
+// its blocks are co-resident, so it passes grid_sync.
+extern "C" int topk_narrow_select(const void* keys, const void* tile_max,
+                                  void* scratch, void* cand_k, void* cand_i,
+                                  void* out_s, void* out_i, int nq, int n,
+                                  int ldk, int k, int chunks, int cap,
+                                  void* stream) {
+  if (nq <= 0 || k <= 0 || chunks <= 0)
+    return static_cast<int>(cudaGetLastError());
+  int dev = 0, sms = 0, per_sm = 0;
+  // the sort's kSortK keys and ids (the histograms take less)
+  const size_t bytes = size_t(kSortK) * 8;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, narrow_select, kSelThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int items = nq * chunks, resident = sms * per_sm;
+  const int grid = items < resident ? items : resident;
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const unsigned* kp = static_cast<const unsigned*>(keys);
+  const unsigned* tp = static_cast<const unsigned*>(tile_max);
+  int* sp = static_cast<int*>(scratch);
+  unsigned* ckp = static_cast<unsigned*>(cand_k);
+  int* cip = static_cast<int*>(cand_i);
+  float* osp = static_cast<float*>(out_s);
+  int* oip = static_cast<int*>(out_i);
+  void* args[] = {&kp, &tp, &sp, &ckp, &cip, &osp, &oip, &nq, &n, &ldk, &k,
+                  &chunks, &cap};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(narrow_select), dim3(grid),
+      dim3(kSelThreads), args, bytes, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -111,6 +111,9 @@ class Kernel:
 
     def __post_init__(self) -> None:
         _KERNELS.append(self)
+        # the integer arguments, which name a launch's shape
+        self._ints = tuple(i for i, t in enumerate(self.argtypes)
+                           if t is ctypes.c_int)
 
     def __call__(self, *args) -> None:
         """Launch on the current CUDA stream; raise on a launch error."""
@@ -138,8 +141,7 @@ class Kernel:
             events[1].record()
             Kernel.timed.append((self.name, *events))
         self.launches += 1
-        self.shapes[tuple(a for a, t in zip(args, self.argtypes)
-                          if t is ctypes.c_int)] += 1
+        self.shapes[tuple(args[i] for i in self._ints)] += 1
 
 
 def kernels() -> tuple:

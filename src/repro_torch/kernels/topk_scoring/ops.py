@@ -10,10 +10,23 @@ copied. The dense kernels run their products on the tensor cores: f32 as
 three TF32 products of split operands ("3xTF32"), int8 as exact int32 MMA.
 
 On CPU tensors each wrapper runs its plain version (ref.py); on CUDA tensors
-it launches its partial kernel and the merge kernel of csrc/topk_scores.cu
-or raises. Each wrapper first resolves its launch params through the
-autotuner (kernels/tuning.py: explicit kwarg > tuned table > default), as
-the reference's do; of these only the dense kernels' split target
+it launches its kernels of csrc/topk_scores.cu or raises. ``topk_scores``
+takes one of two paths by the query count. Above ``NARROW_QUERIES``: a
+partial kernel whose blocks take 128 queries each (``DENSE_QUERIES``) and
+keep per-split top-k lists, then the merge kernel. At or below it (a
+serving tick, a retrieval step): ``topk_narrow_scores`` puts corpus rows
+on the MMA's M side and only the real queries, rounded up to 8, on its N
+side, and writes every score's order key ((Q, N) int32, 4 bytes a score
+against the corpus's 4 D) and each tile's largest; ``topk_narrow_select``
+then finds each query's k best by an exact radix select over those keys,
+spread over the whole card (a floor from the tile maxima, a count pass
+that gathers the keys above it, and only where those are many two more
+digit passes, a count of the ties at the k-th key and a collect; then a
+sort of the survivors), so no warp walks a long list at large k.
+
+Each wrapper first resolves its launch params through the autotuner
+(kernels/tuning.py: explicit kwarg > tuned table > default), as the
+reference's do; of these only the 128-query kernels' split target
 (``split_blocks``, DENSE_BLOCKS by default) varies a launch.
 """
 from __future__ import annotations
@@ -35,6 +48,20 @@ from repro_torch.kernels.topk_scoring.ref import pad_topk
 DENSE_QUERIES, DENSE_ROWS = 128, 128
 DENSE_BLOCKS = 132
 
+# the narrow path, Q <= NARROW_QUERIES (kNQMax in csrc/topk_scores.cu):
+# the scorer's blocks (NARROW_BLOCKS, one an SM) walk NARROW_ROWS-row
+# corpus tiles (kNRows) against all the queries; its key rows are n
+# rounded up to KEY_ALIGN (kKeyAlign) apart. The select kernel cuts each
+# query's keys into items of at least SELECT_MIN_ITEM keys, about
+# SELECT_ITEMS items in all; its scratch holds HEAD_INTS ints (kHeadInts),
+# then per query STATE_INTS (kStateInts), four histograms of RADIX_BINS
+# bins (kRadixBins) and a tie count an item; it sorts up to SORT_K
+# (kSortK) keys in shared memory
+NARROW_QUERIES, NARROW_ROWS, NARROW_BLOCKS = 64, 256, 132
+KEY_ALIGN = 8
+SELECT_ITEMS, SELECT_MIN_ITEM = 528, 8192
+HEAD_INTS, STATE_INTS, RADIX_BINS, SORT_K = 4, 11, 2048, 4096
+
 _PARTIAL_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
 TOPK_PARTIAL = Kernel("topk_partial", "topk_scores.cu", _PARTIAL_ARGS)
 TOPK_INT8_PARTIAL = Kernel("topk_int8_partial", "topk_scores.cu",
@@ -43,6 +70,11 @@ TOPK_MERGE = Kernel("topk_merge", "topk_scores.cu",
                     (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3)
 GATHERED_TILES = Kernel("gathered_tiles", "topk_scores.cu",
                         (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7)
+TOPK_NARROW_SCORES = Kernel("topk_narrow_scores", "topk_scores.cu",
+                            (ctypes.c_void_p,) * 5 + (ctypes.c_longlong,)
+                            + (ctypes.c_int,) * 7)
+TOPK_NARROW_SELECT = Kernel("topk_narrow_select", "topk_scores.cu",
+                            (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6)
 # gathered: table rows a tile, pieces a block; they must equal kGTR and
 # kGBQ in csrc/topk_scores.cu, whose blocks find their tile and pieces
 # by them
@@ -142,6 +174,150 @@ def topk_scores_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     1 <= k <= N -> (scores f32[Q, k], ids i32[Q, k]); ``blocks`` is the
     split plan's target block count."""
     return launch_merge(*topk_partials_cuda(queries, corpus, k, blocks), k)
+
+
+def narrow_plan(n: int):
+    """(tiles per block, blocks) of the narrow scorer: the corpus's
+    NARROW_ROWS-row tiles cut into near NARROW_BLOCKS runs, every run but
+    the last as long as the first and none empty; each block scores its
+    run against every query."""
+    return split_plan(1, n, 1, NARROW_ROWS, NARROW_BLOCKS)
+
+
+def select_plan(nq: int, n: int):
+    """(chunks, keys a chunk) of the narrow select: each query's n keys cut
+    into chunks of whole NARROW_ROWS-row tiles (the last shorter, some
+    past n empty), no more than SELECT_ITEMS // nq and none below
+    SELECT_MIN_ITEM keys but where there is only one."""
+    chunks = max(1, min(SELECT_ITEMS // max(nq, 1), -(-n // SELECT_MIN_ITEM)))
+    per = -(-n // chunks)
+    return chunks, -(-per // NARROW_ROWS) * NARROW_ROWS
+
+
+def select_scratch_ints(nq: int, chunks: int) -> int:
+    """Ints of the select kernel's scratch: its grid barrier and the count
+    of queries it does not finish compact, each query's state, four
+    histograms a query and a tie count an item."""
+    return (HEAD_INTS + nq * STATE_INTS + 4 * nq * RADIX_BINS
+            + nq * chunks)
+
+
+class Narrow(NamedTuple):
+    """The narrow scorer's output and the select kernel's working space:
+    one int32 buffer ``buf`` holding, from ``at[0]``, ``at[1]``, ...:
+    ``keys`` (Q, ldk), each score's order key in entries [0, N);
+    ``tile_max`` (Q, tiles), each NARROW_ROWS-row tile's largest key;
+    ``scratch``, zeroed by the scorer; ``cand_k`` and ``cand_i`` (Q, cap),
+    cap the larger of SORT_K and the power of two at or above k. The
+    launches take pointers into ``buf``; :meth:`view` gives a part as a
+    tensor."""
+
+    buf: torch.Tensor
+    at: tuple
+    shapes: tuple
+    n: int
+    chunks: int
+
+    PARTS = ("keys", "tile_max", "scratch", "cand_k", "cand_i")
+
+    def ptrs(self) -> list:
+        """Each part's address, in PARTS' order."""
+        base = self.buf.data_ptr()
+        return [base + 4 * at for at in self.at]
+
+    def view(self, part: str) -> torch.Tensor:
+        i = self.PARTS.index(part)
+        shape = self.shapes[i]
+        size = shape[0] * shape[1] if len(shape) == 2 else shape[0]
+        return self.buf[self.at[i]:self.at[i] + size].view(shape)
+
+
+def _narrow_scores(queries: torch.Tensor, corpus: torch.Tensor,
+                   k: int) -> Narrow:
+    dev = queries.device
+    name = TOPK_NARROW_SCORES.name
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    _check(queries, "queries", torch.float32, dev, name)
+    _check(corpus, "corpus", torch.float32, dev, name)
+    nq, d = queries.shape
+    n = corpus.shape[0]
+    if corpus.shape[1] != d:
+        raise ValueError(f"{name}: widths differ, {d} vs {corpus.shape[1]}")
+    if not 1 <= nq <= NARROW_QUERIES:
+        raise ValueError(f"{name}: Q={nq} outside [1, {NARROW_QUERIES}]")
+    if not 1 <= k <= n:
+        raise ValueError(f"{name}: k={k} outside [1, N={n}]")
+    ldk = -(-n // KEY_ALIGN) * KEY_ALIGN
+    if max(ldk, d * 4) >= 2 ** 31:
+        raise ValueError(f"{name}: a dimension exceeds int32")
+    per_block, blocks = narrow_plan(n)
+    n_tiles = -(-n // NARROW_ROWS)
+    chunks, _ = select_plan(nq, n)
+    cap = max(1 << (k - 1).bit_length(), SORT_K)
+    n_scratch = select_scratch_ints(nq, chunks)
+    shapes = ((nq, ldk), (nq, n_tiles), (n_scratch,), (nq, cap), (nq, cap))
+    sizes = [nq * ldk, nq * n_tiles, n_scratch, nq * cap, nq * cap]
+    at = tuple(sum(sizes[:i]) for i in range(len(sizes)))
+    nar = Narrow(torch.empty(sum(sizes), dtype=torch.int32, device=dev), at,
+                 shapes, n, chunks)
+    vec = int(d % 4 == 0 and _aligned(queries, corpus))
+    keys, tile_max, scratch = nar.ptrs()[:3]
+    TOPK_NARROW_SCORES(queries.data_ptr(), corpus.data_ptr(), keys, tile_max,
+                       scratch, n_scratch, nq, n, d, ldk, per_block, blocks,
+                       vec)
+    return nar
+
+
+def _narrow_select(nar: Narrow, k: int):
+    (nq, ldk), cap = nar.shapes[0], nar.shapes[3][1]
+    out = torch.empty((2, nq, k), dtype=torch.int32, device=nar.buf.device)
+    out_s, out_i = out[0].view(torch.float32), out[1]
+    TOPK_NARROW_SELECT(*nar.ptrs(), out_s.data_ptr(), out_i.data_ptr(), nq,
+                       nar.n, ldk, k, nar.chunks, cap)
+    return out_s, out_i
+
+
+def narrow_scores_cuda(queries: torch.Tensor, corpus: torch.Tensor,
+                       k: int) -> Narrow:
+    """Launch the narrow scorer: queries f32[Q, D] (1 <= Q <=
+    NARROW_QUERIES), corpus f32[N, D], 1 <= k <= N -> the keys and the
+    select's space (:class:`Narrow`)."""
+    with torch.cuda.device(queries.device):
+        return _narrow_scores(queries, corpus, k)
+
+
+def narrow_select_cuda(nar: Narrow, k: int):
+    """Launch the select kernel over the narrow scorer's keys (its scratch
+    as the scorer left it: zeroed) -> the k best of each query, (scores
+    f32[Q, k], ids i32[Q, k]) by (score desc, id asc), -inf scores with id
+    -1."""
+    with torch.cuda.device(nar.buf.device):
+        return _narrow_select(nar, k)
+
+
+def topk_narrow_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int):
+    """Launch the narrow kernel pair: queries f32[Q, D] (Q <=
+    NARROW_QUERIES), corpus f32[N, D], 1 <= k <= N -> (scores f32[Q, k],
+    ids i32[Q, k])."""
+    with torch.cuda.device(queries.device):
+        return _narrow_select(_narrow_scores(queries, corpus, k), k)
+
+
+def score_keys(scores: torch.Tensor) -> torch.Tensor:
+    """The order keys of f32 scores as the kernels make them (uint32 bits
+    in int32): a larger score has a larger unsigned key, -0.0 has +0.0's
+    and -inf the least of any number's."""
+    bits = scores.contiguous().view(torch.int32)
+    bits = torch.where(bits == -2 ** 31, 0, bits)
+    return torch.where(bits < 0, ~bits, bits | -2 ** 31)
+
+
+def key_scores(keys: torch.Tensor) -> torch.Tensor:
+    """The f32 scores of order keys (int32 holding the kernels' uint32
+    keys): the inverse of the key map, with -0.0 come back as +0.0."""
+    bits = torch.where(keys < 0, keys & 0x7FFFFFFF, ~keys)
+    return bits.view(torch.float32)
 
 
 def topk_scores_int8_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor,
@@ -294,8 +470,10 @@ def empty_topk(nq: int, k: int, device):
 def topk_scores(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
                 split_blocks: int = None):
     """Top-k inner-product search: (Q, D) x (N, D) -> (Q, k) scores/ids.
-    The split target resolves through the autotuner (``kernels/tuning``):
-    ``split_blocks`` > tuned table > DENSE_BLOCKS."""
+    On the card, Q <= NARROW_QUERIES takes the narrow kernel pair, a larger
+    Q the 128-query partial kernel and the merge, whose split target
+    resolves through the autotuner (``kernels/tuning``): ``split_blocks``
+    > tuned table > DENSE_BLOCKS."""
     blocks = tuning.resolve("topk", n=corpus.shape[0], dtype=queries.dtype,
                             split_blocks=split_blocks)
     k_eff = min(k, corpus.shape[0])
@@ -303,9 +481,12 @@ def topk_scores(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
         return pad_topk(*ref.topk_scores_ref(queries, corpus, k=k_eff), k)
     if k_eff == 0 or queries.shape[0] == 0:
         return empty_topk(queries.shape[0], k, queries.device)
-    s, i = topk_scores_cuda(queries.to(torch.float32).contiguous(),
-                            corpus.to(torch.float32).contiguous(), k_eff,
-                            blocks["split_blocks"])
+    q32 = queries.to(torch.float32).contiguous()
+    c32 = corpus.to(torch.float32).contiguous()
+    if queries.shape[0] <= NARROW_QUERIES:
+        s, i = topk_narrow_cuda(q32, c32, k_eff)
+    else:
+        s, i = topk_scores_cuda(q32, c32, k_eff, blocks["split_blocks"])
     return pad_topk(s, i, k)
 
 

@@ -20,9 +20,13 @@ from repro_torch.kernels.label_prop.ops import lp_round_cuda
 from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK, hamming_topk
 from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
 from repro_torch.kernels.topk_scoring.ops import (GATHERED_TILES,
+                                                  NARROW_QUERIES,
                                                   TILE_PIECES, TILE_ROWS,
                                                   TOPK_INT8_PARTIAL,
-                                                  TOPK_MERGE, TOPK_PARTIAL,
+                                                  TOPK_MERGE,
+                                                  TOPK_NARROW_SCORES,
+                                                  TOPK_NARROW_SELECT,
+                                                  TOPK_PARTIAL,
                                                   gathered_topk, topk_scores,
                                                   topk_scores_int8)
 from repro_torch.kernels.topk_scoring.ref import (gathered_topk_ref,
@@ -225,6 +229,51 @@ def test_recsys_retrieval_cell_on_the_card_matches_the_cpu(cuda, arch):
     near = torch.cat([gaps <= 2e-5, torch.tensor([False])])
     near = near | torch.cat([torch.tensor([False]), gaps <= 2e-5])
     assert bool(((i.cpu() == i_ref)[0] | near).all())
+
+
+@pytest.mark.parametrize("q", [1, 2, 7, 8, 9, 16, 31, 33, 64])
+@pytest.mark.parametrize("k", [1, 16, 100, 1000])
+def test_topk_narrow_path_matches_plain(cuda, q, k):
+    """Q at or below NARROW_QUERIES: the narrow scorer and the radix
+    select, at each query tile (8, 16, 32, 64) and k up to 1000."""
+    g = torch.Generator().manual_seed(q * 1000 + k)
+    qs = torch.randn(q, 48, generator=g)
+    cs = torch.randn(5000, 48, generator=g)
+    _check_topk(qs.to(cuda), cs.to(cuda), k)
+
+
+@pytest.mark.parametrize("q,n,d,k", [(1, 3000, 4, 1000), (16, 5000, 8, 100),
+                                     (33, 2000, 16, 16), (64, 1500, 24, 1500),
+                                     (8, 20000, 1, 100), (2, 9000, 2, 5000),
+                                     (64, 300, 33, 64)])
+def test_topk_narrow_path_tie_inputs_equal_plain(cuda, q, n, d, k):
+    """Integer inputs, so every score is exact and ties are many: the
+    narrow path's lists equal the plain version's, ties to the lowest id,
+    k above a tile's rows, k = N and more ties at the k-th key than the
+    list has room for."""
+    g = torch.Generator().manual_seed(q + n + d + k)
+    qs = torch.randint(-2, 3, (q, d), generator=g).float().to(cuda)
+    cs = torch.randint(-2, 3, (n, d), generator=g).float().to(cuda)
+    s, i = topk_scores(qs, cs, k=k)
+    torch.cuda.synchronize()
+    s_ref, i_ref = topk_scores_ref(qs, cs, k=min(k, n))
+    assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+
+
+@pytest.mark.parametrize("q", [1, NARROW_QUERIES, NARROW_QUERIES + 1])
+def test_topk_path_by_query_count(cuda, q):
+    """Q at or below the cutoff launches the narrow pair and nothing of the
+    128-query path; above it, the partial kernel and the merge."""
+    kernels = (TOPK_NARROW_SCORES, TOPK_NARROW_SELECT, TOPK_PARTIAL,
+               TOPK_MERGE)
+    before = [kern.launches for kern in kernels]
+    g = torch.Generator().manual_seed(q)
+    topk_scores(torch.randn(q, 32, generator=g).to(cuda),
+                torch.randn(3000, 32, generator=g).to(cuda), k=10)
+    torch.cuda.synchronize()
+    ran = [kern.launches - b for kern, b in zip(kernels, before)]
+    narrow = q <= NARROW_QUERIES
+    assert ran == ([1, 1, 0, 0] if narrow else [0, 0, 1, 1])
 
 
 def test_topk_kernel_ties_go_to_lowest_id(cuda):
@@ -473,16 +522,17 @@ def test_topk_kernels_launch_at_any_k(cuda, k):
     qs = torch.randn(4, 16, device=cuda)
     cs = torch.randn(500, 16, device=cuda)
     rows = torch.randint(0, 500, (4, 400), device=cuda, dtype=torch.int32)
-    kernels = (TOPK_PARTIAL, TOPK_INT8_PARTIAL, HAMMING_TOPK,
-               GATHERED_TILES, TOPK_MERGE)
+    kernels = (TOPK_NARROW_SCORES, TOPK_NARROW_SELECT, TOPK_PARTIAL,
+               TOPK_INT8_PARTIAL, HAMMING_TOPK, GATHERED_TILES, TOPK_MERGE)
     before = [kern.launches for kern in kernels]
     topk_scores(qs, cs, k=k)
     topk_scores_int8(qs.to(torch.int8), cs.to(torch.int8), k=k)
     hamming_topk(qs.to(torch.int32), cs.to(torch.int32), k=k)
     gathered_topk(qs, cs, rows, rows, k=k)
     after = [kern.launches for kern in kernels]
-    # the Hamming kernel selects by counting: no merge follows it
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 3]
+    # 4 queries take the f32 kernel's narrow pair; the Hamming kernel
+    # selects by counting: no merge follows it
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 1, 1, 1, 2]
 
 
 def test_sort_engine_on_the_card_matches_the_cpu(cuda):
@@ -660,7 +710,8 @@ def test_live_index_on_card_matches_cpu_plain_path(cuda, engine, backend):
     plain = LiveIndex(base, SearchConfig(
         engine=engine, backend="int8" if backend == "int8" else "torch"),
         ingest=ingest, device="cpu")
-    launches0 = TOPK_PARTIAL.launches + TOPK_INT8_PARTIAL.launches
+    dense = (TOPK_NARROW_SCORES, TOPK_PARTIAL, TOPK_INT8_PARTIAL)
+    launches0 = sum(kern.launches for kern in dense)
     for li in (card, plain):
         li.append(extra[:100])
         li.append(extra[100:])
@@ -681,7 +732,7 @@ def test_live_index_on_card_matches_cpu_plain_path(cuda, engine, backend):
     assert card.pending_rows == plain.pending_rows == 0
     assert card.frozen_n == plain.frozen_n == 3300
     check()
-    assert TOPK_PARTIAL.launches + TOPK_INT8_PARTIAL.launches > launches0
+    assert sum(kern.launches for kern in dense) > launches0
 
 
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mixtral-8x22b",

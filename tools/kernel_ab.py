@@ -20,7 +20,11 @@ process through CUDA IPC, so all versions see the same tensors.
 
 Cases, at the main path's shapes (``--only`` picks groups):
 
-- dense: ``topk_scores`` at Q 128, N 524288, D 2048, k 3 and 40;
+- dense: ``topk_scores`` at Q 128, N 524288, D 2048, k 3 and 40; at a
+  grid search's shape (256 queries over 39,780 rows of D 2048, k 10); at
+  the serving tick (32 queries over 1,048,576 rows of D 768, k 16) and at
+  the recsys retrieval step (one query over 1,000,000 rows of D 16, k 100),
+  both on the narrow path where a checkout has one;
 - int8: ``topk_scores_int8`` at the same shape, k 10, 20, 40 and 80 (the
   evaluation curve's pools);
 - gathered: ``gathered_topk`` at the ivfflat probe of the evaluation path
@@ -118,6 +122,15 @@ def cases(groups):
         for k in (3, 40):
             yield f"topk_scores k={k}", "topk_scores", (q, c), {"k": k}, 8, 2
         del q, c
+        for label, (nq, n, d, k), iters in (
+                ("grid search Q=256 N=39780", (256, 39780, 2048, 10), 20),
+                ("tick Q=32 N=1048576 D=768", (32, 1048576, 768, 16), 20),
+                ("retrieval Q=1 N=1000000 D=16", (1, 1000000, 16, 100), 50)):
+            q, c = cs.topk_inputs(nq, n, d, seed=n + d, negative=False,
+                                  device=dev)
+            yield (f"topk_scores {label} k={k}", "topk_scores", (q, c),
+                   {"k": k}, iters, 3)
+            del q, c
     if "int8" in groups:
         q, c = cs.int8_inputs(128, 524288, 2048, seed=11, negative=False,
                               device=dev)
