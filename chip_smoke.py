@@ -26,14 +26,23 @@ From the root of a checkout, with one card. In order:
    at Q 1, 3, 8, 32 and 64, k up to 1000, k = N and D <= 8, its select
    held equal to its plain version on each scorer's keys and on chosen
    keys (ties, -0.0 and +0.0, -inf rows), and its lists equal to the
-   plain version's on integer inputs (exact scores, many ties). The
+   plain version's on integer inputs (exact scores, many ties). The int8
+   top-k's narrow path (Q at or below ``INT8_NARROW_QUERIES``: the s8
+   scorer, then the same select) at Q 1, 8, 32, 64 and the cutoff +- 1,
+   at D 2048 where distinct dots round to one f32, and at the serving
+   tick (32 x 1,048,576 x 768 codes, k 64), its select held to its plain
+   version on each scorer's keys. The gathered kernel's pieces kernels
+   are held to their plain version at every gathered shape, and its
+   scores to D * 2**-24 * sum |q c| of the plain version's. The
    gathered kernel's main shape
    is the ivfflat
    probe of the evaluation path's full corpus (its tf-idf embedding, 5.2e5
    x 2048, indexed as the ivfflat engine does: 64 lists, nprobe 8) for 512
    queries, and Table I's probe: 128-wide unit-norm vectors of the same
    corpus and of a 4e4-row sample, indexed the same way, 256 queries (the
-   search's chunk) at k = 3; its odd shapes include candidates cut into
+   search's chunk) at k = 3; one query a call (the RAG stack's) and the
+   serving tier's ivfflat ticks (buckets 1-32 over a 1,048,576 x 768
+   table at k 16); its odd shapes include candidates cut into
    pieces of length 1, repeated rows, runs across row tiles and a tile
    probed by more queries than a block takes. Flash attention's are the
    encoder's passage and query batches (256 x 64 and 256 x 24 tokens, 4
@@ -54,10 +63,16 @@ From the root of a checkout, with one card. In order:
    phase 3 too; there each narrow kernel's device time, the narrow and
    128-query paths at Q 1, 8, 32, 64 and 128, the buckets 1-32, and the
    retrieval shapes 1 x 1,000,000 x 16 at k 100 and 21b's shards of
-   500,000 and 250,000 rows beside matmul + stable sort), the gathered
-   kernel also at
-   Table I's probe, the Hamming kernel's three kernels and the flash
-   kernel and ``scaled_dot_product_attention`` also by the profiler's
+   500,000 and 250,000 rows beside matmul + stable sort), the int8
+   top-k also at its serving tick (each narrow kernel's device time,
+   both paths at Q 1-128: the int8 cutoff, the buckets 1-32 beside
+   _int_mm + stable sort, null where _int_mm refuses 16 rows or fewer),
+   the gathered kernel also at Table I's probe, at one query and at the
+   serving ticks (Q 1 and 32), each call split into its launches' device
+   times (the pieces kernels, the tile kernel, the merge) beside the
+   pieces step and its plain version, the Hamming kernel's three
+   kernels and the flash kernel and ``scaled_dot_product_attention``
+   also by the profiler's
    device time a call; ``topk_merge`` alone on the f32 kernel's partial
    lists at k 10, held equal to its plain version (two stable sorts).
 5. Sampling: ``repro_torch.launch.sample`` at 65536 queries with the LP
@@ -407,6 +422,11 @@ RANKS_TIMEOUT = 480             # s, phase 21's four processes together
 # the dense top-k kernels that Q <= NARROW_QUERIES launches (the serving
 # ticks, the retrieval steps)
 NARROW_PAIR = ("topk_narrow_scores", "topk_narrow_select")
+# the int8 top-k's kernels at Q <= INT8_NARROW_QUERIES (the serving ticks)
+NARROW_INT8_PAIR = ("topk_narrow_scores_int8", "topk_narrow_select")
+INT8_POOL = 64                  # the int8 tick's pool: 4 x k_max
+# the gathered wrapper's pieces kernels, which cut the candidate slots
+PIECES_PAIR = ("gathered_piece_count", "gathered_piece_emit")
 
 
 # phase 14's child: one rank of two in a gloo group on the one card;
@@ -958,6 +978,31 @@ def int8_inputs(q: int, n: int, d: int, *, seed: int, negative: bool,
     return qc.to(device), cc.to(device)
 
 
+def int8_tie_inputs(q: int, n: int, *, seed: int, device, d: int = 2048):
+    """Codes at +-127 but in the last two columns, where the queries hold 1
+    or 2 and the rows anything, each row flipping up to three leading
+    codes: dots near 127**2 (D - 2), past 2**24 and a unit apart, so that
+    distinct dots round to one f32 (ties the lowest id must win)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qc = torch.full((q, d), 127, dtype=torch.int8)
+    qc[:, -2:] = torch.randint(1, 3, (q, 2), generator=g, dtype=torch.int8)
+    cc = torch.full((n, d), 127, dtype=torch.int8)
+    cc[torch.arange(d)[None, :]
+       < torch.randint(0, 4, (n, 1), generator=g)] = -127
+    cc[:, -2:] = torch.randint(-127, 128, (n, 2), generator=g,
+                               dtype=torch.int8)
+    return qc.to(device), cc.to(device)
+
+
+def card_int8(rows: int, d: int, *, seed: int, device):
+    """Uniform int8 codes in [-127, 127] drawn on the card."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-127, 128, (rows, d), generator=g, device=device,
+                         dtype=torch.int8)
+
+
 def check_topk_int8(qc, cc, k: int) -> None:
     """Kernel vs plain int8 top-k: both rank exact integer dots as f32, so
     scores and ids must be equal, ties included."""
@@ -1183,13 +1228,32 @@ def piece_inputs(kind: str, d: int, *, seed: int, device):
             ids.to(device))
 
 
+def check_pieces(rows, ids, n_rows: int, k: int) -> None:
+    """The gathered wrapper's pieces kernels against their plain version
+    on the same slots: equal pieces, blocks' first pieces, width and row
+    lengths."""
+    import torch
+    from repro_torch.kernels.topk_scoring.ops import (gathered_pieces_cuda,
+                                                      gathered_pieces_plain)
+    rows = rows.to(torch.int32).contiguous()
+    ids = ids.to(torch.int32).contiguous()
+    got = gathered_pieces_cuda(rows, ids, n_rows, k)
+    want = gathered_pieces_plain(rows, ids, n_rows, k)
+    if got.width != want.width or not all(
+            torch.equal(a, b) for a, b in zip(got[:2] + got[3:],
+                                              want[:2] + want[3:])):
+        fail(f"gathered pieces kernels != their plain version "
+             f"(Q={ids.shape[0]} C={ids.shape[1]} k={k})")
+
+
 def check_gathered(qs, table, rows, ids, k: int, id_vecs) -> float:
     """Kernel vs plain gathered top-k. Scores must agree within the f32
-    summation bound D * 2**-24 * |q| * max|c| (Cauchy-Schwarz over the
-    table's rows; the two sum in different orders); misses must fall in
-    the same places; ids must be equal except where the kernel picked a
-    different id whose exact score lies within twice that bound of the
-    plain one (a near-tie). ``id_vecs[id]`` is an id's vector."""
+    summation bound D * 2**-24 * sum_d |q_d c_d| (c the plain version's
+    row; the two sum in different orders); misses must fall in the same
+    places; ids must be equal except where the kernel picked a different
+    id whose exact score lies within twice that bound of the plain one (a
+    near-tie). ``id_vecs[id]`` is an id's vector. The pieces kernels are
+    held to their plain version on the same slots first."""
     import torch
     from repro_torch.kernels.topk_scoring.ops import gathered_topk
     from repro_torch.kernels.topk_scoring.ref import gathered_topk_ref
@@ -1198,6 +1262,7 @@ def check_gathered(qs, table, rows, ids, k: int, id_vecs) -> float:
     qn, d = qs.shape
     c = ids.shape[1]
     k_eff = min(k, c)
+    check_pieces(rows, ids, table.shape[0], k_eff)
     s_ref, i_ref = gathered_topk_ref(qs, table, rows, ids, k=k_eff)
     shape = f"Q={qn} C={c} D={d} k={k}"
     if s.shape != (qn, k) or i.shape != (qn, k):
@@ -1210,9 +1275,9 @@ def check_gathered(qs, table, rows, ids, k: int, id_vecs) -> float:
     if not (torch.equal(torch.isneginf(s), miss)
             and bool((i[miss] == -1).all())):
         fail(f"gathered misses differ from the plain version for {shape}")
-    row_norm = float(table.double().norm(dim=1).max())
-    tol = d * 2.0 ** -24 * qs.double().norm(dim=1, keepdim=True) * row_norm
-    tol = tol.expand(-1, k_eff)
+    mag = torch.einsum("qd,qkd->qk", qs.abs().double(),
+                       id_vecs[i_ref.long().clamp(min=0)].abs().double())
+    tol = d * 2.0 ** -24 * mag + 1e-30
     err = torch.where(miss, 0.0, s.double() - s_ref.double()).abs()
     if bool((err > tol).any()):
         fail(f"gathered scores differ beyond the summation bound for "
@@ -1830,7 +1895,7 @@ def rag_full_width(cfg, params, pb, kernels, smi: str) -> dict:
     serve_s = time.perf_counter() - t0
     trace.disable()
     launched = read_counts(kernels, "17c RAG")
-    for kname in ("lp_round", "gathered_tiles", "topk_merge"):
+    for kname in ("lp_round", "gathered_tiles", "topk_merge") + PIECES_PAIR:
         if not launched[kname]:
             fail(f"17c launched no {kname} kernel")
     peak = torch.cuda.max_memory_allocated()
@@ -3251,11 +3316,14 @@ def main() -> None:
                                                      hamming_topk)
     from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
     from repro_torch.kernels.topk_scoring.ops import (
-        GATHERED_TILES, NARROW_QUERIES, NARROW_ROWS, TILE_PIECES, TILE_ROWS,
-        TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_NARROW_SCORES,
-        TOPK_NARROW_SELECT, TOPK_PARTIAL, gathered_topk, launch_merge,
+        GATHERED_PIECE_COUNT, GATHERED_PIECE_EMIT, GATHERED_TILES,
+        INT8_NARROW_QUERIES, NARROW_QUERIES, NARROW_ROWS, TILE_PIECES,
+        TILE_ROWS, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_NARROW_SCORES,
+        TOPK_NARROW_SCORES_INT8, TOPK_NARROW_SELECT, TOPK_PARTIAL,
+        gathered_pieces, gathered_pieces_plain, gathered_topk, launch_merge,
         narrow_scores_cuda, narrow_select_cuda, score_keys, topk_narrow_cuda,
-        topk_partials_cuda, topk_scores, topk_scores_cuda, topk_scores_int8)
+        topk_partials_cuda, topk_scores, topk_scores_cuda, topk_scores_int8,
+        topk_scores_int8_cuda)
     from repro_torch.kernels.topk_scoring.ref import (gathered_topk_ref,
                                                       topk_scores_int8_ref,
                                                       topk_scores_ref)
@@ -3271,7 +3339,8 @@ def main() -> None:
     from repro_torch.retrieval.lsh import encode
     kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
                HAMMING_TOPK, TOPK_MERGE, FLASH_ATTENTION, TOPK_NARROW_SCORES,
-               TOPK_NARROW_SELECT)
+               TOPK_NARROW_SELECT, TOPK_NARROW_SCORES_INT8,
+               GATHERED_PIECE_COUNT, GATHERED_PIECE_EMIT)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3445,6 +3514,42 @@ def main() -> None:
     log(f"    topk_scores_int8: scores and ids equal at "
         f"{len(int8_cases) + 4} shapes incl. Q=128 N=524288 D=2048 "
         f"k=10,20,40,80")
+    # the int8 narrow path (Q <= INT8_NARROW_QUERIES: the s8 scorer, then
+    # the select): Q 1, 8, 32, 64 and the cutoff +- 1, k up to 5000; D
+    # 2048 with dots past 2**24 that round to one f32; the serving tick
+    # (Q 32 x 1,048,576 x 768 codes at the pool k 64); the select held to
+    # its plain version on each scorer's keys
+    int8_narrow = [(1, 5000, 768, 64), (8, 20_000, 768, 16),
+                   (32, 70_000, 768, 64), (64, 3000, 37, 1000),
+                   (INT8_NARROW_QUERIES - 1, 2000, 128, 33),
+                   (INT8_NARROW_QUERIES, 2000, 128, 33),
+                   (INT8_NARROW_QUERIES + 1, 2000, 128, 33),
+                   (3, 9000, 16, 5000)]
+    for q, n, d, k in int8_narrow:
+        qc, cc = int8_inputs(q, n, d, seed=q + n + d, negative=q % 2 == 0,
+                             device=dev)
+        check_topk_int8(qc, cc, k)
+        if q <= INT8_NARROW_QUERIES:
+            check_select(narrow_scores_cuda(qc, cc, k), k,
+                         f"int8 Q={q} N={n} D={d} k={k}")
+    int8_ties = [(1, 5000, 300), (3, 2000, 40), (32, 3000, 64)]
+    for q, n, k in int8_ties:
+        qc, cc = int8_tie_inputs(q, n, seed=q + n, device=dev)
+        check_topk_int8(qc, cc, k)
+        check_select(narrow_scores_cuda(qc, cc, k), k,
+                     f"int8 f32-rounding ties Q={q} N={n} k={k}")
+    i8q = card_int8(128, SERVE_DIM, seed=37, device=dev)
+    i8c = card_int8(SERVE_DOCS, SERVE_DIM, seed=41, device=dev)
+    i8c[SERVE_DOCS // 2:] = i8c[:SERVE_DOCS // 2].clone()     # exact ties
+    check_topk_int8(i8q[:SERVE_BATCH], i8c, INT8_POOL)
+    check_select(narrow_scores_cuda(i8q[:SERVE_BATCH], i8c, INT8_POOL),
+                 INT8_POOL, "the int8 serving tick")
+    log(f"    int8 narrow path (Q <= {INT8_NARROW_QUERIES}): scores and ids "
+        f"equal at {len(int8_narrow)} shapes (Q 1, 8, 32, 64 and the cutoff "
+        f"+- 1), {len(int8_ties)} at D=2048 whose dots round to one f32, "
+        f"and the serving tick Q={SERVE_BATCH} N={SERVE_DOCS} D={SERVE_DIM} "
+        f"k={INT8_POOL}; the select equal to its plain version on each "
+        f"s8 scorer's keys")
     gath_err = 0.0
     for q, c, d, r, k in [(1, 1, 4, 1, 1), (3, 5, 8, 4, 9),
                           (7, 300, 37, 50, 5), (16, 1000, 64, 200, 32),
@@ -3490,6 +3595,23 @@ def main() -> None:
     for k in (3, 10):
         gath_err = max(gath_err, check_gathered(pq, p_table, p_rows, p_ids,
                                                 k, ev))
+    # one query a call (the RAG stack's calls), at the evaluation probe
+    gath_err = max(gath_err, check_gathered(
+        pq[:1], p_table, p_rows[:1].contiguous(), p_ids[:1].contiguous(), 3,
+        ev))
+    # the serving tier's ivfflat ticks: buckets 1-32 at k_max over an
+    # index of a tenant-sized table (normal rows, drawn on the card)
+    g = torch.Generator(device=dev).manual_seed(43)
+    sv_vecs = torch.randn(SERVE_DOCS, SERVE_DIM, generator=g, device=dev)
+    sv_idx = ivf_engine.build(prng.prng_key(0), sv_vecs)
+    sv_q = torch.randn(SERVE_BATCH, SERVE_DIM, generator=g, device=dev)
+    sv_rows, sv_ids = probe_candidates(sv_idx, sv_q, nprobe=ivf_engine.nprobe)
+    sv_table = sv_idx.vecs.reshape(-1, SERVE_DIM)
+    del sv_idx
+    for q in (1, 2, 4, 8, 16, 32):
+        gath_err = max(gath_err, check_gathered(
+            sv_q[:q], sv_table, sv_rows[:q].contiguous(),
+            sv_ids[:q].contiguous(), SERVE_KMAX, sv_vecs))
     # the Table I probe: the encoder's unit-norm 128-wide embeddings of
     # the same corpus (here a random projection of its tf-idf vectors, which
     # keeps their topic clusters), indexed as IVFFlatEngine does, searched
@@ -3511,13 +3633,15 @@ def main() -> None:
         if i == 0:                  # the full corpus's probe, timed in 4.
             t1_probe = (q128, table_, rows_, ids_)
     del proj, e128, q128, kept, idx, table_, rows_, ids_
-    log(f"    gathered_topk: within the summation bound at 24 shapes incl. "
+    log(f"    gathered_topk: within the summation bound at 31 shapes incl. "
         f"pieces of length 1, repeated rows, runs across {TILE_ROWS}-row "
         f"tiles and a tile probed by more than {TILE_PIECES} queries, "
         f"the ivfflat probe Q={PROBE_QUERIES} C={p_ids.shape[1]} "
-        f"D={ev.shape[1]} k=3,10 and Table I's Q={ENCODER_BATCH} "
-        f"D={ENCODER_DIM} k=3 at {', '.join(t1_probes)}; max |err| "
-        f"{gath_err:.3e}")
+        f"D={ev.shape[1]} k=3,10 and Q=1 k=3, the serving ticks Q=1-32 "
+        f"C={sv_ids.shape[1]} D={SERVE_DIM} k={SERVE_KMAX}, and Table I's "
+        f"Q={ENCODER_BATCH} D={ENCODER_DIM} k=3 at {', '.join(t1_probes)}; "
+        f"the pieces kernels equal to their plain version at each; max "
+        f"|err| {gath_err:.3e}")
     ham_cases = [(1, 1, 4, 1), (3, 5, 4, 9), (7, 513, 4, 5),
                  (33, 1000, 4, 32), (40, 4096, 4, 64), (9, 1000, 3, 100),
                  (5, 300, 1, 300), (64, 20000, 4, 10), (2, 129, 8, 33),
@@ -3685,15 +3809,24 @@ def main() -> None:
     # the scorer's keys
     from repro_torch.kernels.build import Kernel
 
-    def narrow_device_ms(qs, cs, k, calls=10):
-        topk_narrow_cuda(qs, cs, k)
+    def launch_device_ms(fn, calls=10):
+        """Device ms a call of each kernel ``fn`` launches, by CUDA events
+        around every launch (``Kernel.timed``)."""
+        fn()
         Kernel.timed = []
         for _ in range(calls):
-            topk_narrow_cuda(qs, cs, k)
+            fn()
         torch.cuda.synchronize()
         timed, Kernel.timed = Kernel.timed, None
-        return tuple(sum(a.elapsed_time(b) for name, a, b in timed
-                         if name == kname) / calls for kname in NARROW_PAIR)
+        out: dict = {}
+        for name, a, b in timed:
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b) / calls
+        return out
+
+    def narrow_device_ms(qs, cs, k, calls=10):
+        per = launch_device_ms(lambda: topk_narrow_cuda(qs, cs, k), calls)
+        pair = NARROW_INT8_PAIR if qs.dtype == torch.int8 else NARROW_PAIR
+        return tuple(per.get(kname) for kname in pair)
 
     nsc_ms, nsel_ms = narrow_device_ms(sq, sc, SERVE_KMAX)
     nar = narrow_scores_cuda(sq, sc, SERVE_KMAX)
@@ -3770,6 +3903,70 @@ def main() -> None:
     log(f"    topk_scores_int8 Q={qn} N={n_c} D={d} k={k_i}: kernel "
         f"{i8_ms:.4f} ms, plain {i8_plain_ms:.4f} ms, _int_mm+stable sort "
         f"{i8_lib_ms:.4f} ms, bound {i8_bound:.4f} ms ({i8_by})")
+    # the int8 serving tick (15d: a bucket of 32 over a tenant's codes at
+    # the pool k 64): the call, each narrow kernel's device time, the plain
+    # version and one PyTorch call (_int_mm refuses 16 rows or fewer)
+    def int8_library(qc, cc, k):
+        try:
+            return cuda_ms(lambda: torch.sort(
+                torch._int_mm(qc, cc.T).to(torch.float32), dim=1,
+                descending=True, stable=True), 5), ""
+        except RuntimeError as err:
+            return None, str(err).splitlines()[0][:80]
+
+    def int8_bound(q, n, dd, k):
+        return bound((q + n) * dd + q * k * 8, 2.0 * q * n * dd,
+                     H100_INT8_OPS)
+
+    iq_t = i8q[:SERVE_BATCH]
+    it_ms = cuda_ms(lambda: topk_scores_int8(iq_t, i8c, k=INT8_POOL), 20)
+    it_plain_ms = cuda_ms(lambda: topk_scores_int8_ref(iq_t, i8c,
+                                                       k=INT8_POOL), 2, 1)
+    it_lib_ms, it_lib_why = int8_library(iq_t, i8c, INT8_POOL)
+    it_bound, it_by = int8_bound(SERVE_BATCH, SERVE_DOCS, SERVE_DIM,
+                                 INT8_POOL)
+    isc_ms, isel_ms = narrow_device_ms(iq_t, i8c, INT8_POOL)
+    isc_plain_ms = cuda_ms(lambda: score_keys(
+        (iq_t.double() @ i8c.double().T).to(torch.float32)), 2, 1)
+    isc_lib_ms = cuda_ms(lambda: torch._int_mm(iq_t, i8c.T), 5)
+    i8_keys = SERVE_BATCH * (SERVE_DOCS + -(-SERVE_DOCS // NARROW_ROWS)) * 4
+    isc_bound, isc_by = bound((SERVE_BATCH + SERVE_DOCS) * SERVE_DIM
+                              + i8_keys,
+                              2.0 * SERVE_BATCH * SERVE_DOCS * SERVE_DIM,
+                              H100_INT8_OPS)
+    log(f"    topk_scores_int8 at the serving tick Q={SERVE_BATCH} "
+        f"N={SERVE_DOCS} D={SERVE_DIM} k={INT8_POOL}: {it_ms:.4f} ms "
+        f"(device time a launch: topk_narrow_scores_int8 {fmt(isc_ms)}, "
+        f"topk_narrow_select {fmt(isel_ms)}), plain {it_plain_ms:.4f} ms, "
+        f"_int_mm+stable sort {fmt(it_lib_ms)}, bound {it_bound:.4f} ms "
+        f"({it_by}); the s8 scorer alone: plain (the keys of the exact "
+        f"dots) {isc_plain_ms:.4f} ms, _int_mm {isc_lib_ms:.4f} ms, bound "
+        f"{isc_bound:.4f} ms ({isc_by})")
+    # the int8 cutoff: both paths at Q 1, 8, 32, 64 and 128 on the tick's
+    # codes (the 128-query path alone above INT8_NARROW_QUERIES), and the
+    # buckets 1-32 through topk_scores_int8 beside _int_mm + stable sort
+    cut = []
+    for q in (1, 8, 32, 64, 128):
+        wide_ms = cuda_ms(lambda: topk_scores_int8_cuda(i8q[:q], i8c,
+                                                        INT8_POOL), 10)
+        nar_ms = (cuda_ms(lambda: topk_narrow_cuda(i8q[:q], i8c, INT8_POOL),
+                          10) if q <= INT8_NARROW_QUERIES else None)
+        cut.append(f"Q={q} narrow {fmt(nar_ms)}, 128-query {wide_ms:.4f} ms")
+    log(f"    the int8 cutoff at the tick's codes (k={INT8_POOL}): "
+        + "; ".join(cut))
+    tick = []
+    for q in (1, 2, 4, 8, 16, 32):
+        b_ms = cuda_ms(lambda: topk_scores_int8(i8q[:q], i8c, k=INT8_POOL),
+                       20)
+        lib, why = int8_library(i8q[:q], i8c, INT8_POOL)
+        tick.append(f"Q={q} {b_ms:.4f} ms (bound "
+                    f"{int8_bound(q, SERVE_DOCS, SERVE_DIM, INT8_POOL)[0]:.4f}"
+                    f", _int_mm+stable sort "
+                    + (f"{lib:.4f}" if lib is not None else f"null: {why}")
+                    + ")")
+    log(f"    topk_scores_int8 at the tick's buckets (N={SERVE_DOCS} "
+        f"D={SERVE_DIM} k={INT8_POOL}): " + "; ".join(tick))
+    del iq_t, i8q, i8c
     # gathered, at the ivfflat probe of the main path (k = 10): the bound
     # counts the valid slots only, each distinct probed list read once
     k_g = 10
@@ -3805,6 +4002,68 @@ def main() -> None:
         f"k={k_g}: kernel {g_ms:.4f} ms, plain {g_plain_ms:.4f} ms, "
         f"gather+bmm+stable sort by {lib_chunk} queries {g_lib_ms:.4f} ms, "
         f"bound {g_bound:.4f} ms ({g_by})")
+    # the call split into its parts: each launch's device time (events
+    # around every launch: the pieces kernels, the tile kernel, the merge),
+    # the pieces step on its own (gathered_pieces: its kernels, the host
+    # read, the sort by tile) and the pieces' plain version
+    def gathered_split(label, qs, table, rows, ids, k, calls):
+        k_eff = min(k, ids.shape[1])
+        per = launch_device_ms(
+            lambda: gathered_topk(qs, table, rows, ids, k=k), calls)
+        pc_ms = cuda_ms(lambda: gathered_pieces(rows, ids, table.shape[0],
+                                                k_eff), calls)
+        pc_plain = cuda_ms(lambda: gathered_pieces_plain(
+            rows, ids, table.shape[0], k_eff), max(1, calls // 2))
+        log(f"    gathered split at {label} Q={qs.shape[0]} C={ids.shape[1]} "
+            f"D={qs.shape[1]} k={k}: device a launch "
+            + "; ".join(f"{name} {ms:.4f} ms" for name, ms in per.items())
+            + f"; the pieces step {pc_ms:.4f} ms (its plain version "
+            f"{pc_plain:.4f} ms)")
+        return per, pc_ms, pc_plain
+
+    g_split, g_pieces_ms, g_pieces_plain_ms = gathered_split(
+        "the evaluation probe", pq, p_table, p_rows, p_ids, k_g, 5)
+    # the pieces kernels' bound: each slot's row and id read once, each
+    # piece (five ints and its tile) and each row length written once
+    pc_slots = p_ids.numel()
+    pc_n = gathered_pieces(p_rows, p_ids, p_table.shape[0], k_g).pieces \
+        .shape[0]
+    pc_bound, pc_by = bound(pc_slots * 8 + pc_n * 24 + pq.shape[0] * 4,
+                            float(pc_slots))
+    pc_ms = sum(g_split.get(kname, 0.0) for kname in PIECES_PAIR)
+    log(f"    gathered pieces kernels at the evaluation probe ({pc_slots} "
+        f"slots, {pc_n} pieces): device {pc_ms:.4f} ms, plain "
+        f"{g_pieces_plain_ms:.4f} ms, no library call, bound "
+        f"{pc_bound:.4f} ms ({pc_by})")
+    gathered_split("one query at the evaluation probe", pq[:1], p_table,
+                   p_rows[:1].contiguous(), p_ids[:1].contiguous(), 3, 20)
+    # and at the serving tier's ivfflat ticks (15d's buckets at k_max)
+    for q in (1, 32):
+        sq_, sr_, si_ = (sv_q[:q], sv_rows[:q].contiguous(),
+                         sv_ids[:q].contiguous())
+        s_ms = cuda_ms(lambda: gathered_topk(sq_, sv_table, sr_, si_,
+                                             k=SERVE_KMAX), 20)
+        s_plain = cuda_ms(lambda: gathered_topk_ref(sq_, sv_table, sr_, si_,
+                                                    k=SERVE_KMAX), 1, 1)
+
+        def serving_library():          # 2 queries a bmm, as above
+            for q0 in range(0, sq_.shape[0], lib_chunk):
+                cand = sv_table[sr_[q0:q0 + lib_chunk].long()]
+                sc = torch.bmm(cand, sq_[q0:q0 + lib_chunk, :, None])[..., 0]
+                sc = torch.where(si_[q0:q0 + lib_chunk] >= 0, sc, -torch.inf)
+                torch.sort(sc, dim=1, descending=True, stable=True)
+
+        s_lib = cuda_ms(serving_library, 1, 1)
+        s_valid, s_probed, s_bound, s_by = gathered_bound(sq_, sr_, si_,
+                                                          SERVE_KMAX)
+        gathered_split("the serving tick", sq_, sv_table, sr_, si_,
+                       SERVE_KMAX, 20)
+        log(f"    gathered_topk at the serving tick Q={q} C={si_.shape[1]} "
+            f"(valid {s_valid}, distinct probed rows {s_probed}) "
+            f"D={SERVE_DIM} k={SERVE_KMAX}: kernel {s_ms:.4f} ms, plain "
+            f"{s_plain:.4f} ms, gather+bmm+stable sort by {lib_chunk} "
+            f"queries {s_lib:.4f} ms, bound {s_bound:.4f} ms ({s_by})")
+    del sv_vecs, sv_table, sv_q, sv_rows, sv_ids
     # and at Table I's own probe (24 of the kernel's main-path launches):
     # 256 queries, D 128, k 3, over the 524,700-row index
     tq1, tt1, tr1, ti1 = t1_probe
@@ -3826,6 +4085,7 @@ def main() -> None:
         f"{t1_probed}) D={tq1.shape[1]} k=3: kernel {t1_ms:.4f} ms, plain "
         f"{t1_plain_ms:.4f} ms, gather+bmm+stable sort by 16 queries "
         f"{t1_lib_ms:.4f} ms, bound {t1_bound:.4f} ms ({t1_by})")
+    gathered_split("Table I's probe", tq1, tt1, tr1, ti1, 3, 10)
     del t1_probe, tq1, tt1, tr1, ti1
     # Hamming at the lsh rerank pool of the main path (k = 64): W 32-bit
     # popcounts a (query, row) pair, at the rate the card issues them
@@ -4005,7 +4265,8 @@ def main() -> None:
     log(f"    winners: {json.dumps(out['fidelity']['winners'])}")
     log(f"    backend curve: {json.dumps(out['backend_curve'])}")
     for kname in ("gathered_tiles", "hamming_topk", "topk_partial",
-                  "topk_int8_partial", "topk_merge", "lp_round"):
+                  "topk_int8_partial", "topk_merge", "lp_round") \
+            + PIECES_PAIR:
         if eval_launches[kname] == 0:
             fail(f"the evaluation run launched no {kname} kernel")
     curve = [(r["backend"], r["rerank_factor"]) for r in out["backend_curve"]]
@@ -4822,7 +5083,7 @@ def main() -> None:
         """Each captured wrapper call (args, kwargs) against its plain
         version (a function, so no reference to its inputs outlives it)."""
         for args, kw in calls:
-            if kname == "topk_int8_partial":
+            if kname == "topk_narrow_scores_int8":
                 check_topk_int8(*args, **kw)
             elif kname == "gathered_tiles":
                 check_gathered(*args, kw["k"], id_vecs)
@@ -4831,7 +5092,7 @@ def main() -> None:
 
     for label, extra, kname, wrapper in (
             ("d-int8", ["--engine", "exact", "--backend", "int8"],
-             "topk_int8_partial", (topk_ops, "topk_scores_int8")),
+             "topk_narrow_scores_int8", (topk_ops, "topk_scores_int8")),
             ("d-ivfflat", ["--engine", "ivfflat"], "gathered_tiles",
              (topk_ops, "gathered_topk")),
             ("d-lsh", ["--engine", "lsh", "--engine-opts",
@@ -4843,6 +5104,17 @@ def main() -> None:
             fail(f"15{label}: completed + rejected != "
                  f"{SERVE_SIDE_REQUESTS}")
         need(label, launched, (kname,))
+        if kname == "topk_narrow_scores_int8":
+            # a tick of at most SERVE_BATCH queries takes the s8 scorer and
+            # the select, and nothing of the 128-query int8 path
+            need(label, launched, NARROW_INT8_PAIR)
+            if launched["topk_int8_partial"] or launched["topk_merge"]:
+                fail(f"15{label}: the int8 ticks launched the 128-query "
+                     f"path ({launched['topk_int8_partial']} "
+                     f"topk_int8_partial, {launched['topk_merge']} "
+                     f"topk_merge)")
+        elif kname == "gathered_tiles":
+            need(label, launched, PIECES_PAIR + ("topk_merge",))
         live = with_buffer(server)
         id_vecs = torch.from_numpy(
             np.concatenate([live._host, live._pending])).to(dev)
@@ -5174,15 +5446,29 @@ def main() -> None:
         {"name": "topk_scores_int8", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_scores.cu",
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:49",
-         "launches": launches("topk_int8_partial"),
+         "launches": (launches("topk_int8_partial")
+                      + launches("topk_narrow_scores_int8")),
          "max_abs_err": 0, "ms": i8_ms, "plain_ms": i8_plain_ms,
          "bound_ms": i8_bound, "bound_by": i8_by, "library_ms": i8_lib_ms},
+        {"name": "topk_narrow_scores_int8", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:49",
+         "launches": launches("topk_narrow_scores_int8"),
+         "max_abs_err": 0, "ms": isc_ms, "plain_ms": isc_plain_ms,
+         "bound_ms": isc_bound, "bound_by": isc_by,
+         "library_ms": isc_lib_ms},
         {"name": "gathered_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_scores.cu",
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:84",
          "launches": launches("gathered_tiles"),
          "max_abs_err": gath_err, "ms": g_ms, "plain_ms": g_plain_ms,
          "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib_ms},
+        {"name": "gathered_pieces", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:84",
+         "launches": min(launches(kname) for kname in PIECES_PAIR),
+         "max_abs_err": 0, "ms": pc_ms, "plain_ms": g_pieces_plain_ms,
+         "bound_ms": pc_bound, "bound_by": pc_by, "library_ms": None},
         {"name": "topk_narrow_scores", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_scores.cu",
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:23",

@@ -26,11 +26,12 @@
 // over all queries), taken as three TF32 products at the tensor-core rate,
 // are less: at the ivfflat probe of the evaluation path, 2.6 GB of distinct
 // rows (0.78 ms) against 3 x 98 GFLOP (0.59 ms), so bytes. This kernel
-// does its 98 GFLOP on the CUDA cores in f32 FMA (1.46 ms at their rate).
-// A kernel that scores each query's rows on their own reads a list once
-// per query that probes it (about 64 at that shape), so bytes would
-// set its time; this one shares each row tile among the queries that probe
-// it.
+// takes its products on the tensor cores as three TF32 products, the
+// narrow scorer's (below); with the tiles' padding that is 3 x 137 GFLOP,
+// about 1.4 ms at the rate mma.sync reaches. A kernel that scores each
+// query's rows on their own reads a list once per query that probes it
+// (about 64 at that shape), so bytes would set its time; this one shares
+// each row tile among the queries that probe it.
 //
 // With few queries (a serving tick of 1-32, a retrieval step of 1), the
 // f32 search is bound by the corpus's bytes: at Q 32, N 1,048,576, D 768,
@@ -119,24 +120,39 @@
 //    again at 128-row tiles (an ivfflat probe's list is one run, so a
 //    piece is a whole tile of it), and sorts them by tile. A block takes
 //    one tile and up to 32 of its pieces (a tile probed by more queries
-//    gets more blocks): D streams through shared memory in chunks of 32,
-//    the pieces' query rows and the tile's rows, in a ring of 3 stages
-//    fed by 16-byte cp.async copies two chunks ahead (zero-filled past the
-//    table, the block's pieces or D); each thread keeps a 4 x 4 tile of
-//    the 32 x 128 f32 sums (FMA, no TF32), and a warp whose pieces are all
-//    absent skips the products. At that tile the shared-memory reads (8
-//    16-byte reads for 64 FMAs) limit the loop; a larger thread tile is
-//    the next step. The sums then go to shared
+//    gets more blocks) and scores them as the narrow scorer does: the
+//    tile's rows on the MMA's M side (one m16 tile a warp), the pieces'
+//    query rows on N, rounded up to the n8 tiles that hold them, so a
+//    block of 1-8 pieces (a serving tick's, a RAG call's) pays one n8
+//    tile, not four; narrow_chunk's 3xTF32 products over the same ring
+//    of 128-byte chunks (4 stages, cp.async, 144-byte rows for ldmatrix;
+//    the query rows staged through the pieces' query map, only the 8 nt
+//    a block holds), or f64 sums on the CUDA cores where D <= kExactDepth
+//    (narrow_exact). Two blocks an SM. The sums then go to shared
 //    memory, and each warp offers a piece's rows, as (score, position),
 //    to a list of min(k, length) entries (lanes for k <= 32, else shared
 //    memory), written to the piece's slot in its query's row of the
-//    partials. Lists key on the position, so the merge's (score desc, key
-//    asc) order is the reference's earliest-position rule; the wrapper
-//    maps positions to ids.
+//    partials. A query's slots fill its row's first row_len entries and
+//    nothing else is written; the merge reads only those. Lists key on
+//    the position, so the merge's (score desc, key asc) order is the
+//    reference's earliest-position rule; the wrapper maps positions to
+//    ids.
+//  * gathered pieces (gathered_piece_count, gathered_piece_emit): the cut
+//    itself, two passes over the (Q, C) slots, a block a (query, 8192-slot
+//    chunk) and a 32-slot run a thread. The count pass flags piece starts
+//    and stray rows and its last block scans the counts into each chunk's
+//    first piece number (the host reads the total, the flag and the most
+//    a query has: the one host read, which sizes the outputs); the emit
+//    pass writes each piece at its number (an end closes the piece of the
+//    last start at or before it), then a block a query turns the ends
+//    into lengths and scans the kept min(k, length) into slot offsets and
+//    row lengths. The wrapper's stable sort by tile follows.
 //  * topk_merge_kernel: one warp per query merges the n_splits*k partials
 //    with the same insertion, so ties still go to the lowest id (position);
-//    for the gathered kernel, each query's row of piece lists.
-//  * narrow_scores<kExact, kQT> (topk_narrow_scores, Q <= kNQMax): the
+//    for the gathered kernel, the first row_len entries of each query's
+//    row: its pieces' lists.
+//  * narrow_scores<In, kExact, kQT> (topk_narrow_scores, Q <= kNQMax;
+//    topk_narrow_scores_int8, its s8 form, Q <= kNQInt8): the
 //    operands' roles swap, corpus rows on the MMA's M side and the queries,
 //    rounded up to 8 kQT (8, 16, 32 or 64), on its N side, so the products
 //    cost the real queries only. One block of 8 warps an SM walks a run of
@@ -147,10 +163,18 @@
 //    tiles and each product issued for all 2 kQT accumulators before the
 //    next; D <= kExactDepth: the dots summed in f64 on the CUDA cores
 //    (exact products, one rounding), since the MMA truncates as it adds
-//    and a sum of so few terms has no room for that. Each score leaves as
-//    its order key (f32_key: larger score, larger unsigned key; -0.0 is
-//    +0.0, -inf the least number), Q N 4 bytes against the corpus's N D 4,
-//    with each tile's largest key.
+//    and a sum of so few terms has no room for that. int8 codes
+//    (narrow_scores<signed char, ...>, Q <= kNQInt8): one m16n8k32 s8 MMA
+//    a (row tile, query tile) and 32-code step, four a 128-byte chunk,
+//    exact int32 sums, each keyed as the f32 it rounds to (the reference
+//    ranks int32.astype(float32), and at D 2048 |dot| passes 2^24, so
+//    distinct dots can share an f32 and then go to the lowest id). At the
+//    int8 serving tick (Q 32, N 1M, D 768) the codes are 805 MB against
+//    134 MB of keys written and read again, and the s8 products 0.04 ms.
+//    Each score leaves as its order key (f32_key: larger score, larger
+//    unsigned key; -0.0 is +0.0, -inf the least number), Q N 4 bytes
+//    against the corpus's N D 4 (or N D codes), with each tile's largest
+//    key.
 //  * narrow_select (topk_narrow_select): one cooperative launch (its blocks
 //    co-resident, so a grid-wide barrier works) of (query, chunk) items, an
 //    exact radix select over the keys, no list kept anywhere: a floor from
@@ -371,208 +395,6 @@ __device__ __forceinline__ void mem_offer(MemList& l, float s, int id, int k,
   }
 }
 
-// ---- gathered: row tiles shared by the pieces that probe them --------------
-
-constexpr int kGTR = 128;            // table rows per tile
-constexpr int kGBQ = 32;             // pieces per block
-constexpr int kGDC = 32;             // D chunk staged per step (floats)
-constexpr int kGS = kGDC + 4;        // padded staged row
-constexpr int kGStage = (kGBQ + kGTR) * kGS;   // floats per stage
-constexpr int kGStages = 3;          // stages in flight: 2 prefetched
-constexpr int kGMinBlocks = 3;       // blocks an SM holds (80 registers)
-constexpr int kGSP = kGTR + 8;       // padded score row
-constexpr int kPieceInts = 5;        // query, first row, length, first
-                                     // position, slot offset in the query
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-// Stage D chunk [d0, d0 + kGDC) of the block's query rows (qrow[j] < 0:
-// zeros) and of the tile's rows (past the table: zeros) into stage[].
-__device__ __forceinline__ void gathered_stage(
-    float* stage, const float* __restrict__ q,
-    const float* __restrict__ table, const int* qrow, long long row0, int r,
-    int d, int d0, int vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-#pragma unroll
-    for (int p = 0; p < (kGBQ + kGTR) * (kGDC / 4) / kThreads; ++p) {
-      const int e = tid + p * kThreads;
-      const int x = e / (kGDC / 4), c = d0 + (e % (kGDC / 4)) * 4;
-      const float* src = table;
-      bool ok = c < d;
-      if (x < kGBQ) {
-        ok = ok && qrow[x] >= 0;
-        if (ok) src = q + static_cast<long long>(qrow[x]) * d + c;
-      } else {
-        const long long g = row0 + x - kGBQ;
-        ok = ok && g < r;
-        if (ok) src = table + g * d + c;
-      }
-      cp_async16(stage + x * kGS + (e % (kGDC / 4)) * 4, src, ok);
-    }
-  } else {
-    for (int e = tid; e < (kGBQ + kGTR) * kGDC; e += kThreads) {
-      const int x = e / kGDC, c = d0 + e % kGDC;
-      float val = 0.f;
-      if (c < d) {
-        if (x < kGBQ) {
-          if (qrow[x] >= 0) val = q[static_cast<long long>(qrow[x]) * d + c];
-        } else if (row0 + x - kGBQ < r) {
-          val = table[(row0 + x - kGBQ) * d + c];
-        }
-      }
-      stage[x * kGS + e % kGDC] = val;
-    }
-  }
-}
-
-// One block per (row tile, up to kGBQ of the pieces that probe it): the
-// pieces from blk_first[blockIdx.x] on, while they stay in its tile.
-// pieces [n, 5] sorted by tile; part_s/part_i [nq, width]: piece j's
-// top-min(k, length) (score, position) list goes to row query_j at
-// column slot_j.
-template <bool kMem>
-__global__ void __launch_bounds__(kThreads, kGMinBlocks)
-gathered_tiles_kernel(const float* __restrict__ q,
-                      const float* __restrict__ table,
-                      const int* __restrict__ pieces,
-                      const int* __restrict__ blk_first, float* part_s,
-                      int* part_i, int n, int r, int d, int k, int width,
-                      int vec) {
-  extern __shared__ __align__(16) float gsm[];
-  __shared__ int p_q[kGBQ], p_lo[kGBQ], p_hi[kGBQ], p_pos[kGBQ], p_off[kGBQ];
-  const int first = blk_first[blockIdx.x];
-  if (first < 0) return;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int tile =
-      pieces[static_cast<long long>(first) * kPieceInts + 1] / kGTR;
-  const long long row0 = static_cast<long long>(tile) * kGTR;
-  if (tid < kGBQ) {
-    const int j = first + tid;
-    const int* pc = pieces + static_cast<long long>(j) * kPieceInts;
-    if (j < n && pc[1] / kGTR == tile) {
-      p_q[tid] = pc[0];
-      p_lo[tid] = pc[1] - static_cast<int>(row0);
-      p_hi[tid] = pc[1] - static_cast<int>(row0) + pc[2];
-      p_pos[tid] = pc[3];
-      p_off[tid] = pc[4];
-    } else {
-      p_q[tid] = -1;
-      p_lo[tid] = p_hi[tid] = 0;
-    }
-  }
-  __syncthreads();
-
-  // scores: warp (wq, wr) owns pieces 16wq + qs + 4i and rows
-  // 32wr + rs + 8j of the tile (lane = 8qs + rs), so each float4 read
-  // of a staged row is 4 (pieces) or 8 (rows) distinct vectors: no bank
-  // conflict
-  const int wq = warp & 1, wr = warp >> 1;
-  const int qs = lane >> 3, rs = lane & 7;
-  // pieces fill the block's slots from 0, so a warp whose first slot is
-  // empty has no piece: it stages and syncs, but skips the products
-  const bool busy = p_q[16 * wq] >= 0;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  const int n_chunks = (d + kGDC - 1) / kGDC;
-  // a ring of kGStages stages: chunk ch + kGStages - 1 is staged while
-  // chunk ch is multiplied; a group is committed every step, empty or
-  // not, so "all but the last kGStages - 1 groups" is always chunk ch
-#pragma unroll
-  for (int ch = 0; ch < kGStages - 1; ++ch) {
-    if (ch < n_chunks)
-      gathered_stage(gsm + ch * kGStage, q, table, p_q, row0, r, d,
-                     ch * kGDC, vec);
-    asm volatile("cp.async.commit_group;\n" ::);
-  }
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int ahead = ch + kGStages - 1;
-    if (ahead < n_chunks)
-      gathered_stage(gsm + ahead % kGStages * kGStage, q, table, p_q, row0,
-                     r, d, ahead * kGDC, vec);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kGStages - 1));
-    __syncthreads();
-    const float* qsm = gsm + ch % kGStages * kGStage;
-    const float* tsm = qsm + kGBQ * kGS;
-    if (busy) {
-#pragma unroll
-      for (int c = 0; c < kGDC; c += 4) {
-        float4 a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(
-              qsm + (16 * wq + qs + 4 * i) * kGS + c);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          b[j] = *reinterpret_cast<const float4*>(
-              tsm + (32 * wr + rs + 8 * j) * kGS + c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-            acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-            acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-            acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-          }
-      }
-    }
-    __syncthreads();   // the next step overwrites this stage
-  }
-
-  // the scores take the stages' place; each warp then selects for 4 pieces
-  float* sc = gsm;                                   // [kGBQ][kGSP]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sc[(16 * wq + qs + 4 * i) * kGSP + 32 * wr + rs + 8 * j] = acc[i][j];
-  __syncthreads();
-  float* lists = gsm + kGBQ * kGSP + warp * 2 * kGTR;
-  for (int pj = warp; pj < kGBQ; pj += kWarps) {
-    const int qi = p_q[pj];
-    if (qi < 0) continue;                            // uniform in the warp
-    const int lo = p_lo[pj], hi = p_hi[pj];
-    const int kk = min(k, hi - lo);
-    const int pos0 = p_pos[pj] - lo;
-    const long long o = static_cast<long long>(qi) * width + p_off[pj];
-    const float* row = sc + pj * kGSP;
-    float ls = -CUDART_INF_F;
-    int li = -1;
-    MemList ml;
-    if (kMem) {
-      ml.s = lists;
-      ml.i = reinterpret_cast<int*>(lists + kGTR);
-      mem_init(ml, kk, lane);
-    }
-    for (int x0 = lo; x0 < hi; x0 += 32) {
-      const int x = x0 + lane;
-      const float s = x < hi ? row[x] : -CUDART_INF_F;
-      if (kMem)
-        mem_offer(ml, s, pos0 + x, kk, lane);
-      else
-        reg_offer(ls, li, s, pos0 + x, kk, lane);
-    }
-    if (!kMem && lane < kk) {
-      part_s[o + lane] = ls;
-      part_i[o + lane] = li;
-    } else if (kMem) {
-      mem_store(ml, part_s + o, part_i + o, kk, lane);
-    }
-    __syncwarp();     // the list is reused by the warp's next piece
-  }
-}
-
 // ---- dense: tensor-core tiles (topk_partial, topk_int8_partial) ------------
 
 constexpr int kDQ = 128;                 // queries per block
@@ -743,20 +565,58 @@ __device__ __forceinline__ void dense_chunk(int (&acc)[16][4], unsigned a_addr,
 
 // Stage bytes [ch * kDChunk, +kDChunk) of kRowsA rows of a from row a0
 // (then kRowsB rows of b from row b0) into `stage`, rows kDRow bytes
-// apart, zeros past na (nb) and the rows' row_bytes. vec: rows 16-byte
-// aligned, row_bytes % 16 == 0. The dense kernels stage their queries,
-// then their corpus rows; the narrow scorer its corpus rows, then the
-// queries.
-template <int kRowsA, int kRowsB>
+// apart, zeros past na (nb) and the rows' row_bytes. kMapB: b's staged
+// row x is b_map[x] (-1: zeros) for x < nb, and rows x >= nb are left as
+// they are. vec: rows 16-byte aligned, row_bytes % 16 == 0. The dense
+// kernels stage their queries, then their corpus rows; the narrow scorer
+// its corpus rows, then the queries; the gathered kernel its tile's table
+// rows, then its pieces' query rows.
+template <int kRowsA, int kRowsB, bool kMapB = false>
 __device__ __forceinline__ void stage_rows(unsigned char* stage,
                                            const unsigned char* a,
                                            const unsigned char* b, int a0,
                                            int b0, int na, int nb,
                                            long long row_bytes, int ch,
-                                           int vec) {
+                                           int vec,
+                                           const int* b_map = nullptr) {
   constexpr int kCopies = (kRowsA + kRowsB) * (kDChunk / 16);
   const int tid = threadIdx.x;
   const long long c0 = static_cast<long long>(ch) * kDChunk;
+  if constexpr (kMapB) {
+    // b's rows through the map: staged row x < nb is b_map[x] (-1: zeros)
+    for (int e = tid; e < (kRowsA + nb) * (kDChunk / 16); e += kThreads) {
+      const int r = e / (kDChunk / 16), piece = e % (kDChunk / 16);
+      const long long off = c0 + piece * 16;
+      const bool is_a = r < kRowsA;
+      const int row = is_a ? (a0 + r < na ? a0 + r : -1) : b_map[r - kRowsA];
+      if (vec) {
+        const bool ok = row >= 0 && off < row_bytes;
+        cp_async_zfill(stage + r * kDRow + piece * 16,
+                       ok ? (is_a ? a : b) + row * row_bytes + off : a,
+                       ok ? 16 : 0);
+        continue;
+      }
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {            // 4-byte words, as below
+        const long long x = off + 4 * w;
+        unsigned word = 0;
+        if (row >= 0) {
+          const unsigned char* src = (is_a ? a : b) + row * row_bytes + x;
+          if (x + 4 <= row_bytes &&
+              reinterpret_cast<unsigned long long>(src) % 4 == 0) {
+            word = *reinterpret_cast<const unsigned*>(src);
+          } else {
+#pragma unroll
+            for (int y = 0; y < 4; ++y)
+              if (x + y < row_bytes) word |= unsigned(src[y]) << (8 * y);
+          }
+        }
+        *reinterpret_cast<unsigned*>(stage + r * kDRow + piece * 16 + 4 * w) =
+            word;
+      }
+    }
+    return;
+  }
   if (vec) {
 #pragma unroll
     for (int p = 0; p < (kCopies + kThreads - 1) / kThreads; ++p) {
@@ -1140,6 +1000,7 @@ int launch_dense(const void* q, const void* c, void* part_s, void* part_i,
 template <bool kMem>
 __global__ void topk_merge_kernel(const float* __restrict__ part_s,
                                   const int* __restrict__ part_i,
+                                  const int* __restrict__ row_len,
                                   float* out_s, int* out_i, int nq, int width,
                                   int k, int smem_lists) {
   const int lane = threadIdx.x & 31;
@@ -1153,11 +1014,13 @@ __global__ void topk_merge_kernel(const float* __restrict__ part_s,
     mem_place(ml, smem_lists, threadIdx.x >> 5, out_s + orow, out_i + orow,
               k, lane);
   const long long row = static_cast<long long>(qi) * width;
-  for (int b = 0; b < width; b += 32) {
+  // the row's entries: its first row_len[qi] where given, else all
+  const int len = row_len ? min(row_len[qi], width) : width;
+  for (int b = 0; b < len; b += 32) {
     const int e = b + lane;
     float s = -CUDART_INF_F;
     int id = -1;
-    if (e < width) {
+    if (e < len) {
       s = part_s[row + e];
       id = part_i[row + e];
     }
@@ -1177,6 +1040,8 @@ __global__ void topk_merge_kernel(const float* __restrict__ part_s,
 // ---- narrow: few queries (topk_narrow_scores, topk_narrow_select) ----------
 
 constexpr int kNQMax = 64;               // most queries the narrow path takes
+constexpr int kNQInt8 = 64;              // the int8 cutoff: most int8 queries
+                                         // the narrow path takes
 constexpr int kNRows = 256;              // corpus rows a tile: 8 warps x 2 m16
 constexpr int kNStages = 4;              // ring stages: 3 steps prefetched
 constexpr int kKeyAlign = 8;             // a key row's stride: n rounded up
@@ -1211,22 +1076,25 @@ __device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2],
                : "r"(addr));
 }
 
-// The warp's 32 corpus rows (two m16 tiles) x 8 kQT queries over one
+// The warp's 16 kM corpus rows (kM m16 tiles) x 8 kQT queries over one
 // staged chunk: `steps` MMA steps, A for tile m from a_addr + m * 16
-// rows, B for query n8 tiles 2p and 2p + 1 from b_addr + p * 16 rows.
-// dense_chunk's 3xTF32 products in its order with the operands' roles
-// swapped: query pieces q0, q1 (hi, lo) and corpus pieces c0, c1, the
-// products c0 * q1, c1 * q0 and c0 * q0 each taken kLoScale times larger,
-// the scale on a low piece where the product has one (q1, c1), else on
-// c0; each chunk's sum is added to the running one with a rounded add.
-// A query fragment is split once for both row tiles.
-template <int kQT>
-__device__ __forceinline__ void narrow_chunk(float (&acc)[2][kQT][4],
+// rows, B for query n8 tiles 2p and 2p + 1 from b_addr + p * 16 rows;
+// only the first nt n8 tiles are taken (the gathered kernel's blocks hold
+// 1-kQT of them; the narrow scorer passes kQT). dense_chunk's 3xTF32
+// products in its order with the operands' roles swapped: query pieces
+// q0, q1 (hi, lo) and corpus pieces c0, c1, the products c0 * q1, c1 * q0
+// and c0 * q0 each taken kLoScale times larger, the scale on a low piece
+// where the product has one (q1, c1), else on c0; each chunk's sum is
+// added to the running one with a rounded add. A query fragment is split
+// once for all row tiles.
+template <int kM, int kQT>
+__device__ __forceinline__ void narrow_chunk(float (&acc)[kM][kQT][4],
                                              unsigned a_addr,
-                                             unsigned b_addr, int steps) {
-  float part[2][kQT][4];
+                                             unsigned b_addr, int steps,
+                                             int nt = kQT) {
+  float part[kM][kQT][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < kM; ++m)
 #pragma unroll
     for (int j = 0; j < kQT; ++j)
 #pragma unroll
@@ -1235,9 +1103,9 @@ __device__ __forceinline__ void narrow_chunk(float (&acc)[2][kQT][4],
   for (int kk = 0; kk < kDChunk / 32; ++kk) {
     if (kk >= steps) break;                       // uniform: past d
     // tile m's corpus pieces: c0, c0 * kLoScale, c1 * kLoScale
-    unsigned c0[2][4], c0s[2][4], c1s[2][4];
+    unsigned c0[kM][4], c0s[kM][4], c1s[kM][4];
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < kM; ++m) {
       unsigned raw[4];
       ldmatrix_x4(raw, a_addr + m * 16 * kDRow + kk * 32);
 #pragma unroll
@@ -1250,10 +1118,12 @@ __device__ __forceinline__ void narrow_chunk(float (&acc)[2][kQT][4],
       }
     }
     // tile j's query pieces: q0 and q1 * kLoScale, b0/b1 the fragment's
-    // two registers
+    // two registers (tiles 2jp and 2jp + 1 from one ldmatrix, .x2 where
+    // kQT == 1)
     unsigned q0b0[kQT], q0b1[kQT], q1b0[kQT], q1b1[kQT];
 #pragma unroll
     for (int jp = 0; jp < (kQT + 1) / 2; ++jp) {
+      if (2 * jp >= nt) break;                    // uniform in the block
       unsigned braw[4];
       if (kQT == 1) {
         unsigned r2[2];
@@ -1280,23 +1150,23 @@ __device__ __forceinline__ void narrow_chunk(float (&acc)[2][kQT][4],
     // each product for every (m, j) accumulator before the next product,
     // so no MMA waits on the one before it
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < kM; ++m)
 #pragma unroll
       for (int j = 0; j < kQT; ++j)
-        mma_tf32(part[m][j], c0[m], q1b0[j], q1b1[j]);     // c0 * q1
+        if (j < nt) mma_tf32(part[m][j], c0[m], q1b0[j], q1b1[j]);  // c0 q1
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int j = 0; j < kQT; ++j)
-        mma_tf32(part[m][j], c1s[m], q0b0[j], q0b1[j]);    // c1 * q0
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < kM; ++m)
 #pragma unroll
       for (int j = 0; j < kQT; ++j)
-        mma_tf32(part[m][j], c0s[m], q0b0[j], q0b1[j]);    // c0 * q0
+        if (j < nt) mma_tf32(part[m][j], c1s[m], q0b0[j], q0b1[j]); // c1 q0
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int j = 0; j < kQT; ++j)
+        if (j < nt) mma_tf32(part[m][j], c0s[m], q0b0[j], q0b1[j]); // c0 q0
   }
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < kM; ++m)
 #pragma unroll
     for (int j = 0; j < kQT; ++j)
 #pragma unroll
@@ -1304,36 +1174,81 @@ __device__ __forceinline__ void narrow_chunk(float (&acc)[2][kQT][4],
         acc[m][j][e] = __fmaf_rn(part[m][j][e], kLoUnscale, acc[m][j][e]);
 }
 
+// int8 codes: the same geometry, one m16n8k32 s8 MMA a (row tile, query
+// tile) and 32-code step, straight into the exact int32 sums.
+template <int kM, int kQT>
+__device__ __forceinline__ void narrow_chunk(int (&acc)[kM][kQT][4],
+                                             unsigned a_addr,
+                                             unsigned b_addr, int steps,
+                                             int nt = kQT) {
+#pragma unroll
+  for (int kk = 0; kk < kDChunk / 32; ++kk) {
+    if (kk >= steps) break;                       // uniform: past d
+    unsigned a[kM][4], b0[kQT], b1[kQT];
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+      ldmatrix_x4(a[m], a_addr + m * 16 * kDRow + kk * 32);
+    // query tiles 2jp and 2jp + 1 from one ldmatrix, .x2 where kQT == 1
+#pragma unroll
+    for (int jp = 0; jp < (kQT + 1) / 2; ++jp) {
+      if (2 * jp >= nt) break;                    // uniform in the block
+      if constexpr (kQT == 1) {
+        unsigned r2[2];
+        ldmatrix_x2(r2, b_addr + kk * 32);
+        b0[0] = r2[0];
+        b1[0] = r2[1];
+      } else {
+        unsigned r4[4];
+        ldmatrix_x4(r4, b_addr + jp * 16 * kDRow + kk * 32);
+        b0[2 * jp] = r4[0];
+        b1[2 * jp] = r4[1];
+        b0[2 * jp + 1] = r4[2];
+        b1[2 * jp + 1] = r4[3];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int j = 0; j < kQT; ++j)
+        if (j < nt) mma_s8(acc[m][j], a[m], b0[j], b1[j]);
+  }
+}
+
 // The same scores where D <= kExactDepth (one chunk, one MMA step deep):
 // each (row, query) dot of at most 8 products summed in f64 on the CUDA
-// cores from the staged rows at `stage`, where an f32 product is exact,
-// then rounded once to f32. Split TF32 products would be exact too, but
-// the MMA truncates as it adds them, which can put a sum of so few terms
-// more than D * 2^-24 * sum |q c| from the plain f32 product.
-template <int kQT>
-__device__ __forceinline__ void narrow_exact(float (&acc)[2][kQT][4],
+// cores from the staged rows at `stage` (kWarps * 16 kM rows, then the
+// queries), where an f32 product is exact, then rounded once to f32.
+// Split TF32 products would be exact too, but the MMA truncates as it
+// adds them, which can put a sum of so few terms more than D * 2^-24 *
+// sum |q c| from the plain f32 product. Lane (g, t) of warp w holds rows
+// 16 kM w + g + 8x (x < 2 kM) against queries 8j + 2t + b, j < nt.
+template <int kM, int kQT>
+__device__ __forceinline__ void narrow_exact(float (&acc)[kM][kQT][4],
                                              const unsigned char* stage,
-                                             int warp, int g, int t) {
-  double cr[4][kExactDepth];           // rows 32w + g + 8x
+                                             int warp, int g, int t,
+                                             int nt = kQT) {
+  constexpr int kRowsA = kWarps * 16 * kM;
+  double cr[2 * kM][kExactDepth];
 #pragma unroll
-  for (int x = 0; x < 4; ++x) {
+  for (int x = 0; x < 2 * kM; ++x) {
     const float4* r = reinterpret_cast<const float4*>(
-        stage + (32 * warp + g + 8 * x) * kDRow);
+        stage + (16 * kM * warp + g + 8 * x) * kDRow);
     const float4 u = r[0], v = r[1];
     const float f[kExactDepth] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < kExactDepth; ++i) cr[x][i] = f[i];
   }
 #pragma unroll
-  for (int j = 0; j < kQT; ++j)
+  for (int j = 0; j < kQT; ++j) {
+    if (j >= nt) break;
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       const float4* r = reinterpret_cast<const float4*>(
-          stage + (kNRows + 8 * j + 2 * t + b) * kDRow);
+          stage + (kRowsA + 8 * j + 2 * t + b) * kDRow);
       const float4 u = r[0], v = r[1];
       const float f[kExactDepth] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
+      for (int x = 0; x < 2 * kM; ++x) {
         double sum = 0.0;
 #pragma unroll
         for (int i = 0; i < kExactDepth; ++i)
@@ -1341,21 +1256,25 @@ __device__ __forceinline__ void narrow_exact(float (&acc)[2][kQT][4],
         acc[x >> 1][j][2 * (x & 1) + b] = __double2float_rn(sum);
       }
     }
+  }
 }
 
-// q [nq, d] (nq <= 8 kQT) and c [n, d], f32. Block b scores the corpus
-// tiles [b tiles_per_block, +tiles_per_block) against every query and
-// writes each score's order key to keys[query * ldk + row] and each
-// tile's largest to tile_max[query * n_tiles + tile]. First the grid
-// zeroes scratch[0, scratch_ints): the select kernel's counters.
-template <bool kExact, int kQT>
+// q [nq, d] (nq <= 8 kQT) and c [n, d] of type In (f32, or int8 codes).
+// Block b scores the corpus tiles [b tiles_per_block, +tiles_per_block)
+// against every query and writes each score's order key to keys[query *
+// ldk + row] and each tile's largest to tile_max[query * n_tiles + tile].
+// An int8 dot is exact in int32 and keyed as the f32 it rounds to, as the
+// reference ranks it. First the grid zeroes scratch[0, scratch_ints): the
+// select kernel's counters.
+template <typename In, bool kExact, int kQT>
 __global__ void __launch_bounds__(kThreads, 1)
-narrow_scores(const float* __restrict__ q, const float* __restrict__ c,
+narrow_scores(const In* __restrict__ q, const In* __restrict__ c,
               unsigned* __restrict__ keys, unsigned* __restrict__ tile_max,
               int* __restrict__ scratch, long long scratch_ints, int nq,
               int n, int d, int ldk, int tiles_per_block, int vec) {
   constexpr int kNQ = 8 * kQT;
   constexpr int kStage = (kNRows + kNQ) * kDRow;
+  static_assert(kNRows == kWarps * 32, "two m16 row tiles a warp");
   extern __shared__ __align__(128) unsigned char nsm[];
   __shared__ unsigned warp_max[kWarps][kNQ];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1366,20 +1285,21 @@ narrow_scores(const float* __restrict__ q, const float* __restrict__ c,
   const int n_tiles = (n + kNRows - 1) / kNRows;
   const int t_begin = blockIdx.x * tiles_per_block;
   const int t_end = min(t_begin + tiles_per_block, n_tiles);
-  const long long row_bytes = static_cast<long long>(d) * sizeof(float);
+  const long long row_bytes = static_cast<long long>(d) * sizeof(In);
   // D = 0 still takes one (empty) chunk, so every tile writes its keys
   const int n_chunks =
       max(1, static_cast<int>((row_bytes + kDChunk - 1) / kDChunk));
   const int steps = max(t_end - t_begin, 0) * n_chunks;
   const auto* qb = reinterpret_cast<const unsigned char*>(q);
   const auto* cb = reinterpret_cast<const unsigned char*>(c);
-  float acc[2][kQT][4];
+  using Acc = typename DenseAcc<In>::T;
+  Acc acc[2][kQT][4];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
     for (int j = 0; j < kQT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = Acc(0);
   // this lane's ldmatrix row: A rows 32w + (lane & 7) + 8 * (lane >> 3 & 1)
   // at byte 16 * (lane >> 4); B rows kNRows + (lane & 7) + 8 * (lane >> 4)
   // at byte 16 * (lane >> 3 & 1) (.x2 reads lanes 0-15's only)
@@ -1410,14 +1330,14 @@ narrow_scores(const float* __restrict__ q, const float* __restrict__ c,
                               (t_begin + ahead / n_chunks) * kNRows, 0, n,
                               nq, row_bytes, ahead % n_chunks, vec);
     asm volatile("cp.async.commit_group;\n" ::);
-    if (kExact) {
-      narrow_exact<kQT>(acc, nsm + s % kNStages * kStage, warp, g, t);
+    if constexpr (kExact) {
+      narrow_exact<2, kQT>(acc, nsm + s % kNStages * kStage, warp, g, t);
     } else {
       const unsigned st = ring + s % kNStages * kStage;
       const long long left =
           row_bytes - static_cast<long long>(ch) * kDChunk;
-      narrow_chunk<kQT>(acc, st + a_off, st + b_off,
-                        static_cast<int>(min(left + 31, 128LL) / 32));
+      narrow_chunk<2, kQT>(acc, st + a_off, st + b_off,
+                           static_cast<int>(min(left + 31, 128LL) / 32));
     }
     if (++ch < n_chunks) continue;
     // lane (g, t) holds rows 32w + 16m + g + 8h, queries 8j + 2t + b in
@@ -1435,8 +1355,9 @@ narrow_scores(const float* __restrict__ q, const float* __restrict__ c,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = n0 + 16 * m + 8 * h;
-            const unsigned key = f32_key(acc[m][j][2 * h + b]);
-            acc[m][j][2 * h + b] = 0.f;
+            const unsigned key =
+                f32_key(static_cast<float>(acc[m][j][2 * h + b]));
+            acc[m][j][2 * h + b] = Acc(0);
             if (row < n) {
               best = max(best, key);
               if (qi < nq) keys[static_cast<long long>(qi) * ldk + row] = key;
@@ -1458,6 +1379,169 @@ narrow_scores(const float* __restrict__ q, const float* __restrict__ c,
     ++tile;
   }
   asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// ---- gathered: row tiles shared by the pieces that probe them --------------
+
+constexpr int kGTR = 128;            // table rows a tile: 8 warps x one m16
+constexpr int kGBQ = 32;             // pieces a block: up to four n8 tiles
+constexpr int kGStage = (kGTR + kGBQ) * kDRow;     // bytes a ring stage
+constexpr int kGStages = 4;          // ring stages: 3 steps prefetched
+constexpr int kGMinBlocks = 2;       // blocks an SM holds
+constexpr int kGSP = kGTR + 4;       // padded score row (floats): a warp's
+                                     // stores of 4 pieces x 8 rows hit
+                                     // 32 banks
+constexpr int kPieceInts = 5;        // query, first row, length, first
+                                     // position, slot offset in the query
+static_assert(kGTR == kWarps * 16, "one m16 row tile a warp");
+static_assert(kGBQ * kGSP * 4 + kWarps * 2 * kGTR * 4 <=
+                  kGStages * kGStage, "scores and lists fit in the ring");
+
+// One block per (row tile, up to kGBQ of the pieces that probe it): the
+// pieces from blk_first[blockIdx.x] on, while they stay in its tile.
+// pieces [n, 5] sorted by tile; part_s/part_i [nq, width]: piece j's
+// top-min(k, length) (score, position) list goes to row query_j at
+// column slot_j. The products as the narrow scorer takes them: the
+// tile's rows on the MMA's M side (warp w: rows 16w..16w+15), the
+// block's pieces' query rows on N, rounded up to the nt n8 tiles that
+// hold them; 3xTF32 (narrow_chunk), or f64 on the CUDA cores where D <=
+// kExactDepth (narrow_exact), over the staged ring of 128-byte chunks.
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads, kGMinBlocks)
+gathered_tiles_kernel(const float* __restrict__ q,
+                      const float* __restrict__ table,
+                      const int* __restrict__ pieces,
+                      const int* __restrict__ blk_first, float* part_s,
+                      int* part_i, int n, int r, int d, int k, int width,
+                      int vec) {
+  extern __shared__ __align__(128) unsigned char gsm[];
+  __shared__ int p_q[kGBQ], p_lo[kGBQ], p_hi[kGBQ], p_pos[kGBQ], p_off[kGBQ];
+  const int first = blk_first[blockIdx.x];
+  if (first < 0) return;                           // uniform in the block
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile =
+      pieces[static_cast<long long>(first) * kPieceInts + 1] / kGTR;
+  const int row0 = tile * kGTR;
+  bool mine = false;
+  if (tid < kGBQ) {
+    const int j = first + tid;
+    const int* pc = pieces + static_cast<long long>(j) * kPieceInts;
+    mine = j < n && pc[1] / kGTR == tile;
+    if (mine) {
+      p_q[tid] = pc[0];
+      p_lo[tid] = pc[1] - row0;
+      p_hi[tid] = pc[1] - row0 + pc[2];
+      p_pos[tid] = pc[3];
+      p_off[tid] = pc[4];
+    } else {
+      p_q[tid] = -1;
+      p_lo[tid] = p_hi[tid] = 0;
+    }
+  }
+  // the pieces fill the block's slots from 0: nt n8 tiles hold them
+  const int nt = (__syncthreads_count(mine) + 7) / 8;
+
+  const long long row_bytes = static_cast<long long>(d) * sizeof(float);
+  const int n_chunks =
+      max(1, static_cast<int>((row_bytes + kDChunk - 1) / kDChunk));
+  const auto* qb = reinterpret_cast<const unsigned char*>(q);
+  const auto* tb = reinterpret_cast<const unsigned char*>(table);
+  float acc[1][kGBQ / 8][4];
+#pragma unroll
+  for (int j = 0; j < kGBQ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][j][e] = 0.f;
+  // this lane's ldmatrix row: A rows 16w + (lane & 7) + 8 * (lane >> 3 &
+  // 1) at byte 16 * (lane >> 4); B rows kGTR + (lane & 7) + 8 * (lane >>
+  // 4) at byte 16 * (lane >> 3 & 1)
+  const unsigned ring = static_cast<unsigned>(__cvta_generic_to_shared(gsm));
+  const int lr = lane & 7, lm = lane >> 3;
+  const unsigned a_off =
+      (16 * warp + lr + 8 * (lm & 1)) * kDRow + 16 * (lm >> 1);
+  const unsigned b_off = (kGTR + lr + 8 * (lm >> 1)) * kDRow + 16 * (lm & 1);
+  // the narrow scorer's ring: step s stages chunk s of the tile's rows and
+  // of the pieces' query rows (8 nt of them), a group committed every step
+#pragma unroll
+  for (int s = 0; s < kGStages - 1; ++s) {
+    if (s < n_chunks)
+      stage_rows<kGTR, kGBQ, true>(gsm + s * kGStage, tb, qb, row0, 0, r,
+                                   8 * nt, row_bytes, s, vec, p_q);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int s = 0; s < n_chunks; ++s) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kGStages - 2));
+    __syncthreads();   // step s has landed; step s - 1's stage is free
+    const int ahead = s + kGStages - 1;
+    if (ahead < n_chunks)
+      stage_rows<kGTR, kGBQ, true>(gsm + ahead % kGStages * kGStage, tb, qb,
+                                   row0, 0, r, 8 * nt, row_bytes, ahead, vec,
+                                   p_q);
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (d <= kExactDepth) {                        // one chunk
+      narrow_exact<1, kGBQ / 8>(acc, gsm + s % kGStages * kGStage, warp, g,
+                                t, nt);
+    } else {
+      const unsigned st = ring + s % kGStages * kGStage;
+      const long long left = row_bytes - static_cast<long long>(s) * kDChunk;
+      narrow_chunk<1, kGBQ / 8>(acc, st + a_off, st + b_off,
+                                static_cast<int>(min(left + 31, 128LL) / 32),
+                                nt);
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();     // every warp is done with the ring
+
+  // the scores take the ring's place: lane (g, t) holds rows 16w + g + 8h
+  // against pieces 8j + 2t + b in acc[0][j][2h + b]
+  float* sc = reinterpret_cast<float*>(gsm);            // [kGBQ][kGSP]
+#pragma unroll
+  for (int j = 0; j < kGBQ / 8; ++j) {
+    if (j >= nt) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        sc[(8 * j + 2 * t + b) * kGSP + 16 * warp + g + 8 * h] =
+            acc[0][j][2 * h + b];
+  }
+  __syncthreads();
+  // each warp then offers a piece's rows, as (score, position), to a list
+  // of min(k, length) entries, written to the piece's slots
+  float* lists = sc + kGBQ * kGSP + warp * 2 * kGTR;
+  for (int pj = warp; pj < kGBQ; pj += kWarps) {
+    const int qi = p_q[pj];
+    if (qi < 0) continue;                            // uniform in the warp
+    const int lo = p_lo[pj], hi = p_hi[pj];
+    const int kk = min(k, hi - lo);
+    const int pos0 = p_pos[pj] - lo;
+    const long long o = static_cast<long long>(qi) * width + p_off[pj];
+    const float* row = sc + pj * kGSP;
+    float ls = -CUDART_INF_F;
+    int li = -1;
+    MemList ml;
+    if (kMem) {
+      ml.s = lists;
+      ml.i = reinterpret_cast<int*>(lists + kGTR);
+      mem_init(ml, kk, lane);
+    }
+    for (int x0 = lo; x0 < hi; x0 += 32) {
+      const int x = x0 + lane;
+      const float sx = x < hi ? row[x] : -CUDART_INF_F;
+      if (kMem)
+        mem_offer(ml, sx, pos0 + x, kk, lane);
+      else
+        reg_offer(ls, li, sx, pos0 + x, kk, lane);
+    }
+    if (!kMem && lane < kk) {
+      part_s[o + lane] = ls;
+      part_i[o + lane] = li;
+    } else if (kMem) {
+      mem_store(ml, part_s + o, part_i + o, kk, lane);
+    }
+    __syncwarp();     // the list is reused by the warp's next piece
+  }
 }
 
 // ---- the select: an exact radix select of each query's k best keys --------
@@ -1943,44 +2027,230 @@ narrow_select(const unsigned* __restrict__ keys,
   }
 }
 
-template <bool kExact, int kQT>
+// ---- gathered pieces: the wrapper's cut of the candidate slots ------------
+//
+// A piece is a run of one query's valid slots (id >= 0) whose rows are
+// consecutive table rows inside one kGTR-row tile. Slot c continues slot
+// c - 1's piece when both are valid and key(c) == key(c - 1) + 1, key the
+// row plus one for each whole tile before it (so a run steps by 1 inside
+// a tile and by 2 across a tile's edge). Pieces are numbered in (query,
+// position) order, as a scan of the flattened slots finds them. The count
+// pass counts each (query, chunk)'s piece starts and flags a valid slot
+// whose row lies outside the table; its last block scans the counts into
+// each chunk's first piece number, the total and the most a query has
+// (what the host reads to size the outputs). The emit pass writes each
+// piece's first row and position at its number and its last position;
+// the finish pass turns those into lengths and each query's slot offsets
+// (the kept min(k, length) of its earlier pieces), its row length for the
+// merge and each piece's tile for the sort by tile that follows.
+
+constexpr int kPieceSlots = 8192;            // slots a (query, chunk) block
+constexpr int kPieceVec = kPieceSlots / kSelThreads;  // a thread's run
+constexpr int kPieceInfo = 4;                // total, stray, most, done
+constexpr int kPieceKeys = kPieceSlots + 2;  // and a neighbour each side
+static_assert(kPieceVec == 32, "a thread's run is one padded bank row");
+
+// Staged key i's place in shared memory: one pad word every 32, so the
+// threads' 32-slot runs start in 32 different banks.
+__host__ __device__ constexpr int piece_pad(int i) { return i + (i >> 5); }
+
+// Stage the keys of slots [lo - 1, lo + kPieceSlots] of the query's row
+// (row0 its first slot) into keys (padded): the row plus one for each
+// whole tile before it, or -2 where the slot is invalid or outside [0,
+// c); loads are coalesced. Returns, in every thread, whether a valid slot
+// of [lo, lo + kPieceSlots) has a row outside [0, n_rows) (keys of such
+// rows do not matter: the wrapper raises). Every thread calls it.
+__device__ __forceinline__ bool stage_piece_keys(
+    int* keys, const int* __restrict__ rows, const int* __restrict__ ids,
+    long long row0, long long lo, int c, int n_rows) {
+  bool stray = false;
+  for (int i = threadIdx.x; i < kPieceKeys; i += kSelThreads) {
+    const long long at = lo - 1 + i;
+    int key = -2;
+    if (at >= 0 && at < c && ids[row0 + at] >= 0) {
+      const int r = rows[row0 + at];
+      key = static_cast<int>(static_cast<unsigned>(r) +
+                             static_cast<unsigned>(r / kGTR));
+      if (i >= 1 && i <= kPieceSlots) stray = stray || r < 0 || r >= n_rows;
+    }
+    keys[piece_pad(i)] = key;
+  }
+  return __syncthreads_or(stray);
+}
+
+// The piece starts and ends among this thread's slots (lo + 32 t + x) as
+// bit masks (bit x), from the staged keys.
+__device__ __forceinline__ void piece_flags(const int* keys, long long lo,
+                                            int c, unsigned& starts,
+                                            unsigned& ends) {
+  starts = ends = 0u;
+  const int t0 = threadIdx.x * kPieceVec;
+#pragma unroll 8
+  for (int x = 0; x < kPieceVec; ++x) {
+    if (lo + t0 + x >= c) break;
+    const int prev = keys[piece_pad(t0 + x)];
+    const int key = keys[piece_pad(t0 + x + 1)];
+    const int next = keys[piece_pad(t0 + x + 2)];
+    if (key == -2) continue;
+    if (key != prev + 1) starts |= 1u << x;
+    if (next != key + 1) ends |= 1u << x;
+  }
+}
+
+// grid (nq, chunks); counts/base [nq * chunks]; info [kPieceInfo] zeroed
+// by the caller: then info[0] the pieces, info[1] 1 where a valid slot's
+// row is stray, info[2] the most pieces a query has.
+__global__ void __launch_bounds__(kSelThreads)
+piece_count_kernel(const int* __restrict__ rows,
+                     const int* __restrict__ ids, int* counts, int* base,
+                     int* info, int nq, int c, int n_rows) {
+  __shared__ bool last;
+  __shared__ int keys[piece_pad(kPieceKeys)];
+  const int tid = threadIdx.x, chunks = gridDim.y;
+  const long long row0 = static_cast<long long>(blockIdx.x) * c;
+  const long long lo = static_cast<long long>(blockIdx.y) * kPieceSlots;
+  const bool stray =
+      stage_piece_keys(keys, rows, ids, row0, lo, c, n_rows);
+  unsigned starts, ends;
+  piece_flags(keys, lo, c, starts, ends);
+  unsigned total;
+  block_excl_scan(__popc(starts), total);
+  if (tid == 0) counts[blockIdx.x * chunks + blockIdx.y] = total;
+  if (stray && tid == 0) atomicOr(info + 1, 1);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(info + 3, 1) == nq * chunks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: each chunk's first piece number, in (query, chunk)
+  // order, then each query's count
+  const int cells = nq * chunks;
+  unsigned carry = 0;
+  for (int e0 = 0; e0 < cells; e0 += kSelThreads) {
+    const int e = e0 + tid;
+    const unsigned v = e < cells ? static_cast<unsigned>(__ldcg(counts + e))
+                                 : 0u;
+    unsigned tot;
+    const unsigned before = block_excl_scan(v, tot);
+    if (e < cells) base[e] = static_cast<int>(carry + before);
+    carry += tot;
+  }
+  __syncthreads();
+  int most = 0;
+  for (int q = tid; q < nq; q += kSelThreads) {
+    const unsigned end = q + 1 < nq ? base[(q + 1) * chunks] : carry;
+    most = max(most, static_cast<int>(end - base[q * chunks]));
+  }
+  atomicMax(info + 2, most);
+  if (tid == 0) info[0] = static_cast<int>(carry);
+}
+
+// grid (nq, chunks): each piece's first row ([1]) and position ([3]) at
+// its number, its last position at [2].
+__global__ void __launch_bounds__(kSelThreads)
+piece_emit_kernel(const int* __restrict__ rows,
+                    const int* __restrict__ ids, const int* __restrict__ base,
+                    int* pieces, int c, int n_rows) {
+  __shared__ int keys[piece_pad(kPieceKeys)];
+  const int tid = threadIdx.x, chunks = gridDim.y;
+  const long long row0 = static_cast<long long>(blockIdx.x) * c;
+  const long long lo = static_cast<long long>(blockIdx.y) * kPieceSlots;
+  const long long first = lo + tid * kPieceVec;
+  stage_piece_keys(keys, rows, ids, row0, lo, c, n_rows);
+  unsigned starts, ends;
+  piece_flags(keys, lo, c, starts, ends);
+  unsigned total;
+  const unsigned before = block_excl_scan(__popc(starts), total);
+  // the number of the next piece to start: one end closes the piece of
+  // the last start at or before it
+  long long idx = static_cast<long long>(
+                      base[blockIdx.x * chunks + blockIdx.y]) + before;
+  for (unsigned m = starts | ends; m; m &= m - 1) {
+    const int x = __ffs(m) - 1;
+    const int at = static_cast<int>(first + x);
+    if (starts >> x & 1u) {
+      // the row from its key: key = 129 a + b for row 128 a + b, b < 128
+      const int key = keys[piece_pad(tid * kPieceVec + x + 1)];
+      pieces[idx * kPieceInts + 1] = key - key / (kGTR + 1);
+      pieces[idx * kPieceInts + 3] = at;
+      ++idx;
+    }
+    if (ends >> x & 1u) pieces[(idx - 1) * kPieceInts + 2] = at;
+  }
+}
+
+// grid nq: each query's pieces [base[q chunks], the next query's): query
+// ([0]), length ([2]), slot offset ([4]), tile; row_len[q] the kept
+// entries in all.
+__global__ void __launch_bounds__(kSelThreads)
+piece_finish_kernel(const int* __restrict__ base, int* pieces,
+                      int* tile_key, int* row_len, int nq, int chunks,
+                      int n, int k) {
+  const int q = blockIdx.x, tid = threadIdx.x;
+  const int b0 = base[q * chunks];
+  const int b1 = q + 1 < nq ? base[(q + 1) * chunks] : n;
+  unsigned carry = 0;
+  for (int i0 = b0; i0 < b1; i0 += kSelThreads) {
+    const int i = i0 + tid;
+    int* p = pieces + static_cast<long long>(i) * kPieceInts;
+    int len = 0;
+    if (i < b1) len = p[2] - p[3] + 1;
+    const unsigned kept = static_cast<unsigned>(min(k, len));
+    unsigned tot;
+    const unsigned before = block_excl_scan(kept, tot);
+    if (i < b1) {
+      p[0] = q;
+      p[2] = len;
+      p[4] = static_cast<int>(carry + before);
+      tile_key[i] = p[1] / kGTR;
+    }
+    carry += tot;
+  }
+  if (tid == 0) row_len[q] = static_cast<int>(carry);
+}
+
+template <typename In, bool kExact, int kQT>
 int launch_narrow(const void* q, const void* c, void* keys, void* tile_max,
                   void* scratch, long long scratch_ints, int nq, int n,
                   int d, int ldk, int tiles_per_block, int n_blocks, int vec,
                   cudaStream_t st) {
   const size_t bytes = size_t(kNStages) * (kNRows + 8 * kQT) * kDRow;
   const cudaError_t err = cudaFuncSetAttribute(
-      narrow_scores<kExact, kQT>,
+      narrow_scores<In, kExact, kQT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  narrow_scores<kExact, kQT><<<n_blocks, kThreads, bytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(c),
+  narrow_scores<In, kExact, kQT><<<n_blocks, kThreads, bytes, st>>>(
+      static_cast<const In*>(q), static_cast<const In*>(c),
       static_cast<unsigned*>(keys), static_cast<unsigned*>(tile_max),
       static_cast<int*>(scratch), scratch_ints, nq, n, d, ldk,
       tiles_per_block, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kExact>
+// The scorer for nq real queries, rounded up to 8 kQT (8, 16, 32 or 64).
+template <typename In, bool kExact>
 int launch_narrow_depth(const void* q, const void* c, void* keys,
                         void* tile_max, void* scratch, long long scratch_ints,
                         int nq, int n, int d, int ldk, int tiles_per_block,
-                        int n_blocks, int vec, cudaStream_t st) {
+                        int n_blocks, int vec, void* stream) {
+  if (nq <= 0 || n_blocks <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nq <= 8)
-    return launch_narrow<kExact, 1>(q, c, keys, tile_max, scratch,
-                                    scratch_ints, nq, n, d, ldk,
-                                    tiles_per_block, n_blocks, vec, st);
+    return launch_narrow<In, kExact, 1>(q, c, keys, tile_max, scratch,
+                                        scratch_ints, nq, n, d, ldk,
+                                        tiles_per_block, n_blocks, vec, st);
   if (nq <= 16)
-    return launch_narrow<kExact, 2>(q, c, keys, tile_max, scratch,
-                                    scratch_ints, nq, n, d, ldk,
-                                    tiles_per_block, n_blocks, vec, st);
+    return launch_narrow<In, kExact, 2>(q, c, keys, tile_max, scratch,
+                                        scratch_ints, nq, n, d, ldk,
+                                        tiles_per_block, n_blocks, vec, st);
   if (nq <= 32)
-    return launch_narrow<kExact, 4>(q, c, keys, tile_max, scratch,
-                                    scratch_ints, nq, n, d, ldk,
-                                    tiles_per_block, n_blocks, vec, st);
-  return launch_narrow<kExact, 8>(q, c, keys, tile_max, scratch,
-                                  scratch_ints, nq, n, d, ldk,
-                                  tiles_per_block, n_blocks, vec, st);
+    return launch_narrow<In, kExact, 4>(q, c, keys, tile_max, scratch,
+                                        scratch_ints, nq, n, d, ldk,
+                                        tiles_per_block, n_blocks, vec, st);
+  return launch_narrow<In, kExact, 8>(q, c, keys, tile_max, scratch,
+                                      scratch_ints, nq, n, d, ldk,
+                                      tiles_per_block, n_blocks, vec, st);
 }
 
 }  // namespace
@@ -2008,24 +2278,28 @@ extern "C" int topk_int8_partial(const void* q, const void* c, void* part_s,
                                       tiles_per_split, n_splits, vec, stream);
 }
 
-extern "C" int topk_merge(const void* part_s, const void* part_i, void* out_s,
-                          void* out_i, int nq, int width, int k,
-                          void* stream) {
+// The k best of each row of partial lists part_s/part_i [nq, width] by
+// (score desc, id asc); row_len [nq] (may be null: every row whole) names
+// the entries a row holds, its first row_len[q] (the rest are never read).
+extern "C" int topk_merge(const void* part_s, const void* part_i,
+                          const void* row_len, void* out_s, void* out_i,
+                          int nq, int width, int k, void* stream) {
   if (nq > 0 && k > 0) {
     const dim3 grid((nq + kMergeWarps - 1) / kMergeWarps);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* ps = static_cast<const float*>(part_s);
     const int* pi = static_cast<const int*>(part_i);
+    const int* rl = static_cast<const int*>(row_len);
     float* os = static_cast<float*>(out_s);
     int* oi = static_cast<int*>(out_i);
     const int smem = k <= kSmemK;
     const size_t bytes = smem ? size_t(kMergeWarps) * k * 8 : 0;
     if (k <= kRegK)
       topk_merge_kernel<false><<<grid, kMergeWarps * 32, 0, st>>>(
-          ps, pi, os, oi, nq, width, k, 0);
+          ps, pi, rl, os, oi, nq, width, k, 0);
     else
       topk_merge_kernel<true><<<grid, kMergeWarps * 32, bytes, st>>>(
-          ps, pi, os, oi, nq, width, k, smem);
+          ps, pi, rl, os, oi, nq, width, k, smem);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -2034,8 +2308,10 @@ extern "C" int topk_merge(const void* part_s, const void* part_i, void* out_s,
 // first row, length, first position, slot offset) sorted by row tile of
 // kGTR rows, no piece crossing a tile; blk_first int32 [n_blocks], the
 // first piece of each block (every kGBQ-th piece of a tile, -1: none);
-// part_s/part_i [nq, width], filled with (-inf, -1) by the caller. vec = 1
-// when queries and table are 16-byte aligned and d % 4 == 0.
+// part_s/part_i [nq, width]: each piece writes its min(k, length) slots,
+// and only those (topk_merge reads a query's written prefix by its row
+// length). vec = 1 when queries and table are 16-byte aligned and d % 4
+// == 0.
 extern "C" int gathered_tiles(const void* q, const void* table,
                               const void* pieces, const void* blk_first,
                               void* part_s, void* part_i, int n,
@@ -2049,7 +2325,7 @@ extern "C" int gathered_tiles(const void* q, const void* table,
     const int* bp = static_cast<const int*>(blk_first);
     float* ps = static_cast<float*>(part_s);
     int* pi = static_cast<int*>(part_i);
-    const size_t bytes = kGStages * kGStage * sizeof(float);
+    const size_t bytes = size_t(kGStages) * kGStage;
     cudaError_t err = cudaFuncSetAttribute(
         gathered_tiles_kernel<false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -2082,16 +2358,28 @@ extern "C" int topk_narrow_scores(const void* q, const void* c, void* keys,
                                   int d, int ldk, int tiles_per_block,
                                   int n_blocks, int vec, void* stream) {
   if (nq > kNQMax) return static_cast<int>(cudaErrorInvalidValue);
-  if (nq <= 0 || n_blocks <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return d <= kExactDepth
-             ? launch_narrow_depth<true>(q, c, keys, tile_max, scratch,
-                                         scratch_ints, nq, n, d, ldk,
-                                         tiles_per_block, n_blocks, vec, st)
-             : launch_narrow_depth<false>(q, c, keys, tile_max, scratch,
-                                          scratch_ints, nq, n, d, ldk,
-                                          tiles_per_block, n_blocks, vec,
-                                          st);
+             ? launch_narrow_depth<float, true>(
+                   q, c, keys, tile_max, scratch, scratch_ints, nq, n, d,
+                   ldk, tiles_per_block, n_blocks, vec, stream)
+             : launch_narrow_depth<float, false>(
+                   q, c, keys, tile_max, scratch, scratch_ints, nq, n, d,
+                   ldk, tiles_per_block, n_blocks, vec, stream);
+}
+
+// The same for int8 codes [nq, d] / [n, d], 1 <= nq <= kNQInt8 (the int8
+// cutoff): the exact int32 dots on the s8 tensor cores, each keyed as the
+// f32 it rounds to. vec = 1 when both are 16-byte aligned and d % 16 == 0.
+extern "C" int topk_narrow_scores_int8(const void* q, const void* c,
+                                       void* keys, void* tile_max,
+                                       void* scratch, long long scratch_ints,
+                                       int nq, int n, int d, int ldk,
+                                       int tiles_per_block, int n_blocks,
+                                       int vec, void* stream) {
+  if (nq > kNQInt8) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_narrow_depth<signed char, false>(
+      q, c, keys, tile_max, scratch, scratch_ints, nq, n, d, ldk,
+      tiles_per_block, n_blocks, vec, stream);
 }
 
 // The k best of each row of topk_narrow_scores' keys [nq, ldk] (entries
@@ -2134,4 +2422,45 @@ extern "C" int topk_narrow_select(const void* keys, const void* tile_max,
       reinterpret_cast<const void*>(narrow_select), dim3(grid),
       dim3(kSelThreads), args, bytes, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Count the pieces of cand_rows/cand_ids [nq, c] (int32; a slot is valid
+// where its id is >= 0): counts and base [nq * chunks] (chunks =
+// ceil(c / kPieceSlots)), info [kPieceInfo] zeroed by the caller, then
+// holding the pieces, a stray-row flag and the most pieces a query has.
+extern "C" int gathered_piece_count(const void* rows, const void* ids,
+                                    void* counts, void* base, void* info,
+                                    int nq, int c, int chunks, int n_rows,
+                                    void* stream) {
+  if (nq > 0 && c > 0 && chunks > 0)
+    piece_count_kernel<<<dim3(nq, chunks), kSelThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(rows), static_cast<const int*>(ids),
+        static_cast<int*>(counts), static_cast<int*>(base),
+        static_cast<int*>(info), nq, c, n_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Write the n pieces that gathered_piece_count counted (base as it left
+// it) to pieces [n, kPieceInts] in (query, position) order, each piece's
+// tile to tile_key [n] and each query's kept entries, the sum of min(k,
+// length) over its pieces, to row_len [nq].
+extern "C" int gathered_piece_emit(const void* rows, const void* ids,
+                                   const void* base, void* pieces,
+                                   void* tile_key, void* row_len, int nq,
+                                   int c, int chunks, int n, int n_rows,
+                                   int k, void* stream) {
+  if (nq <= 0 || c <= 0 || chunks <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* bp = static_cast<const int*>(base);
+  int* pp = static_cast<int*>(pieces);
+  if (n > 0)
+    piece_emit_kernel<<<dim3(nq, chunks), kSelThreads, 0, st>>>(
+        static_cast<const int*>(rows), static_cast<const int*>(ids), bp, pp,
+        c, n_rows);
+  piece_finish_kernel<<<nq, kSelThreads, 0, st>>>(
+      bp, pp, static_cast<int*>(tile_key), static_cast<int*>(row_len), nq,
+      chunks, n, k);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -23,6 +23,20 @@ spread over the whole card (a floor from the tile maxima, a count pass
 that gathers the keys above it, and only where those are many two more
 digit passes, a count of the ties at the k-th key and a collect; then a
 sort of the survivors), so no warp walks a long list at large k.
+``topk_scores_int8`` takes the same two paths by ``INT8_NARROW_QUERIES``:
+at or below it the scorer's s8 form (exact int32 dots on the tensor cores,
+each keyed as the f32 it rounds to, as the reference ranks them) feeds the
+same select through the same buffer (one code path for both types), above
+it the 128-query int8 kernel and the merge. The narrow pair's plan is
+computed once a (Q, N, k) (``_narrow_layout``).
+
+``gathered_topk`` cuts each query's valid candidate slots into pieces
+(runs of rows inside one 128-row table tile) with two small kernels and
+one host read (``gathered_pieces``; its plain version runs on the CPU),
+sorts them by tile, scores each tile once a block of up to 32 pieces on
+the tensor cores (the narrow scorer's 3xTF32 products, f64 where D <= 8)
+and merges each query's piece lists, reading only the entries its pieces
+wrote.
 
 Each wrapper first resolves its launch params through the autotuner
 (kernels/tuning.py: explicit kwarg > tuned table > default), as the
@@ -32,6 +46,7 @@ reference's do; of these only the 128-query kernels' split target
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -58,6 +73,9 @@ DENSE_BLOCKS = 132
 # bins (kRadixBins) and a tie count an item; it sorts up to SORT_K
 # (kSortK) keys in shared memory
 NARROW_QUERIES, NARROW_ROWS, NARROW_BLOCKS = 64, 256, 132
+# the int8 search's cutoff (kNQInt8): at or below it the narrow scorer's
+# s8 form feeds the same select, above it the 128-query int8 kernel runs
+INT8_NARROW_QUERIES = 64
 KEY_ALIGN = 8
 SELECT_ITEMS, SELECT_MIN_ITEM = 528, 8192
 HEAD_INTS, STATE_INTS, RADIX_BINS, SORT_K = 4, 11, 2048, 4096
@@ -67,18 +85,27 @@ TOPK_PARTIAL = Kernel("topk_partial", "topk_scores.cu", _PARTIAL_ARGS)
 TOPK_INT8_PARTIAL = Kernel("topk_int8_partial", "topk_scores.cu",
                            _PARTIAL_ARGS)
 TOPK_MERGE = Kernel("topk_merge", "topk_scores.cu",
-                    (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3)
+                    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3)
 GATHERED_TILES = Kernel("gathered_tiles", "topk_scores.cu",
                         (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7)
+_NARROW_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_longlong,)
+                + (ctypes.c_int,) * 7)
 TOPK_NARROW_SCORES = Kernel("topk_narrow_scores", "topk_scores.cu",
-                            (ctypes.c_void_p,) * 5 + (ctypes.c_longlong,)
-                            + (ctypes.c_int,) * 7)
+                            _NARROW_ARGS)
+TOPK_NARROW_SCORES_INT8 = Kernel("topk_narrow_scores_int8", "topk_scores.cu",
+                                 _NARROW_ARGS)
 TOPK_NARROW_SELECT = Kernel("topk_narrow_select", "topk_scores.cu",
                             (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6)
+GATHERED_PIECE_COUNT = Kernel("gathered_piece_count", "topk_scores.cu",
+                              (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4)
+GATHERED_PIECE_EMIT = Kernel("gathered_piece_emit", "topk_scores.cu",
+                             (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6)
 # gathered: table rows a tile, pieces a block; they must equal kGTR and
 # kGBQ in csrc/topk_scores.cu, whose blocks find their tile and pieces
-# by them
+# by them; the pieces kernels scan a query's slots PIECE_SLOTS
+# (kPieceSlots) a block and count into PIECE_INFO (kPieceInfo) ints
 TILE_ROWS, TILE_PIECES = 128, 32
+PIECE_SLOTS, PIECE_INFO = 8192, 4
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, kernel: str) -> None:
@@ -145,15 +172,19 @@ def launch_partials(partial: Kernel, queries: torch.Tensor,
     return part_s, part_i
 
 
-def launch_merge(part_s: torch.Tensor, part_i: torch.Tensor, k: int):
+def launch_merge(part_s: torch.Tensor, part_i: torch.Tensor, k: int,
+                 row_len: torch.Tensor = None):
     """The merge kernel over partial lists: the top k of each row by
-    (score desc, id asc) -> (scores f32[Q, k], ids i32[Q, k])."""
+    (score desc, id asc) -> (scores f32[Q, k], ids i32[Q, k]). ``row_len``
+    (i32[Q], optional): the entries each row holds, its first ones; the
+    rest are never read, so they need not be written."""
     nq, width = part_s.shape
     out_s = torch.empty((nq, k), dtype=torch.float32, device=part_s.device)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=part_s.device)
     with torch.cuda.device(part_s.device):
-        TOPK_MERGE(part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-                   out_i.data_ptr(), nq, width, k)
+        TOPK_MERGE(part_s.data_ptr(), part_i.data_ptr(),
+                   None if row_len is None else row_len.data_ptr(),
+                   out_s.data_ptr(), out_i.data_ptr(), nq, width, k)
     return out_s, out_i
 
 
@@ -232,25 +263,12 @@ class Narrow(NamedTuple):
         return self.buf[self.at[i]:self.at[i] + size].view(shape)
 
 
-def _narrow_scores(queries: torch.Tensor, corpus: torch.Tensor,
-                   k: int) -> Narrow:
-    dev = queries.device
-    name = TOPK_NARROW_SCORES.name
-    if dev.type != "cuda":
-        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
-    _check(queries, "queries", torch.float32, dev, name)
-    _check(corpus, "corpus", torch.float32, dev, name)
-    nq, d = queries.shape
-    n = corpus.shape[0]
-    if corpus.shape[1] != d:
-        raise ValueError(f"{name}: widths differ, {d} vs {corpus.shape[1]}")
-    if not 1 <= nq <= NARROW_QUERIES:
-        raise ValueError(f"{name}: Q={nq} outside [1, {NARROW_QUERIES}]")
-    if not 1 <= k <= n:
-        raise ValueError(f"{name}: k={k} outside [1, N={n}]")
+@functools.lru_cache(maxsize=512)
+def _narrow_layout(nq: int, n: int, k: int):
+    """The narrow pair's plan for (Q, N, k), computed once a shape: (ldk,
+    tiles a scorer block, scorer blocks, select chunks, cap, scratch ints,
+    the parts' shapes, their offsets in the buffer, its length)."""
     ldk = -(-n // KEY_ALIGN) * KEY_ALIGN
-    if max(ldk, d * 4) >= 2 ** 31:
-        raise ValueError(f"{name}: a dimension exceeds int32")
     per_block, blocks = narrow_plan(n)
     n_tiles = -(-n // NARROW_ROWS)
     chunks, _ = select_plan(nq, n)
@@ -259,30 +277,67 @@ def _narrow_scores(queries: torch.Tensor, corpus: torch.Tensor,
     shapes = ((nq, ldk), (nq, n_tiles), (n_scratch,), (nq, cap), (nq, cap))
     sizes = [nq * ldk, nq * n_tiles, n_scratch, nq * cap, nq * cap]
     at = tuple(sum(sizes[:i]) for i in range(len(sizes)))
-    nar = Narrow(torch.empty(sum(sizes), dtype=torch.int32, device=dev), at,
-                 shapes, n, chunks)
-    vec = int(d % 4 == 0 and _aligned(queries, corpus))
-    keys, tile_max, scratch = nar.ptrs()[:3]
-    TOPK_NARROW_SCORES(queries.data_ptr(), corpus.data_ptr(), keys, tile_max,
-                       scratch, n_scratch, nq, n, d, ldk, per_block, blocks,
-                       vec)
-    return nar
+    return ldk, per_block, blocks, chunks, cap, n_scratch, shapes, at, \
+        sum(sizes)
+
+
+# the narrow scorer of each input type: its kernel, the most queries the
+# path takes (the type's cutoff) and the row width in elements that makes
+# a row 16-byte aligned
+_NARROW = {torch.float32: (TOPK_NARROW_SCORES, NARROW_QUERIES, 4),
+           torch.int8: (TOPK_NARROW_SCORES_INT8, INT8_NARROW_QUERIES, 16)}
+
+
+def _narrow_scores(queries: torch.Tensor, corpus: torch.Tensor,
+                   k: int) -> Narrow:
+    dev, dtype = queries.device, queries.dtype
+    if dtype not in _NARROW:
+        raise ValueError(f"topk_narrow_scores: queries must be float32 or "
+                         f"int8, got {dtype}")
+    scorer, most, vec_width = _NARROW[dtype]
+    name = scorer.name
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    _check(queries, "queries", dtype, dev, name)
+    _check(corpus, "corpus", dtype, dev, name)
+    nq, d = queries.shape
+    n = corpus.shape[0]
+    if corpus.shape[1] != d:
+        raise ValueError(f"{name}: widths differ, {d} vs {corpus.shape[1]}")
+    if not 1 <= nq <= most:
+        raise ValueError(f"{name}: Q={nq} outside [1, {most}]")
+    if not 1 <= k <= n:
+        raise ValueError(f"{name}: k={k} outside [1, N={n}]")
+    if dtype == torch.int8 and d * 127 * 127 >= 2 ** 31:
+        raise ValueError(f"{name}: D={d} overflows the int32 int8 dot")
+    (ldk, per_block, blocks, chunks, _, n_scratch, shapes, at,
+     total) = _narrow_layout(nq, n, k)
+    if max(ldk, d * dtype.itemsize) >= 2 ** 31:
+        raise ValueError(f"{name}: a dimension exceeds int32")
+    buf = torch.empty(total, dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    vec = int(d % vec_width == 0 and _aligned(queries, corpus))
+    scorer(queries.data_ptr(), corpus.data_ptr(), base + 4 * at[0],
+           base + 4 * at[1], base + 4 * at[2], n_scratch, nq, n, d, ldk,
+           per_block, blocks, vec)
+    return Narrow(buf, at, shapes, n, chunks)
 
 
 def _narrow_select(nar: Narrow, k: int):
     (nq, ldk), cap = nar.shapes[0], nar.shapes[3][1]
     out = torch.empty((2, nq, k), dtype=torch.int32, device=nar.buf.device)
-    out_s, out_i = out[0].view(torch.float32), out[1]
-    TOPK_NARROW_SELECT(*nar.ptrs(), out_s.data_ptr(), out_i.data_ptr(), nq,
-                       nar.n, ldk, k, nar.chunks, cap)
-    return out_s, out_i
+    TOPK_NARROW_SELECT(*nar.ptrs(), out.data_ptr(),
+                       out.data_ptr() + 4 * nq * k, nq, nar.n, ldk, k,
+                       nar.chunks, cap)
+    return out[0].view(torch.float32), out[1]
 
 
 def narrow_scores_cuda(queries: torch.Tensor, corpus: torch.Tensor,
                        k: int) -> Narrow:
     """Launch the narrow scorer: queries f32[Q, D] (1 <= Q <=
-    NARROW_QUERIES), corpus f32[N, D], 1 <= k <= N -> the keys and the
-    select's space (:class:`Narrow`)."""
+    NARROW_QUERIES) or int8 codes (1 <= Q <= INT8_NARROW_QUERIES), corpus
+    of the same type [N, D], 1 <= k <= N -> the keys and the select's
+    space (:class:`Narrow`)."""
     with torch.cuda.device(queries.device):
         return _narrow_scores(queries, corpus, k)
 
@@ -298,8 +353,9 @@ def narrow_select_cuda(nar: Narrow, k: int):
 
 def topk_narrow_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int):
     """Launch the narrow kernel pair: queries f32[Q, D] (Q <=
-    NARROW_QUERIES), corpus f32[N, D], 1 <= k <= N -> (scores f32[Q, k],
-    ids i32[Q, k])."""
+    NARROW_QUERIES) or int8 codes (Q <= INT8_NARROW_QUERIES), corpus of
+    the same type [N, D], 1 <= k <= N -> (scores f32[Q, k], ids i32[Q,
+    k]); an int8 score is the exact dot rounded to f32."""
     with torch.cuda.device(queries.device):
         return _narrow_select(_narrow_scores(queries, corpus, k), k)
 
@@ -340,28 +396,95 @@ class Pieces(NamedTuple):
     a tile). A piece's top-min(k, length) list goes to row ``query`` of a
     (Q, ``width``) partial buffer, from column ``slot offset``; ``width``
     bounds every query's slots (C, or k per piece of the query with the
-    most, whichever is fewer). ``blk_first`` names the first piece of each
-    block of the kernel: every ``TILE_PIECES``-th piece of a tile, then -1
-    up to a length the host can compute without reading the device."""
+    most, whichever is fewer), and a query's slots fill the first
+    ``row_len[query]`` columns of its row. ``blk_first`` names the first
+    piece of each block of the kernel: every ``TILE_PIECES``-th piece of a
+    tile, then -1 up to a length the host can compute without reading the
+    device."""
 
     pieces: torch.Tensor
     blk_first: torch.Tensor
     width: int
+    row_len: torch.Tensor
+
+
+def _stray_error(n_rows: int) -> ValueError:
+    return ValueError(f"gathered_topk: a valid candidate's row lies "
+                      f"outside the table's {n_rows} rows")
+
+
+def _blocks(tiles_sorted: torch.Tensor, n: int, n_rows: int) -> torch.Tensor:
+    """Each kernel block's first piece (every TILE_PIECES-th piece of a
+    tile) from the pieces' tiles in sorted order, then -1 up to a length
+    the host computes from n and the table's tiles."""
+    rank = (torch.arange(n, device=tiles_sorted.device)
+            - torch.searchsorted(tiles_sorted, tiles_sorted))
+    n_blocks = -(-n // TILE_PIECES) + min(n, -(-n_rows // TILE_ROWS))
+    return torch.nonzero_static(rank % TILE_PIECES == 0, size=n_blocks,
+                                fill_value=-1).flatten().to(torch.int32)
 
 
 def gathered_pieces(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
                     n_rows: int, k: int) -> Pieces:
     """Cut the valid slots (``cand_ids >= 0``) of ``cand_rows`` (Q, C)
-    into pieces, in plain torch ops on their device. One host read (the
-    piece count, the most pieces a query has, whether a valid slot's row
-    lies outside ``[0, n_rows)``, which raises) sizes the outputs; the
-    passes over the (Q, C) inputs are elementwise, the rest works on the
-    pieces."""
-    qn, c = cand_ids.shape
-    dev = cand_ids.device
+    into pieces. On the card, two kernels (``gathered_piece_count``, then
+    ``gathered_piece_emit``) each read the slots once; on the CPU the
+    plain version (:func:`gathered_pieces_plain`) gives the same pieces.
+    Either way one host read (the piece count, the most pieces a query
+    has, whether a valid slot's row lies outside ``[0, n_rows)``, which
+    raises) sizes the outputs, and a stable sort orders the pieces by
+    tile."""
     if n_rows + n_rows // TILE_ROWS >= 2 ** 31:
         raise ValueError(f"gathered_topk: {n_rows} table rows exceed the "
                          f"int32 row index with a gap after each tile")
+    if cand_ids.device.type == "cpu":
+        return gathered_pieces_plain(cand_rows, cand_ids, n_rows, k)
+    return gathered_pieces_cuda(cand_rows, cand_ids, n_rows, k)
+
+
+def gathered_pieces_cuda(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
+                         n_rows: int, k: int) -> Pieces:
+    """:func:`gathered_pieces` by its kernels: cand_rows/cand_ids i32[Q, C]
+    contiguous on the card."""
+    qn, c = cand_ids.shape
+    dev = cand_ids.device
+    chunks = max(1, -(-c // PIECE_SLOTS))
+    if qn * chunks >= 2 ** 31 or chunks >= 2 ** 16:
+        raise ValueError(f"gathered_topk: Q={qn} x C={c} slots exceed the "
+                         f"pieces kernels' grid")
+    # info (zeroed: the count kernel's last block finds itself by it),
+    # then counts and each (query, chunk)'s first piece number
+    scratch = torch.zeros(PIECE_INFO + 2 * qn * chunks, dtype=torch.int32,
+                          device=dev)
+    ptr = scratch.data_ptr()
+    info, counts, base = ptr, ptr + 4 * PIECE_INFO, \
+        ptr + 4 * (PIECE_INFO + qn * chunks)
+    with torch.cuda.device(dev):
+        GATHERED_PIECE_COUNT(cand_rows.data_ptr(), cand_ids.data_ptr(),
+                             counts, base, info, qn, c, chunks, n_rows)
+        # the one host read (it sizes the outputs)
+        # lint: disable=torch-host-sync
+        n, stray, most = scratch[:3].tolist()
+        if stray:
+            raise _stray_error(n_rows)
+        out = torch.empty(6 * n + qn, dtype=torch.int32, device=dev)
+        pieces = out[:5 * n].view(n, 5)
+        tiles, row_len = out[5 * n:6 * n], out[6 * n:]
+        GATHERED_PIECE_EMIT(cand_rows.data_ptr(), cand_ids.data_ptr(), base,
+                            pieces.data_ptr(), tiles.data_ptr(),
+                            row_len.data_ptr(), qn, c, chunks, n, n_rows, k)
+    t_sorted, order = torch.sort(tiles, stable=True)
+    return Pieces(pieces[order], _blocks(t_sorted, n, n_rows),
+                  max(min(c, k * most), 1), row_len)
+
+
+def gathered_pieces_plain(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
+                          n_rows: int, k: int) -> Pieces:
+    """The pieces kernels' plain version, in torch ops on the inputs'
+    device: the passes over the (Q, C) inputs are elementwise, the rest
+    works on the pieces."""
+    qn, c = cand_ids.shape
+    dev = cand_ids.device
     valid = cand_ids >= 0
     rows = cand_rows
     if n_rows:
@@ -389,8 +512,7 @@ def gathered_pieces(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
     n, any_stray, most = torch.stack([per_query.sum(), stray.long(),
                                       most]).tolist()
     if any_stray:
-        raise ValueError(f"gathered_topk: a valid candidate's row lies "
-                         f"outside the table's {n_rows} rows")
+        raise _stray_error(n_rows)
     s_at = torch.nonzero_static(start.flatten(), size=n).flatten()
     length = torch.nonzero_static(end.flatten(), size=n).flatten() - s_at + 1
     q_of = s_at // c
@@ -398,19 +520,14 @@ def gathered_pieces(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
     kept = length.clamp(max=k)
     before = torch.cumsum(kept, 0) - kept
     off = before - before[torch.searchsorted(q_of, q_of)]
+    row_len = torch.zeros(qn, dtype=torch.int32, device=dev).index_add_(
+        0, q_of, kept.to(torch.int32))
     first_row = rows.flatten()[s_at].long()
-    order = torch.sort(first_row // TILE_ROWS, stable=True).indices
+    t_sorted, order = torch.sort(first_row // TILE_ROWS, stable=True)
     pieces = torch.stack([q_of, first_row, length, s_at % c, off],
                          1)[order].to(torch.int32)
-    # blocks: every TILE_PIECES-th piece of a tile opens one
-    t_sorted = (first_row // TILE_ROWS)[order].contiguous()
-    rank = (torch.arange(n, device=dev)
-            - torch.searchsorted(t_sorted, t_sorted))
-    n_blocks = -(-n // TILE_PIECES) + min(n, -(-n_rows // TILE_ROWS))
-    blk_first = torch.nonzero_static(rank % TILE_PIECES == 0, size=n_blocks,
-                                     fill_value=-1)
-    return Pieces(pieces, blk_first.flatten().to(torch.int32),
-                  max(min(c, k * most), 1))
+    return Pieces(pieces, _blocks(t_sorted.contiguous(), n, n_rows),
+                  max(min(c, k * most), 1), row_len)
 
 
 def gathered_topk_cuda(queries: torch.Tensor, table: torch.Tensor,
@@ -443,20 +560,19 @@ def gathered_topk_cuda(queries: torch.Tensor, table: torch.Tensor,
         raise ValueError(f"{name}: k={k} outside [1, C={c}]")
     if max(nq, c, d, r) >= 2 ** 31:
         raise ValueError(f"{name}: a dimension exceeds int32")
-    pieces, blk_first, width = gathered_pieces(cand_rows, cand_ids, r, k)
-    part_s = torch.full((nq, width), -torch.inf, dtype=torch.float32,
-                        device=dev)
-    part_p = torch.full((nq, width), -1, dtype=torch.int32, device=dev)
-    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_p = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    pieces, blk_first, width, row_len = gathered_pieces(cand_rows, cand_ids,
+                                                        r, k)
+    # the kernel writes each piece's slots and nothing else: a query's
+    # lists fill its row's first row_len entries, all the merge reads
+    part_s = torch.empty((nq, width), dtype=torch.float32, device=dev)
+    part_p = torch.empty((nq, width), dtype=torch.int32, device=dev)
     vec = int(d % 4 == 0 and _aligned(queries, table))
     with torch.cuda.device(dev):
         GATHERED_TILES(queries.data_ptr(), table.data_ptr(),
                        pieces.data_ptr(), blk_first.data_ptr(),
                        part_s.data_ptr(), part_p.data_ptr(), pieces.shape[0],
                        blk_first.shape[0], r, d, k, width, vec)
-        TOPK_MERGE(part_s.data_ptr(), part_p.data_ptr(), out_s.data_ptr(),
-                   out_p.data_ptr(), nq, width, k)
+        out_s, out_p = launch_merge(part_s, part_p, k, row_len)
     ids = torch.gather(cand_ids, 1, out_p.clamp(min=0).long())
     return out_s, torch.where(torch.isfinite(out_s), ids, -1)
 
@@ -495,7 +611,9 @@ def topk_scores_int8(q_codes: torch.Tensor, c_codes: torch.Tensor, *,
     """Quantized top-k scan: int8 codes (Q, D) x (N, D) -> (Q, k) int-dot
     scores (as f32) and ids. Ranking is scale-invariant, so callers rank on
     the raw dot and rerank the winners in float
-    (retrieval/backends.py ``Int8Backend``)."""
+    (retrieval/backends.py ``Int8Backend``). On the card, Q <=
+    INT8_NARROW_QUERIES takes the narrow pair (the s8 scorer, then the
+    select), a larger Q the 128-query int8 kernel and the merge."""
     blocks = tuning.resolve("topk", n=c_codes.shape[0], dtype="int8",
                             split_blocks=split_blocks)
     k_eff = min(k, c_codes.shape[0])
@@ -504,8 +622,11 @@ def topk_scores_int8(q_codes: torch.Tensor, c_codes: torch.Tensor, *,
                         k)
     if k_eff == 0 or q_codes.shape[0] == 0:
         return empty_topk(q_codes.shape[0], k, q_codes.device)
-    s, i = topk_scores_int8_cuda(q_codes.contiguous(), c_codes.contiguous(),
-                                 k_eff, blocks["split_blocks"])
+    qc, cc = q_codes.contiguous(), c_codes.contiguous()
+    if q_codes.shape[0] <= INT8_NARROW_QUERIES:
+        s, i = topk_narrow_cuda(qc, cc, k_eff)
+    else:
+        s, i = topk_scores_int8_cuda(qc, cc, k_eff, blocks["split_blocks"])
     return pad_topk(s, i, k)
 
 

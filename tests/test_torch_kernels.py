@@ -20,11 +20,13 @@ from repro_torch.kernels.label_prop.ops import lp_round_cuda
 from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK, hamming_topk
 from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
 from repro_torch.kernels.topk_scoring.ops import (GATHERED_TILES,
+                                                  INT8_NARROW_QUERIES,
                                                   NARROW_QUERIES,
                                                   TILE_PIECES, TILE_ROWS,
                                                   TOPK_INT8_PARTIAL,
                                                   TOPK_MERGE,
                                                   TOPK_NARROW_SCORES,
+                                                  TOPK_NARROW_SCORES_INT8,
                                                   TOPK_NARROW_SELECT,
                                                   TOPK_PARTIAL,
                                                   gathered_topk, topk_scores,
@@ -314,6 +316,66 @@ def test_topk_int8_kernel_matches_plain(cuda, q, n, d, k, negative):
     assert bool(torch.isneginf(s[:, k_eff:]).all())
 
 
+@pytest.mark.parametrize("q", [1, 2, 7, 8, 9, 16, 31, 33, 64])
+@pytest.mark.parametrize("k", [1, 16, 64, 1000])
+def test_topk_int8_narrow_path_matches_plain(cuda, q, k):
+    """Q at or below INT8_NARROW_QUERIES: the s8 scorer and the radix
+    select, at each query tile (8, 16, 32, 64), k up to 1000 (the serving
+    tick's pool is 64), half the rows duplicates: equal lists."""
+    g = torch.Generator().manual_seed(q * 1000 + k)
+    qc = torch.randint(-127, 128, (q, 48), generator=g, dtype=torch.int8)
+    cc = torch.randint(-127, 128, (5000, 48), generator=g, dtype=torch.int8)
+    cc[2500:] = cc[:2500].clone()
+    qc, cc = qc.to(cuda), cc.to(cuda)
+    s, i = topk_scores_int8(qc, cc, k=k)
+    torch.cuda.synchronize()
+    s_ref, i_ref = topk_scores_int8_ref(qc, cc, k=k)
+    assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+
+
+@pytest.mark.parametrize("q,n,k", [(1, 5000, 300), (3, 2000, 40),
+                                   (32, 3000, 64)])
+def test_topk_int8_narrow_f32_rounding_ties(cuda, q, n, k):
+    """D 2048, codes at +-127 but two columns: dots past 2**24 a unit
+    apart, so distinct dots round to one f32; the lists equal the plain
+    version's, those ties to the lowest id."""
+    g = torch.Generator().manual_seed(q + n)
+    d = 2048
+    qc = torch.full((q, d), 127, dtype=torch.int8)
+    qc[:, -2:] = torch.randint(1, 3, (q, 2), generator=g, dtype=torch.int8)
+    cc = torch.full((n, d), 127, dtype=torch.int8)
+    flips = torch.randint(0, 4, (n, 1), generator=g)
+    cc[torch.arange(d)[None, :] < flips] = -127
+    cc[:, -2:] = torch.randint(-127, 128, (n, 2), generator=g,
+                               dtype=torch.int8)
+    qc, cc = qc.to(cuda), cc.to(cuda)
+    s, i = topk_scores_int8(qc, cc, k=k)
+    torch.cuda.synchronize()
+    s_ref, i_ref = topk_scores_int8_ref(qc, cc, k=k)
+    assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+
+
+@pytest.mark.parametrize("q", [1, INT8_NARROW_QUERIES,
+                               INT8_NARROW_QUERIES + 1])
+def test_topk_int8_path_by_query_count(cuda, q):
+    """Q at or below the int8 cutoff launches the s8 scorer and the select
+    and nothing of the 128-query int8 path; above it, the int8 partial
+    kernel and the merge."""
+    kernels = (TOPK_NARROW_SCORES_INT8, TOPK_NARROW_SELECT,
+               TOPK_INT8_PARTIAL, TOPK_MERGE)
+    before = [kern.launches for kern in kernels]
+    g = torch.Generator().manual_seed(q)
+    topk_scores_int8(
+        torch.randint(-127, 128, (q, 32), generator=g,
+                      dtype=torch.int8).to(cuda),
+        torch.randint(-127, 128, (3000, 32), generator=g,
+                      dtype=torch.int8).to(cuda), k=10)
+    torch.cuda.synchronize()
+    ran = [kern.launches - b for kern, b in zip(kernels, before)]
+    narrow = q <= INT8_NARROW_QUERIES
+    assert ran == ([1, 1, 0, 0] if narrow else [0, 0, 1, 1])
+
+
 def _gathered_inputs(q, c, d, r, *, seed, integer, dead_rows=()):
     """Candidates drawn from an (r, d) table with repeats (so exact ties
     between positions occur), about a fifth of the slots invalid, and the
@@ -429,6 +491,46 @@ def test_gathered_kernel_ivfflat_probe(cuda):
         assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
 
 
+@pytest.mark.parametrize("q", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("integer", [True, False])
+def test_gathered_kernel_serving_buckets(cuda, q, integer):
+    """The serving tier's ivfflat ticks (buckets 1-32 at k_max 16, D 768)
+    and the RAG stack's one-query calls: blocks of 1-32 pieces, so one to
+    four n8 tiles of the tensor-core tile. Integer vectors: equal lists;
+    normal vectors: scores within D * 2**-24 * sum |q c| of the plain
+    version's and ids equal away from near-ties."""
+    from repro_torch.core import prng
+    from repro_torch.retrieval.ivfflat import build_ivfflat, probe_candidates
+    g = torch.Generator().manual_seed(q + integer)
+    d = 768
+    if integer:
+        vecs = torch.randint(-3, 4, (20000, d), generator=g).float()
+        qs = torch.randint(-3, 4, (q, d), generator=g).float()
+    else:
+        vecs = torch.randn(20000, d, generator=g)
+        qs = torch.randn(q, d, generator=g)
+    vecs, qs = vecs.to(cuda), qs.to(cuda)
+    index = build_ivfflat(prng.prng_key(q), vecs, n_lists=64)
+    rows, ids = probe_candidates(index, qs, nprobe=8)
+    table = index.vecs.reshape(-1, d)
+    s, i = gathered_topk(qs, table, rows, ids, k=16)
+    torch.cuda.synchronize()
+    s_ref, i_ref = gathered_topk_ref(qs, table, rows, ids, k=16)
+    if integer:
+        assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+        return
+    assert torch.equal(i < 0, i_ref < 0)
+    v64, q64 = vecs.double(), qs.double()
+    tol = d * 2.0 ** -24 * torch.einsum("qd,qkd->qk", q64.abs(),
+                                        v64[i_ref.long()].abs())
+    assert bool(((s.double() - s_ref.double()).abs() <= tol).all())
+    diff = i != i_ref
+    if bool(diff.any()):
+        gap = (torch.einsum("qd,qkd->qk", q64, v64[i.long()])
+               - torch.einsum("qd,qkd->qk", q64, v64[i_ref.long()])).abs()
+        assert bool((gap[diff] <= 2 * tol[diff]).all())
+
+
 def test_gathered_kernel_tie_goes_to_the_earlier_position(cuda):
     """Equal scores at two positions, in other pieces and tiles: the
     earlier position wins, whichever row comes first in the table."""
@@ -523,16 +625,18 @@ def test_topk_kernels_launch_at_any_k(cuda, k):
     cs = torch.randn(500, 16, device=cuda)
     rows = torch.randint(0, 500, (4, 400), device=cuda, dtype=torch.int32)
     kernels = (TOPK_NARROW_SCORES, TOPK_NARROW_SELECT, TOPK_PARTIAL,
-               TOPK_INT8_PARTIAL, HAMMING_TOPK, GATHERED_TILES, TOPK_MERGE)
+               TOPK_INT8_PARTIAL, HAMMING_TOPK, GATHERED_TILES, TOPK_MERGE,
+               TOPK_NARROW_SCORES_INT8)
     before = [kern.launches for kern in kernels]
     topk_scores(qs, cs, k=k)
     topk_scores_int8(qs.to(torch.int8), cs.to(torch.int8), k=k)
     hamming_topk(qs.to(torch.int32), cs.to(torch.int32), k=k)
     gathered_topk(qs, cs, rows, rows, k=k)
     after = [kern.launches for kern in kernels]
-    # 4 queries take the f32 kernel's narrow pair; the Hamming kernel
-    # selects by counting: no merge follows it
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 1, 1, 1, 2]
+    # 4 queries take the narrow pair of each type (the select twice); the
+    # Hamming kernel selects by counting: no merge follows it; the merge
+    # follows the gathered kernel
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 0, 0, 1, 1, 1, 1]
 
 
 def test_sort_engine_on_the_card_matches_the_cpu(cuda):

@@ -26,10 +26,12 @@ Cases, at the main path's shapes (``--only`` picks groups):
   the recsys retrieval step (one query over 1,000,000 rows of D 16, k 100),
   both on the narrow path where a checkout has one;
 - int8: ``topk_scores_int8`` at the same shape, k 10, 20, 40 and 80 (the
-  evaluation curve's pools);
+  evaluation curve's pools), and at the serving tick (32 queries over
+  1,048,576 codes of D 768, k 64, the int8 backend's pool);
 - gathered: ``gathered_topk`` at the ivfflat probe of the evaluation path
   (512 queries, D 2048, k 10, over ``chip_smoke.py``'s 5.2e5-entity
-  corpus and index) and at Table I's (256 queries, D 128, k 3, over a
+  corpus and index), at one query over the same index (k 3, the RAG
+  stack's calls) and at Table I's (256 queries, D 128, k 3, over a
   128-wide projection of the same corpus);
 - hamming: ``hamming_topk`` at Q 512, N 524288, W 4 (random codes, half
   the rows duplicated), k 10 and 64 (the lsh engine's rerank pool);
@@ -138,6 +140,14 @@ def cases(groups):
             yield (f"topk_scores_int8 k={k}", "topk_scores_int8", (q, c),
                    {"k": k}, 8, 2)
         del q, c
+        # the serving tick: a bucket of 32 over a tenant's codes at the
+        # pool k 64 (the narrow path where a checkout has one)
+        q = cs.card_int8(cs.SERVE_BATCH, cs.SERVE_DIM, seed=37, device=dev)
+        c = cs.card_int8(cs.SERVE_DOCS, cs.SERVE_DIM, seed=41, device=dev)
+        yield (f"topk_scores_int8 tick Q={cs.SERVE_BATCH} N={cs.SERVE_DOCS} "
+               f"D={cs.SERVE_DIM} k={cs.INT8_POOL}", "topk_scores_int8",
+               (q, c), {"k": cs.INT8_POOL}, 20, 3)
+        del q, c
     if "gathered" in groups:
         from repro_torch.core import prng
         from repro_torch.retrieval.engines import IVFFlatEngine
@@ -151,6 +161,7 @@ def cases(groups):
         engine = IVFFlatEngine()
         for label, vecs, qs, k, iters in (
                 ("evaluation D2048 k10", lambda: ev, pq, 10, 3),
+                ("one query D2048 k3", lambda: ev, pq[:1], 3, 20),
                 ("table1 D128 k3",
                  lambda: torch.nn.functional.normalize(ev @ proj, dim=1),
                  torch.nn.functional.normalize(
