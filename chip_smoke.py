@@ -7,7 +7,8 @@ From the root of a checkout, with one card. In order:
 
 1. Device: the card's name and power limit; no card is a failure.
 2. Build: every CUDA source under src/repro_torch/csrc, one nvcc each,
-   started together; prints each build's ``-Xptxas -v`` report. The
+   started together (phase 3's evaluation corpus drawn on the host
+   meanwhile); prints each build's ``-Xptxas -v`` report. The
    recompile sentinel (``obs/recompile``) is on from here: it must count
    one build for each source whose library was not built yet, and none in
    phases 5-20.
@@ -33,7 +34,12 @@ From the root of a checkout, with one card. In order:
    tick (32 x 1,048,576 x 768 codes, k 64), its select held to its plain
    version on each scorer's keys. The gathered kernel's pieces kernels
    are held to their plain version at every gathered shape, and its
-   scores to D * 2**-24 * sum |q c| of the plain version's. The
+   scores to D * 2**-24 * sum |q c| of the plain version's; at Q at or
+   below ``GATHERED_NARROW_QUERIES`` (the runs path) the runs kernel's
+   lists are held to ``gathered_runs_plain``'s (equal on small integer
+   inputs: all-zero queries, rows at two positions, empty runs, k past
+   the run length and the valid count) and ``topk_merge`` over them,
+   mapping positions to ids, bit-equal to ``merge_plain``. The
    gathered kernel's main shape
    is the ivfflat
    probe of the evaluation path's full corpus (its tf-idf embedding, 5.2e5
@@ -70,11 +76,16 @@ From the root of a checkout, with one card. In order:
    the gathered kernel also at Table I's probe, at one query and at the
    serving ticks (Q 1 and 32), each call split into its launches' device
    times (the pieces kernels, the tile kernel, the merge) beside the
-   pieces step and its plain version, the Hamming kernel's three
+   pieces step and its plain version, and at Q 1 (the runs kernel and the
+   merge) with the profiler's device time of each; both gathered paths at
+   the tick's buckets 1-32 and at Q 12 (the cutoff); the Hamming
+   kernel's three
    kernels and the flash kernel and ``scaled_dot_product_attention``
    also by the profiler's
    device time a call; ``topk_merge`` alone on the f32 kernel's partial
-   lists at k 10, held equal to its plain version (two stable sorts).
+   lists at k 10, held equal to its plain version (two stable sorts),
+   and at one query's widths of both gathered paths at the tick, beside
+   ``torch.topk``, each also as device time queued behind a sleep.
 5. Sampling: ``repro_torch.launch.sample`` at 65536 queries with the LP
    kernel engine (about 2.1M qrel rows and 3.1M entities); then the degree
    histogram of the ELL table its LP rounds ran on, and lp_round timed on
@@ -175,8 +186,16 @@ From the root of a checkout, with one card. In order:
     at a shape the warm-up did not launch, one ``topk_narrow_scores`` shape
     a bucket in the warm-up. 15d: one tenant, 1024 requests with appends, on
     ``--backend int8``, ``--engine ivfflat`` and ``--engine lsh`` (rerank
-    64): each launches its kernel, which is held to its plain version on
-    the run's own inputs at every shape the run called its wrapper at; the
+    64): each launches its kernel (ivfflat: the gathered runs kernel if a
+    tick held at most ``GATHERED_NARROW_QUERIES`` queries and none of it
+    otherwise, the pieces kernels and the tile kernel if one held more and
+    none of them otherwise, the merge always), which is held to its plain
+    version on the run's own inputs at every shape the run called its
+    wrapper at; after the ivfflat load, ``SMALL_TICKS`` groups of requests
+    drained one at a time (buckets of at most ``GATHERED_NARROW_QUERIES``)
+    must launch the runs kernel and the merge and nothing of the pieces
+    path, equal ``LiveIndex.search_scored`` on the same padded buckets and
+    agree with the plain search within phase 3's bound; the
     64 queries (256 rows more pending) through the scheduler equal
     ``LiveIndex.search_scored``, and equal (int8, Hamming) or agree within
     phase 3's bound away from near-ties (gathered) with the same
@@ -209,8 +228,11 @@ From the root of a checkout, with one card. In order:
     top-two gap exceeds it; decode step times. 17c: the RAG stack of
     ``examples/serve_rag.py`` at full width: a WindTunnel sample (the LP
     kernel) of a synthetic corpus of 8192 queries, tf-idf vectors, a
-    ``RetrievalFrontend`` on ivfflat (the gathered top-k and merge
-    kernels) and a ``RagEngine`` over a gemma-2b ``ServeEngine`` (8 slots,
+    ``RetrievalFrontend`` on ivfflat (one query a retrieval: the gathered
+    runs kernel and the merge, and nothing of the pieces path; a
+    retrieval's call timed on its captured arguments, split by the
+    profiler, beside its plain version and gather + bmm + stable sort)
+    and a ``RagEngine`` over a gemma-2b ``ServeEngine`` (8 slots,
     512 positions, 32 new tokens, 24 context tokens); 64 queries, the
     engine stepped whenever its batch is full, then drained: every
     request 32 tokens, the retrieved ids equal to ``session.search``
@@ -267,7 +289,8 @@ From the root of a checkout, with one card. In order:
     energies and forces card vs CPU within ``MACE_TOL``, second-order
     train step times and peak; minibatch_lg: a ``NeighborSampler`` over a
     Reddit-sized graph drawn from a seed (232,965 nodes, 114,615,892
-    edges; host times for the draw, the CSR build and the sample), 1024
+    edges; host times for the draw, the CSR build (both on a thread
+    beside 19a-19b) and the sample), 1024
     nodes at fanouts (15, 10) laid into the cell's padded 180,224-node,
     179,200-edge block, and its train step's times, peak and rate against
     ``mace_flops``. dlrm-mlperf's published tables (91.1 GB) and MACE's
@@ -388,6 +411,8 @@ SERVE_E_THRESHOLD = 256         # 15e's compaction threshold: its appends
                                 # of 256 rows each reach it
 SERVE_QUERIES = 64              # the fixed queries held to the direct and
                                 # the plain search
+SMALL_TICKS = (1, 2, 5, 8)      # 15d's ivfflat requests drained in groups:
+                                # buckets 1, 2, 8 and 8, the runs path
 LM_F32_TOL = (1e-4, 1e-5)       # rtol, atol: reduced LMs in f32, card vs
                                 # CPU (other summation orders, TF32 off)
 LM_BF16_TOL = 0.25              # |logit| and |k|, |v| of gemma-2b in bf16:
@@ -427,6 +452,10 @@ NARROW_INT8_PAIR = ("topk_narrow_scores_int8", "topk_narrow_select")
 INT8_POOL = 64                  # the int8 tick's pool: 4 x k_max
 # the gathered wrapper's pieces kernels, which cut the candidate slots
 PIECES_PAIR = ("gathered_piece_count", "gathered_piece_emit")
+# the gathered search's kernels above its cutoff (the pieces path) and at
+# or below it (the runs path); the merge follows both
+GATHERED_WIDE = PIECES_PAIR + ("gathered_tiles",)
+GATHERED_NARROW = ("gathered_runs",)
 
 
 # phase 14's child: one rank of two in a gloo group on the one card;
@@ -452,8 +481,8 @@ from repro_torch.eval import tfidf_embedder
 from repro_torch.kernels.label_prop.ops import LP_ROUND
 from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK
 from repro_torch.kernels.topk_scoring.ops import (
-    GATHERED_TILES, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_NARROW_SCORES,
-    TOPK_NARROW_SELECT, TOPK_PARTIAL)
+    GATHERED_RUNS, GATHERED_TILES, TOPK_INT8_PARTIAL, TOPK_MERGE,
+    TOPK_NARROW_SCORES, TOPK_NARROW_SELECT, TOPK_PARTIAL)
 from repro_torch.obs import recompile
 from repro_torch.retrieval.search_core import SearchConfig, SearchSession
 
@@ -461,7 +490,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 recompile.enable()
 recompile.reset()
 KERNELS = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
-           HAMMING_TOPK, TOPK_MERGE, TOPK_NARROW_SCORES, TOPK_NARROW_SELECT)
+           HAMMING_TOPK, TOPK_MERGE, TOPK_NARROW_SCORES, TOPK_NARROW_SELECT,
+           GATHERED_RUNS)
 ENGINES = ("exact", "tfidf", "lsh", "ivfflat")
 K = 10
 
@@ -1171,16 +1201,6 @@ def check_select_keys(q: int, n: int, k: int, *, seed: int, device) -> None:
     check_select(nar, k, f"chosen keys Q={q} N={n} k={k}")
 
 
-def merge_plain(part_s, part_i, k: int):
-    """The merge's plain version: a stable sort by id, then a stable sort
-    by score descending, the first k."""
-    import torch
-    by_id = torch.sort(part_i, dim=1, stable=True).indices
-    s, i = torch.gather(part_s, 1, by_id), torch.gather(part_i, 1, by_id)
-    pos = torch.sort(s, dim=1, descending=True, stable=True).indices[:, :k]
-    return torch.gather(s, 1, pos), torch.gather(i, 1, pos)
-
-
 def gathered_inputs(q: int, c: int, d: int, r: int, *, seed: int,
                     device):
     """Candidates drawn from an (r, d) table with repeats (exact ties
@@ -1196,6 +1216,50 @@ def gathered_inputs(q: int, c: int, d: int, r: int, *, seed: int,
     ids[0] = -1
     return (qs.to(device), table.to(device), rows.to(device),
             ids.to(device))
+
+
+def runs_inputs(kind: str, q: int, c: int, d: int, r: int, *, seed: int,
+                device, integer: bool = True):
+    """Candidates for the runs path's edges: small integer vectors (exact
+    sums) unless not ``integer``; the second run of slots of every query
+    invalid and query 0 with no valid slot where Q > 1. "random": rows
+    drawn with repeats; "repeats": each row at two neighbouring
+    positions; "zeros": all-zero queries (every score ties, as in a
+    bucket the scheduler pads); "lists": ivfflat's layout, c / 8 probed
+    lists of consecutive rows, each list's first tenth valid (RAG's call:
+    8 lists of 609 over 19,488 rows). Ids are the rows."""
+    import torch
+    from repro_torch.kernels.topk_scoring.ops import RUN_SLOTS
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if kind == "lists":
+        cap = c // 8
+        lists = torch.randperm(r // cap, generator=g)[:8]
+        rows = (lists[:, None] * cap + torch.arange(cap)).reshape(1, -1)
+        rows = rows.expand(q, -1)
+        valid = (torch.arange(cap) < max(1, cap // 10)).repeat(8)
+        ids = torch.where(valid, rows, -1)
+    else:
+        if kind == "repeats":
+            rows = torch.randint(0, r, (q, -(-c // 2)), generator=g) \
+                .repeat_interleave(2, dim=1)[:, :c]
+        else:
+            rows = torch.randint(0, r, (q, c), generator=g)
+        ids = rows.clone()
+        ids[torch.rand(q, c, generator=g) < 0.2] = -1
+        ids[:, RUN_SLOTS:2 * RUN_SLOTS] = -1
+        if q > 1:
+            ids[0] = -1
+    if integer:
+        table = torch.randint(-3, 4, (r, d), generator=g).float()
+        qs = torch.randint(-3, 4, (q, d), generator=g).float()
+    else:
+        table = torch.randn(r, d, generator=g)
+        qs = torch.randn(q, d, generator=g)
+    if kind == "zeros":
+        qs.zero_()
+    return (qs.to(device), table.to(device),
+            rows.to(torch.int32).contiguous().to(device),
+            ids.to(torch.int32).contiguous().to(device))
 
 
 def piece_inputs(kind: str, d: int, *, seed: int, device):
@@ -1246,16 +1310,75 @@ def check_pieces(rows, ids, n_rows: int, k: int) -> None:
              f"(Q={ids.shape[0]} C={ids.shape[1]} k={k})")
 
 
-def check_gathered(qs, table, rows, ids, k: int, id_vecs) -> float:
+def check_runs(qs, table, rows, ids, k: int, exact: bool) -> float:
+    """The runs kernel (the gathered path at Q <= the cutoff) against its
+    plain version: each run's list, scores within D * 2**-24 * sum |q c|
+    and positions equal away from near-ties (equal where ``exact``: small
+    integer inputs, every sum exact); then the merge of the kernel's lists
+    through ``cand_ids`` bit-equal to the merge's plain version. Returns
+    the largest score error."""
+    import torch
+    from repro_torch.kernels.topk_scoring.ops import (_runs_lists,
+                                                      gathered_runs_plain,
+                                                      launch_merge,
+                                                      merge_plain)
+    part_s, part_p, stray = _runs_lists(qs, table, rows, ids, k)
+    want_s, want_p = gathered_runs_plain(qs, table, rows, ids, k)
+    shape = f"Q={qs.shape[0]} C={ids.shape[1]} D={qs.shape[1]} k={k}"
+    if stray.item():
+        fail(f"gathered_runs: the stray-row flag is set for {shape}")
+    if part_s.shape != want_s.shape or not torch.equal(part_p < 0,
+                                                       want_p < 0):
+        fail(f"gathered_runs: lists' shape or misses differ from the plain "
+             f"version for {shape}")
+    if exact and not (torch.equal(part_s, want_s)
+                      and torch.equal(part_p, want_p)):
+        fail(f"gathered_runs: lists != the plain version's on exact "
+             f"inputs for {shape}")
+    q64 = qs.double()
+    err_max = 0.0
+    for q0 in range(qs.shape[0]):           # a query at a time: (W, D) f64
+        vecs = lambda p: table[rows[q0][p.clamp(min=0).long()].long()] \
+            .double()
+        v_want = vecs(want_p[q0])
+        tol = qs.shape[1] * 2.0 ** -24 * (v_want.abs() @ q64[q0].abs()) \
+            + 1e-30
+        ok = want_p[q0] >= 0
+        err = torch.where(ok, part_s[q0].double() - want_s[q0].double(),
+                          0.0).abs()
+        if bool((err > tol).any()):
+            fail(f"gathered_runs: scores beyond the summation bound for "
+                 f"{shape}: max err {float(err.max()):.3e}")
+        diff = part_p[q0] != want_p[q0]
+        if bool(diff.any()):
+            gap = (vecs(part_p[q0]) @ q64[q0] - v_want @ q64[q0]).abs()
+            if bool((gap[diff] > 2 * tol[diff]).any()):
+                fail(f"gathered_runs: positions differ away from a "
+                     f"near-tie for {shape}")
+        err_max = max(err_max, float(err.max()) if err.numel() else 0.0)
+    got = launch_merge(part_s, part_p, k, cand_ids=ids)
+    want = merge_plain(part_s, part_p, k, cand_ids=ids)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"topk_merge != its plain version on the runs' lists for "
+             f"{shape}")
+    return err_max
+
+
+def check_gathered(qs, table, rows, ids, k: int, id_vecs,
+                   exact: bool = False) -> float:
     """Kernel vs plain gathered top-k. Scores must agree within the f32
     summation bound D * 2**-24 * sum_d |q_d c_d| (c the plain version's
     row; the two sum in different orders); misses must fall in the same
     places; ids must be equal except where the kernel picked a different
     id whose exact score lies within twice that bound of the plain one (a
-    near-tie). ``id_vecs[id]`` is an id's vector. The pieces kernels are
-    held to their plain version on the same slots first."""
+    near-tie), and equal everywhere where ``exact`` (small integer inputs).
+    ``id_vecs[id]`` is an id's vector. The pieces kernels are held to
+    their plain version on the same slots first, and at Q <=
+    GATHERED_NARROW_QUERIES the runs kernel and the merge
+    (:func:`check_runs`)."""
     import torch
-    from repro_torch.kernels.topk_scoring.ops import gathered_topk
+    from repro_torch.kernels.topk_scoring.ops import (
+        GATHERED_NARROW_QUERIES, gathered_topk)
     from repro_torch.kernels.topk_scoring.ref import gathered_topk_ref
     s, i = gathered_topk(qs, table, rows, ids, k=k)
     torch.cuda.synchronize()
@@ -1263,6 +1386,8 @@ def check_gathered(qs, table, rows, ids, k: int, id_vecs) -> float:
     c = ids.shape[1]
     k_eff = min(k, c)
     check_pieces(rows, ids, table.shape[0], k_eff)
+    runs_err = (check_runs(qs, table, rows, ids, k_eff, exact)
+                if qn <= GATHERED_NARROW_QUERIES else 0.0)
     s_ref, i_ref = gathered_topk_ref(qs, table, rows, ids, k=k_eff)
     shape = f"Q={qn} C={c} D={d} k={k}"
     if s.shape != (qn, k) or i.shape != (qn, k):
@@ -1275,6 +1400,9 @@ def check_gathered(qs, table, rows, ids, k: int, id_vecs) -> float:
     if not (torch.equal(torch.isneginf(s), miss)
             and bool((i[miss] == -1).all())):
         fail(f"gathered misses differ from the plain version for {shape}")
+    if exact and not (torch.equal(s, s_ref) and torch.equal(i, i_ref)):
+        fail(f"gathered lists != the plain version's on exact inputs for "
+             f"{shape}")
     mag = torch.einsum("qd,qkd->qk", qs.abs().double(),
                        id_vecs[i_ref.long().clamp(min=0)].abs().double())
     tol = d * 2.0 ** -24 * mag + 1e-30
@@ -1291,7 +1419,7 @@ def check_gathered(qs, table, rows, ids, k: int, id_vecs) -> float:
         if bool((gap[diff] > 2 * tol[diff]).any()):
             fail(f"gathered ids differ away from a near-tie for {shape}")
         log(f"    {int(diff.sum())} id(s) differ at near-ties ({shape})")
-    return float(err.max()) if err.numel() else 0.0
+    return max(float(err.max()) if err.numel() else 0.0, runs_err)
 
 
 def hamming_inputs(q: int, n: int, w: int, *, seed: int, device):
@@ -1519,6 +1647,39 @@ def call_device_ms(per_kernel: dict, calls: int):
         return None
     return sum(sec / n * -(-n // calls)
                for n, sec in per_kernel.values()) * 1e3
+
+
+def host_ms(fn, calls: int) -> float:
+    """The host's milliseconds a call over ``calls`` calls, read before the
+    closing synchronize (the device keeps up where it is faster)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device ms a call of ``fn()`` (which must not synchronize) over
+    ``iters`` calls queued behind a sleep kernel long enough to cover the
+    host's issue time, between two CUDA events: the card's own time, with
+    no wait for the host between launches."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000 * iters)       # about 0.1 ms a call
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def log_profile(what: str, prof) -> None:
@@ -1834,7 +1995,10 @@ def rag_full_width(cfg, params, pb, kernels, smi: str) -> dict:
     import torch
     from repro_torch.core import WindTunnelConfig, prng, run_windtunnel
     from repro_torch.data.synthetic import generate_corpus
+    from repro_torch.kernels.topk_scoring import ops as topk_ops
+    from repro_torch.kernels.topk_scoring import ref as topk_ref
     from repro_torch.launch import trace as trace_cli
+    from repro_torch.obs.timing import cuda_ms
     from repro_torch.models import transformer as tf
     from repro_torch.obs import trace
     from repro_torch.retrieval.search_core import SearchConfig
@@ -1881,23 +2045,56 @@ def rag_full_width(cfg, params, pb, kernels, smi: str) -> dict:
     reqs, ids = [], []
     t0 = time.perf_counter()
     steps = 0
-    for qi in range(RAG_REQUESTS):
-        while all(s is not None for s in engine.slots):
-            steps += bool(engine.step())
-        q = corpus.query_tokens[qi]
-        req, got = rag.submit_query(q, q, k=3)
-        if req is None:
-            fail(f"17c: request {qi} was rejected with a free slot")
-        reqs.append(req)
-        ids.append(got)
-    steps += engine.drain()
-    torch.cuda.synchronize()
+    with Capture(topk_ops, "gathered_topk", shapes_key) as seen:
+        for qi in range(RAG_REQUESTS):
+            while all(s is not None for s in engine.slots):
+                steps += bool(engine.step())
+            q = corpus.query_tokens[qi]
+            req, got = rag.submit_query(q, q, k=3)
+            if req is None:
+                fail(f"17c: request {qi} was rejected with a free slot")
+            reqs.append(req)
+            ids.append(got)
+        steps += engine.drain()
+        torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     trace.disable()
     launched = read_counts(kernels, "17c RAG")
-    for kname in ("lp_round", "gathered_tiles", "topk_merge") + PIECES_PAIR:
+    # one query a retrieval: the gathered runs path and the merge, nothing
+    # of the pieces path
+    for kname in ("lp_round", "topk_merge") + GATHERED_NARROW:
         if not launched[kname]:
             fail(f"17c launched no {kname} kernel")
+    for kname in GATHERED_WIDE:
+        if launched[kname]:
+            fail(f"17c's one-query retrievals launched {kname} "
+                 f"{launched[kname]} times")
+    # a retrieval's call timed on its captured arguments (the frontend's
+    # ivfflat probe), split into its launches, beside its plain version and
+    # gather + bmm + stable sort
+    args, kw = next(iter(seen.calls.values()))
+    qs_, table_, rows_, ids_ = args
+    call = lambda: topk_ops.gathered_topk(*args, **kw)
+    rag_ms = cuda_ms(call, 100)
+    rag_host = host_ms(call, 100)
+    rag_plain = cuda_ms(lambda: topk_ref.gathered_topk_ref(*args, **kw), 10)
+    prof = device_profile(lambda: [call() for _ in range(50)])[2]
+
+    def rag_library():
+        cand = table_[rows_.long()]
+        sc = torch.bmm(cand, qs_[:, :, None])[..., 0]
+        sc = torch.where(ids_ >= 0, sc, -torch.inf)
+        torch.sort(sc, dim=1, descending=True, stable=True)
+
+    log(f"    17c RAG retrieval Q={qs_.shape[0]} C={ids_.shape[1]} (valid "
+        f"{int((ids_ >= 0).sum())}) D={qs_.shape[1]} over "
+        f"{table_.shape[0]} rows, k={kw['k']}: call {rag_ms:.4f} ms (host "
+        f"{rag_host:.4f} ms a call), profiler device ms a call "
+        + "; ".join(f"{name.split('(')[0][-36:]} {sec * 1e3 / 50:.4f}"
+                    for name, (_, sec) in prof.items())
+        + f"; plain {rag_plain:.4f} ms, gather+bmm+stable sort "
+        f"{cuda_ms(rag_library, 50):.4f} ms; {smi}")
+    del seen, args, qs_, table_, rows_, ids_
     peak = torch.cuda.max_memory_allocated()
     if any(len(r.out) != RAG_NEW_TOKENS or not r.done for r in reqs):
         fail(f"17c: a request did not get {RAG_NEW_TOKENS} tokens")
@@ -2449,7 +2646,25 @@ def sampled_block_batch(blocks, cell_batch: dict, seed: int, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
 
 
-def mace_full_width(smi: str) -> None:
+def reddit_sampler():
+    """minibatch_lg's Reddit-sized graph drawn from a seed and its
+    NeighborSampler, on the host -> (sampler, the generator after the
+    draw, draw s, build s)."""
+    from repro_torch import configs
+    from repro_torch.data import NeighborSampler
+    shape = configs.get_arch("mace").shapes["minibatch_lg"]
+    total, n_e = shape["n_nodes"], shape["n_edges"]
+    rng = np.random.default_rng(195)
+    t0 = time.perf_counter()
+    src = rng.integers(0, total, n_e, dtype=np.int32)
+    dst = rng.integers(0, total, n_e, dtype=np.int32)
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(src, dst, total, seed=0)
+    return sampler, rng, draw_s, time.perf_counter() - t0
+
+
+def mace_full_width(smi: str, graph=None) -> None:
     """19c: MACE at its published config (2 layers, 128 channels, l_max 2,
     correlation 3). molecule: energies and forces on the card against the
     CPU on the same batch, then the second-order train step's times and
@@ -2460,7 +2675,6 @@ def mace_full_width(smi: str) -> None:
     import torch
     from repro_torch import configs
     from repro_torch.core import prng
-    from repro_torch.data import NeighborSampler
     from repro_torch.kernels.tuning import H100_F32_FLOPS
     from repro_torch.launch import cells
     from repro_torch.launch.mesh import make_host_mesh
@@ -2526,15 +2740,10 @@ def mace_full_width(smi: str) -> None:
     # minibatch_lg: the sampler on the host, then one step on the card
     shape = configs.get_arch("mace").shapes["minibatch_lg"]
     total, n_e = shape["n_nodes"], shape["n_edges"]
-    rng = np.random.default_rng(195)
-    t0 = time.perf_counter()
-    src = rng.integers(0, total, n_e, dtype=np.int32)
-    dst = rng.integers(0, total, n_e, dtype=np.int32)
-    draw_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sampler = NeighborSampler(src, dst, total, seed=0)
-    build_s = time.perf_counter() - t0
-    del src, dst
+    # drawn and built on a thread from phase 19's start when given (a
+    # future), else here
+    sampler, rng, draw_s, build_s = (graph.result() if graph is not None
+                                     else reddit_sampler())
     nodes = rng.choice(total, shape["batch_nodes"], replace=False)
     t0 = time.perf_counter()
     blocks = sampler.sample(nodes, shape["fanouts"])
@@ -2547,7 +2756,9 @@ def mace_full_width(smi: str) -> None:
     lay_s = time.perf_counter() - t0
     log(f"    19c: Reddit-sized graph ({total} nodes, {n_e} edges) drawn "
         f"on the host in {draw_s:.2f} s; NeighborSampler built (argsort, "
-        f"CSR) in {build_s:.2f} s; {shape['batch_nodes']} nodes sampled at "
+        f"CSR) in {build_s:.2f} s"
+        + (" (on a thread beside 19a-19b)" if graph is not None else "")
+        + f"; {shape['batch_nodes']} nodes sampled at "
         f"fanouts {shape['fanouts']} in {sample_s:.3f} s: blocks of "
         f"{blocks[1].n_dst} -> {blocks[1].src_nodes.shape[0]} -> "
         f"{blocks[0].src_nodes.shape[0]} nodes, "
@@ -3316,14 +3527,16 @@ def main() -> None:
                                                      hamming_topk)
     from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
     from repro_torch.kernels.topk_scoring.ops import (
-        GATHERED_PIECE_COUNT, GATHERED_PIECE_EMIT, GATHERED_TILES,
-        INT8_NARROW_QUERIES, NARROW_QUERIES, NARROW_ROWS, TILE_PIECES,
-        TILE_ROWS, TOPK_INT8_PARTIAL, TOPK_MERGE, TOPK_NARROW_SCORES,
-        TOPK_NARROW_SCORES_INT8, TOPK_NARROW_SELECT, TOPK_PARTIAL,
-        gathered_pieces, gathered_pieces_plain, gathered_topk, launch_merge,
-        narrow_scores_cuda, narrow_select_cuda, score_keys, topk_narrow_cuda,
-        topk_partials_cuda, topk_scores, topk_scores_cuda, topk_scores_int8,
-        topk_scores_int8_cuda)
+        GATHERED_NARROW_QUERIES, GATHERED_PIECE_COUNT, GATHERED_PIECE_EMIT,
+        GATHERED_RUNS, GATHERED_TILES, INT8_NARROW_QUERIES, NARROW_QUERIES,
+        NARROW_ROWS, RUN_SLOTS, TILE_PIECES, TILE_ROWS, TOPK_INT8_PARTIAL,
+        TOPK_MERGE, TOPK_NARROW_SCORES, TOPK_NARROW_SCORES_INT8,
+        TOPK_NARROW_SELECT, TOPK_PARTIAL, _runs_lists, gathered_pieces,
+        gathered_pieces_plain, gathered_runs_cuda, gathered_runs_plain,
+        gathered_tiles_cuda, gathered_topk, launch_merge, merge_plain,
+        merge_plan, narrow_scores_cuda, narrow_select_cuda, score_keys,
+        topk_narrow_cuda, topk_partials_cuda, topk_scores, topk_scores_cuda,
+        topk_scores_int8, topk_scores_int8_cuda)
     from repro_torch.kernels.topk_scoring.ref import (gathered_topk_ref,
                                                       topk_scores_int8_ref,
                                                       topk_scores_ref)
@@ -3340,7 +3553,7 @@ def main() -> None:
     kernels = (LP_ROUND, TOPK_PARTIAL, TOPK_INT8_PARTIAL, GATHERED_TILES,
                HAMMING_TOPK, TOPK_MERGE, FLASH_ATTENTION, TOPK_NARROW_SCORES,
                TOPK_NARROW_SELECT, TOPK_NARROW_SCORES_INT8,
-               GATHERED_PIECE_COUNT, GATHERED_PIECE_EMIT)
+               GATHERED_PIECE_COUNT, GATHERED_PIECE_EMIT, GATHERED_RUNS)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3368,6 +3581,11 @@ def main() -> None:
         with recompile.region("phase 2"):
             return build.load(src)
 
+    # host work of later phases that needs no card, drawn while nvcc runs
+    # (phase 3's evaluation corpus) or while phase 14's ranks run (phase
+    # 15's tenants)
+    early = ThreadPoolExecutor(2)
+    corpus_job = early.submit(eval_corpus, EVAL_QUERIES, 2048)
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_counted, sources))
     log(f"[2/21] built {', '.join(sources)} in "
@@ -3390,6 +3608,7 @@ def main() -> None:
     untuned_hits = REGISTRY.counter("tuning.resolve.hit").value
     main_shapes: dict = {}      # phases 5-7's launches by shape, for phase 10
     log("[3/21] kernel vs plain")
+    t34 = time.perf_counter()
     for n, k, quarter in [(1, 1, True), (37, 5, True), (513, 33, True),
                           (300, 70, False), (4096, 0, True),
                           (100_003, 32, True), (100_003, 32, False)]:
@@ -3562,8 +3781,29 @@ def main() -> None:
         for d, k in ((5, 3), (64, 10), (128, 40)):
             gq, gt, gr, gi = piece_inputs(kind, d, seed=d + k, device=dev)
             gath_err = max(gath_err, check_gathered(gq, gt, gr, gi, k, gt))
+    # the runs path's edges (Q <= GATHERED_NARROW_QUERIES), exact inputs:
+    # Q 1-3 and the cutoff, C off the run length, k of 1, 3, 16, above the
+    # run length and above the valid count, runs with no valid slot, rows
+    # at two positions, all-zero queries; then RAG's call shape (normal
+    # vectors, 8 lists of 609 over 19,488 rows of D 2048, k 3)
+    cut = GATHERED_NARROW_QUERIES
+    runs_cases = [("random", 1, 300, 5, 50, 1),
+                  ("random", 2, 999, 37, 200, 3),
+                  ("repeats", 3, 700, 64, 300, 16),
+                  ("zeros", cut, 513, 16, 90, 16),
+                  ("random", cut, 400, 768, 1000, 200),
+                  ("lists", 1, 4872, 8, 19488, 600),
+                  ("repeats", cut + 1, 700, 64, 300, 10)]
+    for kind, q, c, d, r, k in runs_cases:
+        gq, gt, gr, gi = runs_inputs(kind, q, c, d, r, seed=q * c + d,
+                                     device=dev)
+        gath_err = max(gath_err, check_gathered(gq, gt, gr, gi, k, gt,
+                                                exact=True))
+    gq, gt, gr, gi = runs_inputs("lists", 1, 4872, 2048, 19488, seed=5,
+                                 device=dev, integer=False)
+    gath_err = max(gath_err, check_gathered(gq, gt, gr, gi, 3, gt))
     t0 = time.perf_counter()
-    corpus, (ev_np, qv_np) = eval_corpus(EVAL_QUERIES, 2048)
+    corpus, (ev_np, qv_np) = corpus_job.result()
     ev = torch.from_numpy(ev_np).to(dev)
     pq = torch.from_numpy(qv_np[:PROBE_QUERIES]).to(dev)
     # a grid search's inputs, timed in 4.: the evaluation grid draws its
@@ -3583,8 +3823,9 @@ def main() -> None:
     ivf = ivf_engine.build(prng.prng_key(0), ev)
     torch.cuda.synchronize()
     log(f"    ivfflat index of the {tuple(ev.shape)} corpus built in "
-        f"{time.perf_counter() - t0:.1f} s (corpus and embedding "
-        f"included): {tuple(ivf.vecs.shape)}")
+        f"{time.perf_counter() - t0:.1f} s (with the wait for the corpus "
+        f"and its embedding, drawn on the host from phase 2): "
+        f"{tuple(ivf.vecs.shape)}")
     again = ivf_engine.build(prng.prng_key(0), ev)
     if not (torch.equal(again.centroids, ivf.centroids)
             and torch.equal(again.ids, ivf.ids)):
@@ -3633,15 +3874,21 @@ def main() -> None:
         if i == 0:                  # the full corpus's probe, timed in 4.
             t1_probe = (q128, table_, rows_, ids_)
     del proj, e128, q128, kept, idx, table_, rows_, ids_
-    log(f"    gathered_topk: within the summation bound at 31 shapes incl. "
+    log(f"    gathered_topk: within the summation bound at 39 shapes incl. "
         f"pieces of length 1, repeated rows, runs across {TILE_ROWS}-row "
         f"tiles and a tile probed by more than {TILE_PIECES} queries, "
+        f"the runs path (Q <= {GATHERED_NARROW_QUERIES}, {RUN_SLOTS}-slot "
+        f"runs) on {len(runs_cases)} exact shapes (lists equal; all-zero "
+        f"queries, rows at two positions, empty runs, k past the run and "
+        f"the valid count) and RAG's Q=1 C=4872 D=2048 k=3, "
         f"the ivfflat probe Q={PROBE_QUERIES} C={p_ids.shape[1]} "
         f"D={ev.shape[1]} k=3,10 and Q=1 k=3, the serving ticks Q=1-32 "
         f"C={sv_ids.shape[1]} D={SERVE_DIM} k={SERVE_KMAX}, and Table I's "
         f"Q={ENCODER_BATCH} D={ENCODER_DIM} k=3 at {', '.join(t1_probes)}; "
-        f"the pieces kernels equal to their plain version at each; max "
-        f"|err| {gath_err:.3e}")
+        f"the pieces kernels equal to their plain version at each, at Q <= "
+        f"{GATHERED_NARROW_QUERIES} the runs kernel's lists within the "
+        f"bound of its plain version's and topk_merge over them bit-equal "
+        f"to its plain version; max |err| {gath_err:.3e}")
     ham_cases = [(1, 1, 4, 1), (3, 5, 4, 9), (7, 513, 4, 5),
                  (33, 1000, 4, 32), (40, 4096, 4, 64), (9, 1000, 3, 100),
                  (5, 300, 1, 300), (64, 20000, 4, 10), (2, 129, 8, 33),
@@ -3717,7 +3964,9 @@ def main() -> None:
         f"bf16 {attn_bf16_err:.3e}")
 
     # 4. times -------------------------------------------------------------
+    log(f"    phase 3 in {time.perf_counter() - t34:.1f} s")
     log("[4/21] times (CUDA events, after warm-up)")
+    t34 = time.perf_counter()
     labels, nbr, wgt, deg_sq = lp_main
     n_lp, k_lp = nbr.shape
     lp_ms = cuda_ms(lambda: lp_round_cuda(labels, nbr, wgt), 20)
@@ -3746,9 +3995,13 @@ def main() -> None:
         if not torch.equal(got, want):
             fail("topk_merge of the dense partials != topk_scores")
     m_ms = cuda_ms(lambda: launch_merge(part_s, part_i, k_m), 50)
+    m_dev_ms = queued_ms(lambda: launch_merge(part_s, part_i, k_m), 50)
     m_plain_ms = cuda_ms(lambda: merge_plain(part_s, part_i, k_m), 10)
+    m_lib_ms = cuda_ms(lambda: torch.topk(part_s, k_m, dim=1), 50)
+    m_lib_dev_ms = queued_ms(lambda: torch.topk(part_s, k_m, dim=1), 50)
     m_bound, m_by = bound(part_s.numel() * 8 + qn * k_m * 8, part_s.numel())
     m_width = part_s.shape[1]
+    m_plan = merge_plan(qn, m_width, k_m)
     del part_s, part_i, m_out
     k_i = 40
     i8_ms = cuda_ms(lambda: topk_scores_int8(iq, ic, k=k_i), 10)
@@ -3764,10 +4017,12 @@ def main() -> None:
         f"ms, plain {tk_plain_ms:.4f} ms, matmul+stable sort "
         f"{tk_lib_ms:.4f} ms, bound {tk_bound:.4f} ms ({tk_by})")
     log(f"    topk_merge of that corpus's partial lists at k={k_m} (Q={qn}, "
-        f"{m_width} entries a row): kernel {m_ms:.4f} ms, plain (two "
-        f"stable sorts) {m_plain_ms:.4f} ms, no library call, bound "
-        f"{m_bound:.4f} ms ({m_by}); lists equal to the plain merge's and "
-        f"to topk_scores'")
+        f"{m_width} entries a row; plan {m_plan[1]} segments of "
+        f"{m_plan[0]}): kernel {m_ms:.4f} ms a call (device, queued behind "
+        f"a sleep: {m_dev_ms:.4f} ms), plain (two stable sorts) "
+        f"{m_plain_ms:.4f} ms, torch.topk {m_lib_ms:.4f} ms (device "
+        f"{m_lib_dev_ms:.4f}), bound {m_bound:.4f} ms ({m_by}); lists "
+        f"equal to the plain merge's and to topk_scores'")
     # and at a grid search's shape (24 of its main-path launches): a query
     # chunk of 256 over the rows of the evaluation grid's uniform sample
     gq, gr = grid_search
@@ -4003,13 +4258,27 @@ def main() -> None:
         f"gather+bmm+stable sort by {lib_chunk} queries {g_lib_ms:.4f} ms, "
         f"bound {g_bound:.4f} ms ({g_by})")
     # the call split into its parts: each launch's device time (events
-    # around every launch: the pieces kernels, the tile kernel, the merge),
-    # the pieces step on its own (gathered_pieces: its kernels, the host
-    # read, the sort by tile) and the pieces' plain version
+    # around every launch: the pieces kernels, the tile kernel, the merge);
+    # above the gathered cutoff the pieces step on its own (gathered_pieces:
+    # its kernels, the host read, the sort by tile) and the pieces' plain
+    # version; at or below it (the runs kernel and the merge, short
+    # launches whose events also hold the host's gap before them) the
+    # profiler's device time of each kernel a call
     def gathered_split(label, qs, table, rows, ids, k, calls):
         k_eff = min(k, ids.shape[1])
-        per = launch_device_ms(
-            lambda: gathered_topk(qs, table, rows, ids, k=k), calls)
+        call = lambda: gathered_topk(qs, table, rows, ids, k=k)
+        per = launch_device_ms(call, calls)
+        if qs.shape[0] <= GATHERED_NARROW_QUERIES:
+            prof = device_profile(lambda: [call() for _ in range(calls)])[2]
+            log(f"    gathered split at {label} Q={qs.shape[0]} "
+                f"C={ids.shape[1]} D={qs.shape[1]} k={k}: device a launch "
+                f"(events) "
+                + "; ".join(f"{name} {ms:.4f} ms" for name, ms in per.items())
+                + "; profiler device ms a call "
+                + "; ".join(f"{name.split('(')[0][-36:]} "
+                            f"{sec * 1e3 / calls:.4f}"
+                            for name, (_, sec) in prof.items()))
+            return per, None, None
         pc_ms = cuda_ms(lambda: gathered_pieces(rows, ids, table.shape[0],
                                                 k_eff), calls)
         pc_plain = cuda_ms(lambda: gathered_pieces_plain(
@@ -4037,7 +4306,32 @@ def main() -> None:
         f"{pc_bound:.4f} ms ({pc_by})")
     gathered_split("one query at the evaluation probe", pq[:1], p_table,
                    p_rows[:1].contiguous(), p_ids[:1].contiguous(), 3, 20)
-    # and at the serving tier's ivfflat ticks (15d's buckets at k_max)
+
+    def serving_library(qs, rows, ids):     # 2 queries a bmm, as above
+        for q0 in range(0, qs.shape[0], lib_chunk):
+            cand = sv_table[rows[q0:q0 + lib_chunk].long()]
+            sc = torch.bmm(cand, qs[q0:q0 + lib_chunk, :, None])[..., 0]
+            sc = torch.where(ids[q0:q0 + lib_chunk] >= 0, sc, -torch.inf)
+            torch.sort(sc, dim=1, descending=True, stable=True)
+
+    # and at the serving tier's ivfflat ticks (15d's buckets at k_max): the
+    # gathered cutoff, both paths at each bucket
+    sweep = []
+    for q in (1, 2, 4, 8, 12, 16, 32):
+        sq_, sr_, si_ = (sv_q[:q], sv_rows[:q].contiguous(),
+                         sv_ids[:q].contiguous())
+        runs_ms = cuda_ms(lambda: gathered_runs_cuda(sq_, sv_table, sr_,
+                                                     si_, SERVE_KMAX), 20)
+        tiles_ms = cuda_ms(lambda: gathered_tiles_cuda(sq_, sv_table, sr_,
+                                                       si_, SERVE_KMAX), 20)
+        q_bound = gathered_bound(sq_, sr_, si_, SERVE_KMAX)[2]
+        sweep.append(f"Q={q} runs {runs_ms:.4f} / pieces {tiles_ms:.4f} "
+                     f"(bound {q_bound:.4f})")
+    log(f"    gathered_topk's two paths at the serving tick's buckets "
+        f"(C={sv_ids.shape[1]} D={SERVE_DIM} k={SERVE_KMAX}; the runs "
+        f"kernel + merge / the pieces kernels, tiles + merge, ms a call; "
+        f"the cutoff is {GATHERED_NARROW_QUERIES}): " + "; ".join(sweep))
+    tick_rows = {}
     for q in (1, 32):
         sq_, sr_, si_ = (sv_q[:q], sv_rows[:q].contiguous(),
                          sv_ids[:q].contiguous())
@@ -4045,15 +4339,7 @@ def main() -> None:
                                              k=SERVE_KMAX), 20)
         s_plain = cuda_ms(lambda: gathered_topk_ref(sq_, sv_table, sr_, si_,
                                                     k=SERVE_KMAX), 1, 1)
-
-        def serving_library():          # 2 queries a bmm, as above
-            for q0 in range(0, sq_.shape[0], lib_chunk):
-                cand = sv_table[sr_[q0:q0 + lib_chunk].long()]
-                sc = torch.bmm(cand, sq_[q0:q0 + lib_chunk, :, None])[..., 0]
-                sc = torch.where(si_[q0:q0 + lib_chunk] >= 0, sc, -torch.inf)
-                torch.sort(sc, dim=1, descending=True, stable=True)
-
-        s_lib = cuda_ms(serving_library, 1, 1)
+        s_lib = cuda_ms(lambda: serving_library(sq_, sr_, si_), 1, 1)
         s_valid, s_probed, s_bound, s_by = gathered_bound(sq_, sr_, si_,
                                                           SERVE_KMAX)
         gathered_split("the serving tick", sq_, sv_table, sr_, si_,
@@ -4063,6 +4349,41 @@ def main() -> None:
             f"D={SERVE_DIM} k={SERVE_KMAX}: kernel {s_ms:.4f} ms, plain "
             f"{s_plain:.4f} ms, gather+bmm+stable sort by {lib_chunk} "
             f"queries {s_lib:.4f} ms, bound {s_bound:.4f} ms ({s_by})")
+        tick_rows[q] = (s_ms, s_plain, s_lib, s_bound, s_by)
+    # the merge alone at one query's widths of both paths at the tick: the
+    # runs kernel's lists (runs x k) and lists of the pieces path's width
+    # (normal scores, each id once), beside torch.topk
+    sq_, sr_, si_ = (sv_q[:1], sv_rows[:1].contiguous(),
+                     sv_ids[:1].contiguous())
+    runs_lists = _runs_lists(sq_, sv_table, sr_, si_, SERVE_KMAX)[:2]
+    w_pieces = gathered_pieces(sr_, si_, sv_table.shape[0],
+                               SERVE_KMAX).width
+    g = torch.Generator(device=dev).manual_seed(47)
+    pieces_lists = (torch.randn(1, w_pieces, generator=g, device=dev),
+                    torch.randperm(w_pieces, generator=g, device=dev)[None]
+                    .to(torch.int32))
+    merge_rows = []
+    for label, (ps_, pi_), ids_ in (("runs", runs_lists, si_),
+                                    ("pieces' width", pieces_lists, None)):
+        fn = lambda: launch_merge(ps_, pi_, SERVE_KMAX, cand_ids=ids_)
+        lib = lambda: torch.topk(ps_, SERVE_KMAX, dim=1)
+        got = fn()
+        want = merge_plain(ps_, pi_, SERVE_KMAX, cand_ids=ids_)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            fail(f"topk_merge != its plain version at one query's {label} "
+                 f"lists")
+        merge_rows.append(
+            f"{label} W={ps_.shape[1]} (plan "
+            f"{merge_plan(1, ps_.shape[1], SERVE_KMAX)}): call "
+            f"{cuda_ms(fn, 50):.4f} ms, device {queued_ms(fn, 50):.4f}, "
+            f"torch.topk {cuda_ms(lib, 50):.4f} (device "
+            f"{queued_ms(lib, 50):.4f}), plain "
+            f"{cuda_ms(lambda: merge_plain(ps_, pi_, SERVE_KMAX), 10):.4f}")
+    log(f"    topk_merge alone at one query of the tick, k={SERVE_KMAX} "
+        f"(ms; device: queued behind a sleep): " + "; ".join(merge_rows)
+        + "; both bit-equal to the plain merge")
+    del runs_lists, pieces_lists
     del sv_vecs, sv_table, sv_q, sv_rows, sv_ids
     # and at Table I's own probe (24 of the kernel's main-path launches):
     # 256 queries, D 128, k 3, over the 524,700-row index
@@ -4179,6 +4500,7 @@ def main() -> None:
     del p_ids, p_table, lsh, lq, hq, hc
     torch.cuda.empty_cache()
     check_untuned("phases 3-4", untuned_hits)
+    log(f"    phase 4 in {time.perf_counter() - t34:.1f} s")
 
     # 5. sampling main path ------------------------------------------------
     os.makedirs(OUT, exist_ok=True)
@@ -4264,9 +4586,8 @@ def main() -> None:
     log(f"    fidelity: {json.dumps(out['fidelity']['mean_abs_delta'])}")
     log(f"    winners: {json.dumps(out['fidelity']['winners'])}")
     log(f"    backend curve: {json.dumps(out['backend_curve'])}")
-    for kname in ("gathered_tiles", "hamming_topk", "topk_partial",
-                  "topk_int8_partial", "topk_merge", "lp_round") \
-            + PIECES_PAIR:
+    for kname in ("hamming_topk", "topk_partial", "topk_int8_partial",
+                  "topk_merge", "lp_round") + GATHERED_WIDE:
         if eval_launches[kname] == 0:
             fail(f"the evaluation run launched no {kname} kernel")
     curve = [(r["backend"], r["rerank_factor"]) for r in out["backend_curve"]]
@@ -4317,7 +4638,8 @@ def main() -> None:
         fail(f"Table I launched flash_attention "
              f"{t1_launches['flash_attention']} times, expected "
              f"{ENCODER_LAYERS} layers x {n_batches} batches = {want_flash}")
-    for kname in ("lp_round", "gathered_tiles"):
+    # Table I searches 256 queries a chunk: the gathered pieces path
+    for kname in ("lp_round", "topk_merge") + GATHERED_WIDE:
         if t1_launches[kname] == 0:
             fail(f"the Table I run launched no {kname} kernel")
     if list(rows) != ["full", "uniform", "windtunnel"]:
@@ -4774,8 +5096,8 @@ def main() -> None:
         fail("streamed evaluation: grid cells != phase 11's")
     if sh_out["fidelity"] != rep_eval["fidelity"]:
         fail("streamed evaluation: fidelity report != phase 11's")
-    for kname in ("gathered_tiles", "hamming_topk", "topk_partial",
-                  "topk_merge", "lp_round"):
+    for kname in ("hamming_topk", "topk_partial", "topk_merge",
+                  "lp_round") + GATHERED_WIDE:
         if sh_eval_launches[kname] == 0:
             fail(f"the streamed evaluation launched no {kname} kernel")
     log("    grid cells and fidelity report equal to phase 11's "
@@ -4785,7 +5107,13 @@ def main() -> None:
 
     # 14. two ranks on the card ------------------------------------------------
     # two processes, one gloo group, one card: a stand-in for two cards
-    # (NCCL refuses two ranks on one device, and this machine has one)
+    # (NCCL refuses two ranks on one device, and this machine has one);
+    # meanwhile phase 15's two tenants are drawn on the host, as the serve
+    # CLI's provider draws them (numpy, without the GIL)
+    tenant_kw = dict(docs=SERVE_DOCS, dim=SERVE_DIM, seed=0)
+    t_tenants = time.perf_counter()
+    tenant_jobs = {t: early.submit(serve_cli._tenant_corpus, t, **tenant_kw)
+                   for t in ("tenant-0", "tenant-1")}
     gc.collect()
     torch.cuda.empty_cache()
     store = os.path.join(OUT, "phase14_store")
@@ -4844,9 +5172,8 @@ def main() -> None:
     # 15. the retrieval serving tier at full width ---------------------------
     # every run through the serve CLI's main(argv) in-process, tenants of
     # 1,048,576 x 768 f32 (3.2 GB a tenant on the card); each tenant's
-    # corpus is drawn once on the host and shared by the runs (about 8 s of
-    # numpy a tenant), the draw the CLI's provider makes
-    from repro_torch.launch import serve as serve_cli
+    # corpus is drawn once on the host (from phase 14) and shared by the
+    # runs (about 8 s of numpy a tenant), the draw the CLI's provider makes
     gc.collect()
     torch.cuda.empty_cache()
     drawn: dict = {}
@@ -4908,14 +5235,14 @@ def main() -> None:
                 fail(f"phase 15{label} launched no {kname} kernel")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # numpy draws without the GIL
-        list(pool.map(lambda t: shared_corpus(t, docs=SERVE_DOCS,
-                                              dim=SERVE_DIM, seed=0),
-                      ("tenant-0", "tenant-1")))
+    for tenant, job in tenant_jobs.items():
+        drawn[(tenant, tuple(sorted(tenant_kw.items())))] = job.result()
+    early.shutdown()
     log(f"[15/21] serving tier: tenants of {SERVE_DOCS} x {SERVE_DIM} f32 "
-        f"(two drawn on the host in {time.perf_counter() - t0:.2f} s, "
-        f"two threads, before the runs), buckets up to {SERVE_BATCH}, "
-        f"k_max {SERVE_KMAX}; {smi}")
+        f"(two drawn on the host on two threads from phase 14's start, "
+        f"{time.perf_counter() - t_tenants:.2f} s before the runs, "
+        f"{time.perf_counter() - t0:.2f} s of it waited here), buckets up "
+        f"to {SERVE_BATCH}, k_max {SERVE_KMAX}; {smi}")
     # 15a: the load with live ingest and background compactions
     row, launched, server = run_serve(
         "a", load_15a + ["--requests", str(SERVE_REQUESTS)])
@@ -5090,6 +5417,73 @@ def main() -> None:
             else:
                 check_hamming(*args, **kw)
 
+    def small_ticks(srv, live, id_vecs) -> str:
+        """15d's ivfflat server at ticks that the scheduler forms of at most
+        GATHERED_NARROW_QUERIES requests (groups of SMALL_TICKS, drained
+        one at a time): they launch the runs kernel and the merge and
+        nothing of the pieces path; the wrapper is held to its plain
+        version on their inputs; the served results equal
+        LiveIndex.search_scored of the same padded buckets, and agree
+        within the summation bound, away from near-ties, with the same
+        search through the plain versions."""
+        sched = srv.scheduler
+        reset_counts(kernels)
+        got, at = [], 0
+        with Capture(topk_ops, "gathered_topk", shapes_key) as seen:
+            for n in SMALL_TICKS:
+                reqs = [srv.submit(q, k=SERVE_K, tenant="tenant-0")
+                        for q in qs[at:at + n]]
+                srv.drain()
+                got += [r.result(timeout=0) for r in reqs]
+                at += n
+        launched = read_counts(kernels, "15d-ivfflat small ticks")
+        serve_launches.update(launched)
+        ticks = sorted({args[0].shape[0] for args, _ in seen.calls.values()})
+        if not ticks or max(ticks) > GATHERED_NARROW_QUERIES:
+            fail(f"15d-ivfflat small ticks: buckets {ticks}, expected at "
+                 f"most {GATHERED_NARROW_QUERIES} queries")
+        need("d-ivfflat small ticks", launched,
+             GATHERED_NARROW + ("topk_merge",))
+        if any(launched[kn] for kn in GATHERED_WIDE):
+            fail(f"15d-ivfflat small ticks: ticks of {ticks} queries "
+                 f"launched the pieces path")
+        hold_to_plain("gathered_tiles", seen.calls.values(),
+                      id_vecs[:live.frozen_n])
+        del seen
+        s_srv = np.stack([s_ for s_, _ in got])
+        i_srv = np.stack([i_ for _, i_ in got])
+
+        def padded_search(plain: bool):
+            out, at = [], 0
+            with PlainKernels() if plain else contextlib.nullcontext():
+                for n in SMALL_TICKS:
+                    pad = np.zeros((sched._bucket(n), SERVE_DIM), np.float32)
+                    pad[:n] = qs[at:at + n]
+                    s_, i_ = live.search_scored(pad, k=SERVE_KMAX)
+                    out.append((s_[:n, :SERVE_K], i_[:n, :SERVE_K]))
+                    at += n
+            return (np.concatenate([s_ for s_, _ in out]),
+                    np.concatenate([i_ for _, i_ in out]))
+
+        ds, di = padded_search(False)
+        if not (np.array_equal(ds, s_srv) and np.array_equal(di, i_srv)):
+            fail("15d-ivfflat small ticks: the scheduler's results != "
+                 "LiveIndex.search_scored")
+        ps, pi = padded_search(True)
+        if (pi < 0).any():
+            fail("15d-ivfflat small ticks: the plain search missed a row")
+        on_card = lambda x: torch.from_numpy(x).to(dev)
+        compare_topk(on_card(qs[:len(got)]), id_vecs, on_card(s_srv),
+                     on_card(i_srv), on_card(ps), on_card(pi),
+                     "15d-ivfflat small ticks")
+        return (f"{len(got)} requests in groups of {list(SMALL_TICKS)} "
+                f"(buckets {ticks}): gathered_runs "
+                f"{launched['gathered_runs']}, topk_merge "
+                f"{launched['topk_merge']} launches, none of the pieces "
+                f"path; the wrapper held to its plain version at each "
+                f"bucket; results equal to LiveIndex.search_scored and "
+                f"within the summation bound of the plain search")
+
     for label, extra, kname, wrapper in (
             ("d-int8", ["--engine", "exact", "--backend", "int8"],
              "topk_narrow_scores_int8", (topk_ops, "topk_scores_int8")),
@@ -5103,7 +5497,8 @@ def main() -> None:
         if row["completed"] + row["rejected"] != SERVE_SIDE_REQUESTS:
             fail(f"15{label}: completed + rejected != "
                  f"{SERVE_SIDE_REQUESTS}")
-        need(label, launched, (kname,))
+        if kname != "gathered_tiles":
+            need(label, launched, (kname,))
         if kname == "topk_narrow_scores_int8":
             # a tick of at most SERVE_BATCH queries takes the s8 scorer and
             # the select, and nothing of the 128-query int8 path
@@ -5114,7 +5509,21 @@ def main() -> None:
                      f"topk_int8_partial, {launched['topk_merge']} "
                      f"topk_merge)")
         elif kname == "gathered_tiles":
-            need(label, launched, PIECES_PAIR + ("topk_merge",))
+            # a tick of at most GATHERED_NARROW_QUERIES takes the runs
+            # kernel, a larger one the pieces path; the merge follows both
+            ticks = {args[0].shape[0] for args, _ in seen.calls.values()}
+            need(label, launched, ("topk_merge",))
+            for names, taken in (
+                    (GATHERED_NARROW, min(ticks) <= GATHERED_NARROW_QUERIES),
+                    (GATHERED_WIDE, max(ticks) > GATHERED_NARROW_QUERIES)):
+                if taken:
+                    need(label, launched, names)
+                elif any(launched[kn] for kn in names):
+                    fail(f"15{label}: ticks of {sorted(ticks)} queries "
+                         f"launched {names}")
+            log(f"    15{label}: ticks of {sorted(ticks)} queries; "
+                f"gathered_runs {launched['gathered_runs']}, "
+                f"gathered_tiles {launched['gathered_tiles']} launches")
         live = with_buffer(server)
         id_vecs = torch.from_numpy(
             np.concatenate([live._host, live._pending])).to(dev)
@@ -5146,6 +5555,9 @@ def main() -> None:
             f"{live.pending_rows} pending rows): equal to "
             f"LiveIndex.search_scored and {held} the search through the "
             f"plain versions")
+        if kname == "gathered_tiles":
+            log(f"    15{label} small ticks: "
+                f"{small_ticks(server, live, id_vecs)}")
         del server, live, id_vecs
         gc.collect()
         torch.cuda.empty_cache()
@@ -5351,8 +5763,11 @@ def main() -> None:
     # plain path, and launch/train's resume; b: DCN-v2 at its published
     # config (its retrieval step is this slice's path through the dense
     # top-k kernel), one AutoInt and one DIEN step; c: MACE at its
-    # published config, molecule and a sampled Reddit-sized graph
+    # published config, molecule and a sampled Reddit-sized graph, whose
+    # graph and NeighborSampler are built on the host beside 19a-19b
     t19 = time.perf_counter()
+    graph_pool = ThreadPoolExecutor(1)
+    graph = graph_pool.submit(reddit_sampler)
     with recompile.region("phase 19"):
         mesh = make_host_mesh()
         for arch in ("dcn-v2", "autoint", "dien", "dlrm-mlperf"):
@@ -5370,7 +5785,9 @@ def main() -> None:
         shutil.rmtree(ckdir, ignore_errors=True)
         log(f"    19a in {time.perf_counter() - t19:.1f} s; {smi}")
         recsys_launches = recsys_full_width(kernels, smi)
-        mace_full_width(smi)
+        mace_full_width(smi, graph)
+    graph_pool.shutdown()
+    del graph
     dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5463,6 +5880,13 @@ def main() -> None:
          "launches": launches("gathered_tiles"),
          "max_abs_err": gath_err, "ms": g_ms, "plain_ms": g_plain_ms,
          "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib_ms},
+        {"name": "gathered_runs", "route": "cuda",
+         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:84",
+         "launches": launches("gathered_runs"),
+         "max_abs_err": gath_err, "ms": tick_rows[1][0],
+         "plain_ms": tick_rows[1][1], "bound_ms": tick_rows[1][3],
+         "bound_by": tick_rows[1][4], "library_ms": tick_rows[1][2]},
         {"name": "gathered_pieces", "route": "cuda",
          "source": "src/repro_torch/csrc/topk_scores.cu",
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:84",
@@ -5488,7 +5912,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:23",
          "launches": launches("topk_merge"),
          "max_abs_err": 0, "ms": m_ms, "plain_ms": m_plain_ms,
-         "bound_ms": m_bound, "bound_by": m_by, "library_ms": None},
+         "bound_ms": m_bound, "bound_by": m_by, "library_ms": m_lib_ms},
         {"name": "hamming_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/hamming_topk.cu",
          "replaces": "src/repro/kernels/lsh_hamming/lsh_hamming.py:27",

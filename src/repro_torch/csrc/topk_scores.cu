@@ -114,7 +114,9 @@
 //    compare: in shared memory while the block's lists fit, else in the
 //    query's slice of the output in device memory, whose every access waits
 //    on L2. A ballot finds the candidates that beat the current k-th entry,
-//    and each is inserted in turn.
+//    and each is inserted in turn; in a lane list, a chunk of 32 with more
+//    than four such (a list's first chunk, a run of sorted lists) is
+//    sorted and merged with the list in one bitonic pass instead.
 //  * gathered_tiles_kernel<kMem>: the wrapper cuts each query's valid
 //    candidate positions into pieces, runs of consecutive table rows cut
 //    again at 128-row tiles (an ivfflat probe's list is one run, so a
@@ -147,10 +149,32 @@
 //    last start at or before it), then a block a query turns the ends
 //    into lengths and scans the kept min(k, length) into slot offsets and
 //    row lengths. The wrapper's stable sort by tile follows.
-//  * topk_merge_kernel: one warp per query merges the n_splits*k partials
-//    with the same insertion, so ties still go to the lowest id (position);
-//    for the gathered kernel, the first row_len entries of each query's
-//    row: its pieces' lists.
+//  * topk_merge_kernel: the wrapper's plan (ops.merge_plan, from the rows,
+//    their width and k) cuts each row into segments so that rows times
+//    segments come near 8 warps on each of the 132 SMs (one segment where
+//    rows are already many, or short): a warp takes a segment's top k
+//    (rounds of 4 entries a lane, the next round loaded while this one is
+//    offered; a chunk with many winners sorted and merged with the list at
+//    once), writes it to scratch, and the row's last segment to
+//    finish (an atomic count) merges the row's lists. The order (score
+//    desc, id asc) is total, so the result does not depend on the cut. One
+//    warp walking a whole row of 16,672 entries (the gathered search at one
+//    query) took 0.23 ms, each 32 entries a round trip to memory. For the
+//    gathered kernels the ids are positions; the merge writes the
+//    position's id from cand_ids (-1 where the score is not finite), and
+//    for the pieces path reads the first row_len entries of each row.
+//  * gathered_runs_kernel (Q <= kGNQMax, the wrapper's cutoff): a block a
+//    (query, run of 128 consecutive slots); ivfflat's slots are lists of
+//    consecutive rows, so a run's valid rows are nearly always one range
+//    and their loads coalesce. The valid slots are compacted, their rows
+//    streamed 32 at a time through a 4-stage cp.async ring and scored with
+//    f32 FMAs; warp 0 keeps the run's top k by (score, position). The grid
+//    and the partial buffer are fixed by (Q, C), so no host read comes
+//    before the launches: a stray row sets a device flag, which the
+//    wrapper reads after the merge is queued. At one query each row is
+//    read once by the one query that probes it, so the pieces' tile
+//    sharing buys nothing there, while the pieces path's host read, sort
+//    and block list cost more than the tile products.
 //  * narrow_scores<In, kExact, kQT> (topk_narrow_scores, Q <= kNQMax;
 //    topk_narrow_scores_int8, its s8 form, Q <= kNQInt8): the
 //    operands' roles swap, corpus rows on the MMA's M side and the queries,
@@ -202,7 +226,8 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kRegK = 32;      // largest k whose list fits in warp lanes
 constexpr int kSmemK = 96;     // largest k whose lists fit in shared memory
-constexpr int kMergeWarps = 8;
+constexpr int kMergeWarps = 8;  // warps a block of the merge
+constexpr int kMergeVec = 4;    // entries a merge lane loads before offering
 constexpr int kWarps = kThreads / 32;
 
 // (s, id) beats (t, tid): higher score, or equal score and lower id.
@@ -230,18 +255,72 @@ __device__ __forceinline__ void reg_insert(float& ls, int& li, float s,
   }
 }
 
+// Sort the warp's 32 entries, one a lane, best first by beats (a bitonic
+// network: equal entries stay where they are).
+__device__ __forceinline__ void warp_sort(float& s, int& id, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float ps = __shfl_xor_sync(kFull, s, stride);
+      const int pi = __shfl_xor_sync(kFull, id, stride);
+      // a block of `size` runs best first where lane & size is 0; its
+      // lower lane of a pair keeps the better entry there
+      const bool better_here = ((lane & stride) == 0) == ((lane & size) == 0);
+      if (better_here ? beats(ps, pi, s, id) : beats(s, id, ps, pi)) {
+        s = ps;
+        id = pi;
+      }
+    }
+  }
+}
+
 // Offer one candidate per lane (s = -inf means none) to the warp's list.
+// Up to kFewWinners lanes that beat the k-th entry are inserted one by
+// one; more (a list's first chunks, sorted lists merged) are sorted and
+// merged with the list at once (the better of entry i and candidate 31 -
+// i is a bitonic sequence holding the best 32; five more steps sort it),
+// where inserting each would take a ballot and shuffles apiece. Lanes
+// k..31 stay at (-inf, -1), as reg_insert leaves them, so either way the
+// list is the k best by beats.
+constexpr int kFewWinners = 4;
+
 __device__ __forceinline__ void reg_offer(float& ls, int& li, float s,
                                           int id, int k, int lane) {
   const float kth_s = __shfl_sync(kFull, ls, k - 1);
   const int kth_i = __shfl_sync(kFull, li, k - 1);
-  unsigned m = __ballot_sync(kFull, s != -CUDART_INF_F &&
-                                        beats(s, id, kth_s, kth_i));
-  while (m) {
-    const int t = __ffs(m) - 1;
-    m &= m - 1;
-    reg_insert(ls, li, __shfl_sync(kFull, s, t), __shfl_sync(kFull, id, t),
-               k, lane);
+  const bool win = s != -CUDART_INF_F && beats(s, id, kth_s, kth_i);
+  unsigned m = __ballot_sync(kFull, win);
+  if (__popc(m) <= kFewWinners) {
+    while (m) {
+      const int t = __ffs(m) - 1;
+      m &= m - 1;
+      reg_insert(ls, li, __shfl_sync(kFull, s, t), __shfl_sync(kFull, id, t),
+                 k, lane);
+    }
+    return;
+  }
+  float cs = win ? s : -CUDART_INF_F;
+  int ci = win ? id : -1;
+  warp_sort(cs, ci, lane);
+  const float rs = __shfl_sync(kFull, cs, 31 - lane);
+  const int ri = __shfl_sync(kFull, ci, 31 - lane);
+  if (beats(rs, ri, ls, li)) {
+    ls = rs;
+    li = ri;
+  }
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    const float ps = __shfl_xor_sync(kFull, ls, stride);
+    const int pi = __shfl_xor_sync(kFull, li, stride);
+    if ((lane & stride) == 0 ? beats(ps, pi, ls, li) : beats(ls, li, ps, pi)) {
+      ls = ps;
+      li = pi;
+    }
+  }
+  if (lane >= k) {
+    ls = -CUDART_INF_F;
+    li = -1;
   }
 }
 
@@ -997,44 +1076,126 @@ int launch_dense(const void* q, const void* c, void* part_s, void* part_i,
   }
 }
 
-template <bool kMem>
-__global__ void topk_merge_kernel(const float* __restrict__ part_s,
-                                  const int* __restrict__ part_i,
-                                  const int* __restrict__ row_len,
-                                  float* out_s, int* out_i, int nq, int width,
-                                  int k, int smem_lists) {
-  const int lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (qi >= nq) return;  // uniform across the warp
+// ---- the merge: a row's entries cut into segments over the card -----------
+
+// An entry's id as the merge writes it: with a map (the gathered wrappers'
+// cand_ids row; the entries' ids are candidate positions), the position's
+// id, or -1 where the score is not finite; else the id itself.
+__device__ __forceinline__ int merge_id(float s, int id, const int* map) {
+  if (!map) return id;
+  return isfinite(s) ? map[id] : -1;
+}
+
+// The top k of entries [lo, hi) of s/id by (score desc, id asc), into
+// out_s/out_i [k] (ids through map where given). A round loads kMergeVec
+// entries 32 apart a lane, the next round's before this round's are
+// offered, so that loads overlap the offers. kCg: the entries were written
+// by other blocks in this launch (read through L2). The list lives in
+// lanes (!kMem), in the warp's slot of
+// shared memory (smem) or in out_s/out_i itself.
+template <bool kMem, bool kCg>
+__device__ void merge_range(const float* s, const int* id, int lo, int hi,
+                            int k, float* out_s, int* out_i, const int* map,
+                            bool smem, int slot, int lane) {
   float ls = -CUDART_INF_F;
   int li = -1;
   MemList ml;
-  const long long orow = static_cast<long long>(qi) * k;
-  if (kMem)
-    mem_place(ml, smem_lists, threadIdx.x >> 5, out_s + orow, out_i + orow,
-              k, lane);
-  const long long row = static_cast<long long>(qi) * width;
-  // the row's entries: its first row_len[qi] where given, else all
-  const int len = row_len ? min(row_len[qi], width) : width;
-  for (int b = 0; b < len; b += 32) {
-    const int e = b + lane;
-    float s = -CUDART_INF_F;
-    int id = -1;
-    if (e < len) {
-      s = part_s[row + e];
-      id = part_i[row + e];
+  if (kMem) mem_place(ml, smem, slot, out_s, out_i, k, lane);
+  // the next round's entries are loaded before this round's are offered
+  float vs[kMergeVec], ns[kMergeVec];
+  int vi[kMergeVec], ni[kMergeVec];
+  auto load = [&](int b, float (&ts)[kMergeVec], int (&ti)[kMergeVec]) {
+#pragma unroll
+    for (int j = 0; j < kMergeVec; ++j) {
+      const int e = b + 32 * j + lane;
+      ts[j] = -CUDART_INF_F;
+      ti[j] = -1;
+      if (e < hi) {
+        ts[j] = kCg ? __ldcg(s + e) : s[e];
+        ti[j] = kCg ? __ldcg(id + e) : id[e];
+      }
     }
-    if (kMem)
-      mem_offer(ml, s, id, k, lane);
-    else
-      reg_offer(ls, li, s, id, k, lane);
+  };
+  load(lo, vs, vi);
+  for (int b = lo; b < hi; b += 32 * kMergeVec) {
+    if (b + 32 * kMergeVec < hi) load(b + 32 * kMergeVec, ns, ni);
+#pragma unroll
+    for (int j = 0; j < kMergeVec; ++j) {
+      if (b + 32 * j >= hi) break;                   // uniform in the warp
+      if (kMem)
+        mem_offer(ml, vs[j], vi[j], k, lane);
+      else
+        reg_offer(ls, li, vs[j], vi[j], k, lane);
+    }
+#pragma unroll
+    for (int j = 0; j < kMergeVec; ++j) {
+      vs[j] = ns[j];
+      vi[j] = ni[j];
+    }
   }
-  if (!kMem && lane < k) {
-    out_s[orow + lane] = ls;
-    out_i[orow + lane] = li;
-  } else if (kMem && smem_lists) {
-    mem_store(ml, out_s + orow, out_i + orow, k, lane);
+  if (!kMem) {
+    if (lane < k) {
+      out_s[lane] = ls;
+      out_i[lane] = merge_id(ls, li, map);
+    }
+  } else if (smem) {
+    for (int p = lane; p < k; p += 32) {
+      const float sp = ml.s[p];
+      out_s[p] = sp;
+      out_i[p] = merge_id(sp, ml.i[p], map);
+    }
+  } else if (map) {                 // the list is out_s/out_i: map in place
+    for (int p = lane; p < k; p += 32) out_i[p] = merge_id(ml.s[p], ml.i[p],
+                                                           map);
   }
+}
+
+// Warp w of the grid takes segment w % n_seg of row w / n_seg: entries
+// [seg * (w % n_seg), + seg) of the row's first len (row_len[q] where
+// given, else width). With one segment a row it writes the row's top k to
+// out. Else it writes its segment's top k (k < seg) to seg_s/seg_i [nq,
+// n_seg, k], and the row's last segment to finish (counted in done[q],
+// zeroed before the launch) merges the row's n_seg lists into out.
+template <bool kMem>
+__global__ void __launch_bounds__(kMergeWarps * 32)
+topk_merge_kernel(const float* __restrict__ part_s,
+                  const int* __restrict__ part_i,
+                  const int* __restrict__ row_len,
+                  const int* __restrict__ cand_ids, float* out_s, int* out_i,
+                  float* seg_s, int* seg_i, int* done, int nq, int width,
+                  int k, int c, int seg, int n_seg, int smem_lists) {
+  const int lane = threadIdx.x & 31, slot = threadIdx.x >> 5;
+  const long long gw = static_cast<long long>(blockIdx.x) * kMergeWarps + slot;
+  if (gw >= static_cast<long long>(nq) * n_seg) return;  // uniform
+  const int qi = static_cast<int>(gw / n_seg);
+  const int sg = static_cast<int>(gw % n_seg);
+  const long long row = static_cast<long long>(qi) * width;
+  const long long orow = static_cast<long long>(qi) * k;
+  const int* map = cand_ids ? cand_ids + static_cast<long long>(qi) * c
+                            : nullptr;
+  const int len = row_len ? min(row_len[qi], width) : width;
+  if (n_seg == 1) {
+    merge_range<kMem, false>(part_s + row, part_i + row, 0, len, k,
+                             out_s + orow, out_i + orow, map, smem_lists,
+                             slot, lane);
+    return;
+  }
+  const long long lo = static_cast<long long>(sg) * seg;
+  const int hi = static_cast<int>(min(static_cast<long long>(len), lo + seg));
+  merge_range<kMem, false>(part_s + row, part_i + row,
+                           static_cast<int>(min(lo, static_cast<long long>(
+                               len))), hi, k, seg_s + gw * k, seg_i + gw * k,
+                           nullptr, smem_lists, slot, lane);
+  __threadfence();                  // the list is visible before the count
+  __syncwarp();                     // every lane's part fenced before it
+  int last = 0;
+  if (lane == 0) last = atomicAdd(done + qi, 1) == n_seg - 1;
+  if (!__shfl_sync(kFull, last, 0)) return;
+  __threadfence();
+  const long long first = static_cast<long long>(qi) * n_seg * k;
+  merge_range<kMem, true>(seg_s + first, seg_i + first, 0, n_seg * k, k,
+                          out_s + orow, out_i + orow, map, smem_lists, slot,
+                          lane);
 }
 
 // ---- narrow: few queries (topk_narrow_scores, topk_narrow_select) ----------
@@ -1541,6 +1702,193 @@ gathered_tiles_kernel(const float* __restrict__ q,
       mem_store(ml, part_s + o, part_i + o, kk, lane);
     }
     __syncwarp();     // the list is reused by the warp's next piece
+  }
+}
+
+// ---- gathered runs: few queries, each query's slots a run a block ----------
+
+constexpr int kGNQMax = 12;          // the wrapper's cutoff: calls of at most
+                                     // kGNQMax queries take gathered_runs
+                                     // (the kernel takes any Q; on the
+                                     // H100 it beat the pieces path at a
+                                     // serving tick's Q 1-12, not at 16)
+constexpr int kRunSlots = 128;       // slot positions a block (a run)
+constexpr int kRunRows = 32;         // valid rows a step: 4 a warp
+constexpr int kRunChunk = 512;       // bytes of each row a step: 16 a lane
+constexpr int kRunStages = 4;        // ring stages: 3 steps prefetched
+constexpr int kRunStage = kRunRows * kRunChunk;    // bytes a ring stage
+static_assert(kRunRows == kWarps * 4, "four rows a warp");
+static_assert(kRunChunk == 32 * 16, "16 bytes of a row a lane");
+static_assert(kRunSlots <= kThreads && kRunSlots % 32 == 0,
+              "a thread a slot, whole warps");
+
+// One block per (run, query): slot positions [run * kRunSlots, + kRunSlots)
+// of query blockIdx.y's row of rows/ids [nq, c]. The block reads the run's
+// ids and rows, keeps its valid slots (id >= 0) in position order, and
+// streams their rows, kRunRows at a time, through a ring of kRunStages
+// stages of kRunChunk bytes a row (cp.async, zeros past the row's end),
+// each row scored against the query with f32 FMAs on the CUDA cores (at a
+// few queries a row is used once: half a flop a byte, so the tensor cores
+// buy nothing). A valid slot whose row lies outside [0, r) is never read:
+// it sets *stray and is left out. Warp 0 then offers the scores, as
+// (score, position), to a list of kk = min(k, kRunSlots) entries (lanes
+// for kk <= 32, else shared memory), written to columns [run * kk, + kk)
+// of row query of part_s/part_p [nq, width]; a list with fewer entries
+// is padded with (-inf, -1).
+template <bool kMem>
+__global__ void __launch_bounds__(kThreads)
+gathered_runs_kernel(const float* __restrict__ q,
+                     const float* __restrict__ table,
+                     const int* __restrict__ rows,
+                     const int* __restrict__ ids, float* part_s, int* part_p,
+                     int* stray, int c, int r, int d, int k, int width,
+                     int vec) {
+  extern __shared__ __align__(128) unsigned char rsm[];
+  __shared__ int v_row[kRunSlots], v_pos[kRunSlots], warp_n[kRunSlots / 32];
+  __shared__ float v_s[kRunSlots];
+  __shared__ float l_s[kMem ? kRunSlots : 1];
+  __shared__ int l_i[kMem ? kRunSlots : 1];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int run = blockIdx.x, qi = blockIdx.y;
+  const int p0 = run * kRunSlots;
+  const long long srow = static_cast<long long>(qi) * c;
+  // the run's valid slots, in position order
+  bool ok = false, bad = false;
+  int row = 0;
+  if (tid < kRunSlots && p0 + tid < c && ids[srow + p0 + tid] >= 0) {
+    row = rows[srow + p0 + tid];
+    bad = row < 0 || row >= r;
+    ok = !bad;
+  }
+  if (bad) *stray = 1;
+  const unsigned m = __ballot_sync(kFull, ok);
+  if (tid < kRunSlots && lane == 0) warp_n[warp] = __popc(m);
+  __syncthreads();
+  int nv = 0, before = 0;
+#pragma unroll
+  for (int w = 0; w < kRunSlots / 32; ++w) {
+    before += w < warp ? warp_n[w] : 0;
+    nv += warp_n[w];
+  }
+  if (ok) {
+    const int x = before + __popc(m & ((1u << lane) - 1u));
+    v_row[x] = row;
+    v_pos[x] = p0 + tid;
+  }
+  __syncthreads();
+
+  const long long row_bytes = static_cast<long long>(d) * sizeof(float);
+  const int n_chunks =
+      max(1, static_cast<int>((row_bytes + kRunChunk - 1) / kRunChunk));
+  const int steps = (nv + kRunRows - 1) / kRunRows * n_chunks;
+  const auto* tb = reinterpret_cast<const unsigned char*>(table);
+  const float* qrow = q + static_cast<long long>(qi) * d;
+  // step s: chunk s % n_chunks of valid rows [32 (s / n_chunks), + 32)
+  auto stage = [&](int s) {
+    unsigned char* st = rsm + (s % kRunStages) * kRunStage;
+    const int x0 = s / n_chunks * kRunRows;
+    const long long c0 = static_cast<long long>(s % n_chunks) * kRunChunk;
+    if (vec) {
+#pragma unroll
+      for (int p = 0; p < kRunStage / 16 / kThreads; ++p) {
+        const int e = tid + p * kThreads;
+        const int rr = e / (kRunChunk / 16), piece = e % (kRunChunk / 16);
+        if (x0 + rr >= nv) continue;
+        const long long off = c0 + piece * 16;
+        const bool in = off < row_bytes;
+        cp_async_zfill(st + rr * kRunChunk + piece * 16,
+                       in ? tb + v_row[x0 + rr] * row_bytes + off : tb,
+                       in ? 16 : 0);
+      }
+    } else {
+      for (int w = tid; w < kRunRows * (kRunChunk / 4); w += kThreads) {
+        const int rr = w / (kRunChunk / 4);
+        if (x0 + rr >= nv) continue;
+        const long long e = c0 / 4 + w % (kRunChunk / 4);
+        reinterpret_cast<float*>(st)[w] =
+            e < d ? table[static_cast<long long>(v_row[x0 + rr]) * d + e]
+                  : 0.f;
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kRunStages - 1; ++s) {
+    if (s < steps) stage(s);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s = 0; s < steps; ++s) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRunStages - 2));
+    __syncthreads();   // step s has landed; step s - 1's stage is free
+    if (s + kRunStages - 1 < steps) stage(s + kRunStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const int x0 = s / n_chunks * kRunRows;
+    const int ch = s % n_chunks;
+    // this lane's four query values (zeros past d)
+    const long long e0 = static_cast<long long>(ch) * (kRunChunk / 4) +
+                         4 * lane;
+    float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (vec && e0 < d) {
+      qv = __ldg(reinterpret_cast<const float4*>(qrow + e0));
+    } else if (!vec) {
+      qv.x = e0 < d ? __ldg(qrow + e0) : 0.f;
+      qv.y = e0 + 1 < d ? __ldg(qrow + e0 + 1) : 0.f;
+      qv.z = e0 + 2 < d ? __ldg(qrow + e0 + 2) : 0.f;
+      qv.w = e0 + 3 < d ? __ldg(qrow + e0 + 3) : 0.f;
+    }
+    const unsigned char* st = rsm + (s % kRunStages) * kRunStage;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int rr = 4 * warp + j;
+      if (x0 + rr >= nv) break;                      // uniform in the warp
+      const float4 t =
+          *reinterpret_cast<const float4*>(st + rr * kRunChunk + 16 * lane);
+      acc[j] = __fmaf_rn(qv.x, t.x, acc[j]);
+      acc[j] = __fmaf_rn(qv.y, t.y, acc[j]);
+      acc[j] = __fmaf_rn(qv.z, t.z, acc[j]);
+      acc[j] = __fmaf_rn(qv.w, t.w, acc[j]);
+    }
+    if (ch == n_chunks - 1) {        // the rows are whole: sum the lanes
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = acc[j];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+        if (lane == 0 && x0 + 4 * warp + j < nv) v_s[x0 + 4 * warp + j] = v;
+        acc[j] = 0.f;
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();     // every score is in v_s
+  if (warp != 0) return;
+  const int kk = min(k, kRunSlots);
+  const long long o = static_cast<long long>(qi) * width +
+                      static_cast<long long>(run) * kk;
+  float ls = -CUDART_INF_F;
+  int li = -1;
+  MemList ml;
+  if (kMem) {
+    ml.s = l_s;
+    ml.i = l_i;
+    mem_init(ml, kk, lane);
+  }
+  for (int x0 = 0; x0 < nv; x0 += 32) {
+    const int x = x0 + lane;
+    const float sx = x < nv ? v_s[x] : -CUDART_INF_F;
+    const int px = x < nv ? v_pos[x] : -1;
+    if (kMem)
+      mem_offer(ml, sx, px, kk, lane);
+    else
+      reg_offer(ls, li, sx, px, kk, lane);
+  }
+  if (!kMem) {
+    if (lane < kk) {
+      part_s[o + lane] = ls;
+      part_p[o + lane] = li;
+    }
+  } else {
+    mem_store(ml, part_s + o, part_p + o, kk, lane);
   }
 }
 
@@ -2279,28 +2627,50 @@ extern "C" int topk_int8_partial(const void* q, const void* c, void* part_s,
 }
 
 // The k best of each row of partial lists part_s/part_i [nq, width] by
-// (score desc, id asc); row_len [nq] (may be null: every row whole) names
-// the entries a row holds, its first row_len[q] (the rest are never read).
+// (score desc, id asc) to out_s/out_i [nq, k]; row_len [nq] (may be null:
+// every row whole) names the entries a row holds, its first row_len[q]
+// (the rest are never read). cand_ids [nq, c] (may be null): the ids are
+// candidate positions, and out_i takes cand_ids[q, position], or -1 where
+// the score is not finite. The plan (ops.merge_plan): each row cut into
+// n_seg segments of seg entries (seg * n_seg >= width; k < seg where
+// n_seg > 1), a warp each; where n_seg > 1, seg_s/seg_i hold nq * n_seg * k
+// entries and done nq ints, zeroed here.
 extern "C" int topk_merge(const void* part_s, const void* part_i,
-                          const void* row_len, void* out_s, void* out_i,
-                          int nq, int width, int k, void* stream) {
-  if (nq > 0 && k > 0) {
-    const dim3 grid((nq + kMergeWarps - 1) / kMergeWarps);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const float* ps = static_cast<const float*>(part_s);
-    const int* pi = static_cast<const int*>(part_i);
-    const int* rl = static_cast<const int*>(row_len);
-    float* os = static_cast<float*>(out_s);
-    int* oi = static_cast<int*>(out_i);
-    const int smem = k <= kSmemK;
-    const size_t bytes = smem ? size_t(kMergeWarps) * k * 8 : 0;
-    if (k <= kRegK)
-      topk_merge_kernel<false><<<grid, kMergeWarps * 32, 0, st>>>(
-          ps, pi, rl, os, oi, nq, width, k, 0);
-    else
-      topk_merge_kernel<true><<<grid, kMergeWarps * 32, bytes, st>>>(
-          ps, pi, rl, os, oi, nq, width, k, smem);
+                          const void* row_len, const void* cand_ids,
+                          void* out_s, void* out_i, void* seg_s, void* seg_i,
+                          void* done, int nq, int width, int k, int c,
+                          int seg, int n_seg, void* stream) {
+  if (nq <= 0 || k <= 0) return static_cast<int>(cudaGetLastError());
+  if (n_seg < 1 || seg < 1 || static_cast<long long>(seg) * n_seg < width ||
+      (n_seg > 1 && (seg <= k || !seg_s || !seg_i || !done)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_seg > 1) {
+    const cudaError_t err =
+        cudaMemsetAsync(done, 0, size_t(nq) * sizeof(int), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const long long warps = static_cast<long long>(nq) * n_seg;
+  const dim3 grid(static_cast<unsigned>((warps + kMergeWarps - 1) /
+                                        kMergeWarps));
+  const float* ps = static_cast<const float*>(part_s);
+  const int* pi = static_cast<const int*>(part_i);
+  const int* rl = static_cast<const int*>(row_len);
+  const int* ci = static_cast<const int*>(cand_ids);
+  float* os = static_cast<float*>(out_s);
+  int* oi = static_cast<int*>(out_i);
+  float* ss = static_cast<float*>(seg_s);
+  int* si = static_cast<int*>(seg_i);
+  int* dn = static_cast<int*>(done);
+  const int smem = k <= kSmemK;
+  const size_t bytes = smem ? size_t(kMergeWarps) * k * 8 : 0;
+  if (k <= kRegK)
+    topk_merge_kernel<false><<<grid, kMergeWarps * 32, 0, st>>>(
+        ps, pi, rl, ci, os, oi, ss, si, dn, nq, width, k, c, seg, n_seg, 0);
+  else
+    topk_merge_kernel<true><<<grid, kMergeWarps * 32, bytes, st>>>(
+        ps, pi, rl, ci, os, oi, ss, si, dn, nq, width, k, c, seg, n_seg,
+        smem);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2341,6 +2711,52 @@ extern "C" int gathered_tiles(const void* q, const void* table,
       gathered_tiles_kernel<true><<<n_blocks, kThreads, bytes, st>>>(
           qp, tp, pp, bp, ps, pi, n, r, d, k, width, vec);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// queries f32 [nq, d], table f32 [r, d], rows/ids int32 [nq, c] (a slot is
+// valid where its id is >= 0): each query's runs of kRunSlots slots, a
+// block each (grid (ceil(c / kRunSlots), nq)), write their top kk =
+// min(k, kRunSlots) (score, position) lists to part_s/part_p [nq, width],
+// width = ceil(c / kRunSlots) * kk, every entry written. *stray (zeroed
+// here first) becomes 1 where a valid slot's row lies outside [0, r); such
+// a row is never read. vec = 1 when queries and table are 16-byte aligned
+// and d % 4 == 0.
+extern "C" int gathered_runs(const void* q, const void* table,
+                             const void* rows, const void* ids, void* part_s,
+                             void* part_p, void* stray, int nq, int c, int r,
+                             int d, int k, int vec, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(stray, 0, sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nq <= 0 || c <= 0 || k <= 0) return static_cast<int>(cudaGetLastError());
+  if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int runs = (c + kRunSlots - 1) / kRunSlots;
+  const int kk = k < kRunSlots ? k : kRunSlots;
+  const int width = runs * kk;
+  const size_t bytes = size_t(kRunStages) * kRunStage;
+  err = cudaFuncSetAttribute(gathered_runs_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gathered_runs_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(runs, nq);
+  const float* qp = static_cast<const float*>(q);
+  const float* tp = static_cast<const float*>(table);
+  const int* rp = static_cast<const int*>(rows);
+  const int* ip = static_cast<const int*>(ids);
+  float* ps = static_cast<float*>(part_s);
+  int* pp = static_cast<int*>(part_p);
+  int* sp = static_cast<int*>(stray);
+  if (kk <= kRegK)
+    gathered_runs_kernel<false><<<grid, kThreads, bytes, st>>>(
+        qp, tp, rp, ip, ps, pp, sp, c, r, d, k, width, vec);
+  else
+    gathered_runs_kernel<true><<<grid, kThreads, bytes, st>>>(
+        qp, tp, rp, ip, ps, pp, sp, c, r, d, k, width, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

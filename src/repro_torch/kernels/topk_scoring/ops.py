@@ -30,13 +30,21 @@ same select through the same buffer (one code path for both types), above
 it the 128-query int8 kernel and the merge. The narrow pair's plan is
 computed once a (Q, N, k) (``_narrow_layout``).
 
-``gathered_topk`` cuts each query's valid candidate slots into pieces
-(runs of rows inside one 128-row table tile) with two small kernels and
-one host read (``gathered_pieces``; its plain version runs on the CPU),
-sorts them by tile, scores each tile once a block of up to 32 pieces on
-the tensor cores (the narrow scorer's 3xTF32 products, f64 where D <= 8)
-and merges each query's piece lists, reading only the entries its pieces
-wrote.
+``gathered_topk`` takes one of two paths by the query count. At or
+below ``GATHERED_NARROW_QUERIES`` (a serving tick's small buckets, a RAG
+call): ``gathered_runs`` scores each query's runs of ``RUN_SLOTS``
+consecutive slots, a block each, with f32 FMAs over its valid rows
+streamed through shared memory, and the merge maps the winning positions
+to ids; the grid and buffers follow from (Q, C), and the one host read,
+a stray-row flag, comes after the last launch. Above it, the wrapper
+cuts each query's valid candidate slots into pieces (runs of rows inside
+one 128-row table tile) with two small kernels and one host read
+(``gathered_pieces``; its plain version runs on the CPU), sorts them by
+tile, scores each tile once a block of up to 32 pieces on the tensor
+cores (the narrow scorer's 3xTF32 products, f64 where D <= 8) and merges
+each query's piece lists, reading only the entries its pieces wrote.
+``topk_merge`` cuts each row into segments over the card where rows are
+few (``merge_plan``).
 
 Each wrapper first resolves its launch params through the autotuner
 (kernels/tuning.py: explicit kwarg > tuned table > default), as the
@@ -47,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -85,7 +94,7 @@ TOPK_PARTIAL = Kernel("topk_partial", "topk_scores.cu", _PARTIAL_ARGS)
 TOPK_INT8_PARTIAL = Kernel("topk_int8_partial", "topk_scores.cu",
                            _PARTIAL_ARGS)
 TOPK_MERGE = Kernel("topk_merge", "topk_scores.cu",
-                    (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3)
+                    (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6)
 GATHERED_TILES = Kernel("gathered_tiles", "topk_scores.cu",
                         (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7)
 _NARROW_ARGS = ((ctypes.c_void_p,) * 5 + (ctypes.c_longlong,)
@@ -100,6 +109,19 @@ GATHERED_PIECE_COUNT = Kernel("gathered_piece_count", "topk_scores.cu",
                               (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4)
 GATHERED_PIECE_EMIT = Kernel("gathered_piece_emit", "topk_scores.cu",
                              (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6)
+GATHERED_RUNS = Kernel("gathered_runs", "topk_scores.cu",
+                       (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6)
+# the merge: warps a block (kMergeWarps), entries a lane loads before it
+# offers any (kMergeVec); the plan aims at MERGE_TARGET warps (a block on
+# each of the card's 132 SMs) and cuts no segment below MERGE_MIN_SEG
+# entries, two rounds of a warp's loads
+MERGE_WARPS, MERGE_VEC = 8, 4
+MERGE_TARGET = DENSE_BLOCKS * MERGE_WARPS
+MERGE_MIN_SEG = 2 * 32 * MERGE_VEC
+# the gathered search's cutoff (kGNQMax): at or below it a call takes the
+# runs kernel (a block a query's RUN_SLOTS (kRunSlots) consecutive slots,
+# no pieces, no host read before the launches), above it the pieces path
+GATHERED_NARROW_QUERIES, RUN_SLOTS = 12, 128
 # gathered: table rows a tile, pieces a block; they must equal kGTR and
 # kGBQ in csrc/topk_scores.cu, whose blocks find their tile and pieces
 # by them; the pieces kernels scan a query's slots PIECE_SLOTS
@@ -172,20 +194,79 @@ def launch_partials(partial: Kernel, queries: torch.Tensor,
     return part_s, part_i
 
 
+@functools.lru_cache(maxsize=512)
+def merge_plan(nq: int, width: int, k: int):
+    """(entries a segment, segments a row) of the merge: each row's width
+    entries cut into segments of ``seg`` (a multiple of 32 MERGE_VEC), a
+    warp each, so that nq x segments comes near MERGE_TARGET warps; no
+    segment below MERGE_MIN_SEG or sqrt(width k) entries (the second
+    level merges segments x k), and each longer than k (the kernel's
+    segment lists hold k entries), so a row of the many that already fill
+    the card, or a short one, stays whole: (max(width, 1), 1)."""
+    step = 32 * MERGE_VEC
+    seg = max(math.isqrt(width * k), -(-width * nq // MERGE_TARGET),
+              MERGE_MIN_SEG, k + 1)
+    seg = -(-seg // step) * step
+    if seg >= width:
+        return max(width, 1), 1
+    return seg, -(-width // seg)
+
+
 def launch_merge(part_s: torch.Tensor, part_i: torch.Tensor, k: int,
-                 row_len: torch.Tensor = None):
+                 row_len: torch.Tensor = None,
+                 cand_ids: torch.Tensor = None):
     """The merge kernel over partial lists: the top k of each row by
     (score desc, id asc) -> (scores f32[Q, k], ids i32[Q, k]). ``row_len``
     (i32[Q], optional): the entries each row holds, its first ones; the
-    rest are never read, so they need not be written."""
+    rest are never read, so they need not be written. ``cand_ids`` (i32[Q,
+    C], optional): the ids are candidate positions, and each winner's id
+    is ``cand_ids[q, position]``, -1 where its score is not finite. Each
+    row is cut into segments over the card (:func:`merge_plan`)."""
     nq, width = part_s.shape
-    out_s = torch.empty((nq, k), dtype=torch.float32, device=part_s.device)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=part_s.device)
-    with torch.cuda.device(part_s.device):
+    dev = part_s.device
+    seg, n_seg = merge_plan(nq, width, k)
+    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    seg_s = seg_i = done = None
+    if n_seg > 1:           # the segments' lists, then a count a row
+        scratch = torch.empty(2 * nq * n_seg * k + nq, dtype=torch.int32,
+                              device=dev)
+        seg_s = scratch.data_ptr()
+        seg_i = seg_s + 4 * nq * n_seg * k
+        done = seg_i + 4 * nq * n_seg * k
+    with torch.cuda.device(dev):
         TOPK_MERGE(part_s.data_ptr(), part_i.data_ptr(),
                    None if row_len is None else row_len.data_ptr(),
-                   out_s.data_ptr(), out_i.data_ptr(), nq, width, k)
+                   None if cand_ids is None else cand_ids.data_ptr(),
+                   out_s.data_ptr(), out_i.data_ptr(), seg_s, seg_i, done,
+                   nq, width, k, 0 if cand_ids is None else cand_ids.shape[1],
+                   seg, n_seg)
     return out_s, out_i
+
+
+def merge_plain(part_s: torch.Tensor, part_i: torch.Tensor, k: int,
+                row_len: torch.Tensor = None,
+                cand_ids: torch.Tensor = None):
+    """The merge kernel's plain version, in torch ops on the inputs'
+    device: entries past a row's ``row_len`` and every -inf entry left out
+    (the kernel keeps none), a stable sort by id, then a stable sort by
+    score descending, the first k, padded with (-inf, -1); ids through
+    ``cand_ids`` as :func:`launch_merge` maps them."""
+    width = part_s.shape[1]
+    s, i = part_s, part_i
+    if row_len is not None:
+        past = (torch.arange(width, device=s.device)[None, :]
+                >= row_len[:, None])
+        s = torch.where(past, -torch.inf, s)
+    i = torch.where(s == -torch.inf, -1, i)
+    by_id = torch.sort(i, dim=1, stable=True).indices
+    s, i = torch.gather(s, 1, by_id), torch.gather(i, 1, by_id)
+    pos = torch.sort(s, dim=1, descending=True, stable=True).indices[:, :k]
+    s, i = pad_topk(torch.gather(s, 1, pos), torch.gather(i, 1, pos), k)
+    if cand_ids is not None:
+        ids = torch.gather(cand_ids, 1, i.clamp(min=0).long())
+        i = torch.where(torch.isfinite(s), ids, -1)
+    return s, i.to(torch.int32)
 
 
 def topk_partials_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -530,17 +611,108 @@ def gathered_pieces_plain(cand_rows: torch.Tensor, cand_ids: torch.Tensor,
                   max(min(c, k * most), 1), row_len)
 
 
-def gathered_topk_cuda(queries: torch.Tensor, table: torch.Tensor,
+def runs_width(c: int, k: int) -> int:
+    """Columns of the runs kernel's partial buffer: a list of min(k,
+    RUN_SLOTS) entries for each of a row's ceil(C / RUN_SLOTS) runs."""
+    return -(-c // RUN_SLOTS) * min(k, RUN_SLOTS)
+
+
+def gathered_runs_plain(queries: torch.Tensor, table: torch.Tensor,
+                        cand_rows: torch.Tensor, cand_ids: torch.Tensor,
+                        k: int, chunk_bytes: int = 1 << 30):
+    """The runs kernel's plain version, in torch ops on the inputs' device:
+    each run of RUN_SLOTS consecutive slots of a query keeps its top
+    min(k, RUN_SLOTS) (score, position) list by (score desc, position
+    asc), padded with (-inf, -1) -> (scores f32[Q, W], positions i32[Q,
+    W]), W = :func:`runs_width`, run j's list in columns [j kk, + kk).
+    Invalid slots (id -1) and -inf scores are left out; a valid slot whose
+    row lies outside the table raises. Queries go in chunks whose gathered
+    rows stay under ``chunk_bytes``, as ``ref.gathered_topk_ref``'s do.
+    :func:`merge_plain` with ``cand_ids`` turns the lists into the
+    search's result."""
+    qn, c = cand_ids.shape
+    r = table.shape[0]
+    valid = cand_ids >= 0
+    # lint: disable=torch-host-sync
+    if bool((valid & ((cand_rows < 0) | (cand_rows >= r))).any()):
+        raise _stray_error(r)
+    runs, kk = -(-c // RUN_SLOTS), min(k, RUN_SLOTS)
+    per_query = max(1, c * table.shape[1] * table.element_size())
+    step = max(1, chunk_bytes // per_query)
+    out_s, out_p = [], []
+    for q0 in range(0, qn, step):
+        ok = valid[q0:q0 + step]
+        rows = torch.where(ok, cand_rows[q0:q0 + step], 0).long()
+        s = torch.einsum("qd,qcd->qc", queries[q0:q0 + step],
+                         table[rows]).to(torch.float32)
+        s = torch.where(ok, s, -torch.inf)
+        s = torch.nn.functional.pad(s, (0, runs * RUN_SLOTS - c),
+                                    value=-torch.inf)
+        s = s.view(s.shape[0], runs, RUN_SLOTS)
+        pos = torch.sort(s, dim=2, descending=True,
+                         stable=True).indices[:, :, :kk]
+        top = torch.gather(s, 2, pos)
+        pos = pos + RUN_SLOTS * torch.arange(runs, device=s.device)[:, None]
+        pos = torch.where(top == -torch.inf, -1, pos)
+        out_s.append(top.reshape(top.shape[0], runs * kk))
+        out_p.append(pos.reshape(top.shape[0], runs * kk).to(torch.int32))
+    if not out_s:
+        dev = queries.device
+        return (torch.empty((0, runs * kk), dtype=torch.float32, device=dev),
+                torch.empty((0, runs * kk), dtype=torch.int32, device=dev))
+    return torch.cat(out_s), torch.cat(out_p)
+
+
+def _runs_lists(queries: torch.Tensor, table: torch.Tensor,
+                cand_rows: torch.Tensor, cand_ids: torch.Tensor, k: int):
+    """Launch the runs kernel (inputs as :func:`gathered_topk_cuda` takes
+    them; any Q up to its grid's 65535) -> its lists (scores f32[Q, W],
+    positions i32[Q, W], as :func:`gathered_runs_plain` gives them) and
+    its stray-row flag (i32[], nonzero where a valid slot's row lies
+    outside the table), not yet read. The grid and the buffers follow
+    from (Q, C) alone."""
+    nq, d, c, r = _gathered_shapes(queries, table, cand_rows, cand_ids, k,
+                                   GATHERED_RUNS.name)
+    if nq > 65535:
+        raise ValueError(f"{GATHERED_RUNS.name}: Q={nq} exceeds its grid")
+    dev = queries.device
+    width = runs_width(c, k)
+    part_s = torch.empty((nq, width), dtype=torch.float32, device=dev)
+    part_p = torch.empty((nq, width), dtype=torch.int32, device=dev)
+    stray = torch.empty((), dtype=torch.int32, device=dev)
+    vec = int(d % 4 == 0 and _aligned(queries, table))
+    with torch.cuda.device(dev):
+        GATHERED_RUNS(queries.data_ptr(), table.data_ptr(),
+                      cand_rows.data_ptr(), cand_ids.data_ptr(),
+                      part_s.data_ptr(), part_p.data_ptr(), stray.data_ptr(),
+                      nq, c, r, d, k, vec)
+    return part_s, part_p, stray
+
+
+def gathered_runs_cuda(queries: torch.Tensor, table: torch.Tensor,
                        cand_rows: torch.Tensor, cand_ids: torch.Tensor,
                        k: int):
-    """Launch the gathered kernel and the merge kernel: queries f32[Q, D],
-    table f32[R, D], cand_rows/cand_ids i32[Q, C], 1 <= k <= C ->
-    (scores f32[Q, k], ids i32[Q, k]). Each probed row tile is read once
-    for every 32 pieces that probe it (``gathered_pieces``); the kernels
-    rank (score, position); one gather maps the winning positions to ids,
-    -1 where the score is -inf."""
+    """The gathered search for few queries (the wrapper sends it Q <=
+    GATHERED_NARROW_QUERIES): the runs kernel, then the merge, which maps
+    positions to ids; inputs as :func:`gathered_topk_cuda` takes them.
+    Nothing is read back before the last launch; then the runs kernel's
+    stray-row flag is read (the call's one host read) and raises."""
+    part_s, part_p, stray = _runs_lists(queries, table, cand_rows, cand_ids,
+                                        k)
+    with torch.cuda.device(queries.device):
+        out = launch_merge(part_s, part_p, k, cand_ids=cand_ids)
+    # the one host read, after the last launch: the stray-row flag
+    # lint: disable=torch-host-sync
+    if stray.item():
+        raise _stray_error(table.shape[0])
+    return out
+
+
+def _gathered_shapes(queries: torch.Tensor, table: torch.Tensor,
+                     cand_rows: torch.Tensor, cand_ids: torch.Tensor, k: int,
+                     name: str) -> tuple:
+    """Check a gathered search's inputs -> (Q, D, C, R)."""
     dev = queries.device
-    name = GATHERED_TILES.name
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     _check(queries, "queries", torch.float32, dev, name)
@@ -560,6 +732,18 @@ def gathered_topk_cuda(queries: torch.Tensor, table: torch.Tensor,
         raise ValueError(f"{name}: k={k} outside [1, C={c}]")
     if max(nq, c, d, r) >= 2 ** 31:
         raise ValueError(f"{name}: a dimension exceeds int32")
+    return nq, d, c, r
+
+
+def gathered_tiles_cuda(queries: torch.Tensor, table: torch.Tensor,
+                        cand_rows: torch.Tensor, cand_ids: torch.Tensor,
+                        k: int):
+    """The gathered search's pieces path, for any Q: each probed row tile
+    is read once for every 32 pieces that probe it (``gathered_pieces``),
+    then the merge maps the winning positions to ids."""
+    nq, d, _, r = _gathered_shapes(queries, table, cand_rows, cand_ids, k,
+                                   GATHERED_TILES.name)
+    dev = queries.device
     pieces, blk_first, width, row_len = gathered_pieces(cand_rows, cand_ids,
                                                         r, k)
     # the kernel writes each piece's slots and nothing else: a query's
@@ -572,9 +756,22 @@ def gathered_topk_cuda(queries: torch.Tensor, table: torch.Tensor,
                        pieces.data_ptr(), blk_first.data_ptr(),
                        part_s.data_ptr(), part_p.data_ptr(), pieces.shape[0],
                        blk_first.shape[0], r, d, k, width, vec)
-        out_s, out_p = launch_merge(part_s, part_p, k, row_len)
-    ids = torch.gather(cand_ids, 1, out_p.clamp(min=0).long())
-    return out_s, torch.where(torch.isfinite(out_s), ids, -1)
+        return launch_merge(part_s, part_p, k, row_len, cand_ids)
+
+
+def gathered_topk_cuda(queries: torch.Tensor, table: torch.Tensor,
+                       cand_rows: torch.Tensor, cand_ids: torch.Tensor,
+                       k: int):
+    """Launch the gathered kernels: queries f32[Q, D], table f32[R, D],
+    cand_rows/cand_ids i32[Q, C], 1 <= k <= C -> (scores f32[Q, k], ids
+    i32[Q, k]). Q <= GATHERED_NARROW_QUERIES: the runs kernel and the merge
+    (:func:`gathered_runs_cuda`); above it the pieces path
+    (:func:`gathered_tiles_cuda`). The kernels rank (score, position); the
+    merge maps the winning positions to ids, -1 where the score is
+    -inf."""
+    if queries.shape[0] <= GATHERED_NARROW_QUERIES:
+        return gathered_runs_cuda(queries, table, cand_rows, cand_ids, k)
+    return gathered_tiles_cuda(queries, table, cand_rows, cand_ids, k)
 
 
 def empty_topk(nq: int, k: int, device):

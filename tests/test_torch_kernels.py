@@ -19,7 +19,11 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.label_prop.ops import lp_round_cuda
 from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK, hamming_topk
 from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
-from repro_torch.kernels.topk_scoring.ops import (GATHERED_TILES,
+from repro_torch.kernels.topk_scoring.ops import (GATHERED_NARROW_QUERIES,
+                                                  GATHERED_PIECE_COUNT,
+                                                  GATHERED_PIECE_EMIT,
+                                                  GATHERED_RUNS,
+                                                  GATHERED_TILES,
                                                   INT8_NARROW_QUERIES,
                                                   NARROW_QUERIES,
                                                   TILE_PIECES, TILE_ROWS,
@@ -28,8 +32,11 @@ from repro_torch.kernels.topk_scoring.ops import (GATHERED_TILES,
                                                   TOPK_NARROW_SCORES,
                                                   TOPK_NARROW_SCORES_INT8,
                                                   TOPK_NARROW_SELECT,
-                                                  TOPK_PARTIAL,
-                                                  gathered_topk, topk_scores,
+                                                  TOPK_PARTIAL, _runs_lists,
+                                                  gathered_runs_cuda,
+                                                  gathered_runs_plain,
+                                                  gathered_topk, launch_merge,
+                                                  merge_plain, topk_scores,
                                                   topk_scores_int8)
 from repro_torch.kernels.topk_scoring.ref import (gathered_topk_ref,
                                                   topk_scores_int8_ref,
@@ -547,6 +554,104 @@ def test_gathered_kernel_tie_goes_to_the_earlier_position(cuda):
     assert s.tolist() == [[8.0, 8.0, 4.0], [8.0, 8.0, 4.0]]
 
 
+@pytest.mark.parametrize("q,c,d,r,k", [
+    (1, 1, 4, 1, 1), (2, 300, 37, 50, 5), (1, 1000, 768, 900, 16),
+    (3, 700, 5, 90, 100), (8, 4999, 2048, 3000, 3), (1, 129, 64, 40, 200),
+    (9, 2000, 16, 100, 32)])
+@pytest.mark.parametrize("integer", [True, False])
+def test_gathered_runs_kernel_matches_plain(cuda, q, c, d, r, k, integer):
+    """The runs kernel's lists against ``gathered_runs_plain`` (integer
+    vectors: equal; normal ones: scores within D * 2**-24 * sum |q c|,
+    positions equal away from near-ties), and the whole runs path against
+    ``gathered_topk_ref``; any Q (the kernel takes Q above the cutoff
+    too), C off the run length, k above it."""
+    qs, table, rows, ids = (t.to(cuda) for t in _gathered_inputs(
+        q, c, d, r, seed=q * c + d, integer=integer, dead_rows=(0,)))
+    k = min(k, c)
+    part_s, part_p, stray = _runs_lists(qs, table, rows, ids, k)
+    want_s, want_p = gathered_runs_plain(qs, table, rows, ids, k)
+    assert stray.item() == 0
+    s, i = gathered_runs_cuda(qs, table, rows, ids, k)
+    s_ref, i_ref = gathered_topk_ref(qs, table, rows, ids, k=k)
+    if integer:
+        assert torch.equal(part_s, want_s) and torch.equal(part_p, want_p)
+        assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+        return
+    assert torch.equal(part_p < 0, want_p < 0)
+    q64, t64 = qs.double(), table.double()
+    rows_of = lambda p: torch.gather(rows, 1, p.clamp(min=0).long()).long()
+    tol = d * 2.0 ** -24 * torch.einsum("qd,qkd->qk", q64.abs(),
+                                        t64[rows_of(want_p)].abs())
+    ok = want_p >= 0
+    assert bool(((part_s.double() - want_s.double()).abs()[ok]
+                 <= tol[ok]).all())
+    diff = part_p != want_p
+    if bool(diff.any()):
+        exact = lambda p: torch.einsum("qd,qkd->qk", q64, t64[rows_of(p)])
+        gap = (exact(part_p) - exact(want_p)).abs()
+        assert bool((gap[diff] <= 2 * tol[diff]).all())
+    assert torch.equal(i < 0, i_ref < 0)
+
+
+@pytest.mark.parametrize("nq,width,k", [
+    (1, 16672, 16), (1, 32784, 16), (128, 1280, 10), (1, 117, 3),
+    (3, 4000, 40), (2, 20000, 100), (40, 700, 1), (5, 3, 9),
+    (1, 257, 256), (13, 258, 256), (1, 385, 384)])
+def test_merge_kernel_equals_its_plain_version(cuda, nq, width, k):
+    """Partial lists with score ties between distinct ids and -inf
+    entries, whole rows, a row length and a position-to-id map: the
+    merge's lists are bit-equal to ``merge_plain``'s whatever its plan
+    cuts."""
+    g = torch.Generator().manual_seed(nq * width + k)
+    part_s = torch.randint(-4, 5, (nq, width), generator=g).float()
+    part_s[torch.rand(nq, width, generator=g) < 0.1] = -torch.inf
+    part_i = torch.stack([torch.randperm(width, generator=g)
+                          for _ in range(nq)]).to(torch.int32)
+    row_len = torch.randint(0, width + 1, (nq,), generator=g,
+                            dtype=torch.int32)
+    cand = torch.randint(0, 10 ** 6, (nq, width), generator=g,
+                         dtype=torch.int32)
+    part_s, part_i, row_len, cand = (t.to(cuda) for t in (part_s, part_i,
+                                                          row_len, cand))
+    for rl in (None, row_len):
+        for cm in (None, cand):
+            got = launch_merge(part_s, part_i, k, rl, cm)
+            want = merge_plain(part_s, part_i, k, rl, cm)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+
+
+def test_gathered_narrow_path_reads_once_after_its_launches(cuda):
+    """At Q <= GATHERED_NARROW_QUERIES the wrapper launches the runs
+    kernel and the merge, nothing of the pieces path, and synchronizes
+    once, after both launches (the stray-row flag): under
+    ``set_sync_debug_mode("error")`` the call raises at that read with
+    both kernels launched. A stray row raises the wrapper's error."""
+    qs, table, rows, ids = (t.to(cuda) for t in _gathered_inputs(
+        GATHERED_NARROW_QUERIES, 500, 64, 300, seed=5, integer=True,
+        dead_rows=()))
+    kernels = (GATHERED_RUNS, TOPK_MERGE, GATHERED_TILES,
+               GATHERED_PIECE_COUNT, GATHERED_PIECE_EMIT)
+    gathered_topk(qs, table, rows, ids, k=10)           # built and warm
+    torch.cuda.synchronize()
+    before = [kern.launches for kern in kernels]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            gathered_topk(qs, table, rows, ids, k=10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launched = [kern.launches - b for kern, b in zip(kernels, before)]
+    assert launched == [1, 1, 0, 0, 0]
+    s, i = gathered_topk(qs, table, rows, ids, k=10)
+    assert torch.equal(i, gathered_topk_ref(qs, table, rows, ids, k=10)[1])
+    bad = rows.clone()
+    bad[1, 7] = table.shape[0]
+    ids[1, 7] = 3
+    with pytest.raises(ValueError, match="outside the table's 300 rows"):
+        gathered_topk(qs, table, bad, ids, k=10)
+
+
 @pytest.mark.parametrize("q,n,w,k", [
     (1, 1, 4, 1), (3, 5, 4, 9), (7, 513, 4, 5), (33, 1000, 4, 32),
     (40, 4096, 4, 64), (9, 1000, 3, 100), (5, 300, 1, 300),
@@ -624,19 +729,26 @@ def test_topk_kernels_launch_at_any_k(cuda, k):
     qs = torch.randn(4, 16, device=cuda)
     cs = torch.randn(500, 16, device=cuda)
     rows = torch.randint(0, 500, (4, 400), device=cuda, dtype=torch.int32)
+    q_wide = GATHERED_NARROW_QUERIES + 1
+    qs_wide = torch.randn(q_wide, 16, device=cuda)
+    rows_wide = torch.randint(0, 500, (q_wide, 400), device=cuda,
+                              dtype=torch.int32)
     kernels = (TOPK_NARROW_SCORES, TOPK_NARROW_SELECT, TOPK_PARTIAL,
                TOPK_INT8_PARTIAL, HAMMING_TOPK, GATHERED_TILES, TOPK_MERGE,
-               TOPK_NARROW_SCORES_INT8)
+               TOPK_NARROW_SCORES_INT8, GATHERED_RUNS)
     before = [kern.launches for kern in kernels]
     topk_scores(qs, cs, k=k)
     topk_scores_int8(qs.to(torch.int8), cs.to(torch.int8), k=k)
     hamming_topk(qs.to(torch.int32), cs.to(torch.int32), k=k)
     gathered_topk(qs, cs, rows, rows, k=k)
+    gathered_topk(qs_wide, cs, rows_wide, rows_wide, k=k)
     after = [kern.launches for kern in kernels]
     # 4 queries take the narrow pair of each type (the select twice); the
     # Hamming kernel selects by counting: no merge follows it; the merge
-    # follows the gathered kernel
-    assert [a - b for a, b in zip(after, before)] == [1, 2, 0, 0, 1, 1, 1, 1]
+    # follows each gathered path, the runs kernel at 4 queries and the
+    # tile kernel above the gathered cutoff
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 0, 0, 1, 1, 2, 1,
+                                                      1]
 
 
 def test_sort_engine_on_the_card_matches_the_cpu(cuda):
@@ -814,7 +926,8 @@ def test_live_index_on_card_matches_cpu_plain_path(cuda, engine, backend):
     plain = LiveIndex(base, SearchConfig(
         engine=engine, backend="int8" if backend == "int8" else "torch"),
         ingest=ingest, device="cpu")
-    dense = (TOPK_NARROW_SCORES, TOPK_PARTIAL, TOPK_INT8_PARTIAL)
+    dense = (TOPK_NARROW_SCORES, TOPK_PARTIAL, TOPK_INT8_PARTIAL,
+             TOPK_NARROW_SCORES_INT8)
     launches0 = sum(kern.launches for kern in dense)
     for li in (card, plain):
         li.append(extra[:100])

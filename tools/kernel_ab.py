@@ -12,7 +12,8 @@ beforehand under ``build/`` (which git ignores; the machine with the card
 has no git). Each checkout runs in a process of its own, which builds its
 own kernels (into its own ``build/kernels``) and calls its own public
 entry points (``topk_scores``, ``topk_scores_int8``, ``gathered_topk``,
-``hamming_topk``, ``label_prop_round``, ``flash_attention``), so each
+``hamming_topk``, ``label_prop_round``, ``flash_attention``,
+``launch_merge``), so each
 version is timed with the host work of its own wrapper, whatever its
 kernels' C interface. The inputs are made once,
 on the card, by this tree's ``chip_smoke.py`` helpers, and handed to every
@@ -31,8 +32,12 @@ Cases, at the main path's shapes (``--only`` picks groups):
 - gathered: ``gathered_topk`` at the ivfflat probe of the evaluation path
   (512 queries, D 2048, k 10, over ``chip_smoke.py``'s 5.2e5-entity
   corpus and index), at one query over the same index (k 3, the RAG
-  stack's calls) and at Table I's (256 queries, D 128, k 3, over a
-  128-wide projection of the same corpus);
+  stack's calls), at Table I's (256 queries, D 128, k 3, over a
+  128-wide projection of the same corpus) and at the serving tick's
+  (a tenant of 1,048,576 normal rows of D 768, k 16) at Q 1, 2, 4, the
+  gathered cutoff, one above it and 32; ``launch_merge`` alone on the f32
+  kernel's partial lists at Q 128 (k 10) and at one query's widths of the
+  two gathered paths (16,672 and 32,784 entries, k 16);
 - hamming: ``hamming_topk`` at Q 512, N 524288, W 4 (random codes, half
   the rows duplicated), k 10 and 64 (the lsh engine's rerank pool);
 - lp: ``label_prop_round`` at N 3.1M, K 32 (``chip_smoke.lp_inputs``:
@@ -74,12 +79,14 @@ def worker(src: str, conn) -> None:
     from repro_torch.kernels.label_prop.ops import label_prop_round
     from repro_torch.kernels.lsh_hamming.ops import hamming_topk
     from repro_torch.kernels.topk_scoring.ops import (gathered_topk,
+                                                      launch_merge,
                                                       topk_scores,
                                                       topk_scores_int8)
     entry = {"topk_scores": topk_scores, "topk_scores_int8": topk_scores_int8,
              "gathered_topk": gathered_topk, "hamming_topk": hamming_topk,
              "label_prop_round": label_prop_round,
-             "flash_attention": flash_attention}
+             "flash_attention": flash_attention,
+             "launch_merge": launch_merge}
     import repro_torch
     conn.send(str(Path(repro_torch.__file__).parent))
     fn = None
@@ -172,7 +179,43 @@ def cases(groups):
             yield (f"gathered_topk {label}", "gathered_topk",
                    (qs, table, rows, ids), {"k": k}, iters, 1)
             del index, rows, ids, table
-        del ev, pq, proj
+        # the merge alone on the f32 kernel's partial lists at Q 128 (k
+        # 10: 1280 entries a row)
+        from repro_torch.kernels.topk_scoring.ops import topk_partials_cuda
+        part = topk_partials_cuda(pq[:128], ev, 10)
+        yield (f"launch_merge Q=128 W={part[0].shape[1]} k=10",
+               "launch_merge", part, {"k": 10}, 50, 3)
+        del ev, pq, proj, part
+        # the serving tick's ivfflat calls (normal rows of a tenant's size,
+        # 64 lists, nprobe 8, k 16) at the gathered cutoff's Q values
+        from repro_torch.kernels.topk_scoring.ops import (
+            GATHERED_NARROW_QUERIES)
+        g = torch.Generator(device=dev).manual_seed(43)
+        vecs = torch.randn(cs.SERVE_DOCS, cs.SERVE_DIM, generator=g,
+                           device=dev)
+        index = engine.build(prng.prng_key(0), vecs)
+        del vecs
+        sq = torch.randn(cs.SERVE_BATCH, cs.SERVE_DIM, generator=g,
+                         device=dev)
+        rows, ids = probe_candidates(index, sq, nprobe=engine.nprobe)
+        table = index.vecs.reshape(-1, cs.SERVE_DIM)
+        del index
+        for q in sorted({1, 2, 4, GATHERED_NARROW_QUERIES,
+                         GATHERED_NARROW_QUERIES + 1, cs.SERVE_BATCH}):
+            yield (f"gathered_topk tick Q={q} C={ids.shape[1]} k=16",
+                   "gathered_topk", (sq[:q], table, rows[:q].contiguous(),
+                                     ids[:q].contiguous()),
+                   {"k": cs.SERVE_KMAX}, 20, 2)
+        del sq, table, rows, ids
+        # the merge alone at one query's widths: the pieces path's at the
+        # tick (16,672 entries) and the runs path's (2049 runs x 16);
+        # normal scores, each id once
+        for width in (16672, 32784):
+            part_s = torch.randn(1, width, generator=g, device=dev)
+            part_i = torch.randperm(width, device=dev)[None].to(torch.int32)
+            yield (f"launch_merge Q=1 W={width} k=16", "launch_merge",
+                   (part_s, part_i), {"k": 16}, 50, 3)
+            del part_s, part_i
     if "hamming" in groups:
         q, c = cs.hamming_inputs(cs.PROBE_QUERIES, 524288, 4, seed=17,
                                  device=dev)

@@ -9,16 +9,19 @@ From the repository root, on a machine with a card. Groups:
   queries over ``chip_smoke.py``'s 5.2e5 x 2048 corpus, 64 lists, nprobe
   8, k 10), at Table I's (256 unit-norm 128-wide queries over a
   projection of the same corpus, k 3), at the serving tier's ivfflat
-  ticks (Q 1, 8 and 32 over a 1,048,576 x 768 tenant drawn as
-  ``launch/serve.py`` draws it, k 16) and at the RAG stack's one-query
+  ticks (Q 1, 8, the gathered cutoff and one above it, and 32, over a
+  1,048,576 x 768 tenant drawn as ``launch/serve.py`` draws it, k 16)
+  and at the RAG stack's one-query
   calls (17c of ``chip_smoke.py``: a WindTunnel sample of an 8192-query
   corpus, its tf-idf vectors, k 3). For each: the whole call (CUDA events
-  over many calls), the wrapper's pieces step alone (``gathered_pieces``:
-  events, and the profiler's device time of its torch ops), the device
-  time of each kernel launch (events around every launch,
-  ``Kernel.timed``), the profiler's device time of the whole call, and
-  the host's time a call (the host clock over the calls, before the
-  closing synchronize).
+  over many calls), the device time of each kernel launch (events around
+  every launch, ``Kernel.timed``), the profiler's device time of the
+  whole call and of each kernel and copy in it, and the host's time a
+  call (the host clock over the calls, before the closing synchronize).
+  Above the gathered cutoff, the wrapper's pieces step alone
+  (``gathered_pieces``: events, host time and the profiler's device time
+  of its kernels); at or below it (the runs path, no pieces step), the
+  device time of the call's one read (the stray-row flag's copy).
 - narrow: ``topk_scores`` (f32) and ``topk_scores_int8`` at one query over
   a rank's candidate shard (500,000 and 250,000 rows of D 16, k 100) and
   over 1,000,000 rows: the call's event time, each kernel's device time
@@ -32,25 +35,10 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 GROUPS = ("gathered", "narrow")
-
-
-def host_ms(fn, calls: int) -> float:
-    """The host's milliseconds a call over ``calls`` calls, read before the
-    closing synchronize (the device keeps up where it is faster)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) * 1e3 / calls
 
 
 def launch_ms(fn, calls: int) -> dict:
@@ -124,7 +112,9 @@ def gathered_cases():
                           .astype(np.float32)).to(dev)
     qs, table, rows, ids = probe(tenant, sq, cs.SERVE_KMAX)
     del tenant
-    for q in (1, 8, 32):
+    from repro_torch.kernels.topk_scoring.ops import GATHERED_NARROW_QUERIES
+    for q in sorted({1, 8, GATHERED_NARROW_QUERIES,
+                     GATHERED_NARROW_QUERIES + 1, 32}):
         yield (f"serving ivfflat tick Q={q} D=768",
                (qs[:q], table, rows[:q].contiguous(), ids[:q].contiguous()),
                cs.SERVE_KMAX, 20)
@@ -155,33 +145,49 @@ def gathered_cases():
 
 
 def split_gathered(smi: str) -> dict:
+    from chip_smoke import host_ms
     from repro_torch.kernels.topk_scoring import ops
     from repro_torch.obs.timing import cuda_ms
     out = {}
     for label, (qs, table, rows, ids), k, calls in gathered_cases():
         r = table.shape[0]
+        narrow = qs.shape[0] <= ops.GATHERED_NARROW_QUERIES
         call = lambda: ops.gathered_topk(qs, table, rows, ids, k=k)
         pieces = lambda: ops.gathered_pieces(rows, ids, r, k)
         row = {
             "Q": qs.shape[0], "C": ids.shape[1], "D": qs.shape[1], "k": k,
             "valid": int((ids >= 0).sum()),
+            "path": "runs" if narrow else "pieces",
             "call_ms": cuda_ms(call, calls),
-            "pieces_ms": cuda_ms(pieces, calls),
             "launch_ms": launch_ms(call, calls),
             "host_ms": host_ms(call, calls),
-            "pieces_host_ms": host_ms(pieces, calls),
         }
         row["device_ms"], row["device_by_kernel"] = profiled_ms(call, calls)
-        row["pieces_device_ms"] = profiled_ms(pieces, calls)[0]
+        if narrow:
+            # no pieces step: the launches, then the one read (the
+            # stray-row flag's copy to the host)
+            read = [ms for name, ms in row["device_by_kernel"].items()
+                    if "Memcpy DtoH" in name]
+            row["read_device_ms"] = sum(read) if read else None
+            parts = (f"runs path, no pieces step; the one read's copy "
+                     f"device {fmt(row['read_device_ms'])} ms")
+        else:
+            row["pieces_ms"] = cuda_ms(pieces, calls)
+            row["pieces_host_ms"] = host_ms(pieces, calls)
+            row["pieces_device_ms"] = profiled_ms(pieces, calls)[0]
+            parts = (f"pieces step {row['pieces_ms']:.4f} ms (host "
+                     f"{row['pieces_host_ms']:.4f}, device "
+                     f"{fmt(row['pieces_device_ms'])})")
         out[label] = row
         print(f"gathered split at {label} C={row['C']} (valid "
               f"{row['valid']}) k={k}: call {row['call_ms']:.4f} ms (host "
               f"{row['host_ms']:.4f}, device {fmt(row['device_ms'])}); "
-              f"pieces step {row['pieces_ms']:.4f} ms (host "
-              f"{row['pieces_host_ms']:.4f}, device "
-              f"{fmt(row['pieces_device_ms'])}); launches: "
+              f"{parts}; launches: "
               + "; ".join(f"{n} {ms:.4f} ms"
                           for n, ms in row["launch_ms"].items())
+              + "; profiler device ms a call: "
+              + "; ".join(f"{n.split('(')[0][-36:]} {ms:.4f}"
+                          for n, ms in row["device_by_kernel"].items())
               + f"; {smi}", flush=True)
         del qs, table, rows, ids, call, pieces
     return out
@@ -203,7 +209,7 @@ def split_narrow(smi: str) -> dict:
                                ("int8", ops.topk_scores_int8, qc, cc[:n])):
             call = lambda: fn(a, b, k=100)
             row = {"call_ms": cuda_ms(call, 200, 10),
-                   "host_ms": host_ms(call, 200),
+                   "host_ms": cs.host_ms(call, 200),
                    "launch_ms": launch_ms(call, 50)}
             row["device_ms"] = profiled_ms(call, 50)[0]
             out[f"{kind} Q=1 N={n} D=16 k=100"] = row
