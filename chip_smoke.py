@@ -1119,6 +1119,29 @@ def tie_inputs(q: int, n: int, d: int, *, seed: int, device, lo: int = -2,
             torch.randint(lo, hi, (n, d), generator=g).float().to(device))
 
 
+def dense_sass():
+    """The opcodes that show the dense kernels' design in the built
+    library (dense_topk.cu's dense_partial instances): wgmma as HGMMA (tf32)
+    and IGMMA (s8), TMA loads as UTMALDG, against mma.sync's HMMA and IMMA.
+    None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import build
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(build._paths("dense_topk.cu")[1])],
+                          capture_output=True, text=True).stdout
+    counts = dict.fromkeys(("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA"), 0)
+    inside = False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = "dense_partial" in m.group(1)
+        elif inside:
+            for op in counts:
+                counts[op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
+
+
 def check_topk_exact(qs, cs, k: int) -> None:
     """Kernel vs plain top-k on inputs whose scores are exact: the lists
     must be equal, scores and ids, ties to the lowest id."""
@@ -1997,6 +2020,7 @@ def rag_full_width(cfg, params, pb, kernels, smi: str) -> dict:
     from repro_torch.data.synthetic import generate_corpus
     from repro_torch.kernels.topk_scoring import ops as topk_ops
     from repro_torch.kernels.topk_scoring import ref as topk_ref
+    from repro_torch.kernels.tuning import H100_TF32_FLOPS
     from repro_torch.launch import trace as trace_cli
     from repro_torch.obs.timing import cuda_ms
     from repro_torch.models import transformer as tf
@@ -2086,10 +2110,21 @@ def rag_full_width(cfg, params, pb, kernels, smi: str) -> dict:
         sc = torch.where(ids_ >= 0, sc, -torch.inf)
         torch.sort(sc, dim=1, descending=True, stable=True)
 
+    # the least the card must move: each distinct valid row once, the
+    # query, the slots' rows and ids, the k results; three TF32 products
+    # a valid slot
+    n_valid = int((ids_ >= 0).sum())
+    d_rag = qs_.shape[1]
+    rag_rows = int(torch.unique(rows_[ids_ >= 0]).numel())
+    rag_bound, rag_by = bound(
+        (rag_rows * d_rag + qs_.numel()) * 4 + rows_.numel() * 8
+        + qs_.shape[0] * kw["k"] * 8, 3 * 2.0 * n_valid * d_rag,
+        H100_TF32_FLOPS)
     log(f"    17c RAG retrieval Q={qs_.shape[0]} C={ids_.shape[1]} (valid "
-        f"{int((ids_ >= 0).sum())}) D={qs_.shape[1]} over "
+        f"{n_valid}, {rag_rows} distinct rows) D={d_rag} over "
         f"{table_.shape[0]} rows, k={kw['k']}: call {rag_ms:.4f} ms (host "
-        f"{rag_host:.4f} ms a call), profiler device ms a call "
+        f"{rag_host:.4f} ms a call), bound {rag_bound:.4f} ms ({rag_by}), "
+        f"profiler device ms a call "
         + "; ".join(f"{name.split('(')[0][-36:]} {sec * 1e3 / 50:.4f}"
                     for name, (_, sec) in prof.items())
         + f"; plain {rag_plain:.4f} ms, gather+bmm+stable sort "
@@ -3600,6 +3635,16 @@ def main() -> None:
         for line in build.ptxas_report(src).splitlines():
             if "ptxas" in line:
                 log(f"    {src}: {line.strip()}")
+    sass = dense_sass()
+    if sass is None:
+        log("    dense_partial SASS: no cuobjdump in the toolkit")
+    elif not (sass["HGMMA"] and sass["IGMMA"] and sass["UTMALDG"]) or (
+            sass["HMMA"] or sass["IMMA"]):
+        fail(f"dense_partial SASS is not wgmma and TMA: {sass}")
+    else:
+        log(f"    dense_partial SASS (cuobjdump): {sass['HGMMA']} HGMMA, "
+            f"{sass['IGMMA']} IGMMA, {sass['UTMALDG']} UTMALDG, no HMMA "
+            f"or IMMA")
 
     # 3. kernel vs plain ---------------------------------------------------
     # no tuned table from here to phase 10, whatever the environment names:
@@ -3976,6 +4021,10 @@ def main() -> None:
     n_c = tc.shape[0]
     k_t = 3
     tk_ms = cuda_ms(lambda: topk_scores(tq, tc, k=k_t), 10)
+    # the same corpus at k 40, held to the plain version first
+    err, ratio = check_topk(tq, tc, 40)
+    topk_err, topk_ratio = max(topk_err, err), max(topk_ratio, ratio)
+    tk40_ms = cuda_ms(lambda: topk_scores(tq, tc, k=40), 10)
     tk_plain_ms = cuda_ms(lambda: topk_scores_ref(tq, tc, k=k_t), 3)
     tk_lib_ms = cuda_ms(lambda: torch.sort(tq @ tc.T, dim=1, descending=True,
                                            stable=True), 3)
@@ -4005,6 +4054,10 @@ def main() -> None:
     del part_s, part_i, m_out
     k_i = 40
     i8_ms = cuda_ms(lambda: topk_scores_int8(iq, ic, k=k_i), 10)
+    # the curve's pools (phase 3 held each to the plain version)
+    i8_k_ms = {k: cuda_ms(lambda: topk_scores_int8(iq, ic, k=k), 10)
+               for k in (10, 20, 80)}
+    i8_k_ms[k_i] = i8_ms
     i8_plain_ms = cuda_ms(lambda: topk_scores_int8_ref(iq, ic, k=k_i), 3)
     i8_lib_ms = cuda_ms(lambda: torch.sort(
         torch._int_mm(iq, ic.T).to(torch.float32), dim=1, descending=True,
@@ -4015,7 +4068,9 @@ def main() -> None:
         f"{lp_plain_ms:.4f} ms, bound {lp_bound:.4f} ms ({lp_by})")
     log(f"    topk_scores Q={qn} N={n_c} D={d} k={k_t}: kernel {tk_ms:.4f} "
         f"ms, plain {tk_plain_ms:.4f} ms, matmul+stable sort "
-        f"{tk_lib_ms:.4f} ms, bound {tk_bound:.4f} ms ({tk_by})")
+        f"{tk_lib_ms:.4f} ms, bound {tk_bound:.4f} ms ({tk_by}); at k=40 "
+        f"{tk40_ms:.4f} ms (within the summation bound of the plain "
+        f"version)")
     log(f"    topk_merge of that corpus's partial lists at k={k_m} (Q={qn}, "
         f"{m_width} entries a row; plan {m_plan[1]} segments of "
         f"{m_plan[0]}): kernel {m_ms:.4f} ms a call (device, queued behind "
@@ -4027,6 +4082,8 @@ def main() -> None:
     # chunk of 256 over the rows of the evaluation grid's uniform sample
     gq, gr = grid_search
     k_s = 10
+    err, ratio = check_topk(gq, gr, k_s)
+    topk_err, topk_ratio = max(topk_err, err), max(topk_ratio, ratio)
     gs_ms = cuda_ms(lambda: topk_scores(gq, gr, k=k_s), 20)
     gs_plain_ms = cuda_ms(lambda: topk_scores_ref(gq, gr, k=k_s), 5)
     gs_lib_ms = cuda_ms(lambda: torch.sort(gq @ gr.T, dim=1, descending=True,
@@ -4157,7 +4214,9 @@ def main() -> None:
     del rq, rc, rows
     log(f"    topk_scores_int8 Q={qn} N={n_c} D={d} k={k_i}: kernel "
         f"{i8_ms:.4f} ms, plain {i8_plain_ms:.4f} ms, _int_mm+stable sort "
-        f"{i8_lib_ms:.4f} ms, bound {i8_bound:.4f} ms ({i8_by})")
+        f"{i8_lib_ms:.4f} ms, bound {i8_bound:.4f} ms ({i8_by}); the "
+        f"curve's pools: " + ", ".join(f"k={k} {ms:.4f} ms" for k, ms in
+                                        sorted(i8_k_ms.items())))
     # the int8 serving tick (15d: a bucket of 32 over a tenant's codes at
     # the pool k 64): the call, each narrow kernel's device time, the plain
     # version and one PyTorch call (_int_mm refuses 16 rows or fewer)
@@ -5855,13 +5914,13 @@ def main() -> None:
          "max_abs_err": 0, "ms": lp_ms, "plain_ms": lp_plain_ms,
          "bound_ms": lp_bound, "bound_by": lp_by, "library_ms": None},
         {"name": "topk_scores", "route": "cuda",
-         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "source": "src/repro_torch/csrc/dense_topk.cu",
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:23",
          "launches": launches("topk_partial"),
          "max_abs_err": topk_err, "ms": tk_ms, "plain_ms": tk_plain_ms,
          "bound_ms": tk_bound, "bound_by": tk_by, "library_ms": tk_lib_ms},
         {"name": "topk_scores_int8", "route": "cuda",
-         "source": "src/repro_torch/csrc/topk_scores.cu",
+         "source": "src/repro_torch/csrc/dense_topk.cu",
          "replaces": "src/repro/kernels/topk_scoring/topk_scoring.py:49",
          "launches": (launches("topk_int8_partial")
                       + launches("topk_narrow_scores_int8")),

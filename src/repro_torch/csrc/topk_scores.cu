@@ -41,72 +41,38 @@
 // list of k 100 at Q 1 leaves a merge of 13,100 entries to one warp, so
 // Q <= kNQMax takes the narrow kernels below instead.
 //
-// Design (simple first; wgmma/TMA/warp specialisation are later work):
-//  * dense_partial<In, kPieces, kR> (topk_partial, topk_int8_partial):
-//    grid (query tile, candidate split), the query tile fastest, so the
-//    blocks that share a split's rows stream them through L2 together. A
-//    block of 256 threads takes 128 queries (the curve's Q 128 once, a grid
-//    search's chunk of 256 twice; the f32 kernel only above kNQMax
-//    queries) and walks its split's 128-row corpus tiles. Each row streams in chunks of 128 bytes through a ring of 3
-//    shared-memory stages fed by 16-byte cp.async two steps ahead, the ring
-//    running on across tiles (zeros past Q, N and D, so a ragged D adds
-//    nothing to a sum; a row that is not 16-byte aligned is staged a word
-//    at a time). Queries [Q, D] and corpus [N, D] are both K-contiguous,
-//    which is mma's row.col, so fragments come straight from the staged
-//    rows by ldmatrix (rows padded to 144 bytes, so each 8-row matrix read
-//    touches every bank once). Warp w owns queries 16w..16w+15 and all 128
-//    rows of the tile: sixteen m16n8 accumulators. f32: mma.sync m16n8k8
-//    TF32; each fragment value x is split in registers, x_hi = x rounded
-//    to TF32, x_lo = x - x_hi (tf32_split), and the products a_lo*b_hi,
-//    a_hi*b_lo and a_hi*b_hi go, small terms first, into one accumulator
-//    a chunk ("3xTF32": about 22 bits of each operand, an error near 2^-21
-//    of each term). The MMA truncates its sums, which over a whole row of
-//    like-signed terms (768 MMAs at D 2048) would bias it low by parts in
+// Q above kNQMax (kNQInt8 for int8 codes) takes the dense kernels of
+// dense_topk.cu (topk_partial, topk_int8_partial: a TMA ring into wgmma,
+// per-split lists), whose partial lists the merge below finishes.
+//
+// Design:
+//  * 3xTF32 (the narrow and gathered scorers here, the dense kernels of
+//    dense_topk.cu; topk_lists.cuh): f32-accurate products on the TF32
+//    tensor cores. Each value x is split, x_hi = x rounded to TF32, x_lo
+//    = x - x_hi (tf32_split), and the products a_lo*b_hi, a_hi*b_lo and
+//    a_hi*b_hi go, small terms first, into one accumulator a chunk (about
+//    22 bits of each operand, an error near 2^-21 of each term). The
+//    tensor cores truncate their sums, which over a whole row of
+//    like-signed terms (768 steps at D 2048) would bias it low by parts in
 //    1e5, so each chunk's sum is added to the running one with a rounded
-//    add. Where D <= 8, one MMA step, the summation bound
-//    that the plain version is held to (D * 2^-24 * sum |q_d c_d|) is
-//    tighter than the split's error, so each value is split exactly into
-//    three TF32 pieces and the six products with i + j <= 2 are taken,
-//    small first. The pieces are TF32 values, whose denormals step by
-//    2^-136, and the low piece of an entry below about 2^-115 would lie
-//    there and lose its bits (the plain version does not). So every
-//    product is taken 2^12 times larger: a piece below the leading one
-//    enters scaled by 2^12 (the corpus's as b_j * 2^12, the query's as
-//    a_i * 2^12 against the corpus's leading piece), which keeps it
-//    normal for any normal entry, and each chunk's sum is scaled back by
-//    2^-12 in the fused add to the running sum. Powers of two change no
-//    rounding, so entries of ordinary size give the same bits as without
-//    the scale; sums past about 2^116 would overflow. int8:
-//    mma.sync m16n8k32 s8.s8.s32, exact int32 sums, ranked as f32 like
-//    the reference's. mma.sync is not the card's full tensor-core rate:
-//    on an H100 at 700 W it issued 268-291 TFLOP/s of TF32 and about 1225
-//    TOP/s of s8 with 8 warps an SM (tools/mma_rate.py), so the three
-//    products at the main path's shape take at least 2.8 ms this way;
-//    wgmma is the way past that.
-//  * Selection from the accumulators: lane (g, t) of warp w holds, for its
-//    queries 16w + g and 16w + g + 8, columns 8j + 2t and 8j + 2t + 1 of
-//    each n8 tile j. At the end of a tile it compares each score with its
-//    query's current k-th (score, id), kept in registers; rows at or past n
-//    and queries past nq never survive. If any lane of the warp has a
-//    survivor, the survivors' scores go to the warp's scratch rows in shared
-//    memory (-inf elsewhere). In a split's first tile every score survives
-//    and the lists are empty, so each query's row is sorted (a bitonic
-//    network in the warp) and its best min(k, 128) become its list at
-//    once. Later, each query with survivors is offered them, 32 columns
-//    at a time: for k <= 96 its list is loaded into kR = ceil(k / 32)
-//    registers a lane, the 32-column chunks with a survivor are offered
-//    to it by a ballot against its k-th entry, and each winner is
-//    inserted by lanes_insert (reg_insert over kR registers: a few
-//    shuffles an entry); then it is stored back. Beyond, mem_offer
-//    inserts in place. The new k-th becomes the query's bar. After the
-//    first tiles almost nothing survives, and a query without survivors
-//    costs one compare per score. The lists of the block's 128 queries
-//    live in shared memory beside the ring up to k = 80 (the evaluation
-//    curve's largest int8 pool: 80 KB, 222 KB in all, one block an SM),
-//    beyond it in each query's slice of the output in device memory. Each
-//    split writes the same partial layout as the kernels before it, so
-//    topk_merge is shared.
-//  * Lists (the dense, gathered and merge kernels): one running top-k list
+//    add. Where D <= 8, one step, the summation bound that the plain
+//    version is held to (D * 2^-24 * sum |q_d c_d|) is tighter than the
+//    split's error, so each value is split exactly into three TF32 pieces
+//    and the six products with i + j <= 2 are taken, small first (the
+//    narrow and gathered scorers sum in f64 there instead). The pieces are
+//    TF32 values, whose denormals step by 2^-136, and the low piece of an
+//    entry below about 2^-115 would lie there and lose its bits (the plain
+//    version does not). So every product is taken 2^12 times larger: a
+//    piece below the leading one enters scaled by 2^12 (the corpus's as
+//    b_j * 2^12, the query's as a_i * 2^12 against the corpus's leading
+//    piece), which keeps it normal for any normal entry, and each chunk's
+//    sum is scaled back by 2^-12 in the fused add to the running sum.
+//    Powers of two change no rounding, so entries of ordinary size give
+//    the same bits as without the scale; sums past about 2^116 would
+//    overflow. mma.sync is not the card's full tensor-core rate: on an
+//    H100 at 700 W it issued 268-291 TFLOP/s of TF32 and about 1225 TOP/s
+//    of s8 with 8 warps an SM (tools/mma_rate.py).
+//  * Lists (the gathered and merge kernels): one running top-k list
 //    per query ordered by score descending, ties to the lower id. For k <=
 //    32 the list lives in lanes 0..k-1. For larger k it lives in memory,
 //    shifted in parallel by the warp 32 entries at a time, with the k-th
@@ -180,10 +146,10 @@
 //    operands' roles swap, corpus rows on the MMA's M side and the queries,
 //    rounded up to 8 kQT (8, 16, 32 or 64), on its N side, so the products
 //    cost the real queries only. One block of 8 warps an SM walks a run of
-//    256-row tiles (32 rows, two m16 tiles, a warp) through the dense
-//    kernel's ring (4 stages of 128-byte chunks of the tile's rows and of
-//    every query, cp.async, 144-byte rows for ldmatrix). f32: dense_chunk's
-//    3xTF32 products and order, a query fragment split once for both row
+//    256-row tiles (32 rows, two m16 tiles, a warp) through a ring of 4
+//    stages of 128-byte chunks of the tile's rows and of every query
+//    (cp.async, 144-byte rows for ldmatrix). f32: the 3xTF32 products
+//    (above) in their order, a query fragment split once for both row
 //    tiles and each product issued for all 2 kQT accumulators before the
 //    next; D <= kExactDepth: the dots summed in f64 on the CUDA cores
 //    (exact products, one rounding), since the MMA truncates as it adds
@@ -222,7 +188,6 @@
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kRegK = 32;      // largest k whose list fits in warp lanes
 constexpr int kSmemK = 96;     // largest k whose lists fit in shared memory
@@ -230,267 +195,13 @@ constexpr int kMergeWarps = 8;  // warps a block of the merge
 constexpr int kMergeVec = 4;    // entries a merge lane loads before offering
 constexpr int kWarps = kThreads / 32;
 
-// (s, id) beats (t, tid): higher score, or equal score and lower id.
-__device__ __forceinline__ bool beats(float s, int id, float t, int tid) {
-  return s > t || (s == t && id < tid);
-}
+#include "topk_lists.cuh"
 
-// ---- k <= 32: the list lives in lanes 0..k-1 ------------------------------
+// ---- tensor-core tiles of the narrow and gathered kernels -----------------
 
-// Insert (s, id) into the warp's list held in lanes 0..k-1.
-__device__ __forceinline__ void reg_insert(float& ls, int& li, float s,
-                                           int id, int k, int lane) {
-  const unsigned ahead =
-      __ballot_sync(kFull, lane < k && beats(ls, li, s, id));
-  const int pos = __popc(ahead);
-  if (pos >= k) return;  // uniform across the warp
-  const float up_s = __shfl_up_sync(kFull, ls, 1);
-  const int up_i = __shfl_up_sync(kFull, li, 1);
-  if (lane == pos) {
-    ls = s;
-    li = id;
-  } else if (lane > pos && lane < k) {
-    ls = up_s;
-    li = up_i;
-  }
-}
-
-// Sort the warp's 32 entries, one a lane, best first by beats (a bitonic
-// network: equal entries stay where they are).
-__device__ __forceinline__ void warp_sort(float& s, int& id, int lane) {
-#pragma unroll
-  for (int size = 2; size <= 32; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const float ps = __shfl_xor_sync(kFull, s, stride);
-      const int pi = __shfl_xor_sync(kFull, id, stride);
-      // a block of `size` runs best first where lane & size is 0; its
-      // lower lane of a pair keeps the better entry there
-      const bool better_here = ((lane & stride) == 0) == ((lane & size) == 0);
-      if (better_here ? beats(ps, pi, s, id) : beats(s, id, ps, pi)) {
-        s = ps;
-        id = pi;
-      }
-    }
-  }
-}
-
-// Offer one candidate per lane (s = -inf means none) to the warp's list.
-// Up to kFewWinners lanes that beat the k-th entry are inserted one by
-// one; more (a list's first chunks, sorted lists merged) are sorted and
-// merged with the list at once (the better of entry i and candidate 31 -
-// i is a bitonic sequence holding the best 32; five more steps sort it),
-// where inserting each would take a ballot and shuffles apiece. Lanes
-// k..31 stay at (-inf, -1), as reg_insert leaves them, so either way the
-// list is the k best by beats.
-constexpr int kFewWinners = 4;
-
-__device__ __forceinline__ void reg_offer(float& ls, int& li, float s,
-                                          int id, int k, int lane) {
-  const float kth_s = __shfl_sync(kFull, ls, k - 1);
-  const int kth_i = __shfl_sync(kFull, li, k - 1);
-  const bool win = s != -CUDART_INF_F && beats(s, id, kth_s, kth_i);
-  unsigned m = __ballot_sync(kFull, win);
-  if (__popc(m) <= kFewWinners) {
-    while (m) {
-      const int t = __ffs(m) - 1;
-      m &= m - 1;
-      reg_insert(ls, li, __shfl_sync(kFull, s, t), __shfl_sync(kFull, id, t),
-                 k, lane);
-    }
-    return;
-  }
-  float cs = win ? s : -CUDART_INF_F;
-  int ci = win ? id : -1;
-  warp_sort(cs, ci, lane);
-  const float rs = __shfl_sync(kFull, cs, 31 - lane);
-  const int ri = __shfl_sync(kFull, ci, 31 - lane);
-  if (beats(rs, ri, ls, li)) {
-    ls = rs;
-    li = ri;
-  }
-#pragma unroll
-  for (int stride = 16; stride > 0; stride >>= 1) {
-    const float ps = __shfl_xor_sync(kFull, ls, stride);
-    const int pi = __shfl_xor_sync(kFull, li, stride);
-    if ((lane & stride) == 0 ? beats(ps, pi, ls, li) : beats(ls, li, ps, pi)) {
-      ls = ps;
-      li = pi;
-    }
-  }
-  if (lane >= k) {
-    ls = -CUDART_INF_F;
-    li = -1;
-  }
-}
-
-// ---- k <= 32 R: entry p in register p / 32 of lane p % 32 -----------------
-// The dense kernels' lists: reg_insert over R registers a lane, the same
-// order and tie rule.
-
-template <int R>
-__device__ __forceinline__ void lanes_insert(float (&ls)[R], int (&li)[R],
-                                             float s, int id, int k,
-                                             int lane) {
-  int pos = 0;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    pos += __popc(__ballot_sync(
-        kFull, lane + 32 * r < k && beats(ls[r], li[r], s, id)));
-  if (pos >= k) return;  // uniform across the warp
-  // every shuffle reads the list before any entry moves; lane 0 of
-  // register r > 0 takes entry 32r - 1, from lane 31 of register r - 1
-  float up_s[R], in_s[R];
-  int up_i[R], in_i[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    up_s[r] = __shfl_up_sync(kFull, ls[r], 1);
-    up_i[r] = __shfl_up_sync(kFull, li[r], 1);
-    if (r > 0) {
-      in_s[r] = __shfl_sync(kFull, ls[r - 1], 31);
-      in_i[r] = __shfl_sync(kFull, li[r - 1], 31);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int p = lane + 32 * r;
-    if (p == pos) {
-      ls[r] = s;
-      li[r] = id;
-    } else if (p > pos && p < k) {
-      ls[r] = r > 0 && lane == 0 ? in_s[r] : up_s[r];
-      li[r] = r > 0 && lane == 0 ? in_i[r] : up_i[r];
-    }
-  }
-}
-
-// Entry k - 1 of a lane list, in every lane. Every register is shuffled
-// and the right one kept: picking the register first would index the list
-// by a runtime value, which sends it to local memory.
-template <int R>
-__device__ __forceinline__ void lanes_kth(const float (&ls)[R],
-                                          const int (&li)[R], int k,
-                                          float& kth_s, int& kth_i) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float s = __shfl_sync(kFull, ls[r], (k - 1) & 31);
-    const int i = __shfl_sync(kFull, li[r], (k - 1) & 31);
-    if (r == 0 || r == (k - 1) >> 5) {
-      kth_s = s;
-      kth_i = i;
-    }
-  }
-}
-
-// ---- any k: the list lives in shared or device memory s/i[0..k) ------------
-// The warp's lanes read and write it; __syncwarp orders their accesses, and
-// volatile keeps each access a real load or store.
-
-struct MemList {
-  volatile float* s;
-  volatile int* i;
-  float kth_s;   // cached entry k-1, the bar a candidate must clear
-  int kth_i;
-};
-
-__device__ __forceinline__ void mem_init(MemList& l, int k, int lane) {
-  for (int p = lane; p < k; p += 32) {
-    l.s[p] = -CUDART_INF_F;
-    l.i[p] = -1;
-  }
-  __syncwarp();
-  l.kth_s = -CUDART_INF_F;
-  l.kth_i = -1;
-}
-
-__device__ void mem_insert(MemList& l, float s, int id, int k, int lane) {
-  int ahead = 0;
-  for (int p = lane; p < k; p += 32) ahead += beats(l.s[p], l.i[p], s, id);
-  const int pos = __reduce_add_sync(kFull, ahead);
-  if (pos >= k) return;  // uniform across the warp
-  // shift entries pos..k-2 up by one, top 32-entry chunk first: each chunk
-  // reads the entry below before the next chunk down overwrites it
-  for (int base = (k - 1) & ~31; base >= 0 && base + 31 > pos; base -= 32) {
-    const int p = base + lane;
-    const bool move = p > pos && p < k;
-    float up_s = 0.f;
-    int up_i = 0;
-    if (move) {
-      up_s = l.s[p - 1];
-      up_i = l.i[p - 1];
-    }
-    __syncwarp();
-    if (move) {
-      l.s[p] = up_s;
-      l.i[p] = up_i;
-    }
-    __syncwarp();
-  }
-  if (lane == 0) {
-    l.s[pos] = s;
-    l.i[pos] = id;
-  }
-  __syncwarp();
-  l.kth_s = l.s[k - 1];
-  l.kth_i = l.i[k - 1];
-}
-
-// Point l at the list of `slot` in dynamic shared memory when `smem`, else
-// at s/i in device memory, and empty it.
-__device__ __forceinline__ void mem_place(MemList& l, bool smem, int slot,
-                                          float* s, int* i, int k,
-                                          int lane) {
-  extern __shared__ __align__(16) unsigned char lists[];
-  if (smem) {
-    float* base = reinterpret_cast<float*>(lists) + 2 * slot * k;
-    l.s = base;
-    l.i = reinterpret_cast<int*>(base + k);
-  } else {
-    l.s = s;
-    l.i = i;
-  }
-  mem_init(l, k, lane);
-}
-
-// Copy a shared-memory list out to s/i in device memory.
-__device__ __forceinline__ void mem_store(const MemList& l, float* s, int* i,
-                                          int k, int lane) {
-  for (int p = lane; p < k; p += 32) {
-    s[p] = l.s[p];
-    i[p] = l.i[p];
-  }
-}
-
-__device__ __forceinline__ void mem_offer(MemList& l, float s, int id, int k,
-                                          int lane) {
-  unsigned m = __ballot_sync(kFull, s != -CUDART_INF_F &&
-                                        beats(s, id, l.kth_s, l.kth_i));
-  while (m) {
-    const int t = __ffs(m) - 1;
-    m &= m - 1;
-    const float st = __shfl_sync(kFull, s, t);
-    const int it = __shfl_sync(kFull, id, t);
-    if (beats(st, it, l.kth_s, l.kth_i)) mem_insert(l, st, it, k, lane);
-  }
-}
-
-// ---- dense: tensor-core tiles (topk_partial, topk_int8_partial) ------------
-
-constexpr int kDQ = 128;                 // queries per block
-constexpr int kDN = 128;                 // corpus rows per tile
 constexpr int kDChunk = 128;             // bytes of a row staged per step
 constexpr int kDRow = kDChunk + 16;      // padded staged row (bytes)
-constexpr int kDStages = 3;              // ring stages: 2 steps prefetched
-constexpr int kDStage = (kDQ + kDN) * kDRow;          // bytes per stage
-constexpr int kDSRow = kDN + 8;          // padded scratch row (floats)
-constexpr int kDScratch = kWarps * 8 * kDSRow * 4;    // bytes, 8 rows a warp
-constexpr int kDSmemK = 80;              // largest k with lists in smem
 constexpr int kExactDepth = 8;           // f32: D at most one MMA deep
-constexpr int kLaneK = 96;               // largest k offered in lanes
-constexpr size_t kDFixed = size_t(kDStages) * kDStage + kDScratch;
-
-template <typename In> struct DenseAcc { using T = float; };
-template <> struct DenseAcc<signed char> { using T = int; };
 
 // 16 bytes from gmem to smem, the last 16 - bytes of them zeros.
 __device__ __forceinline__ void cp_async_zfill(unsigned char* smem,
@@ -507,24 +218,6 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-// x as kPieces TF32 values, largest first, each but the last the TF32
-// rounding (to nearest, ties away: cvt.rna's rule, by an integer add and
-// mask, which run at the full ALU rate where cvt.rna.tf32 does not) of
-// what the ones before leave; the last is passed as it is, and the MMA
-// reads its top 10 mantissa bits. Two pieces hold about 22 of x's 24 bits
-// (error below 2^-21 of x), three hold all of them.
-template <int kPieces>
-__device__ __forceinline__ void tf32_split(unsigned (&p)[kPieces],
-                                           unsigned x) {
-  float rest = __uint_as_float(x);
-#pragma unroll
-  for (int i = 0; i + 1 < kPieces; ++i) {
-    p[i] = (__float_as_uint(rest) + 0x1000u) & 0xffffe000u;
-    rest = __fsub_rn(rest, __uint_as_float(p[i]));
-  }
-  p[kPieces - 1] = __float_as_uint(rest);
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
@@ -545,111 +238,13 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The warp's 16 x 128 tile over one staged chunk: `steps` (1-4) 32-byte MMA
-// steps of depth (8 floats or 32 int8 codes each), A from the staged query
-// rows at a_addr, B for n8 tiles 2p and 2p + 1 from the staged corpus rows
-// at b_addr + p * 16 rows. ldmatrix.x4 hands lane (g, t) word t of row g
-// of four 8 x 16-byte matrices, which is exactly the A (rows 0-7 / 8-15,
-// bytes 0-15 / 16-31) and B (a tile's rows, bytes 0-15 / 16-31) fragments
-// of both MMA shapes. f32: the MMA truncates its sums, so 768 MMAs into
-// one accumulator (D 2048) bias a sum of like-signed terms low by parts in
-// 1e5, past the card tests' rtol of 1e-5; so each n8 tile sums the chunk's
-// products in a fresh accumulator and adds that to its running sum with a
-// rounded add. Each product a_i * b_j is taken kLoScale times larger, the
-// scale on a piece below the leading one where there is one (b_j for
-// j > 0, else a_i), so no such piece falls among TF32's denormals; the
-// rounded add scales the chunk's sum back exactly.
-constexpr float kLoScale = 4096.f;               // 2^12
-constexpr float kLoUnscale = 1.f / 4096.f;
-
-template <int kPieces>
-__device__ __forceinline__ void dense_chunk(float (&acc)[16][4],
-                                            unsigned a_addr, unsigned b_addr,
-                                            int steps) {
-  // half the n8 tiles at a time, so that their partial sums and the
-  // running ones fit in registers together
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float part[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDChunk / 32; ++kk) {
-      if (kk >= steps) break;                     // uniform: past d
-      // a[i]: piece i of the query value; as[i]: the same times kLoScale
-      unsigned raw[4], a[kPieces][4], as[kPieces][4];
-      ldmatrix_x4(raw, a_addr + kk * 32);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        unsigned p[kPieces];
-        tf32_split<kPieces>(p, raw[r]);
-#pragma unroll
-        for (int i = 0; i < kPieces; ++i) {
-          a[i][r] = p[i];
-          as[i][r] = __float_as_uint(__uint_as_float(p[i]) * kLoScale);
-        }
-      }
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        ldmatrix_x4(raw, b_addr + (4 * half + jp) * 16 * kDRow + kk * 32);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          unsigned b0[kPieces], b1[kPieces];
-          tf32_split<kPieces>(b0, raw[2 * h]);
-          tf32_split<kPieces>(b1, raw[2 * h + 1]);
-#pragma unroll
-          for (int j = 1; j < kPieces; ++j) {       // b_j * kLoScale
-            b0[j] = __float_as_uint(__uint_as_float(b0[j]) * kLoScale);
-            b1[j] = __float_as_uint(__uint_as_float(b1[j]) * kLoScale);
-          }
-          // the products a_i * b_j * kLoScale with i + j < kPieces,
-          // smallest first
-#pragma unroll
-          for (int sum = kPieces - 1; sum >= 0; --sum)
-#pragma unroll
-            for (int i = sum; i >= 0; --i)
-              mma_tf32(part[2 * jp + h], sum == i ? as[i] : a[i],
-                       b0[sum - i], b1[sum - i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[8 * half + j][e] =
-            __fmaf_rn(part[j][e], kLoUnscale, acc[8 * half + j][e]);
-  }
-}
-
-// int8: exact int32 sums, straight into the accumulators.
-template <int kPieces>
-__device__ __forceinline__ void dense_chunk(int (&acc)[16][4], unsigned a_addr,
-                                            unsigned b_addr, int steps) {
-#pragma unroll
-  for (int kk = 0; kk < kDChunk / 32; ++kk) {
-    if (kk >= steps) break;                       // uniform: past d
-    unsigned a[4], b[4];
-    ldmatrix_x4(a, a_addr + kk * 32);
-#pragma unroll
-    for (int jp = 0; jp < kDN / 16; ++jp) {
-      ldmatrix_x4(b, b_addr + jp * 16 * kDRow + kk * 32);
-      mma_s8(acc[2 * jp], a, b[0], b[1]);
-      mma_s8(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
 // Stage bytes [ch * kDChunk, +kDChunk) of kRowsA rows of a from row a0
 // (then kRowsB rows of b from row b0) into `stage`, rows kDRow bytes
 // apart, zeros past na (nb) and the rows' row_bytes. kMapB: b's staged
 // row x is b_map[x] (-1: zeros) for x < nb, and rows x >= nb are left as
-// they are. vec: rows 16-byte aligned, row_bytes % 16 == 0. The dense
-// kernels stage their queries, then their corpus rows; the narrow scorer
-// its corpus rows, then the queries; the gathered kernel its tile's table
-// rows, then its pieces' query rows.
+// they are. vec: rows 16-byte aligned, row_bytes % 16 == 0. The narrow
+// scorer stages its corpus rows, then the queries; the gathered kernel its
+// tile's table rows, then its pieces' query rows.
 template <int kRowsA, int kRowsB, bool kMapB = false>
 __device__ __forceinline__ void stage_rows(unsigned char* stage,
                                            const unsigned char* a,
@@ -730,349 +325,6 @@ __device__ __forceinline__ void stage_rows(unsigned char* stage,
       }
       *reinterpret_cast<unsigned*>(stage + r * kDRow + x) = word;
     }
-  }
-}
-
-// A scratch row's kDN scores (ids n0 + column), best first by beats (a
-// bitonic network over 4 registers a lane: partners 32 or 64 apart are in
-// the lane's other registers, nearer ones a shuffle away): entry 32x +
-// lane in v[x], vi[x], -inf entries with id -1.
-__device__ __forceinline__ void sort_row(const float* row, int n0, int lane,
-                                         float (&v)[kDN / 32],
-                                         int (&vi)[kDN / 32]) {
-  constexpr int X = kDN / 32;
-#pragma unroll
-  for (int x = 0; x < X; ++x) {
-    v[x] = row[32 * x + lane];
-    vi[x] = v[x] == -CUDART_INF_F ? -1 : n0 + 32 * x + lane;
-  }
-  constexpr int kLog = 7;                       // kDN == 1 << kLog
-  static_assert(kDN == 1 << kLog, "the network sorts kDN entries");
-#pragma unroll
-  for (int ls = 1; ls <= kLog; ++ls) {
-#pragma unroll
-    for (int lj = ls - 1; lj >= 0; --lj) {
-      const int j = 1 << lj;
-      float pv[X];
-      int pi[X];
-#pragma unroll
-      for (int x = 0; x < X; ++x) {
-        if (j >= 32) {
-          pv[x] = v[x ^ (j >> 5)];
-          pi[x] = vi[x ^ (j >> 5)];
-        } else {
-          pv[x] = __shfl_xor_sync(kFull, v[x], j);
-          pi[x] = __shfl_xor_sync(kFull, vi[x], j);
-        }
-      }
-#pragma unroll
-      for (int x = 0; x < X; ++x) {
-        // the lower entry of a pair takes the better of the two where its
-        // block of 2^ls runs best first, the worse where it runs reversed
-        const int e = 32 * x + lane;
-        const bool want_better = ((e & j) == 0) == ((e >> ls & 1) == 0);
-        if (want_better != beats(v[x], vi[x], pv[x], pi[x])) {
-          v[x] = pv[x];
-          vi[x] = pi[x];
-        }
-      }
-    }
-  }
-}
-
-// q [nq, d] and c [n, d] of type In. Writes each split's top-k list of each
-// query into part_s/part_i [nq, n_splits * k]. Grid (query tile of kDQ,
-// split). Lists are kept in shared memory when smem_lists, else in
-// part_s/part_i; a query's list is offered its survivors in kR registers a
-// lane (k <= 32 * kR), or in place (kR = 0, any k).
-template <typename In, int kPieces, int kR>
-__global__ void __launch_bounds__(kThreads, 1)
-dense_partial(const In* __restrict__ q, const In* __restrict__ c,
-              float* part_s, int* part_i, int nq, int n, int d, int k,
-              int tiles_per_split, int n_splits, int vec, int smem_lists) {
-  extern __shared__ __align__(128) unsigned char dsm[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kDQ;
-  const int split = blockIdx.y;
-  const int n_tiles = (n + kDN - 1) / kDN;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  const long long row_bytes = static_cast<long long>(d) * sizeof(In);
-  // D = 0 still takes one (empty) chunk, so every tile is selected from
-  const int n_chunks =
-      max(1, static_cast<int>((row_bytes + kDChunk - 1) / kDChunk));
-  const int steps = max(t_end - t_begin, 0) * n_chunks;
-  const long long width = static_cast<long long>(n_splits) * k;
-  float* scratch =
-      reinterpret_cast<float*>(dsm + kDStages * kDStage) + warp * 8 * kDSRow;
-  float* lists = reinterpret_cast<float*>(dsm + kDFixed);
-  const auto* qb = reinterpret_cast<const unsigned char*>(q);
-  const auto* cb = reinterpret_cast<const unsigned char*>(c);
-
-  // the list of the warp's query r: 2k floats in shared memory, or the
-  // query's slice of the output
-  auto list_s = [&](int r) -> float* {
-    const int ql = 16 * warp + r;
-    return smem_lists ? lists + 2 * ql * k
-                      : part_s + (q0 + ql) * width + split * k;
-  };
-  auto list_i = [&](int r) -> int* {
-    const int ql = 16 * warp + r;
-    return smem_lists ? reinterpret_cast<int*>(lists + 2 * ql * k + k)
-                      : part_i + (q0 + ql) * width + split * k;
-  };
-  for (int r = 0; r < 16; ++r) {
-    if (q0 + 16 * warp + r >= nq) break;        // uniform in the warp
-    float* s = list_s(r);
-    int* i = list_i(r);
-    for (int p = lane; p < k; p += 32) {
-      s[p] = -CUDART_INF_F;
-      i[p] = -1;
-    }
-  }
-  __syncwarp();
-  // the bar of the lane's queries 16w + g + 8h: their lists' k-th entry
-  float bar_s[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  int bar_i[2] = {-1, -1};
-
-  using Acc = typename DenseAcc<In>::T;
-  Acc acc[16][4];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = Acc(0);
-  // a warp whose queries all lie past nq stages and syncs, no more
-  const bool busy = q0 + 16 * warp < nq;
-  // this lane's ldmatrix row: A rows 16w + (lane & 7) + 8 * (lane >> 3 & 1)
-  // at byte 16 * (lane >> 4); B rows (lane & 7) + 8 * (lane >> 4) at byte
-  // 16 * (lane >> 3 & 1)
-  const unsigned ring = static_cast<unsigned>(__cvta_generic_to_shared(dsm));
-  const int lr = lane & 7, lm = lane >> 3;
-  const unsigned a_off =
-      (16 * warp + lr + 8 * (lm & 1)) * kDRow + 16 * (lm >> 1);
-  const unsigned b_off = (kDQ + lr + 8 * (lm >> 1)) * kDRow + 16 * (lm & 1);
-
-  // step s stages chunk s % n_chunks of tile t_begin + s / n_chunks; a
-  // group is committed every step, empty or not, so "all but the last
-  // kDStages - 2" is always step s
-#pragma unroll
-  for (int s = 0; s < kDStages - 1; ++s) {
-    if (s < steps)
-      stage_rows<kDQ, kDN>(dsm + s * kDStage, qb, cb, q0,
-                           (t_begin + s / n_chunks) * kDN, nq, n, row_bytes,
-                           s % n_chunks, vec);
-    asm volatile("cp.async.commit_group;\n" ::);
-  }
-  int tile = t_begin, ch = 0;
-  for (int s = 0; s < steps; ++s) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kDStages - 2));
-    __syncthreads();   // step s has landed; step s - 1's stage is free
-    const int ahead = s + kDStages - 1;
-    if (ahead < steps)
-      stage_rows<kDQ, kDN>(dsm + ahead % kDStages * kDStage, qb, cb, q0,
-                           (t_begin + ahead / n_chunks) * kDN, nq, n,
-                           row_bytes, ahead % n_chunks, vec);
-    asm volatile("cp.async.commit_group;\n" ::);
-    if (busy) {
-      const unsigned st = ring + s % kDStages * kDStage;
-      const long long left = row_bytes - static_cast<long long>(ch) * kDChunk;
-      dense_chunk<kPieces>(acc, st + a_off, st + b_off,
-                           static_cast<int>(min(left + 31, 128LL) / 32));
-    }
-    if (++ch < n_chunks) continue;
-
-    // selection: lane (g, t) holds queries 16w + g + 8h, columns
-    // 8j + 2t + b of the tile in acc[j][2h + b]
-    const int n0 = tile * kDN;
-    unsigned m[2] = {0u, 0u};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const bool valid = q0 + 16 * warp + g + 8 * h < nq;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int id = n0 + 8 * j + 2 * t + b;
-          if (valid && id < n &&
-              beats(static_cast<float>(acc[j][2 * h + b]), id, bar_s[h],
-                    bar_i[h]))
-            m[h] |= 1u << (2 * j + b);
-        }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      // bits 4r..4r+3 of has[x]: query 16w + 8h + r has a survivor among
-      // columns 32x..32x+31 (n8 tiles 4x..4x+3, bits 8x..8x+7 of m)
-      unsigned has[kDN / 32], any = 0u;
-#pragma unroll
-      for (int x = 0; x < kDN / 32; ++x) {
-        has[x] = __ballot_sync(kFull, (m[h] >> (8 * x) & 0xffu) != 0u);
-        any |= has[x];
-      }
-      if (any == 0u) continue;                    // uniform in the warp
-      // the 8 queries 16w + 8h + g: survivors' scores, -inf elsewhere
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        float2 v;
-        v.x = m[h] >> (2 * j) & 1u ? static_cast<float>(acc[j][2 * h])
-                                   : -CUDART_INF_F;
-        v.y = m[h] >> (2 * j + 1) & 1u
-                  ? static_cast<float>(acc[j][2 * h + 1])
-                  : -CUDART_INF_F;
-        *reinterpret_cast<float2*>(scratch + g * kDSRow + 8 * j + 2 * t) =
-            v;
-      }
-      __syncwarp();
-#pragma unroll 1
-      for (int r = 0; r < 8; ++r) {
-        if ((any >> (4 * r) & 0xfu) == 0u) continue;   // uniform
-        float* ls_p = list_s(8 * h + r);
-        int* li_p = list_i(8 * h + r);
-        const float* row = scratch + r * kDSRow;
-        float kth_s;
-        int kth_i;
-        if (tile == t_begin) {
-          // the list is empty: it takes the row's best min(k, kDN) at once
-          float v[kDN / 32];
-          int vi[kDN / 32];
-          sort_row(row, n0, lane, v, vi);
-#pragma unroll
-          for (int x = 0; x < kDN / 32; ++x) {
-            const int e = lane + 32 * x;
-            if (e < k) {
-              ls_p[e] = v[x];
-              li_p[e] = vi[x];
-            }
-          }
-          __syncwarp();
-          kth_s = ls_p[k - 1];        // past kDN still the empty entry
-          kth_i = li_p[k - 1];
-        } else if (kR == 0) {
-          MemList ml{ls_p, li_p, 0.f, 0};
-          ml.kth_s = ml.s[k - 1];
-          ml.kth_i = ml.i[k - 1];
-#pragma unroll
-          for (int x = 0; x < kDN / 32; ++x)
-            if (has[x] >> (4 * r) & 0xfu)
-              mem_offer(ml, row[32 * x + lane], n0 + 32 * x + lane, k,
-                        lane);
-          kth_s = ml.kth_s;
-          kth_i = ml.kth_i;
-        } else {
-          constexpr int R = kR > 0 ? kR : 1;
-          float ls[R];
-          int li[R];
-#pragma unroll
-          for (int x = 0; x < R; ++x) {
-            const int e = lane + 32 * x;
-            ls[x] = e < k ? ls_p[e] : -CUDART_INF_F;
-            li[x] = e < k ? li_p[e] : -1;
-          }
-          lanes_kth<R>(ls, li, k, kth_s, kth_i);
-#pragma unroll
-          for (int x = 0; x < kDN / 32; ++x) {
-            if ((has[x] >> (4 * r) & 0xfu) == 0u) continue;
-            const float sx = row[32 * x + lane];
-            const int id = n0 + 32 * x + lane;
-            unsigned mm = __ballot_sync(kFull, sx != -CUDART_INF_F &&
-                                                   beats(sx, id, kth_s,
-                                                         kth_i));
-            if (mm == 0u) continue;
-            while (mm) {
-              const int src = __ffs(mm) - 1;
-              mm &= mm - 1;
-              lanes_insert<R>(ls, li, __shfl_sync(kFull, sx, src),
-                              __shfl_sync(kFull, id, src), k, lane);
-            }
-            lanes_kth<R>(ls, li, k, kth_s, kth_i);
-          }
-#pragma unroll
-          for (int x = 0; x < R; ++x) {
-            const int e = lane + 32 * x;
-            if (e < k) {
-              ls_p[e] = ls[x];
-              li_p[e] = li[x];
-            }
-          }
-        }
-        if (g == r) {
-          bar_s[h] = kth_s;
-          bar_i[h] = kth_i;
-        }
-      }
-      __syncwarp();   // the scratch rows are rewritten for h = 1
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = Acc(0);
-    ch = 0;
-    ++tile;
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-
-  if (!smem_lists) return;        // the lists are the output already
-  __syncwarp();
-  for (int r = 0; r < 16; ++r) {
-    const int gq = q0 + 16 * warp + r;
-    if (gq >= nq) break;                          // uniform in the warp
-    const long long o = gq * width + split * k;
-    const float* s = list_s(r);
-    const int* i = list_i(r);
-    for (int p = lane; p < k; p += 32) {
-      part_s[o + p] = s[p];
-      part_i[o + p] = i[p];
-    }
-  }
-}
-
-// The dense kernels' launch: lists offered in lanes for k <= kLaneK, in
-// place beyond; kept in shared memory up to kDSmemK, else in the output.
-template <typename In, int kPieces, int kR>
-int launch_dense_lists(const void* q, const void* c, void* part_s,
-                       void* part_i, int nq, int n, int d, int k,
-                       int tiles_per_split, int n_splits, int vec,
-                       cudaStream_t st) {
-  const dim3 grid((nq + kDQ - 1) / kDQ, n_splits);
-  const int smem_lists = k <= kDSmemK;
-  const size_t bytes =
-      kDFixed + (smem_lists ? size_t(kDQ) * k * 2 * sizeof(float) : 0);
-  const cudaError_t err = cudaFuncSetAttribute(
-      dense_partial<In, kPieces, kR>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dense_partial<In, kPieces, kR><<<grid, kThreads, bytes, st>>>(
-      static_cast<const In*>(q), static_cast<const In*>(c),
-      static_cast<float*>(part_s), static_cast<int*>(part_i), nq, n, d, k,
-      tiles_per_split, n_splits, vec, smem_lists);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename In, int kPieces>
-int launch_dense(const void* q, const void* c, void* part_s, void* part_i,
-                 int nq, int n, int d, int k, int tiles_per_split,
-                 int n_splits, int vec, void* stream) {
-  if (nq <= 0 || n_splits <= 0 || k <= 0)
-    return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (k > kLaneK ? 0 : (k + 31) / 32) {
-    case 1:
-      return launch_dense_lists<In, kPieces, 1>(
-          q, c, part_s, part_i, nq, n, d, k, tiles_per_split, n_splits, vec,
-          st);
-    case 2:
-      return launch_dense_lists<In, kPieces, 2>(
-          q, c, part_s, part_i, nq, n, d, k, tiles_per_split, n_splits, vec,
-          st);
-    case 3:
-      return launch_dense_lists<In, kPieces, 3>(
-          q, c, part_s, part_i, nq, n, d, k, tiles_per_split, n_splits, vec,
-          st);
-    default:
-      return launch_dense_lists<In, kPieces, 0>(
-          q, c, part_s, part_i, nq, n, d, k, tiles_per_split, n_splits, vec,
-          st);
   }
 }
 
@@ -1241,8 +493,8 @@ __device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2],
 // staged chunk: `steps` MMA steps, A for tile m from a_addr + m * 16
 // rows, B for query n8 tiles 2p and 2p + 1 from b_addr + p * 16 rows;
 // only the first nt n8 tiles are taken (the gathered kernel's blocks hold
-// 1-kQT of them; the narrow scorer passes kQT). dense_chunk's 3xTF32
-// products in its order with the operands' roles swapped: query pieces
+// 1-kQT of them; the narrow scorer passes kQT). The 3xTF32 products
+// (above) in their order with the query pieces on the MMA's N side: query pieces
 // q0, q1 (hi, lo) and corpus pieces c0, c1, the products c0 * q1, c1 * q0
 // and c0 * q0 each taken kLoScale times larger, the scale on a low piece
 // where the product has one (q1, c1), else on c0; each chunk's sum is
@@ -1471,7 +723,7 @@ narrow_scores(const In* __restrict__ q, const In* __restrict__ c,
   const unsigned b_off =
       (kNRows + lr + 8 * (lm >> 1)) * kDRow + 16 * (lm & 1);
 
-  // the dense kernel's ring: step s stages chunk s % n_chunks of tile
+  // the ring: step s stages chunk s % n_chunks of tile
   // t_begin + s / n_chunks, a group committed every step
 #pragma unroll
   for (int s = 0; s < kNStages - 1; ++s) {
@@ -2602,29 +1854,6 @@ int launch_narrow_depth(const void* q, const void* c, void* keys,
 }
 
 }  // namespace
-
-// queries/corpus f32 [nq, d] / [n, d]; vec = 1 when both are 16-byte
-// aligned and d % 4 == 0. D <= kExactDepth takes the exact three-piece split.
-extern "C" int topk_partial(const void* q, const void* c, void* part_s,
-                            void* part_i, int nq, int n, int d, int k,
-                            int tiles_per_split, int n_splits, int vec,
-                            void* stream) {
-  return d <= kExactDepth
-             ? launch_dense<float, 3>(q, c, part_s, part_i, nq, n, d, k,
-                                      tiles_per_split, n_splits, vec, stream)
-             : launch_dense<float, 2>(q, c, part_s, part_i, nq, n, d, k,
-                                      tiles_per_split, n_splits, vec, stream);
-}
-
-// query/corpus int8 codes [nq, d] / [n, d]; vec = 1 when both are 16-byte
-// aligned and d % 16 == 0.
-extern "C" int topk_int8_partial(const void* q, const void* c, void* part_s,
-                                 void* part_i, int nq, int n, int d, int k,
-                                 int tiles_per_split, int n_splits, int vec,
-                                 void* stream) {
-  return launch_dense<signed char, 1>(q, c, part_s, part_i, nq, n, d, k,
-                                      tiles_per_split, n_splits, vec, stream);
-}
 
 // The k best of each row of partial lists part_s/part_i [nq, width] by
 // (score desc, id asc) to out_s/out_i [nq, k]; row_len [nq] (may be null:

@@ -3,9 +3,10 @@
 Each source under ``src/repro_torch/csrc/`` has a plain C interface and is
 compiled at first use by ``nvcc`` into a shared library under
 ``build/kernels/`` at the repository root (git-ignored), then loaded with
-``ctypes``. Libraries are named by a hash of their source, so an edited
-source is rebuilt and a stale library is never loaded. Each source has its
-own lock, so callers on several threads build several sources at once
+``ctypes``. Libraries are named by a hash of their source and the csrc/
+headers it includes, so an edited source or header is rebuilt and a stale
+library is never loaded. Each source has its own lock, so callers on
+several threads build several sources at once
 (``chip_smoke.py`` does, to stay inside its time limit). Each nvcc run is
 counted by the recompile sentinel against the calling thread's region.
 
@@ -19,6 +20,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,9 +49,18 @@ def nvcc_path() -> str:
                        "from src/repro_torch/csrc at first use")
 
 
+def _source_bytes(src: Path) -> bytes:
+    """A source's text and that of the headers of csrc/ it includes
+    (``#include "name"``), so that an edited header rebuilds it too."""
+    text = src.read_bytes()
+    for name in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        text += _source_bytes(CSRC / name.decode())
+    return text
+
+
 def _paths(source: str):
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256(_source_bytes(src)).hexdigest()[:12]
     stem = src.stem
     lib = BUILD_DIR / f"lib{stem}-{digest}.so"
     return src, lib, lib.with_suffix(".log")

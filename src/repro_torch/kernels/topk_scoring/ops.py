@@ -66,11 +66,15 @@ from repro_torch.kernels.topk_scoring import ref
 from repro_torch.kernels.topk_scoring.ref import pad_topk
 
 # the dense kernels' query and corpus tiles, kDQ and kDN in
-# csrc/topk_scores.cu: a block takes DENSE_QUERIES queries and walks
+# csrc/dense_topk.cu: a block takes DENSE_QUERIES queries and walks
 # DENSE_ROWS-row tiles of its split; one block fills an H100 SM, so the
-# plan aims at one block for each of its 132 SMs
+# plan aims at one block for each of its 132 SMs. DENSE_CLUSTER
+# (kDCluster) blocks of one query tile and neighbouring splits form a
+# cluster that loads each query chunk once for all of them (TMA
+# multicast), so the splits come in multiples of it
 DENSE_QUERIES, DENSE_ROWS = 128, 128
 DENSE_BLOCKS = 132
+DENSE_CLUSTER = 2
 
 # the narrow path, Q <= NARROW_QUERIES (kNQMax in csrc/topk_scores.cu):
 # the scorer's blocks (NARROW_BLOCKS, one an SM) walk NARROW_ROWS-row
@@ -90,8 +94,8 @@ SELECT_ITEMS, SELECT_MIN_ITEM = 528, 8192
 HEAD_INTS, STATE_INTS, RADIX_BINS, SORT_K = 4, 11, 2048, 4096
 
 _PARTIAL_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
-TOPK_PARTIAL = Kernel("topk_partial", "topk_scores.cu", _PARTIAL_ARGS)
-TOPK_INT8_PARTIAL = Kernel("topk_int8_partial", "topk_scores.cu",
+TOPK_PARTIAL = Kernel("topk_partial", "dense_topk.cu", _PARTIAL_ARGS)
+TOPK_INT8_PARTIAL = Kernel("topk_int8_partial", "dense_topk.cu",
                            _PARTIAL_ARGS)
 TOPK_MERGE = Kernel("topk_merge", "topk_scores.cu",
                     (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6)
@@ -159,14 +163,32 @@ def split_plan(nq: int, n: int, q_tile: int, rows: int, blocks: int):
     return per_split, -(-n_tiles // per_split)
 
 
+def dense_plan(nq: int, n: int, blocks: int = DENSE_BLOCKS):
+    """(tiles per split, splits) of the dense kernels: the corpus's
+    DENSE_ROWS-row tiles cut into splits, a multiple of DENSE_CLUSTER, so
+    that (query tiles of DENSE_QUERIES) x splits stays at or below
+    ``blocks`` (a grid over the target would leave a second wave of a few
+    blocks) unless one cluster a query tile is more. Every split walks the
+    same number of tiles, as a cluster's blocks share each step's query
+    chunk; tiles past the corpus (in the last splits) score nothing."""
+    n_tiles = -(-n // DENSE_ROWS)
+    q_tiles = -(-nq // DENSE_QUERIES)
+    want = min(n_tiles, max(blocks // max(q_tiles, 1), 1))
+    n_splits = DENSE_CLUSTER * max(1, want // DENSE_CLUSTER)
+    per_split = -(-n_tiles // n_splits)
+    used = -(-n_tiles // per_split)
+    return per_split, -(-used // DENSE_CLUSTER) * DENSE_CLUSTER
+
+
 def launch_partials(partial: Kernel, queries: torch.Tensor,
                     corpus: torch.Tensor, k: int, dtype, vec_width: int, *,
-                    q_tile: int, rows: int, blocks: int):
-    """Check the inputs, plan the splits and launch ``partial`` (a dense
-    scan over the corpus rows: ``topk_partial`` or ``topk_int8_partial``,
-    whose tiles are ``q_tile`` queries by ``rows`` corpus rows): queries
-    [Q, D], corpus [N, D] of ``dtype``, 1 <= k <= N -> each split's top k,
-    (scores f32[Q, splits * k], ids i32[Q, splits * k])."""
+                    blocks: int):
+    """Check the inputs, plan the splits (:func:`dense_plan`) and launch
+    ``partial`` (a dense scan over the corpus rows: ``topk_partial`` or
+    ``topk_int8_partial``): queries [Q, D], corpus [N, D] of ``dtype``,
+    1 <= k <= N -> each split's top k, (scores f32[Q, splits * k], ids
+    i32[Q, splits * k]). Rows of ``vec_width`` values, both inputs 16-byte
+    aligned, reach the kernel by TMA; others by its staging path."""
     dev = queries.device
     name = partial.name
     if dev.type != "cuda":
@@ -179,7 +201,7 @@ def launch_partials(partial: Kernel, queries: torch.Tensor,
         raise ValueError(f"{name}: widths differ, {d} vs {corpus.shape[1]}")
     if not 1 <= k <= n:
         raise ValueError(f"{name}: k={k} outside [1, N={n}]")
-    per_split, n_splits = split_plan(nq, n, q_tile, rows, blocks)
+    per_split, n_splits = dense_plan(nq, n, blocks)
     width = n_splits * k
     if max(nq, n, d * dtype.itemsize, width) >= 2 ** 31:
         raise ValueError(f"{name}: a dimension exceeds int32")
@@ -187,11 +209,19 @@ def launch_partials(partial: Kernel, queries: torch.Tensor,
         raise ValueError(f"{name}: D={d} overflows the int32 int8 dot")
     part_s = torch.empty((nq, width), dtype=torch.float32, device=dev)
     part_i = torch.empty((nq, width), dtype=torch.int32, device=dev)
-    vec = int(d % vec_width == 0 and _aligned(queries, corpus))
+    vec = int(dense_tma(d, vec_width, queries.data_ptr(), corpus.data_ptr()))
     with torch.cuda.device(dev):
         partial(queries.data_ptr(), corpus.data_ptr(), part_s.data_ptr(),
                 part_i.data_ptr(), nq, n, d, k, per_split, n_splits, vec)
     return part_s, part_i
+
+
+def dense_tma(d: int, vec_width: int, *ptrs: int) -> bool:
+    """Whether the dense kernels take rows of d values by TMA: each row a
+    whole number of 16-byte units (``vec_width`` values) and every base
+    16-byte aligned, as a tensor map needs; else (a ragged stride, a
+    sliced base, D = 0) the kernel's staging path copies them."""
+    return d > 0 and d % vec_width == 0 and all(p % 16 == 0 for p in ptrs)
 
 
 @functools.lru_cache(maxsize=512)
@@ -276,8 +306,7 @@ def topk_partials_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     i32[Q, splits * k]); ``blocks`` is the split plan's target block
     count."""
     return launch_partials(TOPK_PARTIAL, queries, corpus, k, torch.float32,
-                           4, q_tile=DENSE_QUERIES, rows=DENSE_ROWS,
-                           blocks=blocks)
+                           4, blocks=blocks)
 
 
 def topk_scores_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -464,7 +493,7 @@ def topk_scores_int8_cuda(q_codes: torch.Tensor, c_codes: torch.Tensor,
     split plan's target block count."""
     return launch_merge(*launch_partials(
         TOPK_INT8_PARTIAL, q_codes, c_codes, k, torch.int8, 16,
-        q_tile=DENSE_QUERIES, rows=DENSE_ROWS, blocks=blocks), k)
+        blocks=blocks), k)
 
 
 class Pieces(NamedTuple):

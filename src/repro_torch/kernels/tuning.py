@@ -7,11 +7,11 @@ than the compiled one is not a slower launch but a wrong one: each block
 finds its rows by the compiled constants. So every tile appears in its
 kernel's :class:`TuningSpace` with its one compiled value, and
 :func:`resolve` rejects any other. What does vary at run time is the split
-plan of the dense and Hamming top-k kernels (``topk_scoring/ops.split_plan``):
-how many splits the corpus's row tiles are cut into, from a target block
-count (``split_blocks``). A split only changes which block scans which
-tiles, never a score or the merge's order, so results are the same for
-every candidate.
+plan of the dense and Hamming top-k kernels (``topk_scoring/ops.dense_plan``
+and ``split_plan``): how many splits the corpus's row tiles are cut into,
+from a target block count (``split_blocks``). A split only changes which
+block scans which tiles, never a score or the merge's order, so results are
+the same for every candidate.
 
 * :data:`SPACES` — one :class:`TuningSpace` per kernel primitive (``topk``,
   ``hamming_topk``, ``gathered_topk``, ``label_prop_round``); only ``topk``
@@ -185,6 +185,8 @@ class TuningSpace:
 
 
 SPACES: Dict[str, TuningSpace] = {
+    # the dense kernels hold one block an SM (132 on an H100) in clusters
+    # of two: half the card, one wave, two and four waves of blocks
     "topk": TuningSpace("topk", {
         "block_q": (128,), "block_n": (128,),
         "split_blocks": (66, 132, 264, 528),

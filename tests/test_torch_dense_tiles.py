@@ -1,26 +1,37 @@
 """The dense top-k kernels' arithmetic and geometry, on the CPU.
 
-On the card, ``topk_scores`` and ``topk_scores_int8`` run
-``dense_partial`` of csrc/topk_scores.cu: 128 queries a block, 128-row
-corpus tiles, fragments loaded by ldmatrix from rows staged 144 bytes
-apart, products on the tensor cores (f32 as three TF32 products of split
-operands, int8 as exact int32 MMA), a bitonic sort filling each list from
-a split's first tile. None of that runs here, so these tests hold plain
-numpy emulations of each piece to the contract, and import no kernel:
+On the card, ``topk_scores`` and ``topk_scores_int8`` above their narrow
+cutoffs run ``dense_partial`` of csrc/dense_topk.cu: 128 queries a block
+(two consumer warpgroups of 64), 128-row corpus tiles staged 64 bytes of
+depth a step in the SWIZZLE_64B layout, by TMA (the query rows shared by
+the two blocks of a cluster) or, for rows TMA cannot take, by the
+producer warpgroup's word copies; products by ``wgmma`` with A (the
+queries) in registers and B (the corpus) from shared memory, f32 as three
+TF32 products of split operands summed a 512-byte chunk group at a time,
+int8 as exact int32 sums; lists filled from a split's first tile by a
+bitonic sort, later survivors buffered 32 a query and merged into the
+lists by a bitonic merge. None of that runs here, so these tests hold
+plain numpy emulations of each piece to the contract, and import no
+kernel:
 
 - the TF32 split (round to nearest, ties away, on the f32 bit pattern;
-  the last piece read by the MMA as its top 10 mantissa bits) and the
-  kernel's sums (three products a step, small terms first, summed a
-  128-byte chunk at a time, whether the MMA rounds or truncates, the
-  chunks added with rounded adds; the exact three-piece split where D is
-  at most one MMA deep) held within ``chip_smoke.check_topk``'s bound
-  D * 2**-24 * sum |q c| of the f64 product, at D 2048 and at
-  adversarial magnitudes, with top-k ids equal to the plain version's and
-  the JAX package's away from near-ties;
-- the fragment geometry: the kernel's ldmatrix row addresses and the PTX
-  fragment layouts of m16n8k8 (tf32) and m16n8k32 (s8) give each lane's
-  accumulators the (query, row) products that selection assumes;
-- the bitonic network that fills a list from a split's first tile;
+  the last piece read by the tensor cores as its top 10 mantissa bits)
+  and the kernel's sums (three products a step, small terms first, summed
+  a chunk group at a time into a fresh accumulator, whether the tensor
+  cores round or truncate, the groups added with rounded adds; f64 sums
+  on the CUDA cores where D is at most one step deep) held within
+  ``chip_smoke.check_topk``'s bound D * 2**-24 * sum |q c| of the f64
+  product, at D 2048 and at adversarial magnitudes, with top-k ids equal
+  to the plain version's and the JAX package's away from near-ties;
+- the geometry: the kernel's SWIZZLE_64B addresses are TMA's pattern, its
+  staging path writes the box TMA would, and its A fragment words with
+  the B operand its descriptors name give each lane's wgmma accumulators
+  (m64nNk8 tf32, m64nNk32 s8) the (query, row) products that selection
+  assumes;
+- the route by stride and alignment (TMA or the staging path);
+- the bitonic networks that fill a list from a split's first tile and
+  merge 32 buffered survivors into a list, and the selection's buffered
+  control flow against the exact top k;
 - the split plan, and the tile constants ``ops.py`` shares with the
   kernel source.
 Inputs are made with numpy from a seed.
@@ -39,28 +50,37 @@ from repro_torch.kernels.topk_scoring import ops
 from repro_torch.kernels.topk_scoring.ref import (topk_scores_int8_ref,
                                                   topk_scores_ref)
 
-SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
-          / "csrc" / "topk_scores.cu")
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+SOURCE = CSRC / "dense_topk.cu"
 # the kernel's, pinned to its source by test_tile_constants_match_the_kernel
-EXACT_DEPTH = 8          # kExactDepth: D at most one MMA step deep
-CHUNK = 128              # kDChunk: bytes of a row staged per step
-ROW = CHUNK + 16         # kDRow: a staged row's stride in shared memory
-STEP = 32                # bytes of depth an MMA step takes (8 f32, 32 s8)
+EXACT_DEPTH = 8          # kExactDepth: D at most one wgmma step deep
+SPAN = 64                # kDSpan: bytes of a row a ring stage holds
+GROUP = 8                # kDGroup: stages a fresh accumulator sums
+CHUNK = GROUP * SPAN     # bytes of depth a fresh accumulator sums
+STEP = 32                # bytes of depth a wgmma step takes (8 f32, 32 s8)
+BUF_K = 32               # kDBufK: survivors a query's buffer holds
 
 
-def _constants():
+def _constants(path=SOURCE):
     return {name: int(v) for name, v in
-            re.findall(r"constexpr int (k\w+) = (\d+);", SOURCE.read_text())}
+            re.findall(r"constexpr int (k\w+) = (\d+);", path.read_text())}
 
 
 def test_tile_constants_match_the_kernel():
     """The wrapper plans splits in the kernels' tiles and these tests
-    emulate its staging: each shared constant must equal the source's."""
+    emulate their staging and sums: each shared constant must equal the
+    source's."""
     c = _constants()
     assert (c["kDQ"], c["kDN"]) == (ops.DENSE_QUERIES, ops.DENSE_ROWS)
-    assert (c["kExactDepth"], c["kDChunk"]) == (EXACT_DEPTH, CHUNK)
-    assert c["kDChunk"] + 16 == ROW
-    assert c["kDN"] == 128 and c["kDQ"] == 8 * 16   # 8 warps of 16 queries
+    assert c["kDCluster"] == ops.DENSE_CLUSTER
+    assert (c["kExactDepth"], c["kDSpan"], c["kDGroup"], c["kDBufK"]) == (
+        EXACT_DEPTH, SPAN, GROUP, BUF_K)
+    # the narrow and gathered kernels' exact path takes the same depth
+    assert _constants(CSRC / "topk_scores.cu")["kExactDepth"] == EXACT_DEPTH
+    # two consumer warpgroups of 64 queries, one producer warpgroup
+    assert c["kDQ"] == 2 * 64 and c["kDThreads"] == 3 * 128
+    assert c["kDN"] == 128 and SPAN % STEP == 0
+    assert c["kDMinStages"] >= 4
 
 
 # ---- the TF32 split and the kernel's sums ----------------------------------
@@ -101,12 +121,17 @@ def _round_f32(s64, rounding):
 
 
 def emulate_dense(q, c, rounding):
-    """Scores of the f32 kernel: per 128-byte chunk, every MMA step's
-    products a_i * b_j (i + j < pieces, smallest first) summed into a
-    fresh accumulator, each MMA's sum rounded as ``rounding`` says; each
-    chunk's sum added to the running one with a rounded f32 add."""
+    """Scores of the f32 kernel: per chunk group (CHUNK bytes of depth),
+    every wgmma step's products a_i * b_j (two pieces, i + j < 2, smallest
+    first) summed into a fresh accumulator, each step's sum rounded as
+    ``rounding`` says; each group's sum added to the running one with a
+    rounded f32 add. D <= EXACT_DEPTH: each dot summed in f64 and rounded
+    once."""
     d = q.shape[1]
-    pieces = 3 if d <= EXACT_DEPTH else 2
+    if d <= EXACT_DEPTH:                # f64 sums on the CUDA cores
+        return (q.astype(np.float64) @ c.astype(np.float64).T).astype(
+            np.float32)
+    pieces = 2
     a = [p.astype(np.float64) for p in tf32_split(q, pieces)]
     b = [p.astype(np.float64) for p in tf32_split(c, pieces)]
     acc = np.zeros((q.shape[0], c.shape[0]), np.float32)
@@ -236,79 +261,109 @@ def test_int8_products_are_exact():
     assert np.array_equal(i, i_ref.numpy())
 
 
-# ---- fragment geometry ------------------------------------------------------
+# ---- geometry ---------------------------------------------------------------
 
-def _ldmatrix_x4(stage, addrs):
-    """ldmatrix.x4 (b16) over a byte array: lane 8m + r names row r of
-    matrix m; lane l receives word l % 4 of row l // 4 of each matrix."""
-    regs = np.empty((32, 4), np.uint32)
-    for lane in range(32):
-        for m in range(4):
-            a = addrs[8 * m + lane // 4] + 4 * (lane % 4)
-            regs[lane, m] = stage[a:a + 4].view(np.uint32)[0]
-    return regs
+def sw64(row, byte):
+    """The kernel's sw64: byte ``byte`` of staged row ``row``."""
+    return row * SPAN + ((((byte >> 4) ^ (row * SPAN >> 7)) & 3) << 4) + (
+        byte & 15)
 
 
-def _warp_tile(stage, warp, kk, as_type):
-    """One MMA step of warp ``warp``'s 16 x 128 tile as the kernel runs
-    it: ldmatrix addresses from its lane formulas, fragments placed by
-    the PTX layouts of m16n8k8 (tf32: one value a register) or m16n8k32
-    (s8: four a register), products exact. Returns acc[lane, j, e]."""
+def tma_swizzle_64b(offset):
+    """Where TMA's SWIZZLE_64B puts the byte at ``offset`` of a row-major
+    box in a 512-byte aligned buffer: its 16-byte unit (bits 4-5) XORed
+    with bits 7-8 (CUTLASS's Swizzle<2, 4, 3>)."""
+    return offset ^ (((offset >> 7) & 3) << 4)
+
+
+def stage(rows):
+    """A box of 64-byte rows (uint8 [R, 64]) as TMA lands it."""
+    out = np.zeros(rows.size, np.uint8)
+    flat = rows.reshape(-1)
+    out[tma_swizzle_64b(np.arange(flat.size))] = flat
+    return out
+
+
+def test_swizzle_is_tmas():
+    """The staging path, the fragment loads and the wgmma descriptors all
+    address staged bytes by sw64: it must be TMA's SWIZZLE_64B pattern,
+    which the descriptors' layout type names."""
+    rows, byte = np.meshgrid(np.arange(128), np.arange(SPAN), indexing="ij")
+    assert np.array_equal(sw64(rows, byte), tma_swizzle_64b(rows * SPAN
+                                                             + byte))
+    # each 8-row group of 512 bytes is a permutation of itself
+    for r0 in range(0, 128, 8):
+        got = np.sort(sw64(rows[r0:r0 + 8], byte[r0:r0 + 8]).ravel())
+        assert np.array_equal(got, np.arange(r0 * SPAN, (r0 + 8) * SPAN))
+
+
+def _words(buf, offsets):
+    return np.array([buf[o:o + 4].view(np.uint32)[0] for o in offsets])
+
+
+def _values(words, as_type):
+    return words.view(as_type).astype(np.float64)
+
+
+def _warp_acc(qbuf, cbuf, warp, kk, as_type):
+    """One wgmma step of warp ``warp``'s 16 queries x 128 rows as the
+    kernel runs it: A fragment words loaded by frag_words' addresses and
+    placed by the PTX layout of wgmma m64nNk8 tf32 (one value a register:
+    a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)) or
+    m64nNk32 s8 (four a register: a0 (g, 4t..), a1 (g + 8, 4t..), a2 (g,
+    16 + 4t..), a3 (g + 8, 16 + 4t..)); B read as the descriptor names it,
+    row n's bytes 32 kk.. at sw64(n, 32 kk + b); products exact. Returns
+    acc[lane, j, e] by the accumulator layout: row 16 w' + g + 8 (e // 2),
+    column 8j + 2t + e % 2."""
     per = 4 // np.dtype(as_type).itemsize        # values a register
     depth = STEP // np.dtype(as_type).itemsize
-    lanes = np.arange(32)
-    lr, lm = lanes & 7, lanes >> 3
-    a_off = (16 * warp + lr + 8 * (lm & 1)) * ROW + 16 * (lm >> 1)
-    b_off = (128 + lr + 8 * (lm >> 1)) * ROW + 16 * (lm & 1)
-    vals = lambda reg: reg.reshape(-1).view(as_type).astype(np.float64)
-    a_regs = _ldmatrix_x4(stage, a_off + kk * STEP)
     amat = np.zeros((16, depth))
     for lane in range(32):
         g, t = lane >> 2, lane & 3
-        for r, (row, col) in enumerate([(g, 0), (g + 8, 0), (g, 1),
-                                        (g + 8, 1)]):
-            c0 = col * depth // 2 + per * t
-            amat[row, c0:c0 + per] = vals(a_regs[lane, r])
+        ra, rb = 16 * warp + g, 16 * warp + g + 8
+        b0 = STEP * kk + 4 * t
+        regs = _words(qbuf, [sw64(ra, b0), sw64(rb, b0), sw64(ra, b0 + 16),
+                             sw64(rb, b0 + 16)])
+        for r, (row, half) in enumerate([(g, 0), (g + 8, 0), (g, 1),
+                                         (g + 8, 1)]):
+            col = half * depth // 2 + per * t
+            amat[row, col:col + per] = _values(regs[r:r + 1], as_type)
+    bmat = np.zeros((128, depth))
+    for nrow in range(128):
+        offs = [sw64(nrow, STEP * kk + b) for b in range(0, STEP, 4)]
+        bmat[nrow] = _values(_words(cbuf, offs), as_type)
+    dmat = amat @ bmat.T
     acc = np.zeros((32, 16, 4))
-    for jp in range(8):
-        b_regs = _ldmatrix_x4(stage, b_off + jp * 16 * ROW + kk * STEP)
-        for h in range(2):
-            bmat = np.zeros((depth, 8))
-            for lane in range(32):
-                g, t = lane >> 2, lane & 3
-                for r in range(2):
-                    k0 = r * depth // 2 + per * t
-                    bmat[k0:k0 + per, g] = vals(b_regs[lane, 2 * h + r])
-            cmat = amat @ bmat
-            for lane in range(32):
-                g, t = lane >> 2, lane & 3
-                acc[lane, 2 * jp + h] = [cmat[g, 2 * t], cmat[g, 2 * t + 1],
-                                         cmat[g + 8, 2 * t],
-                                         cmat[g + 8, 2 * t + 1]]
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for j in range(16):
+            acc[lane, j] = [dmat[g, 8 * j + 2 * t], dmat[g, 8 * j + 2 * t + 1],
+                            dmat[g + 8, 8 * j + 2 * t],
+                            dmat[g + 8, 8 * j + 2 * t + 1]]
     return acc
 
 
 @pytest.mark.parametrize("as_type", [np.float32, np.int8])
 def test_fragment_geometry(as_type):
-    """Stage 128 query rows and 128 corpus rows as the kernel does (144
-    bytes apart, queries first); every warp's accumulators, read as
-    selection reads them (lane (g, t), acc[j][2h + b] is query
-    16w + g + 8h against row 8j + 2t + b), hold exactly those dots."""
+    """Stage a chunk of 128 query rows and 128 corpus rows as TMA does;
+    every consumer warp's accumulators, read as selection reads them
+    (lane (g, t), acc[4j + 2h + b] is query 16w + g + 8h against row
+    8j + 2t + b), hold exactly those dots, for both wgmma steps of the
+    stage."""
     rng = np.random.default_rng(7)
-    width = CHUNK // np.dtype(as_type).itemsize
+    width = SPAN // np.dtype(as_type).itemsize
     if as_type == np.int8:
         rows = rng.integers(-127, 128, (256, width)).astype(np.int8)
     else:
         rows = rng.integers(-8, 9, (256, width)).astype(np.float32)
-    stage = np.zeros(256 * ROW, np.uint8)
-    for r in range(256):
-        stage[r * ROW:r * ROW + CHUNK] = rows[r].view(np.uint8)
+    qbuf = stage(rows[:128].view(np.uint8))
+    cbuf = stage(rows[128:].view(np.uint8))
     depth = STEP // np.dtype(as_type).itemsize
     lanes = np.arange(32)
     g, t = lanes >> 2, lanes & 3
-    for warp in (0, 5, 7):
-        for kk in range(CHUNK // STEP):
-            acc = _warp_tile(stage, warp, kk, as_type)
+    for warp in (0, 3, 4, 7):
+        for kk in range(SPAN // STEP):
+            acc = _warp_acc(qbuf, cbuf, warp, kk, as_type)
             qpart = rows[:128, kk * depth:(kk + 1) * depth].astype(np.float64)
             cpart = rows[128:, kk * depth:(kk + 1) * depth].astype(np.float64)
             want = qpart @ cpart.T
@@ -320,7 +375,61 @@ def test_fragment_geometry(as_type):
                         want[16 * warp + g + 8 * h, 8 * j + 2 * t + b])
 
 
-# ---- the first tile's sort --------------------------------------------------
+def staged_words(mem, base, row_bytes, rows, ch):
+    """The staging path's copy of chunk ``ch`` of ``rows`` rows at byte
+    ``base`` of ``mem``: 4-byte words (a word of a row not 4-byte aligned
+    assembled from its bytes, zeros past the row), each at sw64."""
+    out = np.zeros(rows * SPAN, np.uint8)
+    for r in range(rows):
+        for x in range(0, SPAN, 4):
+            off = ch * SPAN + x
+            have = row_bytes - off
+            src = base + r * row_bytes + off
+            word = np.zeros(4, np.uint8)
+            if have > 0:
+                n = min(have, 4)
+                word[:n] = mem[src:src + n]
+            out[sw64(r, x):sw64(r, x) + 4] = word
+    return out
+
+
+@pytest.mark.parametrize("as_type,d,offset", [(np.float32, 9, 4),
+                                              (np.int8, 20, 3)])
+def test_staging_path_writes_the_tma_box(as_type, d, offset):
+    """Rows TMA cannot take (a stride off 16 bytes, a base off 16): the
+    producer's words land where TMA would put the same box, zeros past D,
+    so the fragments and descriptors read them alike."""
+    rng = np.random.default_rng(d)
+    size = np.dtype(as_type).itemsize
+    vals = rng.integers(-100, 100, (16, d)).astype(as_type)
+    mem = np.zeros(offset + vals.nbytes, np.uint8)
+    mem[offset:] = vals.view(np.uint8).ravel()
+    row_bytes = d * size
+    for ch in range(-(-row_bytes // SPAN)):
+        box = np.zeros((16, SPAN), np.uint8)
+        part = vals.view(np.uint8)[:, ch * SPAN:(ch + 1) * SPAN]
+        box[:, :part.shape[1]] = part
+        assert np.array_equal(staged_words(mem, offset, row_bytes, 16, ch),
+                              stage(box))
+
+
+@pytest.mark.parametrize("d,width,ptrs,want", [
+    (2048, 4, (0, 1 << 20), True), (2050, 4, (0, 1 << 20), False),
+    (768, 16, (0, 4096), True), (20, 16, (0, 4096), False),
+    (2048, 4, (0, 1028), False), (0, 4, (0, 0), False)])
+def test_route_by_stride_and_alignment(d, width, ptrs, want):
+    """TMA takes rows whose stride is a whole number of 16-byte units at
+    16-byte aligned bases; the rest (f32 D % 4, int8 D % 16, a sliced
+    base, D = 0) take the staging path."""
+    assert ops.dense_tma(d, width, *ptrs) is want
+
+
+# ---- the lists: first-tile sort, buffered merges ---------------------------
+
+def _better(s, i, t, ti):
+    """beats: higher score, or equal score and lower id."""
+    return (s > t) | ((s == t) & (i < ti))
+
 
 def sort_row(scores, n0):
     """The kernel's sort_row: a bitonic network over entry e = 32x + lane
@@ -335,7 +444,7 @@ def sort_row(scores, n0):
         for lj in range(ls - 1, -1, -1):
             j = 1 << lj
             pv, pi = v[e ^ j], vi[e ^ j]
-            mine_better = (v > pv) | ((v == pv) & (vi < pi))
+            mine_better = _better(v, vi, pv, pi)
             want_better = ((e & j) == 0) == ((e >> ls & 1) == 0)
             take = want_better != mine_better
             v, vi = np.where(take, pv, v), np.where(take, pi, vi)
@@ -359,19 +468,155 @@ def test_first_tile_sort_network(seed):
     assert np.array_equal(vi[np.isfinite(v)], want_i[np.isfinite(want_v)])
 
 
+def _by_rank(s, i):
+    order = np.lexsort((i, -s))
+    return s[order], i[order]
+
+
+def merge32(ls, li, cs, ci, k):
+    """The kernel's lanes_merge32: the list (k <= 32 R entries, sorted)
+    padded with empty entries to 32 X (X = 1, 2 or 4), the candidates
+    sorted (warp_sort) and reversed into the last 32, the better of each
+    pair of entries at one position, then half-cleaners of strides
+    16 X .. 1 (the better to the lower entry); the first k."""
+    r = -(-k // 32)
+    x = {1: 1, 2: 2, 3: 4}[r]
+    c = np.full(32 * x, -np.inf, np.float32)
+    d = np.full(32 * x, -1, np.int64)
+    c[:len(ls)], d[:len(li)] = ls, li
+    cs, ci = _by_rank(cs, ci)
+    rs = np.full(32 * x, -np.inf, np.float32)
+    ri = np.full(32 * x, -1, np.int64)
+    rs[32 * (x - 1):], ri[32 * (x - 1):] = cs[::-1], ci[::-1]
+    take = _better(rs, ri, c, d)
+    c, d = np.where(take, rs, c), np.where(take, ri, d)
+    e = np.arange(32 * x)
+    stride = 16 * x
+    while stride >= 1:
+        lo = (e & stride) == 0
+        pe = e ^ stride
+        pc, pd = c[pe], d[pe]
+        take = np.where(lo, _better(pc, pd, c, d), _better(c, d, pc, pd))
+        c, d = np.where(take, pc, c), np.where(take, pd, d)
+        stride >>= 1
+    return c[:k], d[:k]
+
+
+@pytest.mark.parametrize("k", [10, 33, 80, 96])
+def test_buffer_merge_network(k):
+    """32 buffered survivors merged into a list of k entries (k in one,
+    two and three registers a lane): the k best of both, best first, ties
+    to the lower id, whatever their order in the buffer."""
+    rng = np.random.default_rng(k)
+    for trial in range(20):
+        pool_s = rng.integers(-4, 5, k + 32).astype(np.float32)
+        pool_i = rng.permutation(10_000)[:k + 32]
+        ls, li = _by_rank(pool_s[:k], pool_i[:k])
+        cs, ci = pool_s[k:].copy(), pool_i[k:].copy()
+        if trial % 4 == 0:                  # a part-full buffer
+            cs[rng.random(32) < 0.5] = -np.inf
+        ci = np.where(np.isneginf(cs), -1, ci)
+        got = merge32(ls, li, cs, ci, k)
+        want = _by_rank(np.concatenate([ls, cs]), np.concatenate([li, ci]))
+        assert np.array_equal(got[0], want[0][:k])
+        fin = np.isfinite(want[0][:k])
+        assert np.array_equal(got[1][fin], want[1][:k][fin])
+
+
+def select_warp(scores, k, tile=128):
+    """The kernel's selection for one warp's 16 queries over a split's
+    tiles, step by step: the first tile fills each list by sort_row; later
+    tiles filter each score against its query's bar (the k-th entry as of
+    the last change of the list) and append the survivors to the query's
+    buffer of BUF_K, merging a buffer into its list first where it would
+    overflow; a tile with more survivors than a buffer holds for any query
+    merges every buffer, then offers the survivors to the lists directly.
+    The buffers are merged at the end."""
+    nq, n = scores.shape
+    empty = (np.full(k, -np.inf, np.float32), np.full(k, -1, np.int64))
+    lists = [empty] * nq
+    bars = [(-np.inf, -1)] * nq
+    bufs = [([], []) for _ in range(nq)]
+
+    def merge(q, s, i):
+        cs, ci = _by_rank(np.concatenate([lists[q][0], s]),
+                          np.concatenate([lists[q][1], i]))
+        lists[q] = (cs[:k], ci[:k])
+        bars[q] = (lists[q][0][k - 1], lists[q][1][k - 1])
+
+    def flush(q):
+        if bufs[q][0]:
+            merge(q, np.float32(bufs[q][0]), np.int64(bufs[q][1]))
+        bufs[q] = ([], [])
+
+    for t0 in range(0, n, tile):
+        ids = np.arange(t0, min(t0 + tile, n))
+        surv = []
+        for q in range(nq):
+            s = scores[q, ids]
+            keep = _better(s, ids, *bars[q]) & ~np.isneginf(s)
+            surv.append((s[keep], ids[keep]))
+        if t0 == 0:
+            for q in range(nq):
+                v, vi = sort_row(np.pad(scores[q, ids], (0, tile - len(ids)),
+                                        constant_values=-np.inf), 0)
+                lists[q] = (v[:k], vi[:k])
+                bars[q] = (lists[q][0][k - 1], lists[q][1][k - 1])
+            continue
+        if any(len(s) > BUF_K for s, _ in surv):
+            for q in range(nq):
+                flush(q)
+                merge(q, *surv[q])
+            continue
+        for q in range(nq):
+            if len(bufs[q][0]) + len(surv[q][0]) > BUF_K:
+                flush(q)
+            bufs[q][0].extend(surv[q][0])
+            bufs[q][1].extend(surv[q][1])
+    for q in range(nq):
+        flush(q)
+    return lists
+
+
+@pytest.mark.parametrize("kind,k", [("normal", 10), ("normal", 80),
+                                    ("ties", 33), ("rising", 40)])
+def test_buffered_selection_is_exact(kind, k):
+    """The buffered selection's lists equal each query's exact top k by
+    (score desc, id asc): on random scores (few survivors after the first
+    tiles), on small integers (many exact ties) and on rising scores
+    (every tile beats the lists: the direct path each tile)."""
+    rng = np.random.default_rng(k)
+    n = 1500
+    if kind == "normal":
+        scores = rng.standard_normal((16, n)).astype(np.float32)
+    elif kind == "ties":
+        scores = rng.integers(-3, 4, (16, n)).astype(np.float32)
+    else:
+        scores = (np.arange(n)[None, :] + rng.random((16, n))).astype(
+            np.float32)
+    lists = select_warp(scores, k)
+    for q in range(16):
+        want = _by_rank(scores[q], np.arange(n))
+        assert np.array_equal(lists[q][0], want[0][:k])
+        assert np.array_equal(lists[q][1], want[1][:k])
+
+
 # ---- the split plan ---------------------------------------------------------
 
-@pytest.mark.parametrize("nq,n", [(1, 1), (128, 524288), (256, 524700),
+@pytest.mark.parametrize("nq,n", [(1, 1), (128, 524288), (256, 39780),
                                   (257, 78705), (129, 777), (5000, 300)])
 def test_dense_split_plan(nq, n):
-    """Every 128-row tile falls in exactly one split, no split is empty,
-    and the grid stays near one block a streaming multiprocessor; at the
-    curve's Q 128 over 524288 rows each of 128 blocks takes 32 tiles."""
-    per, splits = ops.split_plan(nq, n, ops.DENSE_QUERIES, ops.DENSE_ROWS,
-                                 ops.DENSE_BLOCKS)
+    """Splits come in clusters of DENSE_CLUSTER, every split walks the
+    same number of tiles (those past N score nothing), every 128-row tile
+    falls in one, and the grid stays at or below one block a streaming
+    multiprocessor unless a cluster a query tile is more; at the curve's
+    Q 128 over 524288 rows each of 128 blocks takes 32 tiles."""
+    per, splits = ops.dense_plan(nq, n, ops.DENSE_BLOCKS)
     tiles = -(-n // ops.DENSE_ROWS)
     q_tiles = -(-nq // ops.DENSE_QUERIES)
-    assert per * (splits - 1) < tiles <= per * splits
-    assert splits * q_tiles <= max(ops.DENSE_BLOCKS, q_tiles)
+    assert splits % ops.DENSE_CLUSTER == 0 and per >= 1
+    assert per * (splits - ops.DENSE_CLUSTER) < tiles <= per * splits
+    assert splits * q_tiles <= max(ops.DENSE_BLOCKS,
+                                   ops.DENSE_CLUSTER * q_tiles)
     if (nq, n) == (128, 524288):
         assert (per, splits) == (32, 128)

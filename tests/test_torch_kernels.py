@@ -16,6 +16,7 @@ from repro_torch.kernels.flash_attention.ops import (FLASH_ATTENTION,
                                                      HEAD_DIMS,
                                                      flash_attention)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels import tuning
 from repro_torch.kernels.label_prop.ops import lp_round_cuda
 from repro_torch.kernels.lsh_hamming.ops import HAMMING_TOPK, hamming_topk
 from repro_torch.kernels.lsh_hamming.ref import hamming_topk_ref
@@ -37,7 +38,9 @@ from repro_torch.kernels.topk_scoring.ops import (GATHERED_NARROW_QUERIES,
                                                   gathered_runs_plain,
                                                   gathered_topk, launch_merge,
                                                   merge_plain, topk_scores,
-                                                  topk_scores_int8)
+                                                  topk_scores_cuda,
+                                                  topk_scores_int8,
+                                                  topk_scores_int8_cuda)
 from repro_torch.kernels.topk_scoring.ref import (gathered_topk_ref,
                                                   topk_scores_int8_ref,
                                                   topk_scores_ref)
@@ -381,6 +384,140 @@ def test_topk_int8_path_by_query_count(cuda, q):
     ran = [kern.launches - b for kern, b in zip(kernels, before)]
     narrow = q <= INT8_NARROW_QUERIES
     assert ran == ([1, 1, 0, 0] if narrow else [0, 0, 1, 1])
+
+
+# ---- the 128-query dense kernels (dense_topk.cu), called directly ----------
+# Q past the query tile (65, 128, 129, 256, 300); N below one 128-row tile
+# and off it; D 1, 8 (the exact split), 9, 768, 2048 and 2050 (rows TMA
+# cannot take: the staging path; for int8 every D off 16); k across the
+# lists in one, two and three registers a lane (32, 33, 80, 81, 96, 97),
+# in place (300) and 1, 3 (f32 k 96 keeps its lists in the output: they
+# and a ring of four stages pass the shared memory); `off`: the corpus
+# starts `off` elements into its storage, so its base is off 16 bytes
+_DENSE_KERNEL_CASES = [(65, 100, 2048, 3, 0), (128, 1000, 768, 32, 0),
+                       (129, 777, 9, 33, 0), (256, 3000, 8, 80, 0),
+                       (300, 2000, 2050, 81, 0), (65, 513, 1, 96, 0),
+                       (129, 3000, 64, 96, 0), (128, 4096, 2048, 97, 0),
+                       (129, 2000, 64, 300, 1), (256, 1500, 768, 1, 3)]
+
+
+def _offset_rows(x, off):
+    """x [N, D] copied into storage that starts `off` elements earlier: a
+    contiguous view whose base is not 16-byte aligned when off % 4 (f32)
+    or off % 16 (int8) is not 0."""
+    if off == 0:
+        return x
+    flat = torch.zeros(x.numel() + off, dtype=x.dtype, device=x.device)
+    view = flat[off:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _hold_dense_f32(qs, cs, s, i, k):
+    """The kernel pair's lists against the plain version's: scores within
+    the summation bound D * 2**-24 * sum |q_d c_d|, ids equal but where
+    the two ids' exact scores lie within twice it (a near-tie)."""
+    s_ref, i_ref = topk_scores_ref(qs, cs, k=k)
+    d = cs.shape[1]
+    mag = torch.einsum("qd,qkd->qk", qs.abs().double(),
+                       cs[i_ref.long()].abs().double())
+    tol = d * 2.0 ** -24 * mag + 1e-30
+    assert bool(((s.double() - s_ref.double()).abs() <= tol).all())
+    diff = i != i_ref
+    if bool(diff.any()):
+        exact = lambda ids: torch.einsum(
+            "qd,qkd->qk", qs.double(), cs[ids.long().clamp(min=0)].double())
+        gap = (exact(i) - exact(i_ref)).abs()
+        assert bool((gap[diff] <= 2 * tol[diff]).all())
+
+
+@pytest.mark.parametrize("q,n,d,k,off", _DENSE_KERNEL_CASES)
+def test_dense_f32_kernel_edges(cuda, q, n, d, k, off):
+    g = torch.Generator().manual_seed(q * n + d + k)
+    qs = torch.randn(q, d, generator=g).to(cuda)
+    cs = _offset_rows(torch.randn(n, d, generator=g).to(cuda), off)
+    s, i = topk_scores_cuda(qs, cs, k)
+    torch.cuda.synchronize()
+    _hold_dense_f32(qs, cs, s, i, k)
+
+
+@pytest.mark.parametrize("q,n,d,k,off", _DENSE_KERNEL_CASES)
+def test_dense_int8_kernel_edges(cuda, q, n, d, k, off):
+    """Exact int32 dots ranked as f32: the lists equal the plain
+    version's to the bit (duplicate rows make exact ties)."""
+    g = torch.Generator().manual_seed(q * n + d + k)
+    qc = torch.randint(-127, 128, (q, d), generator=g, dtype=torch.int8)
+    cc = torch.randint(-127, 128, (n, d), generator=g, dtype=torch.int8)
+    cc[n // 2:] = cc[:n - n // 2].clone()
+    qc, cc = qc.to(cuda), _offset_rows(cc.to(cuda), off)
+    s, i = topk_scores_int8_cuda(qc, cc, k)
+    torch.cuda.synchronize()
+    s_ref, i_ref = topk_scores_int8_ref(qc, cc, k=k)
+    assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+
+
+@pytest.mark.parametrize("q,n,d,k", [(129, 3000, 16, 40),
+                                     (256, 2000, 2048, 33),
+                                     (300, 5000, 24, 300)])
+def test_dense_f32_kernel_tie_inputs(cuda, q, n, d, k):
+    """Small integers (chip_smoke.tie_inputs): every score exact, many
+    ties: the lists equal the plain version's, ties to the lowest id."""
+    g = torch.Generator().manual_seed(q + n + d)
+    qs = torch.randint(-2, 3, (q, d), generator=g).float().to(cuda)
+    cs = torch.randint(-2, 3, (n, d), generator=g).float().to(cuda)
+    s, i = topk_scores_cuda(qs, cs, k)
+    torch.cuda.synchronize()
+    s_ref, i_ref = topk_scores_ref(qs, cs, k=k)
+    assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+
+
+@pytest.mark.parametrize("q,n,k", [(128, 2000, 40), (300, 1000, 97)])
+def test_dense_int8_kernel_f32_rounding_ties(cuda, q, n, k):
+    """chip_smoke.int8_tie_inputs: dots past 2**24 a unit apart round to
+    one f32, and those ties go to the lowest id."""
+    g = torch.Generator().manual_seed(q + n)
+    d = 2048
+    qc = torch.full((q, d), 127, dtype=torch.int8)
+    qc[:, -2:] = torch.randint(1, 3, (q, 2), generator=g, dtype=torch.int8)
+    cc = torch.full((n, d), 127, dtype=torch.int8)
+    cc[torch.arange(d)[None, :]
+       < torch.randint(0, 4, (n, 1), generator=g)] = -127
+    cc[:, -2:] = torch.randint(-127, 128, (n, 2), generator=g,
+                               dtype=torch.int8)
+    qc, cc = qc.to(cuda), cc.to(cuda)
+    s, i = topk_scores_int8_cuda(qc, cc, k)
+    torch.cuda.synchronize()
+    s_ref, i_ref = topk_scores_int8_ref(qc, cc, k=k)
+    assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+
+
+@pytest.mark.parametrize("blocks", tuning.SPACES["topk"].axes["split_blocks"])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_dense_kernels_every_split_candidate(cuda, blocks, dtype):
+    """Each split target the tuner may pick: a split only decides which
+    block scans which tiles, so the lists equal the default plan's to the
+    bit, and the plain version's (f32 within the summation bound)."""
+    g = torch.Generator().manual_seed(blocks)
+    q, n, d, k = 200, 20_000, 256, 10
+    if dtype == "int8":
+        qs = torch.randint(-127, 128, (q, d), generator=g,
+                           dtype=torch.int8).to(cuda)
+        cs = torch.randint(-127, 128, (n, d), generator=g,
+                           dtype=torch.int8).to(cuda)
+        run = topk_scores_int8_cuda
+    else:
+        qs = torch.randn(q, d, generator=g).to(cuda)
+        cs = torch.randn(n, d, generator=g).to(cuda)
+        run = topk_scores_cuda
+    s, i = run(qs, cs, k, blocks)
+    s0, i0 = run(qs, cs, k)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s0) and torch.equal(i, i0)
+    if dtype == "int8":
+        s_ref, i_ref = topk_scores_int8_ref(qs, cs, k=k)
+        assert torch.equal(s, s_ref) and torch.equal(i, i_ref)
+    else:
+        _hold_dense_f32(qs, cs, s, i, k)
 
 
 def _gathered_inputs(q, c, d, r, *, seed, integer, dead_rows=()):

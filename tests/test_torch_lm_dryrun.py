@@ -1,7 +1,8 @@
 """The dry run on the reference's single-pod layout (``python -m
-repro_torch.launch.dryrun --all --mesh single``): a fake process group of
-256 ranks, each cell's step run as rank 0 on fake tensors, in a
-subprocess (the fake group is the process's default group). The LM
+repro_torch.launch.dryrun --all --mesh single``, here an arch a
+process): a fake process group of 256 ranks, each cell's step run as rank
+0 on fake tensors, in a subprocess (the fake group is the process's
+default group). The LM
 configs are cut to 2 layers (``--layers 2``) to keep the run short; every
 width and shape is the published one.
 
@@ -14,6 +15,7 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -35,17 +37,28 @@ OTHER_CELLS = [c for c in CELLS if get_arch(c[0]).family != "lm"]
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    out = tmp_path_factory.mktemp("dryrun") / "single"
+    """Every cell's row: ``dryrun --arch A`` for each arch (all its cells,
+    as ``--all`` runs them), three processes at a time."""
+    tmp = tmp_path_factory.mktemp("dryrun")
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--mesh", "single", "--layers", str(LAYERS), "--out", str(out)],
-        env=env, text=True, capture_output=True, timeout=TIMEOUT)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    with open(str(out) + ".json") as f:
-        rows = json.load(f)
+
+    def run(arch):
+        out = tmp / arch
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--mesh", "single", "--layers", str(LAYERS), "--out",
+             str(out)], env=env, text=True, capture_output=True,
+            timeout=TIMEOUT)
+        assert proc.returncode == 0, (proc.stdout[-3000:]
+                                      + proc.stderr[-3000:])
+        with open(str(out) + ".json") as f:
+            return json.load(f)
+
+    archs = list(dict.fromkeys(a for a, _ in CELLS))
+    with ThreadPoolExecutor(3) as pool:
+        rows = [r for got in pool.map(run, archs) for r in got]
     return {(r["arch"], r["shape"]): r for r in rows}
 
 

@@ -377,12 +377,21 @@ CANDIDATES = [(kernel, blocks) for kernel in ("topk", "hamming_topk")
                                   (512, 524288), (257, 78705), (5000, 300)])
 def test_split_plan_covers_the_tiles_for_every_candidate(kernel, blocks,
                                                          nq, n):
-    """Every row tile falls in exactly one split, no split is empty, and
-    the grid takes no more query-tile rows of splits than the target
-    asks, whatever the candidate."""
-    q_tile, rows = ((topk_ops.DENSE_QUERIES, topk_ops.DENSE_ROWS)
-                    if kernel == "topk" else
-                    (ham_ops.HAMMING_QUERIES, ham_ops.HAMMING_ROWS))
+    """Every row tile falls in exactly one split and the grid takes no
+    more query-tile rows of splits than the target asks, whatever the
+    candidate. Hamming: no split is empty. Dense: splits come in clusters
+    of DENSE_CLUSTER walking equal runs of tiles, and no cluster is
+    empty."""
+    if kernel == "topk":
+        per, splits = topk_ops.dense_plan(nq, n, blocks)
+        tiles = -(-n // topk_ops.DENSE_ROWS)
+        q_tiles = -(-nq // topk_ops.DENSE_QUERIES)
+        step = topk_ops.DENSE_CLUSTER
+        assert per >= 1 and splits % step == 0
+        assert per * (splits - step) < tiles <= per * splits
+        assert splits * q_tiles <= max(blocks, step * q_tiles)
+        return
+    q_tile, rows = ham_ops.HAMMING_QUERIES, ham_ops.HAMMING_ROWS
     per, splits = topk_ops.split_plan(nq, n, q_tile, rows, blocks)
     tiles = -(-n // rows)
     q_tiles = -(-nq // q_tile)
@@ -399,7 +408,7 @@ def test_every_candidate_gives_the_same_results(kernel, blocks):
     rng = np.random.default_rng(blocks)
     n, nq = 5000, 40
     if kernel == "topk":
-        q_tile, rows = topk_ops.DENSE_QUERIES, topk_ops.DENSE_ROWS
+        rows = topk_ops.DENSE_ROWS
         cases = [(topk_scores_ref,
                   torch.from_numpy(rng.standard_normal((nq, 16))
                                    .astype(np.float32)),
@@ -419,7 +428,8 @@ def test_every_candidate_gives_the_same_results(kernel, blocks):
                                    .astype(np.int32)), 64)]
     for ref, q, c, k in cases:
         c[n // 2:] = c[:n - n // 2].clone()            # exact ties
-        per, _ = topk_ops.split_plan(nq, n, q_tile, rows, blocks)
+        per = (topk_ops.dense_plan(nq, n, blocks)[0] if kernel == "topk"
+               else topk_ops.split_plan(nq, n, q_tile, rows, blocks)[0])
         s1, i1 = ref(q, c, k=k, block=n)
         s2, i2 = ref(q, c, k=k, block=per * rows)
         assert torch.equal(s1, s2) and torch.equal(i1, i2)

@@ -50,9 +50,12 @@ Each case is timed with CUDA events, the versions in the order A B ... B A,
 three times; each process then reports the profiler's device time a call
 (every kernel the call launched, as ``chip_smoke.call_device_ms`` counts
 it). The script prints each version's median
-and range, its device time, and how far each version's result is from the
-first's, then one JSON line of it all. Run it from the repository root on
-a machine with a card.
+and range, its device time, how far each version's result is from the
+first's and whether it agrees with it: ``topk_scores``'s lists with scores
+within the summation bound D * 2**-24 * sum |q c| and ids equal but at
+near-ties (exact scores within twice the bound), every other result to the
+bit (``topk_scores_int8``'s exact dots included), then one JSON line of it
+all. Run it from the repository root on a machine with a card.
 """
 from __future__ import annotations
 
@@ -243,6 +246,27 @@ def cases(groups):
     torch.cuda.empty_cache()
 
 
+def agrees(entry, args, out, first) -> bool:
+    """Whether a version's result agrees with the first version's: the f32
+    search within its summation bound (ids equal but at near-ties), every
+    other entry point to the bit."""
+    import torch
+    if entry != "topk_scores":
+        return all(torch.equal(a, b) for a, b in zip(out, first))
+    q, c = args
+    s, i, s0, i0 = (t.to(q.device) for t in (*out, *first))
+    rows = lambda ids: c[ids.long().clamp(min=0)].double()
+    tol = (c.shape[1] * 2.0 ** -24
+           * torch.einsum("qd,qkd->qk", q.abs().double(), rows(i0).abs())
+           + 1e-30)
+    if bool(((s.double() - s0.double()).abs() > tol).any()):
+        return False
+    diff = i != i0
+    exact = lambda ids: torch.einsum("qd,qkd->qk", q.double(), rows(ids))
+    gap = (exact(i) - exact(i0)).abs()
+    return bool((gap[diff] <= 2 * tol[diff]).all())
+
+
 def main(trees, groups) -> None:
     import torch
     import torch.multiprocessing as mp
@@ -285,7 +309,8 @@ def main(trees, groups) -> None:
                 conn.send(("result", reps))
                 dev_ms[lb], out = conn.recv()
                 outs.append(out)
-            diff = {lb: {"max_abs_diff": max(
+            diff = {lb: {"agrees": agrees(entry, args, out, outs[0]),
+                         "max_abs_diff": max(
                         (float((a.float() - b.float()).abs()
                                .nan_to_num(0.0).max()) if a.numel() else 0.0
                          for a, b in zip(out, outs[0])
@@ -305,7 +330,8 @@ def main(trees, groups) -> None:
                 + ("not measured" if r["device_ms"] is None
                    else f"{r['device_ms']:.4f}")
                 + f", vs {labels[0]}: max |diff| {r['max_abs_diff']:.3e}, "
-                f"{r['ints_differ']} ids differ"
+                f"{r['ints_differ']} ids differ, "
+                + ("agrees" if r["agrees"] else "DISAGREES")
                 for lb, r in results[name].items()), flush=True)
     finally:
         for conn, proc in zip(conns, procs):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measure the rate of the instructions the top-k kernels are bound by, on
 one card: ``mma.sync.m16n8k8`` TF32 and ``mma.sync.m16n8k32`` s8 (the
-dense kernels), each warp issuing independent MMAs on values held in
+narrow and gathered scorers), each warp issuing independent MMAs on values held in
 registers (no memory traffic), at 8 and 16 warps an SM; and 32-bit
 ``popc`` as the Hamming kernel issues it (``d += popc(a ^ b)``, eight
 independent sums a thread, registers only), at 32 and 64 warps an SM.
