@@ -8,7 +8,9 @@ From the root of a checkout, with one card. In order:
 1. Device: the card's name and power limit; no card is a failure.
 2. Build: every CUDA source under src/repro_torch/csrc, one nvcc each,
    started together (phase 3's evaluation corpus drawn on the host
-   meanwhile); prints each build's ``-Xptxas -v`` report. The
+   meanwhile); prints each build's ``-Xptxas -v`` report; the dense
+   kernels' SASS must be wgmma and TMA, flash_short_tc's must hold HMMA
+   (TF32 on the tensor cores) and TMA loads, with no spills. The
    recompile sentinel (``obs/recompile``) is on from here: it must count
    one build for each source whose library was not built yet, and none in
    phases 5-20.
@@ -80,9 +82,12 @@ From the root of a checkout, with one card. In order:
    merge) with the profiler's device time of each; both gathered paths at
    the tick's buckets 1-32 and at Q 12 (the cutoff); the Hamming
    kernel's three
-   kernels and the flash kernel and ``scaled_dot_product_attention``
-   also by the profiler's
-   device time a call; ``topk_merge`` alone on the f32 kernel's partial
+   kernels and the flash kernel (at the encoder's passage and query
+   batches, which take flash_short_tc) and
+   ``scaled_dot_product_attention`` also by the profiler's
+   device time a call; the f32 top-k at k 40 and the int8 top-k at every
+   pool of the curve also beside their plain versions and the PyTorch
+   call; ``topk_merge`` alone on the f32 kernel's partial
    lists at k 10, held equal to its plain version (two stable sorts),
    and at one query's widths of both gathered paths at the tick, beside
    ``torch.topk``, each also as device time queued behind a sleep.
@@ -105,9 +110,10 @@ From the root of a checkout, with one card. In order:
    draw through the LP kernel and an ivfflat search of each sample through
    the gathered kernel; p@3 and rho_q of the full, uniform and WindTunnel
    rows. Then ``torch.profiler`` over 20 training steps and 20 embedding
-   batches: the device's idle share in each, and the flash kernel's
+   batches: the device's idle share in each, and flash_short_tc's
    device time a launch at the main path's passage shape (a profiler
-   window of its own, after the Table I run).
+   window of its own, after the Table I run; no flash_short_tc launch in
+   it is a failure).
    Phases 5-7 print their trace as ``repro_torch.launch.trace`` tables it,
    the wall time outside every span, and the ``build.peak_bytes_per_device``
    gauge with the allocator's peak over the run.
@@ -1119,27 +1125,51 @@ def tie_inputs(q: int, n: int, d: int, *, seed: int, device, lo: int = -2,
             torch.randint(lo, hi, (n, d), generator=g).float().to(device))
 
 
-def dense_sass():
-    """The opcodes that show the dense kernels' design in the built
-    library (dense_topk.cu's dense_partial instances): wgmma as HGMMA (tf32)
-    and IGMMA (s8), TMA loads as UTMALDG, against mma.sync's HMMA and IMMA.
-    None where the toolkit has no cuobjdump."""
+def sass_ops(source: str, function: str, ops):
+    """Counts of the opcodes ``ops`` in the SASS of ``source``'s built
+    library, over the functions whose names hold ``function``: the dense
+    kernels' wgmma (HGMMA tf32, IGMMA s8) and TMA loads (UTMALDG) against
+    mma.sync's HMMA and IMMA; flash_short_tc's HMMA (mma.sync TF32). None
+    where the toolkit has no cuobjdump."""
     from repro_torch.kernels import build
     tool = "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", str(build._paths("dense_topk.cu")[1])],
+    sass = subprocess.run([tool, "-sass", str(build._paths(source)[1])],
                           capture_output=True, text=True).stdout
-    counts = dict.fromkeys(("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA"), 0)
+    counts = dict.fromkeys(ops, 0)
     inside = False
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            inside = "dense_partial" in m.group(1)
+            inside = function in m.group(1)
         elif inside:
             for op in counts:
                 counts[op] += bool(re.search(rf"\b{op}\b", line))
     return counts
+
+
+def ptxas_usage(source: str, function: str) -> dict:
+    """{entry: (registers, spill store bytes, spill load bytes)} for the
+    entry functions of ``source`` whose names hold ``function``, from its
+    last build's ``-Xptxas -v`` report."""
+    from repro_torch.kernels import build
+    out, name, spills = {}, None, (0, 0)
+    for line in build.ptxas_report(source).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if function in m.group(1) else None
+            spills = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spills)
+            name = None
+    return out
 
 
 def check_topk_exact(qs, cs, k: int) -> None:
@@ -3555,7 +3585,8 @@ def main() -> None:
     sys.path[:0] = [SRC, os.path.join(ROOT, "tools")]
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.ops import (FLASH_ATTENTION,
-                                                         flash_attention)
+                                                         flash_attention,
+                                                         kernel_name)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.label_prop.ops import LP_ROUND, lp_round_cuda
     from repro_torch.kernels.lsh_hamming.ops import (HAMMING_TOPK,
@@ -3635,7 +3666,8 @@ def main() -> None:
         for line in build.ptxas_report(src).splitlines():
             if "ptxas" in line:
                 log(f"    {src}: {line.strip()}")
-    sass = dense_sass()
+    sass = sass_ops("dense_topk.cu", "dense_partial",
+                    ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA"))
     if sass is None:
         log("    dense_partial SASS: no cuobjdump in the toolkit")
     elif not (sass["HGMMA"] and sass["IGMMA"] and sass["UTMALDG"]) or (
@@ -3645,6 +3677,23 @@ def main() -> None:
         log(f"    dense_partial SASS (cuobjdump): {sass['HGMMA']} HGMMA, "
             f"{sass['IGMMA']} IGMMA, {sass['UTMALDG']} UTMALDG, no HMMA "
             f"or IMMA")
+    fsass = sass_ops("flash_attention.cu", "flash_short_tc",
+                     ("HMMA", "UTMALDG"))
+    fuse = ptxas_usage("flash_attention.cu", "flash_short_tc")
+    if not fuse or any(st or ld for _, st, ld in fuse.values()):
+        fail(f"flash_short_tc's ptxas report: {fuse or 'no entry'} "
+             f"(registers, spill store and load bytes)")
+    if fsass is None:
+        log("    flash_short_tc SASS: no cuobjdump in the toolkit")
+    elif not (fsass["HMMA"] and fsass["UTMALDG"]):
+        fail(f"flash_short_tc's SASS has no tensor-core TF32 or TMA: {fsass}")
+    else:
+        tiles = {re.search(r"flash_short_tcILi(\d+)", n)[1]: r
+                 for n, (r, _, _) in fuse.items()}
+        log(f"    flash_short_tc SASS (cuobjdump): {fsass['HMMA']} HMMA "
+            f"(TF32), {fsass['UTMALDG']} UTMALDG; no spills; registers "
+            + ", ".join(f"{r} at {nt} n-tiles" for nt, r in
+                        sorted(tiles.items())))
 
     # 3. kernel vs plain ---------------------------------------------------
     # no tuned table from here to phase 10, whatever the environment names:
@@ -4028,6 +4077,11 @@ def main() -> None:
     tk_plain_ms = cuda_ms(lambda: topk_scores_ref(tq, tc, k=k_t), 3)
     tk_lib_ms = cuda_ms(lambda: torch.sort(tq @ tc.T, dim=1, descending=True,
                                            stable=True), 3)
+    # at k 40 too: the plain version, and the same PyTorch call with its
+    # first 40 columns taken
+    tk40_plain_ms = cuda_ms(lambda: topk_scores_ref(tq, tc, k=40), 3)
+    tk40_lib_ms = cuda_ms(lambda: [t[:, :40] for t in torch.sort(
+        tq @ tc.T, dim=1, descending=True, stable=True)], 3)
     tk_bound, tk_by = bound((qn + n_c) * d * 4 + qn * k_t * 8,
                             3 * 2.0 * qn * n_c * d, H100_TF32_FLOPS)
     # the merge kernel alone on that corpus's partial lists at the
@@ -4062,6 +4116,12 @@ def main() -> None:
     i8_lib_ms = cuda_ms(lambda: torch.sort(
         torch._int_mm(iq, ic.T).to(torch.float32), dim=1, descending=True,
         stable=True), 3)
+    # the other pools' plain versions and the same call, first k taken
+    i8_k_plain = {k: cuda_ms(lambda: topk_scores_int8_ref(iq, ic, k=k), 3)
+                  for k in (10, 20, 80)}
+    i8_k_lib = {k: cuda_ms(lambda: [t[:, :k] for t in torch.sort(
+        torch._int_mm(iq, ic.T).to(torch.float32), dim=1, descending=True,
+        stable=True)], 3) for k in (10, 20, 80)}
     i8_bound, i8_by = bound((qn + n_c) * d + qn * k_i * 8,
                             2.0 * qn * n_c * d, H100_INT8_OPS)
     log(f"    lp_round N={n_lp} K={k_lp}: kernel {lp_ms:.4f} ms, plain "
@@ -4070,7 +4130,8 @@ def main() -> None:
         f"ms, plain {tk_plain_ms:.4f} ms, matmul+stable sort "
         f"{tk_lib_ms:.4f} ms, bound {tk_bound:.4f} ms ({tk_by}); at k=40 "
         f"{tk40_ms:.4f} ms (within the summation bound of the plain "
-        f"version)")
+        f"version), plain {tk40_plain_ms:.4f} ms, matmul+stable sort "
+        f"{tk40_lib_ms:.4f} ms")
     log(f"    topk_merge of that corpus's partial lists at k={k_m} (Q={qn}, "
         f"{m_width} entries a row; plan {m_plan[1]} segments of "
         f"{m_plan[0]}): kernel {m_ms:.4f} ms a call (device, queued behind "
@@ -4216,7 +4277,10 @@ def main() -> None:
         f"{i8_ms:.4f} ms, plain {i8_plain_ms:.4f} ms, _int_mm+stable sort "
         f"{i8_lib_ms:.4f} ms, bound {i8_bound:.4f} ms ({i8_by}); the "
         f"curve's pools: " + ", ".join(f"k={k} {ms:.4f} ms" for k, ms in
-                                        sorted(i8_k_ms.items())))
+                                        sorted(i8_k_ms.items()))
+        + "; at k=10, 20, 80 plain, _int_mm+stable sort: " + ", ".join(
+            f"{i8_k_plain[k]:.4f}, {i8_k_lib[k]:.4f} ms"
+            for k in (10, 20, 80)))
     # the int8 serving tick (15d: a bucket of 32 over a tenant's codes at
     # the pool k 64): the call, each narrow kernel's device time, the plain
     # version and one PyTorch call (_int_mm refuses 16 rows or fewer)
@@ -4499,45 +4563,56 @@ def main() -> None:
         + ("; ".join(f"{kname.search(name)[0]} {sec / n * 1e3:.4f} ms"
                      for name, (n, sec) in sorted(ham_prof.items())
                      if kname.search(name)) or "not measured"))
-    # flash attention at the encoder's passage batch (the main path's
-    # shape): bytes of q, k, v and o once each; 4 * B * H * Sq * Skv * D
-    # operations (two products), every pair allowed (bidirectional), f32
-    # products counted as three TF32 products at the tensor cores' rate
-    aq, ak, av = attn_inputs(ENCODER_BATCH, 64, 64, 4, 4, 32, dtype=f32,
-                             seed=7, device=dev)
+    # flash attention at the encoder's passage and query batches (the main
+    # path's shapes, both flash_short_tc's): bytes of q, k, v and o once
+    # each; 4 * B * H * Sq * Skv * D operations (two products), every pair
+    # allowed (bidirectional), f32 products counted as three TF32 products
+    # at the tensor cores' rate. Then the same 50 calls each under the
+    # profiler: device time a launch, which the event times include only
+    # where the card, not the host's work around each call, sets the pace
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    with torch.no_grad():
-        a_ms = cuda_ms(lambda: flash_attention(aq, ak, av, causal=False),
-                       50, 5)
-        a_plain_ms = cuda_ms(lambda: flash_attention_ref(aq, ak, av,
-                                                         causal=False), 20)
-        a_lib_ms = cuda_ms(lambda: sdpa(aq.transpose(1, 2),
-                                        ak.transpose(1, 2),
-                                        av.transpose(1, 2)), 50, 5)
-    ab, asq, ah, ad = aq.shape
-    a_bound, a_by = bound(4 * aq.numel() * 4,
-                          3 * 4.0 * ab * ah * asq * asq * ad, H100_TF32_FLOPS)
-    log(f"    flash_attention B={ab} S={asq} H={ah} D={ad} f32 "
-        f"bidirectional: kernel {a_ms:.4f} ms, plain {a_plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {a_lib_ms:.4f} ms, bound "
-        f"{a_bound:.4f} ms ({a_by})")
-    # the same 50 calls each under the profiler: device time a launch,
-    # which the event times above include only where the card, not the
-    # host's work around each call, sets the pace
 
     def device_ms(fn, n=50):
         fn()
         return call_device_ms(device_profile(
             lambda: [fn() for _ in range(n)])[2], n)
 
-    with torch.no_grad():
-        a_dev = device_ms(lambda: flash_attention(aq, ak, av, causal=False))
-        a_lib_dev = device_ms(lambda: sdpa(aq.transpose(1, 2),
-                                           ak.transpose(1, 2),
-                                           av.transpose(1, 2)))
-    log(f"    flash_attention at the same shape, profiler device time a "
-        f"call: kernel {fmt(a_dev)}, scaled_dot_product_attention "
-        f"{fmt(a_lib_dev)}")
+    enc_attn = {}
+    for what, s_enc in (("passages", 64), ("queries", 24)):
+        eq, ek, ev_ = attn_inputs(ENCODER_BATCH, s_enc, s_enc, 4, 4, 32,
+                                  dtype=f32, seed=7, device=dev)
+        if kernel_name(eq, ek, ev_) != "flash_short_tc":
+            fail(f"the encoder's {what} take {kernel_name(eq, ek, ev_)}, "
+                 f"not flash_short_tc")
+        with torch.no_grad():
+            r = {"ms": cuda_ms(lambda: flash_attention(eq, ek, ev_,
+                                                       causal=False), 50, 5),
+                 "plain_ms": cuda_ms(lambda: flash_attention_ref(
+                     eq, ek, ev_, causal=False), 20),
+                 "library_ms": cuda_ms(lambda: sdpa(
+                     eq.transpose(1, 2), ek.transpose(1, 2),
+                     ev_.transpose(1, 2)), 50, 5),
+                 "device_ms": device_ms(lambda: flash_attention(
+                     eq, ek, ev_, causal=False)),
+                 "library_device_ms": device_ms(lambda: sdpa(
+                     eq.transpose(1, 2), ek.transpose(1, 2),
+                     ev_.transpose(1, 2)))}
+        eb, esq, eh, ed = eq.shape
+        r["bound_ms"], r["bound_by"] = bound(
+            4 * eq.numel() * 4, 3 * 4.0 * eb * eh * esq * esq * ed,
+            H100_TF32_FLOPS)
+        enc_attn[what] = r
+        log(f"    flash_attention ({what}) B={eb} S={esq} H={eh} D={ed} f32 "
+            f"bidirectional, flash_short_tc: kernel {r['ms']:.4f} ms "
+            f"(profiler device time {fmt(r['device_ms'])}), plain "
+            f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms (device "
+            f"{fmt(r['library_device_ms'])}), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+        del eq, ek, ev_
+    a = enc_attn["passages"]
+    a_ms, a_plain_ms, a_lib_ms = a["ms"], a["plain_ms"], a["library_ms"]
+    a_bound, a_by = a["bound_ms"], a["bound_by"]
     yq, yk, yv = attn_inputs(1, 2048, 2048, 32, 4, 128, dtype=bf16, seed=8,
                              device=dev)
     with torch.no_grad():
@@ -4554,7 +4629,7 @@ def main() -> None:
         f"main path): kernel {l_ms:.4f} ms, plain {l_plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {l_lib_ms:.4f} ms, bound "
         f"{l_bound:.4f} ms ({l_by})")
-    del aq, ak, av, yq, yk, yv
+    del yq, yk, yv
     del lp_main, labels, nbr, wgt, tq, tc, iq, ic, ev, pq, ivf, p_rows
     del p_ids, p_table, lsh, lq, hq, hc
     torch.cuda.empty_cache()
@@ -4729,12 +4804,15 @@ def main() -> None:
     prof = device_profile(lambda: embed_corpus(enc_params, toks, enc_cfg))
     log_profile(f"embed_corpus, 20 batches of {ENCODER_BATCH}", prof)
     flash_dev = [(n, sec) for k, (n, sec) in prof[2].items()
-                 if "flash_short" in k]
-    if flash_dev:
-        n, sec = flash_dev[0]
-        log(f"    flash_attention at the main path's passage shape "
-            f"(this window): {n} launches, {sec / n * 1e3:.4f} ms of device "
-            f"time each")
+                 if re.search(r"flash_short_tc\b", k)]
+    if not flash_dev:
+        fail("the embedding window's profile shows no flash_short_tc "
+             "launch: " + ", ".join(k[:60] for k in prof[2]
+                                    if "flash" in k))
+    n, sec = flash_dev[0]
+    log(f"    flash_attention (flash_short_tc) at the main path's passage "
+        f"shape (this window): {n} launches, {sec / n * 1e3:.4f} ms of "
+        f"device time each")
     del t1_corpus, enc_params, toks
 
     # 8. small inputs: card vs the CPU's plain path --------------------------
@@ -5979,6 +6057,7 @@ def main() -> None:
          "max_abs_err": 0, "ms": h_ms, "plain_ms": h_plain_ms,
          "bound_ms": h_bound, "bound_by": h_by, "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
+         "kernel": "flash_short_tc",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:28",
          "launches": launches("flash_attention"),

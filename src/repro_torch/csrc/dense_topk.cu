@@ -104,6 +104,7 @@
 
 namespace {
 
+#include "sm90.cuh"
 #include "topk_lists.cuh"
 
 constexpr int kDQ = 128;                 // queries per block
@@ -202,35 +203,6 @@ __device__ __forceinline__ unsigned long long sw64_desc(unsigned addr) {
          ((kDSpan == 128 ? 1ull : 2ull) << 62);
 }
 
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n.reg .pred P1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, P1;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
 // Arrive on the barrier at the same offset in block `rank` of the cluster.
 __device__ __forceinline__ void mbar_arrive_cluster(unsigned bar,
                                                     unsigned rank) {
@@ -241,13 +213,6 @@ __device__ __forceinline__ void mbar_arrive_cluster(unsigned bar,
       "}\n" ::"r"(bar),
       "r"(rank)
       : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
 }
 
 __device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
@@ -1212,33 +1177,6 @@ dense_partial(const __grid_constant__ CUtensorMap qmap,
       part_i[o + p] = i[p];
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, reached through the runtime (this
-// library does not link libcuda); null where it is not found.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // The TMA map of `rows` rows of d values of `elem` bytes at base: boxes of

@@ -19,19 +19,50 @@
 //
 // What bounds it on an H100. At the retrieval encoder's shape (B 256,
 // S 64 or 24, H 4, D 32, f32, bidirectional) bytes: q, k, v and o are
-// 33.5 MB a call at S 64, 0.010 ms at 3.35 TB/s, against 0.54 GFLOP,
-// 0.008 ms at 67 TFLOP/s on the CUDA cores (f32 stays f32: no TF32). At
-// the LM configs' S 2048, 32 heads over 4, D 128, bf16, causal,
-// operations: 34 GFLOP, 0.035 ms at the tensor cores' 989 TFLOP/s.
+// 33.5 MB a call at S 64, 0.010 ms at 3.35 TB/s, against 0.54 GFLOP, which
+// as three TF32 products (3xTF32, tf32.cuh) take 0.0033 ms at the tensor
+// cores' 495 TFLOP/s (0.008 ms as f32 FMAs on the CUDA cores). At the LM
+// configs' S 2048, 32 heads over 4, D 128, bf16, causal, operations: 34
+// GFLOP, 0.035 ms at the tensor cores' 989 TFLOP/s.
 //
-// Three kernels.
+// Four kernels.
 //
-//  * flash_short (Skv <= 128: the encoder's passages and queries). A row
-//    fits one block whole, so there is no online softmax: one block per
-//    (b, kv head, 64 query rows; 32 where the kv head has no more) stages
-//    that kv head's whole K and V once and serves every query head of its
-//    group (GQA reads K/V once; at the encoder's shape one block per
-//    (b, h), where the first version used two, each staging K/V again).
+//  * flash_short_tc (f32, D 32, 1 <= Skv <= 64, rows and strides TMA can
+//    describe: the encoder's passages and queries). Persistent blocks, two
+//    an SM (kRBlocks), each walking work items (b, query head, 64 query
+//    rows) with the grid's stride, so there is no second wave. Warp 4 of a
+//    block is the producer: one lane keeps a ring of kRStages stages full,
+//    each the item's Q (64 rows), K and V (Skv rows rounded up to 32 or 64)
+//    boxes of a (B, S, H, D) tensor map (cp.async.bulk.tensor, zeros past
+//    Sq and Skv, SWIZZLE_128B: the 16-byte chunk c of row r lands at chunk
+//    c ^ (r % 8) of its 128-byte row), completing on the stage's full
+//    mbarrier; at the encoder's 1024 items a block has at most four, so
+//    every load of the call is in flight from the start. Warps 0-3 are the
+//    consumers, 16 query rows each: S = Q K^T and O = P V are
+//    mma.sync.m16n8k8 TF32 products of split operands (x = hi + lo,
+//    tf32_split), hi*lo, lo*hi, then hi*hi (about 22 bits of each operand,
+//    an error near 2^-21 of each product), each product into a fresh
+//    accumulator that holds the whole sum (S over D 32, O over the Skv
+//    keys). Lane (g, t) reads 16-byte words: Q row g (and g + 8) floats
+//    8t..8t+7, which with K row 8j + g floats 8t..8t+7 make k-step kk's A
+//    and B fragments (D is summed in the order 8t + 2kk, 8t + 2kk + 1, an
+//    order of the sum like any other); S's accumulators are then the A
+//    fragments of P for O = P V with no shuffle (P's key order within 8
+//    keys 2t, 2t + 1, so V's B fragment is rows 8kk + 2t and + 1), and V's
+//    columns are taken n-tile n's column c = d 4c + n, so one 16-byte word
+//    of each of those rows gives all four n-tiles and a lane ends with
+//    output floats 8t..8t+7 of its two rows, two 16-byte stores each. Under
+//    the swizzle every such word of a quarter warp is in a different bank
+//    group. The softmax is exact in one pass in registers (scores in log2
+//    units, exp2f): a row's max and sum over the 4 lanes that hold it. A
+//    consumer warp releases the stage (the empty mbarrier) after its last
+//    read of V. Rows that are not 16-byte aligned, strides that are not
+//    positive multiples of 16 bytes, and every other type, width or Skv
+//    keep flash_short.
+//  * flash_short (Skv <= 128 otherwise). A row fits one block whole, so
+//    there is no online softmax: one block per (b, kv head, 64 query rows;
+//    32 where the kv head has no more) stages that kv head's whole K and V
+//    once and serves every query head of its group (GQA reads K/V once).
 //    Rows of the block are (position, head-in-group) pairs,
 //    position-major, so a contiguous (B, S, H, D) q is read as one run. Q
 //    and K land in shared memory by 16-byte cp.async copies (f32, aligned
@@ -45,9 +76,8 @@
 //    it (4 shuffle steps each). P (not yet normalised) goes to shared
 //    memory in Q/K's place, and the same thread grid forms P.V, rows
 //    4rg..4rg+3 by dims cg*D/16.., from float4 reads of P and vector reads
-//    of V; the thread already holds its rows' sums. f32 stays f32 (FMA on
-//    the CUDA cores): at 0.54 GFLOP a call the operations cost about what
-//    the bytes do, and TF32 would miss the encoder's tolerance.
+//    of V; the thread already holds its rows' sums. Products are f32 FMAs
+//    on the CUDA cores.
 //  * flash_long_tc (Skv > 128, bf16, 16-byte aligned rows; on no path of
 //    the port yet): FlashAttention-2 on the tensor cores. A block of 4
 //    warps takes 64 query rows of one (b, h), 16 a warp, and walks K/V
@@ -67,12 +97,18 @@
 //  Both long kernels skip the K/V tiles that no row of the block may see,
 //  but only when every row of the block has an allowed key: a row with
 //  none averages over all keys, as the plain version does.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
+
+#include "sm90.cuh"
+#include "tf32.cuh"
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMasked = -1e30f;      // the reference's masked logit
@@ -352,6 +388,256 @@ flash_short(const T* __restrict__ q, const T* __restrict__ k,
     T* dst = out + (((long long)bi * a.sq + i) * a.h + h) * D + cg * DT;
 #pragma unroll
     for (int t = 0; t < DT; ++t) put(dst + t, o[rr][t] / denom);
+  }
+}
+
+// ---- flash_short_tc: f32 short rows on the tensor cores -------------------
+
+constexpr int kRDim = 32;              // D: a 128-byte f32 row, one swizzle
+                                       // span of TMA's SWIZZLE_128B
+constexpr int kRMaxKeys = 64;          // the longest Skv it takes
+constexpr int kRWarpRows = 16;         // query rows a consumer warp (mma's M)
+constexpr int kRWarps = 4;             // consumer warps a block
+constexpr int kRStages = 4;            // ring stages
+constexpr int kRBlocks = 2;            // blocks an SM
+constexpr int kRRows = kRWarps * kRWarpRows;     // query rows a work item
+constexpr int kRThreads = (kRWarps + 1) * 32;    // and the producer warp
+constexpr int kRRowBytes = kRDim * 4;
+constexpr int kRStage = (kRRows + 2 * kRMaxKeys) * kRRowBytes;   // Q, K, V
+constexpr int kRSmem = 1024 + kRStages * kRStage + 2 * kRStages * 8;
+
+// Float offset of 16-byte chunk c of row r in a SWIZZLE_128B box of
+// 128-byte rows from a 1024-byte aligned base.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * kRDim + ((c ^ (r & 7)) << 2);
+}
+
+__device__ __forceinline__ void tma_load_4d(unsigned dst,
+                                            const CUtensorMap* map,
+                                            unsigned bar, int h, int s,
+                                            int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(0),
+      "r"(h), "r"(s), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A 16-byte word's four floats, split: hi[i] + lo[i] = the i-th.
+__device__ __forceinline__ void split4(const float4& x, unsigned* hi,
+                                       unsigned* lo) {
+  const float f[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    unsigned p[2];
+    tf32_split<2>(p, __float_as_uint(f[i]));
+    hi[i] = p[0];
+    lo[i] = p[1];
+  }
+}
+
+// Work item it: batch row, query head and query tile.
+struct Item {
+  int b, h, qt;
+  __device__ Item(const Args& a, int it)
+      : b(it / (a.h * a.n_qtiles)),
+        h(it / a.n_qtiles % a.h),
+        qt(it % a.n_qtiles) {}
+};
+
+// NT n-tiles of 8 keys: 4 (Skv <= 32) or 8 (Skv <= 64).
+template <int NT>
+__global__ void __launch_bounds__(kRThreads, kRBlocks)
+flash_short_tc(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               float* __restrict__ out, const Args a) {
+  extern __shared__ float4 smem4[];
+  const unsigned raw =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem4));
+  const unsigned ring_s = (raw + 1023) & ~1023u;
+  const float* ring =
+      reinterpret_cast<const float*>(smem4) + (ring_s - raw) / 4;
+  const unsigned bars = ring_s + kRStages * kRStage;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kRStages + s); };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int items = a.b * a.h * a.n_qtiles;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kRWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kRWarps) {               // the producer
+    if (lane == 0) {
+      const int grp = a.h / a.hkv;
+      int n = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x, ++n) {
+        const int s = n % kRStages;
+        if (n >= kRStages) mbar_wait(empty(s), (n / kRStages - 1) & 1);
+        const Item w(a, it);
+        const unsigned dst = ring_s + s * kRStage;
+        mbar_expect_tx(full(s), (kRRows + 2 * 8 * NT) * kRRowBytes);
+        tma_load_4d(dst, &qmap, full(s), w.h, w.qt * kRRows, w.b);
+        tma_load_4d(dst + kRRows * kRRowBytes, &kmap, full(s), w.h / grp, 0,
+                    w.b);
+        tma_load_4d(dst + (kRRows + kRMaxKeys) * kRRowBytes, &vmap, full(s),
+                    w.h / grp, 0, w.b);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const float log2_scale = a.scale * 1.4426950408889634f;  // log2(e)
+  const bool masks = a.causal || a.window >= 0;
+  int n = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x, ++n) {
+    const int s = n % kRStages;
+    const Item w(a, it);
+    const int r0 = w.qt * kRRows + warp * kRWarpRows;   // the warp's rows
+    const float* qs = ring + s * (kRStage / 4) + warp * kRWarpRows * kRDim;
+    const float* ks = ring + s * (kRStage / 4) + kRRows * kRDim;
+    const float* vs = ks + kRMaxKeys * kRDim;
+    mbar_wait(full(s), (n / kRStages) & 1);
+    if (r0 >= a.sq) {                  // uniform: no row of this warp
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+      continue;
+    }
+
+    // Q: floats 8t..8t+7 of rows g (qh/ql 0-7) and g + 8 (8-15); k-step
+    // kk's A fragment is floats 2kk and 2kk + 1 of each
+    unsigned qh[16], ql[16];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        split4(*reinterpret_cast<const float4*>(qs + sw128(g + 8 * rr,
+                                                           2 * t + c)),
+               qh + 8 * rr + 4 * c, ql + 8 * rr + 4 * c);
+
+    // S = Q K^T: n-tile j holds keys 8j + 2t, + 1 of rows g and g + 8
+    float sc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += 4) {
+      unsigned kh[4][8], kl[4][8];     // floats 8t..8t+7 of key 8j + g
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          split4(*reinterpret_cast<const float4*>(
+                     ks + sw128(8 * (j0 + jj) + g, 2 * t + c)),
+                 kh[jj] + 4 * c, kl[jj] + 4 * c);
+#pragma unroll
+      for (int kk = 0; kk < kRDim / 8; ++kk) {
+        const unsigned ah[4] = {qh[2 * kk], qh[8 + 2 * kk], qh[2 * kk + 1],
+                                qh[9 + 2 * kk]};
+        const unsigned al[4] = {ql[2 * kk], ql[8 + 2 * kk], ql[2 * kk + 1],
+                                ql[9 + 2 * kk]};
+        // each product for the four n-tiles before the next, so no MMA
+        // waits on the one before it
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          mma_tf32(sc[j0 + jj], ah, kl[jj][2 * kk], kl[jj][2 * kk + 1]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          mma_tf32(sc[j0 + jj], al, kh[jj][2 * kk], kh[jj][2 * kk + 1]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          mma_tf32(sc[j0 + jj], ah, kh[jj][2 * kk], kh[jj][2 * kk + 1]);
+      }
+    }
+
+    // exact softmax in log2 units: row g (e 0, 1) and g + 8 (e 2, 3)
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = r0 + g + 8 * (e >> 1), key = 8 * j + 2 * t + (e & 1);
+        float x = sc[j][e] * log2_scale;
+        if (masks && !allowed(a, i, key)) x = kMasked;
+        if (key >= a.skv) x = -CUDART_INF_F;
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = exp2f(sc[j][e] - mx[e >> 1]);
+        l[e >> 1] += sc[j][e];
+      }
+
+    // O = P V: k-step kk is keys 8kk + 2t (A's a0, a1) and + 1 (a2, a3),
+    // S's n-tile kk as it stands; n-tile n's column c is d = 4c + n
+    float o[4][4];
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      unsigned ph[4], pl[4];
+      split4(make_float4(sc[kk][0], sc[kk][2], sc[kk][1], sc[kk][3]), ph,
+             pl);
+      unsigned vh[2][4], vl[2][4];     // rows 8kk + 2t + u, floats 4g..4g+3
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        split4(*reinterpret_cast<const float4*>(
+                   vs + sw128(8 * kk + 2 * t + u, g)),
+               vh[u], vl[u]);
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) mma_tf32(o[nn], ph, vl[0][nn], vl[1][nn]);
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) mma_tf32(o[nn], pl, vh[0][nn], vh[1][nn]);
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) mma_tf32(o[nn], ph, vh[0][nn], vh[1][nn]);
+    }
+    __syncwarp();                      // every read of the stage is done
+    if (lane == 0) mbar_arrive(empty(s));
+
+    // row g + 8rr: o[n][2rr] is d 8t + n, o[n][2rr + 1] d 8t + 4 + n
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(kFull, l[rr], 1);
+      l[rr] += __shfl_xor_sync(kFull, l[rr], 2);
+      const int i = r0 + g + 8 * rr;
+      if (i >= a.sq) continue;
+      const float inv = 1.f / fmaxf(l[rr], 1e-30f);
+      float4* dst = reinterpret_cast<float4*>(
+          out + (((long long)w.b * a.sq + i) * a.h + w.h) * kRDim + 8 * t);
+      dst[0] = make_float4(o[0][2 * rr] * inv, o[1][2 * rr] * inv,
+                           o[2][2 * rr] * inv, o[3][2 * rr] * inv);
+      dst[1] = make_float4(o[0][2 * rr + 1] * inv, o[1][2 * rr + 1] * inv,
+                           o[2][2 * rr + 1] * inv, o[3][2 * rr + 1] * inv);
+    }
   }
 }
 
@@ -793,6 +1079,118 @@ cudaError_t launch_short(const void* q, const void* k, const void* v,
   return launch_rows<T, D, SKV, 64>(q, k, v, out, a, stream);
 }
 
+// An operand of flash_short_tc: (B, S, H, kRDim) f32 at base through the
+// (b, s, h) strides in elements, read in boxes of `rows` rows of one head.
+struct MapKey {
+  const void* base;
+  int b, s, h, sb, ss, sh, rows;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && b == o.b && s == o.s && h == o.h &&
+           sb == o.sb && ss == o.ss && sh == o.sh && rows == o.rows;
+  }
+};
+
+// The tensor map of an operand: SWIZZLE_128B boxes, zeros past S. False
+// where TMA cannot describe it.
+bool short_tc_map(CUtensorMap* map, const MapKey& o) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn || o.sb <= 0 || o.ss <= 0 || o.sh <= 0) return false;
+  const cuuint64_t dims[4] = {kRDim, static_cast<cuuint64_t>(o.h),
+                              static_cast<cuuint64_t>(o.s),
+                              static_cast<cuuint64_t>(o.b)};
+  const cuuint64_t strides[3] = {4ull * o.sh, 4ull * o.ss, 4ull * o.sb};
+  const cuuint32_t box[4] = {kRDim, 1, static_cast<cuuint32_t>(o.rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+            const_cast<void*>(o.base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What a launch of flash_short_tc would redo on the host, kept: the maps
+// of the last kMapSlots operands (a map holds only an address and a
+// geometry, so an equal key gives an equal map; the encoder's layers reuse
+// the allocator's blocks batch after batch), and each device's SM count
+// after its shared-memory opt-in is set. Encoding three maps and the
+// opt-in cost about as much host time as the kernel takes on the card.
+constexpr int kMapSlots = 32;
+constexpr int kMaxDevices = 64;
+struct HostCache {
+  std::mutex mu;
+  MapKey keys[kMapSlots] = {};
+  CUtensorMap maps[kMapSlots];
+  int next = 0;
+  int sms[kMaxDevices] = {};
+};
+HostCache host_cache;
+
+bool cached_map(CUtensorMap* map, const MapKey& key) {
+  std::lock_guard<std::mutex> lock(host_cache.mu);
+  for (int i = 0; i < kMapSlots; ++i)
+    if (host_cache.keys[i] == key) {
+      *map = host_cache.maps[i];
+      return true;
+    }
+  if (!short_tc_map(map, key)) return false;
+  host_cache.keys[host_cache.next] = key;
+  host_cache.maps[host_cache.next] = *map;
+  host_cache.next = (host_cache.next + 1) % kMapSlots;
+  return true;
+}
+
+// The current device's SM count, its shared-memory opt-in for both
+// instances set on first use.
+cudaError_t device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(host_cache.mu);
+  if (dev < kMaxDevices && host_cache.sms[dev] > 0) {
+    *sms = host_cache.sms[dev];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = allow_smem(flash_short_tc<4>, kRSmem);
+  if (e == cudaSuccess) e = allow_smem(flash_short_tc<8>, kRSmem);
+  if (e == cudaSuccess && dev < kMaxDevices) host_cache.sms[dev] = *sms;
+  return e;
+}
+
+// flash_short_tc where it takes the operands (f32 of width kRDim, reached
+// from launch_d; 1 <= Skv <= kRMaxKeys; 16-byte aligned rows and positive
+// strides that TMA describes): its cudaError_t; -1 where it does not take
+// them, and flash_short runs.
+int launch_short_tc(const void* q, const void* k, const void* v, void* out,
+                    Args a, cudaStream_t stream) {
+  if (!a.vec || a.skv < 1 || a.skv > kRMaxKeys) return -1;
+  const int nt = a.skv <= 32 ? 4 : 8;  // n-tiles of 8 keys
+  CUtensorMap m[3];
+  if (!cached_map(&m[0], {q, a.b, a.sq, a.h, a.qs_b, a.qs_s, a.qs_h,
+                          kRRows}) ||
+      !cached_map(&m[1], {k, a.b, a.skv, a.hkv, a.ks_b, a.ks_s, a.ks_h,
+                          8 * nt}) ||
+      !cached_map(&m[2], {v, a.b, a.skv, a.hkv, a.vs_b, a.vs_s, a.vs_h,
+                          8 * nt}))
+    return -1;
+  a.n_qtiles = (a.sq + kRRows - 1) / kRRows;
+  const long long items = (long long)a.b * a.h * a.n_qtiles;
+  if (items >= (1LL << 31)) return cudaErrorInvalidConfiguration;
+  int sms = 0;
+  const cudaError_t e = device_sms(&sms);
+  if (e != cudaSuccess) return e;
+  const unsigned grid = static_cast<unsigned>(
+      items < (long long)kRBlocks * sms ? items : (long long)kRBlocks * sms);
+  float* o = static_cast<float*>(out);
+  if (nt == 4)
+    flash_short_tc<4><<<grid, kRThreads, kRSmem, stream>>>(m[0], m[1], m[2],
+                                                           o, a);
+  else
+    flash_short_tc<8><<<grid, kRThreads, kRSmem, stream>>>(m[0], m[1], m[2],
+                                                           o, a);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_long(const void* q, const void* k, const void* v,
                         void* out, Args a, cudaStream_t stream) {
@@ -835,6 +1233,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
       if (a.vec) return launch_long_tc<D>(q, k, v, out, a, stream);
     }
     return launch_long<T, D>(q, k, v, out, a, stream);
+  }
+  if constexpr (sizeof(T) == 4 && D == kRDim) {   // f32 rows of 128 bytes
+    const int err = launch_short_tc(q, k, v, out, a, stream);
+    if (err >= 0) return static_cast<cudaError_t>(err);
   }
   if (a.skv > 64) return launch_short<T, D, 128>(q, k, v, out, a, stream);
   if (a.skv > 32) return launch_short<T, D, 64>(q, k, v, out, a, stream);

@@ -26,6 +26,11 @@ FLASH_ATTENTION = Kernel("flash_attention", "flash_attention.cu",
                          (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 18
                          + (ctypes.c_float,))
 HEAD_DIMS = (16, 32, 64, 128)
+# flash_short_tc's reach (kRDim, kRMaxKeys in csrc/flash_attention.cu,
+# pinned by tests/test_torch_flash_tiles.py): f32 rows of TC_HEAD_DIM
+# values against 1 to TC_MAX_KEYS keys
+TC_HEAD_DIM = 32
+TC_MAX_KEYS = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -94,6 +99,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         -1 if window is None else int(window), dtype,
                         1.0 / math.sqrt(d))
     return out
+
+
+def kernel_name(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel of csrc/flash_attention.cu that a launch on these
+    operands runs, as its dispatch (``launch_d``) picks it: what a profile
+    of the call shows. The C entry point alone decides; this restates its
+    rule for the card's checks."""
+    skv = k.shape[1]
+    vw = 16 // q.element_size()
+    ts = (q, k, v)
+    vec = all(t.data_ptr() % 16 == 0 and all(s % vw == 0
+                                              for s in t.stride()[:3])
+              for t in ts)
+    if skv > 128:
+        return ("flash_long_tc" if q.dtype == torch.bfloat16 and vec
+                else "flash_long")
+    if (q.dtype == torch.float32 and q.shape[3] == TC_HEAD_DIM and vec
+            and 1 <= skv <= TC_MAX_KEYS
+            and all(s > 0 for t in ts for s in t.stride()[:3])):
+        return "flash_short_tc"
+    return "flash_short"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

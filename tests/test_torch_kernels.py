@@ -14,7 +14,8 @@ import torch
 from repro_torch.core.label_prop import ell_round
 from repro_torch.kernels.flash_attention.ops import (FLASH_ATTENTION,
                                                      HEAD_DIMS,
-                                                     flash_attention)
+                                                     flash_attention,
+                                                     kernel_name)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels import tuning
 from repro_torch.kernels.label_prop.ops import lp_round_cuda
@@ -1020,6 +1021,83 @@ def test_flash_kernel_reads_strided_views(cuda):
     b = flash_attention(q, k, v, causal=False)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+def _flash_kernels_run(fn):
+    """The flash kernels a call launched, by name, from a profile."""
+    import re
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = set()
+    for ev in prof.key_averages():
+        m = re.search(r"flash_(?:short|long)(?:_tc)?\b", ev.key)
+        if m:
+            names.add(m.group(0))
+    return names
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hkv", [
+    (256, 64, 64, 4, 4), (256, 24, 24, 4, 4),     # the encoder's
+    (1, 64, 64, 4, 4), (3, 64, 64, 4, 4), (257, 64, 64, 4, 4),
+    (66, 64, 64, 4, 4), (67, 24, 24, 4, 4),       # items vs the grid
+    (2, 1, 64, 4, 4), (2, 64, 1, 4, 4), (3, 1, 1, 2, 1),
+    (2, 65, 64, 4, 4), (2, 130, 33, 4, 2),        # query tiles
+    (2, 64, 64, 8, 2), (2, 24, 24, 8, 1)] + [     # GQA groups 4 and 8
+    (2, 40, skv, 4, 2) for skv in (2, 8, 24, 31, 32, 33, 50, 63)])
+@pytest.mark.parametrize("causal,window", _MODES)
+def test_flash_short_tc_matches_plain(cuda, b, sq, skv, h, hkv, causal,
+                                      window):
+    """Every instance of the tensor-core short-row kernel (up to 32 and up
+    to 64 keys), at the encoder's shapes, work-item counts above, at and
+    off a multiple of the persistent grid (two blocks an SM), one query
+    row and one key, several query tiles, GQA: the route taken is
+    flash_short_tc, and the output is within the f32 tolerance."""
+    q, k, v = _attn_inputs(b, sq, skv, h, hkv, 32, torch.float32,
+                           b + sq * skv + h, cuda)
+    assert kernel_name(q, k, v) == "flash_short_tc"
+    assert _flash_kernels_run(lambda: flash_attention(
+        q, k, v, causal=causal, window=window)) == {"flash_short_tc"}
+    _flash_vs_plain(q, k, v, causal, window)
+
+
+def _strided(kind, cuda):
+    """Encoder-width operands whose rows or strides the tensor maps may not
+    take: (B, H, S, D) storage read as (B, S, H, D) (TMA takes it); rows
+    one float into a wider row (not 16-byte aligned); a broadcast batch
+    (stride 0)."""
+    q, k, v = _attn_inputs(3, 40, 40, 4, 2, 32, torch.float32, 21, cuda)
+    if kind == "transposed":
+        return tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
+                     for t in (q, k, v))
+    if kind == "misaligned":
+        def off(t):
+            wide = torch.zeros(*t.shape[:3], 36, device=cuda)
+            wide[..., 1:33] = t
+            return wide[..., 1:33]
+        return tuple(map(off, (q, k, v)))
+    return tuple(t[:1].expand(3, -1, -1, -1) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("kind,route", [("transposed", "flash_short_tc"),
+                                        ("misaligned", "flash_short"),
+                                        ("broadcast", "flash_short")])
+def test_flash_short_tc_route_by_stride(cuda, kind, route):
+    """The dispatch sends operands TMA cannot describe to flash_short, and
+    either way the result is the contiguous copy's (to the bit, since the
+    same kernel's arithmetic runs) and within tolerance of plain."""
+    q, k, v = _strided(kind, cuda)
+    assert kernel_name(q, k, v) == route
+    assert _flash_kernels_run(lambda: flash_attention(
+        q, k, v, causal=False)) == {route}
+    got = flash_attention(q, k, v, causal=False)
+    same = flash_attention(*(t.contiguous() for t in (q, k, v)),
+                           causal=False)
+    torch.cuda.synchronize()
+    if route == "flash_short_tc":
+        assert torch.equal(got, same)
+    _flash_vs_plain(q, k, v, False, None)
 
 
 def test_flash_kernel_counts_launches_and_raises_on_launch_error(cuda):

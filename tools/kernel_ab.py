@@ -53,9 +53,11 @@ it). The script prints each version's median
 and range, its device time, how far each version's result is from the
 first's and whether it agrees with it: ``topk_scores``'s lists with scores
 within the summation bound D * 2**-24 * sum |q c| and ids equal but at
-near-ties (exact scores within twice the bound), every other result to the
-bit (``topk_scores_int8``'s exact dots included), then one JSON line of it
-all. Run it from the repository root on a machine with a card.
+near-ties (exact scores within twice the bound), f32 attention within the
+reference's tolerance (rtol 1e-5, atol 2e-5) of the plain version, every
+other result to the bit (``topk_scores_int8``'s exact dots and bf16
+attention included), then one JSON line of it all. Run it from the
+repository root on a machine with a card.
 """
 from __future__ import annotations
 
@@ -246,11 +248,22 @@ def cases(groups):
     torch.cuda.empty_cache()
 
 
-def agrees(entry, args, out, first) -> bool:
+def agrees(entry, args, kwargs, out, first) -> bool:
     """Whether a version's result agrees with the first version's: the f32
-    search within its summation bound (ids equal but at near-ties), every
-    other entry point to the bit."""
+    search within its summation bound (ids equal but at near-ties); f32
+    attention, whose kernels sum in other orders (FMAs on the CUDA cores,
+    3xTF32 on the tensor cores), within the reference's tolerance of the
+    plain version, as the first version is; every other entry point to the
+    bit."""
     import torch
+    if entry == "flash_attention" and args[0].dtype == torch.float32:
+        import chip_smoke
+        from repro_torch.kernels.flash_attention.ref import \
+            flash_attention_ref
+        rtol, atol = chip_smoke.ATTN_F32_TOL
+        want = flash_attention_ref(*args, **kwargs)
+        return all(torch.allclose(t.to(want.device), want, rtol=rtol,
+                                  atol=atol) for t in (out[0], first[0]))
     if entry != "topk_scores":
         return all(torch.equal(a, b) for a, b in zip(out, first))
     q, c = args
@@ -309,7 +322,8 @@ def main(trees, groups) -> None:
                 conn.send(("result", reps))
                 dev_ms[lb], out = conn.recv()
                 outs.append(out)
-            diff = {lb: {"agrees": agrees(entry, args, out, outs[0]),
+            diff = {lb: {"agrees": agrees(entry, args, kwargs, out,
+                                          outs[0]),
                          "max_abs_diff": max(
                         (float((a.float() - b.float()).abs()
                                .nan_to_num(0.0).max()) if a.numel() else 0.0
